@@ -1,0 +1,287 @@
+#!/usr/bin/env python3
+"""Smoke run of mdbn_tpu_torch's training path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernel from mdbn_tpu_torch/csrc (nvcc, sm_90a) and runs five
+phases, one line each:
+
+1. device: torch and CUDA versions, the card's name and power limit, build time;
+2. the kernel against its plain PyTorch version on the card, inject mode with
+   hardened uniforms: the whole run at c1's width (784x500, B 20, CD-1,
+   2 epochs), and every update of a run at c5's tower recipe on c2's width
+   (Gaussian 2000x400, k=2, PCD, momentum 0.5, L2 1e-4, mean-field visibles,
+   2 epochs) replayed one at a time;
+3. c1 through RBM.train (configs/c1_bernoulli_rbm_mnist.json, 10 epochs,
+   engine "pallas"): the kernel ran, and the final error is within 0.001 of
+   0.0744 (GRADED_RUNS.md);
+4. c4 through MDBN.train (configs/c4_mdbn_3modality.json): every layer on the
+   kernel, finite [400, 100] codes, each layer's error falls;
+5. kernel and plain updates/s at c1's shape, and the kernel's median time per
+   phase of an update (its own clock stamps, each phase with its barrier).
+
+Then a JSON line describing the kernel, and last {"ok": true, "device": ...}.
+Exits non-zero, printing no result, when there is no CUDA device, when the
+package is missing, or when any phase fails. Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+C1 = os.path.join(HERE, "configs", "c1_bernoulli_rbm_mnist.json")
+C2 = os.path.join(HERE, "configs", "c2_gaussian_rbm_ge.json")
+C4 = os.path.join(HERE, "configs", "c4_mdbn_3modality.json")
+C1_FINAL_ERR, C1_ERR_TOL = 0.0744, 0.001  # GRADED_RUNS.md, --epochs 10
+# kernel vs plain, same inputs and draws: the two differ only in the order of
+# fp32 sums (the kernel's fixed-order FMAs vs cuBLAS). Over c1's 200 CD-1
+# updates that stays far below RTOL/ATOL; one flipped sample would show as
+# ~lr/B = 5e-3. One update replayed from the same state agrees to ~1e-8.
+RTOL, ATOL = 1e-4, 1e-4
+REPLAY_RTOL, REPLAY_ATOL = 1e-5, 1e-6
+
+
+def phase(name: str, **fields) -> None:
+    print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def _inputs(cfg, data, n_epochs, device, seed):
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+
+    import torch
+
+    nb = data.shape[0] // cfg.batch_size
+    st = init_train_state(cfg, device=device)
+    u = K.draw_uniform_blocks(cfg, torch.Generator(device=device).manual_seed(seed),
+                              n_epochs, nb)
+    u = K.harden_uniform_blocks(cfg, st.params, st.velocity, st.chain_h, data, u, n_epochs)
+    return st, u, nb
+
+
+def _max_diff(got, want, rtol, atol) -> float:
+    """Assert kernel output ``got`` matches ``want``; return the largest |diff|."""
+    import torch
+
+    pairs = [(getattr(got[i], n), getattr(want[i], n)) for i in (0, 1) for n in ("W", "b", "c")]
+    pairs.append((got[3], want[3]))
+    err = 0.0
+    for a, b in pairs:
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError("kernel output is not finite")
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+        err = max(err, float((a - b).abs().max()))
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)  # chain: identical samples
+    return err
+
+
+def compare_run(cfg, data, n_epochs, device, seed) -> float:
+    """The whole n_epochs run on the kernel and on the plain version, from the
+    same state with the same hardened draws."""
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+
+    import torch
+
+    st, u, nb = _inputs(cfg, data, n_epochs, device, seed)
+    order = K.batch_order(cfg, nb, n_epochs, None)
+    got = K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
+    want = K.cd_train_run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
+    torch.cuda.synchronize()
+    return _max_diff(got, want, RTOL, ATOL)
+
+
+def compare_replay(cfg, data, n_epochs, device, seed) -> float:
+    """Every update of the kernel's own n_epochs trajectory, replayed by the
+    plain version from the same state. PCD with momentum amplifies fp32
+    rounding differences from update to update (the plain version on the CPU
+    and on the GPU drift apart the same way), so the run is compared one
+    update at a time; the per-epoch errors are the means of the updates'."""
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+
+    import torch
+
+    st, u, nb = _inputs(cfg, data, n_epochs, device, seed)
+    B = cfg.batch_size
+    one = torch.zeros((1, 1), dtype=torch.int32)
+    p, v, chain = st.params, st.velocity, st.chain_h
+    err, errs_k, errs_p = 0.0, [], []
+    for e in range(n_epochs):
+        for i in range(nb):
+            d = data[i * B:(i + 1) * B]
+            ui = {k: x[e:e + 1, i:i + 1].contiguous() for k, x in u.items()}
+            got = K.cd_train_run(cfg, p, v, chain, d, one, e, ui)
+            want = K.cd_train_run_plain(cfg, p, v, chain, d, one, e, ui)
+            err = max(err, _max_diff(got, want, REPLAY_RTOL, REPLAY_ATOL))
+            errs_k.append(got[3])
+            errs_p.append(want[3])
+            p, v, chain = got[:3]
+    ek = torch.cat(errs_k).view(n_epochs, nb).mean(1)
+    ep = torch.cat(errs_p).view(n_epochs, nb).mean(1)
+    torch.testing.assert_close(ek, ep, rtol=REPLAY_RTOL, atol=REPLAY_ATOL)
+    return max(err, float((ek - ep).abs().max()))
+
+
+def time_runs(fn, reps: int) -> float:
+    """Mean seconds per call of ``fn`` on the card, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3 / reps
+
+
+def run() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(HERE, "mdbn_tpu_torch")) or not os.path.exists(C1):
+        print("chip_smoke: run it from a checkout of the repository "
+              "(mdbn_tpu_torch/ and configs/ not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from mdbn_tpu_torch import MDBN, RBM
+    from mdbn_tpu_torch._build import load_library
+    from mdbn_tpu_torch.config import load_config
+    from mdbn_tpu_torch.data.synthetic import mnist_like, tcga_like
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.run import build_data
+
+    if "jax" in sys.modules:
+        raise AssertionError("the port imported jax")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    lib = load_library()
+    phase("device", torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi,
+          kind=torch.cuda.get_device_name(0), build_s=round(time.perf_counter() - t0, 3),
+          nvcc_s=round(lib.seconds, 3),
+          ptxas=[ln.split(":", 1)[-1].strip() for ln in lib.log.splitlines()
+                 if "registers" in ln or "spill" in ln])
+
+    # 2. kernel against its plain version
+    c1 = load_config(C1)["model"]
+    c1_data = torch.as_tensor(mnist_like(2000, seed=2), device=dev)
+    err_c1 = compare_run(c1, c1_data, 2, dev, seed=0)
+    c5_tower = load_config(C2)["model"].replace(k=2, persistent=True, momentum=0.5, l2=1e-4)
+    ge = torch.as_tensor(tcga_like(400, seed=1)[0]["ge"], device=dev)
+    err_c5 = compare_replay(c5_tower, ge, 2, dev, seed=1)
+    max_err = max(err_c1, err_c5)
+    phase("kernel_vs_plain", c1_run_max_abs_err=err_c1, c1_rtol=RTOL, c1_atol=ATOL,
+          c5_tower_replay_max_abs_err=err_c5, c5_rtol=REPLAY_RTOL, c5_atol=REPLAY_ATOL)
+
+    # 3 + 4. the main path through the normal entry points; count launches
+    K.cd_train_launches = 0
+    c1_cfg = c1.replace(epochs=10, engine="pallas")
+    c1_train, _ = build_data(load_config(C1)["data"])
+    t0 = time.perf_counter()
+    rbm = RBM(c1_cfg, device=dev).train(c1_train)
+    c1_s = time.perf_counter() - t0
+    c1_launches = K.cd_train_launches
+    final = rbm.history[-1]
+    codes = rbm.transform(c1_train)
+    if rbm.metrics.engine != "cuda" or c1_launches < 1:
+        raise AssertionError(f"c1 did not run on the kernel: engine {rbm.metrics.engine}, "
+                             f"{c1_launches} launches")
+    if abs(final - C1_FINAL_ERR) > C1_ERR_TOL:
+        raise AssertionError(f"c1 final error {final} not within {C1_ERR_TOL} of {C1_FINAL_ERR}")
+    if codes.shape != (2000, 500) or not bool(torch.isfinite(codes).all()):
+        raise AssertionError("c1 codes are not finite [2000, 500]")
+    phase("c1_rbm_train", engine=rbm.metrics.engine, launches=c1_launches,
+          first_err=rbm.history[0], final_err=final, seconds=round(c1_s, 3))
+
+    exp4 = load_config(C4)
+    m4 = exp4["model"]
+    m4 = dataclasses.replace(m4, towers={k: dataclasses.replace(t, engine="pallas")
+                                         for k, t in m4.towers.items()},
+                             joint=m4.joint.replace(engine="pallas"))
+    mods, _ = build_data(exp4["data"])
+    before = K.cd_train_launches
+    t0 = time.perf_counter()
+    mdbn = MDBN(m4, device=dev).train(mods)
+    c4_s = time.perf_counter() - t0
+    c4_launches = K.cd_train_launches - before
+    n_layers = sum(len(t.layer_sizes) for t in m4.towers.values()) + 1
+    layers = [r for t in mdbn.towers.values() for r in t.layers] + [mdbn.joint]
+    if c4_launches != n_layers or any(r.metrics.engine != "cuda" for r in layers):
+        raise AssertionError(f"c4: {c4_launches} kernel launches for {n_layers} layers")
+    z = mdbn.transform(mods)
+    if z.shape != (400, 100) or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"c4 codes: shape {tuple(z.shape)} or not finite")
+    for r in layers:
+        if not r.history[-1] < r.history[0]:
+            raise AssertionError(f"c4 layer error did not fall: {r.history}")
+    phase("c4_mdbn_train", launches=c4_launches, layers=n_layers, seconds=round(c4_s, 3),
+          errors={name: [[h[0], h[-1]] for h in hist] if name != "joint" else [hist[0], hist[-1]]
+                  for name, hist in mdbn.history.items()})
+    launches = K.cd_train_launches
+
+    # 5. timing at c1's shape: one epoch (100 updates) per call
+    st = init_train_state(c1, device=dev)
+    nb = c1_data.shape[0] // c1.batch_size
+    order = K.batch_order(c1, nb, 1, None)
+    gen = torch.Generator().manual_seed(0)
+
+    def kernel():
+        K.cd_train_run(c1, st.params, st.velocity, st.chain_h, c1_data, order, 0, None, gen)
+
+    def plain():
+        K.cd_train_run_plain(c1, st.params, st.velocity, st.chain_h, c1_data, order, 0,
+                             None, gen)
+
+    t_plain1 = time_runs(plain, 3)
+    t_kernel1 = time_runs(kernel, 20)
+    t_kernel2 = time_runs(kernel, 20)
+    t_plain2 = time_runs(plain, 3)
+    t_kernel, t_plain = min(t_kernel1, t_kernel2), min(t_plain1, t_plain2)
+    # where one update's time goes: the kernel's own per-phase clock stamps
+    trace = torch.zeros((1, nb, 3 + 2 * c1.k), dtype=torch.int64, device=dev)
+    K.cd_train_run(c1, st.params, st.velocity, st.chain_h, c1_data, order, 0, None, gen,
+                   trace=trace)
+    torch.cuda.synchronize()
+    spans = (trace[0, :, 1:] - trace[0, :, :-1]).double().median(0).values / 1e3
+    phase("timing_c1", updates_per_run=nb, kernel_ms=t_kernel * 1e3, plain_ms=t_plain * 1e3,
+          kernel_updates_per_s=nb / t_kernel, plain_updates_per_s=nb / t_plain,
+          order="plain, kernel, kernel, plain", nvidia_smi=smi,
+          kernel_phase_us_median=dict(zip(["hidden_from_data", "visible", "hidden",
+                                           "update_and_monitor"], spans.tolist())))
+
+    print(json.dumps({"kernels": [{
+        "name": "cd_train", "route": "cuda", "source": "mdbn_tpu_torch/csrc/cd_train.cu",
+        "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:692", "launches": launches,
+        "max_abs_err": max_err, "ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3,
+        "ms_per": f"one epoch at c1's shape ({nb} updates)"}]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main() -> int:
+    try:
+        return run()
+    except ImportError as e:
+        print(f"chip_smoke: {e} (needs torch and a checkout of the repository)",
+              file=sys.stderr)
+        return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

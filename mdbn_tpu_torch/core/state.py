@@ -1,0 +1,51 @@
+"""Training state: the checkpointable unit of one RBM.
+
+Port of ``mdbn_tpu/core/state.py``: params + momentum velocities + PCD chain
++ random state + epoch counter. The JAX key becomes a CPU
+``torch.Generator`` held by the state; every random draw of a training run
+(batch order, the kernel's Philox seed, the eager engine's uniforms) comes
+from it, so a restored state continues the same stream.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ..config import RBMConfig
+from .rbm_math import RBMParams, init_params, torch_dtype, zero_velocity
+
+
+@dataclass
+class TrainState:
+    params: RBMParams
+    velocity: RBMParams
+    chain_h: torch.Tensor  # [batch, n_hidden] persistent hidden samples (PCD); zeros if CD
+    generator: torch.Generator  # CPU generator for this RBM's training
+    epoch: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.params.W.device
+
+
+def default_device() -> torch.device:
+    """The device a model lives on when the caller names none."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def init_train_state(cfg: RBMConfig, generator: Optional[torch.Generator] = None,
+                     device: Optional[torch.device | str] = None) -> TrainState:
+    """Fresh state: W drawn from ``generator`` (default: seeded with
+    ``cfg.seed``), zero biases, velocities and chain, epoch 0."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    device = torch.device(device) if device is not None else default_device()
+    params = init_params(cfg, generator, device)
+    # Theano-tutorial convention: the persistent chain starts at zeros
+    chain_h = torch.zeros((cfg.batch_size, cfg.n_hidden),
+                          dtype=torch_dtype(cfg.param_dtype), device=device)
+    return TrainState(params=params, velocity=zero_velocity(params),
+                      chain_h=chain_h, generator=generator, epoch=0)

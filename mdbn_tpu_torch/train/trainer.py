@@ -1,0 +1,155 @@
+"""Epoch/batch training loop for one RBM on one device.
+
+Port of the single-device path of ``mdbn_tpu/train/trainer.py``. The
+dataset is moved to the device once. By default the whole multi-epoch run
+is one call of the selected engine; per-epoch mode (one call per epoch)
+runs when the caller needs per-epoch callbacks or checkpoints.
+
+Engines (``cfg.engine``):
+
+- ``"pallas"`` -> ``"cuda"``: the hand-written kernel
+  (``ops.cd_epoch_cuda.cd_train_run``, one launch per run). Raises on the
+  CPU, and for a config the kernel does not take.
+- ``"xla"`` -> ``"eager"``: ``ops.cd_epoch_cuda.cd_train_run_plain``, the
+  plain PyTorch version of the same run, on any device.
+- ``"auto"``: ``"cuda"`` when the state lies on a CUDA device and the kernel
+  takes the config, else ``"eager"``. Decided from the config and the
+  device before anything runs.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from ..config import RBMConfig, TrainRuntimeConfig
+from ..core.rbm_math import torch_dtype
+from ..core.state import TrainState, init_train_state
+from ..ops import cd_epoch_cuda
+
+
+def resolve_engine(cfg: RBMConfig, device: torch.device) -> str:
+    """The engine a run of ``cfg`` on ``device`` uses: "cuda" or "eager"."""
+    if cfg.pt_temps > 1:
+        raise ValueError("pt_temps > 1 (parallel tempering) is not ported yet: "
+                         "ROADMAP.md Queue 1, PT in the core")
+    if cfg.engine == "xla":
+        return "eager"
+    reason = cd_epoch_cuda.kernel_unsupported(cfg)
+    if cfg.engine == "pallas":
+        if device.type != "cuda":
+            raise ValueError(f"engine='pallas' runs the CUDA kernel, and the model "
+                             f"lies on {device}; use engine='xla' (the eager "
+                             f"PyTorch engine) there")
+        if reason is not None:
+            raise ValueError(reason)
+        return "cuda"
+    return "cuda" if device.type == "cuda" and reason is None else "eager"
+
+
+def _check_runtime(runtime: TrainRuntimeConfig) -> None:
+    not_ported = [name for name, on in (("data_parallel", runtime.data_parallel),
+                                        ("profile", runtime.profile),
+                                        ("debug_nans", runtime.debug_nans)) if on]
+    if not_ported:
+        raise ValueError(f"TrainRuntimeConfig {not_ported} are not ported yet "
+                         "(ROADMAP.md Queue 1, items 11 and later)")
+
+
+class EpochMetrics:
+    __slots__ = ("errors", "updates_per_sec", "wall_seconds", "engine")
+
+    def __init__(self, engine: str = "eager"):
+        self.errors: List[float] = []
+        self.updates_per_sec: List[float] = []
+        self.wall_seconds: List[float] = []
+        self.engine = engine
+
+
+def _slice_epochs(uniforms: Dict[str, torch.Tensor], lo: int, hi: int):
+    return {name: u[lo:hi] for name, u in uniforms.items()}
+
+
+def train_rbm(
+    data,
+    cfg: RBMConfig,
+    state: Optional[TrainState] = None,
+    runtime: Optional[TrainRuntimeConfig] = None,
+    epoch_callback: Optional[Callable[[int, float, TrainState], None]] = None,
+    uniforms: Optional[Dict[str, torch.Tensor]] = None,
+    device: Optional[torch.device | str] = None,
+) -> Tuple[TrainState, EpochMetrics]:
+    """Train one RBM for ``cfg.epochs`` epochs on the device of ``state``
+    (a fresh state goes on ``device``, default CUDA when available).
+
+    ``uniforms``: the run's random draws in the inject layout of
+    ``ops.cd_epoch_cuda.draw_uniform_blocks`` (the layout of
+    ``mdbn_tpu``'s ``make_pallas_train_fn(..., inject=True)``), for exact
+    comparisons; by default they come from the state's generator.
+    """
+    runtime = runtime or TrainRuntimeConfig()
+    _check_runtime(runtime)
+    if state is None:
+        state = init_train_state(cfg, device=device)
+    dev = state.device
+    engine = resolve_engine(cfg, dev)
+    run = cd_epoch_cuda.cd_train_run if engine == "cuda" else cd_epoch_cuda.cd_train_run_plain
+    data = torch.as_tensor(data).to(device=dev, dtype=torch_dtype(cfg.param_dtype))
+    nb = data.shape[0] // cfg.batch_size
+    if nb == 0:
+        raise ValueError(f"dataset has {data.shape[0]} samples — fewer than one "
+                         f"minibatch (batch_size={cfg.batch_size})")
+    if uniforms is not None:
+        uniforms = {name: torch.as_tensor(u).to(device=dev, dtype=torch.float32)
+                    for name, u in uniforms.items()}
+
+    def run_epochs(st: TrainState, lo: int, hi: int) -> Tuple[TrainState, torch.Tensor]:
+        order = cd_epoch_cuda.batch_order(cfg, nb, hi - lo, st.generator)
+        u = None if uniforms is None else _slice_epochs(uniforms, lo, hi)
+        params, velocity, chain, errs = run(cfg, st.params, st.velocity, st.chain_h,
+                                            data, order, st.epoch, u, st.generator)
+        return TrainState(params, velocity, chain, st.generator, st.epoch + hi - lo), errs
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    metrics = EpochMetrics(engine)
+    per_epoch = epoch_callback is not None or runtime.checkpoint_every_epochs > 0
+    if per_epoch:
+        ck_every = runtime.checkpoint_every_epochs
+        for ep in range(cfg.epochs):
+            sync()
+            t0 = time.perf_counter()
+            state, errs = run_epochs(state, ep, ep + 1)
+            err = float(errs[0])
+            dt = time.perf_counter() - t0
+            metrics.errors.append(err)
+            metrics.wall_seconds.append(dt)
+            metrics.updates_per_sec.append(nb / dt if dt > 0 else float("inf"))
+            if epoch_callback is not None:
+                epoch_callback(ep, err, state)
+            if runtime.checkpoint_dir and ck_every > 0 and (ep + 1) % ck_every == 0:
+                from ..checkpoint import save_state
+
+                save_state(state, f"{runtime.checkpoint_dir}/epoch{ep + 1:05d}.pt")
+    else:
+        sync()
+        t0 = time.perf_counter()
+        state, errs = run_epochs(state, 0, cfg.epochs)
+        metrics.errors = [float(e) for e in errs.tolist()]
+        dt = time.perf_counter() - t0
+        per = dt / cfg.epochs
+        metrics.wall_seconds = [per] * cfg.epochs
+        metrics.updates_per_sec = [nb / per if per > 0 else float("inf")] * cfg.epochs
+    # runtime.metrics_path: stream per-epoch records for programmatic users
+    if runtime.metrics_path:
+        from ..utils.metrics import MetricsWriter
+
+        with MetricsWriter(runtime.metrics_path) as mw:
+            for ep, (err, ups) in enumerate(zip(metrics.errors, metrics.updates_per_sec)):
+                mw.write({"kind": "epoch", "epoch": ep, "recon_error": err,
+                          "updates_per_sec": ups, "engine": metrics.engine})
+    return state, metrics
