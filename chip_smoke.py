@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernel from mdbn_tpu_torch/csrc (nvcc, sm_90a) and runs five
+Builds the CUDA kernel from mdbn_tpu_torch/csrc (nvcc, sm_90a) and runs eight
 phases, one line each:
 
 1. device: torch and CUDA versions, the card's name and power limit, build time;
@@ -18,11 +18,20 @@ phases, one line each:
 4. c4 through MDBN.train (configs/c4_mdbn_3modality.json): every layer on the
    kernel, finite [400, 100] codes, each layer's error falls;
 5. kernel and plain updates/s at c1's shape, and the kernel's median time per
-   phase of an update (its own clock stamps, each phase with its barrier).
+   phase of an update (its own clock stamps, each phase with its barrier);
+6. the estimator modes, kernel against plain at full width for 2 epochs with
+   hardened draws: tempering (pt5: 784x500, 5 rungs) and learned variance
+   (lv: Gaussian 2000x200 on scale-corrupted GE) replayed one update at a
+   time, the enhanced gradient (784x500) and the pseudo-likelihood monitor
+   (c1) as whole runs;
+7. each mode trained for 10 epochs through RBM.train on the kernel (engine
+   "pallas"): final errors inside PARITY.md's bands, the pseudo monitor falls;
+8. kernel and plain time per epoch of each mode, and the kernel's phases.
 
-Then a JSON line describing the kernel, and last {"ok": true, "device": ...}.
-Exits non-zero, printing no result, when there is no CUDA device, when the
-package is missing, or when any phase fails. Imports no JAX.
+Then a JSON line describing the kernel and its modes, and last
+{"ok": true, "device": ...}. Exits non-zero, printing no result, when there
+is no CUDA device, when the package is missing, or when any phase fails.
+Imports no JAX.
 """
 
 from __future__ import annotations
@@ -45,13 +54,63 @@ C1_FINAL_ERR, C1_ERR_TOL = 0.0744, 0.001  # GRADED_RUNS.md, --epochs 10
 # ~lr/B = 5e-3. One update replayed from the same state agrees to ~1e-8.
 RTOL, ATOL = 1e-4, 1e-4
 REPLAY_RTOL, REPLAY_ATOL = 1e-5, 1e-6
+# The estimator modes (scripts/parity_harness.py:150-190): the final error
+# after 10 epochs must lie in PARITY.md's band (5 seeds of each side); the
+# pseudo monitor has no PARITY row, and must fall over the run.
+MODE_BANDS = {"pt5": (0.0741, 0.001), "enhanced": (0.0746, 0.001),
+              "lv": (0.9553, 0.005), "pseudo": None}
+MODE_REPLACES = {"pt5": 995, "enhanced": 1568, "lv": 980, "pseudo": 654}
+REPLAYED_MODES = ("pt5", "lv")  # PCD-like dynamics: compared one update at a time
+# NVIDIA H100 SXM peaks (NVIDIA's data sheet): f32 on CUDA cores, HBM
+PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 
 
 def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}), flush=True)
 
 
-def _inputs(cfg, data, n_epochs, device, seed):
+def mode_configs(c1, c1_data, ge_scaled):
+    """name -> (config, data) of the estimator modes at full width."""
+    from mdbn_tpu_torch.config import RBMConfig
+
+    base = dict(n_visible=784, n_hidden=500, k=1, lr=0.1, batch_size=20)
+    return {"pt5": (RBMConfig(**base, persistent=True, pt_temps=5, pt_beta_min=0.2), c1_data),
+            "enhanced": (RBMConfig(**base, gradient="enhanced"), c1_data),
+            "lv": (RBMConfig(n_visible=2000, n_hidden=200, visible="gaussian",
+                             learn_variance=True, lr=0.005, batch_size=20), ge_scaled),
+            "pseudo": (c1.replace(error_metric="pseudo"), c1_data)}
+
+
+def update_flops(cfg) -> float:
+    """Operations of one update: 2*rows*V*H for every product the run needs
+    (the hidden phase from the data, a visible and a hidden phase per Gibbs
+    step on all chain rows, the data chain's reconstruction under PCD, the
+    ladder's log p*(h) inputs under tempering, learned variance's W h0p and
+    W hmean, the two gradient products). The swap rounds' and the monitors'
+    elementwise work is under 2% of it and left out."""
+    B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
+    CR = B * max(cfg.pt_temps, 1)
+    rows = B + 2 * cfg.k * CR + 2 * B
+    rows += B if cfg.persistent and cfg.error_metric != "pseudo" else 0
+    rows += CR if cfg.pt_temps > 1 else 0
+    rows += 2 * B if cfg.learn_variance else 0
+    return 2.0 * rows * V * H
+
+
+def bound(cfg, nb: int):
+    """(ms, what bounds it): the least time the card needs for one epoch of
+    nb updates, the larger of its operations at the f32 peak and of its bytes
+    (the data read once; W, b, c, their velocities, z, vz and the chain read
+    and written once) at the memory rate."""
+    B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
+    state = 2 * (V * H + V + H) + (2 * V if cfg.learn_variance else 0)
+    state += B * max(cfg.pt_temps, 1) * H
+    ops_s = update_flops(cfg) * nb / PEAK_F32_FLOPS
+    bytes_s = 4.0 * (nb * B * V + 2 * state + 1) / PEAK_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def _inputs(cfg, data, n_epochs, device, seed, harden=True):
     from mdbn_tpu_torch.core.state import init_train_state
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
 
@@ -61,7 +120,9 @@ def _inputs(cfg, data, n_epochs, device, seed):
     st = init_train_state(cfg, device=device)
     u = K.draw_uniform_blocks(cfg, torch.Generator(device=device).manual_seed(seed),
                               n_epochs, nb)
-    u = K.harden_uniform_blocks(cfg, st.params, st.velocity, st.chain_h, data, u, n_epochs)
+    if harden:
+        u = K.harden_uniform_blocks(cfg, st.params, st.velocity, st.chain_h, data, u,
+                                    n_epochs)
     return st, u, nb
 
 
@@ -69,7 +130,8 @@ def _max_diff(got, want, rtol, atol) -> float:
     """Assert kernel output ``got`` matches ``want``; return the largest |diff|."""
     import torch
 
-    pairs = [(getattr(got[i], n), getattr(want[i], n)) for i in (0, 1) for n in ("W", "b", "c")]
+    pairs = [(getattr(got[i], n), getattr(want[i], n)) for i in (0, 1)
+             for n in ("W", "b", "c", "z") if getattr(want[i], n) is not None]
     pairs.append((got[3], want[3]))
     err = 0.0
     for a, b in pairs:
@@ -101,12 +163,14 @@ def compare_replay(cfg, data, n_epochs, device, seed) -> float:
     plain version from the same state. PCD with momentum amplifies fp32
     rounding differences from update to update (the plain version on the CPU
     and on the GPU drift apart the same way), so the run is compared one
-    update at a time; the per-epoch errors are the means of the updates'."""
+    update at a time; the per-epoch errors are the means of the updates'.
+    Each update's draws are hardened against the state that update starts
+    from, so no draw sits on a knife edge however far the run has gone."""
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
 
     import torch
 
-    st, u, nb = _inputs(cfg, data, n_epochs, device, seed)
+    st, u, nb = _inputs(cfg, data, n_epochs, device, seed, harden=False)
     B = cfg.batch_size
     one = torch.zeros((1, 1), dtype=torch.int32)
     p, v, chain = st.params, st.velocity, st.chain_h
@@ -114,7 +178,9 @@ def compare_replay(cfg, data, n_epochs, device, seed) -> float:
     for e in range(n_epochs):
         for i in range(nb):
             d = data[i * B:(i + 1) * B]
-            ui = {k: x[e:e + 1, i:i + 1].contiguous() for k, x in u.items()}
+            ui = K.harden_uniform_blocks(
+                cfg, p, v, chain, d, {k: x[e:e + 1, i:i + 1] for k, x in u.items()}, 1,
+                start_epoch=e)
             got = K.cd_train_run(cfg, p, v, chain, d, one, e, ui)
             want = K.cd_train_run_plain(cfg, p, v, chain, d, one, e, ui)
             err = max(err, _max_diff(got, want, REPLAY_RTOL, REPLAY_ATOL))
@@ -140,6 +206,89 @@ def time_runs(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / 1e3 / reps
+
+
+def run_modes(dev, smi, c1, c1_data, ge) -> list:
+    """Phases 6-8, the estimator modes; returns their entries of the kernel line."""
+    import numpy as np
+    import torch
+
+    from mdbn_tpu_torch import RBM
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+
+    # scripts/parity_harness.py:176-179: GE with a planted per-gene scale
+    sig = np.exp(np.random.default_rng(0).uniform(-1.0, 1.0, ge.shape[1])).astype(np.float32)
+    modes = mode_configs(c1, c1_data, ge * torch.as_tensor(sig, device=dev))
+
+    # 6. kernel against plain, 2 epochs each, hardened draws
+    errs = {name: (compare_replay if name in REPLAYED_MODES else compare_run)(
+        cfg, data, 2, dev, seed=2) for name, (cfg, data) in modes.items()}
+    phase("kernel_vs_plain_modes", max_abs_err=errs, replayed=list(REPLAYED_MODES),
+          run_rtol=RTOL, run_atol=ATOL, replay_rtol=REPLAY_RTOL, replay_atol=REPLAY_ATOL)
+
+    # 7. each mode through RBM.train on the kernel; count its launches
+    trained, launches = {}, {}
+    for name, (cfg, data) in modes.items():
+        K.cd_train_launches = 0
+        rbm = RBM(cfg.replace(epochs=10, engine="pallas"), device=dev).train(data)
+        launches[name] = K.cd_train_launches
+        hist = rbm.history
+        if rbm.metrics.engine != "cuda" or launches[name] < 1:
+            raise AssertionError(f"{name} did not run on the kernel: engine "
+                                 f"{rbm.metrics.engine}, {launches[name]} launches")
+        if len(hist) != 10 or not all(np.isfinite(hist)):
+            raise AssertionError(f"{name}: errors {hist}")
+        band = MODE_BANDS[name]
+        if band is None and not hist[-1] < hist[0]:
+            raise AssertionError(f"{name}: the monitor did not fall: {hist}")
+        if band is not None and abs(hist[-1] - band[0]) > band[1]:
+            raise AssertionError(f"{name}: final error {hist[-1]} not within {band[1]} of "
+                                 f"{band[0]}")
+        trained[name] = {"first_err": hist[0], "final_err": hist[-1], "band": band}
+    phase("modes_train", launches=launches, errors=trained)
+
+    # 8. one epoch of each mode per call, plain, kernel, kernel, plain
+    timing, entries = {}, []
+    for name, (cfg, data) in modes.items():
+        st = init_train_state(cfg, device=dev)
+        nb = data.shape[0] // cfg.batch_size
+        order = K.batch_order(cfg, nb, 1, None)
+        gen = torch.Generator().manual_seed(0)
+
+        def kernel(cfg=cfg, st=st, data=data, order=order, gen=gen, trace=None):
+            K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None, gen,
+                           trace=trace)
+
+        def plain(cfg=cfg, st=st, data=data, order=order, gen=gen):
+            K.cd_train_run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
+                                 None, gen)
+
+        t_plain1 = time_runs(plain, 2)
+        t_kernel1 = time_runs(kernel, 10)
+        t_kernel2 = time_runs(kernel, 10)
+        t_plain2 = time_runs(plain, 2)
+        t_kernel, t_plain = min(t_kernel1, t_kernel2), min(t_plain1, t_plain2)
+        trace = torch.zeros((1, nb, K.trace_len(cfg)), dtype=torch.int64, device=dev)
+        kernel(trace=trace)
+        torch.cuda.synchronize()
+        spans = (trace[0, :, 1:] - trace[0, :, :-1]).double().median(0).values / 1e3
+        bound_ms, bound_by = bound(cfg, nb)
+        timing[name] = {"updates_per_run": nb, "kernel_ms": t_kernel * 1e3,
+                        "plain_ms": t_plain * 1e3, "kernel_ms_calls": [t_kernel1 * 1e3,
+                                                                      t_kernel2 * 1e3],
+                        "plain_ms_calls": [t_plain1 * 1e3, t_plain2 * 1e3],
+                        "bound_ms": bound_ms, "flops_per_update": update_flops(cfg),
+                        "kernel_phase_us_median": dict(zip(K.trace_phases(cfg), spans.tolist()))}
+        entries.append({
+            "name": f"cd_train[{name}]", "route": "cuda",
+            "source": "mdbn_tpu_torch/csrc/cd_train.cu",
+            "replaces": f"mdbn_tpu/ops/cd_epoch_pallas.py:{MODE_REPLACES[name]}",
+            "launches": launches[name], "max_abs_err": errs[name], "ms": t_kernel * 1e3,
+            "plain_ms": t_plain * 1e3, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "ms_per": f"one epoch of {name} ({nb} updates)"})
+    phase("timing_modes", order="plain, kernel, kernel, plain", nvidia_smi=smi, modes=timing)
+    return entries
 
 
 def run() -> int:
@@ -263,11 +412,15 @@ def run() -> int:
           kernel_phase_us_median=dict(zip(["hidden_from_data", "visible", "hidden",
                                            "update_and_monitor"], spans.tolist())))
 
-    print(json.dumps({"kernels": [{
+    bound_ms, bound_by = bound(c1, nb)
+    entries = [{
         "name": "cd_train", "route": "cuda", "source": "mdbn_tpu_torch/csrc/cd_train.cu",
         "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:692", "launches": launches,
         "max_abs_err": max_err, "ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3,
-        "ms_per": f"one epoch at c1's shape ({nb} updates)"}]}))
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "ms_per": f"one epoch at c1's shape ({nb} updates)"}]
+    entries += run_modes(dev, smi, c1, c1_data, ge)
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -91,12 +91,13 @@ def load_library() -> Library:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cd_train_run.argtypes = (
-        [p] * 15  # data, order, u_h0, u_h, u_v, W, b, c, vW, vb, vc, chain, errs, scratch, trace
-        + [i] * 9  # V, H, B, nb, E, k, start_epoch, switch_epoch, flags
-        + [f] * 7  # lr, momentum, initial_momentum, l2, grad_clip, sparsity_target/cost
+        [p] * 19  # data, order, u_h0, u_h, u_v, u_swap, betas, W, b, c, vW, vb, vc, z, vz,
+                  # chain, errs, scratch, trace
+        + [i] * 10  # V, H, B, M, nb, E, k, start_epoch, switch_epoch, flags
+        + [f] * 8  # lr, lr_z, momentum, initial_momentum, l2, grad_clip, sparsity_target/cost
         + [ctypes.c_uint64, i, i, p])  # seed, device, grid, stream
     lib.cd_train_run.restype = i
-    lib.cd_train_scratch_floats.argtypes = [i, i, i]
+    lib.cd_train_scratch_floats.argtypes = [i, i, i, i, i]  # V, H, B, M, flags
     lib.cd_train_scratch_floats.restype = ctypes.c_longlong
     lib.cd_train_error_string.argtypes = [i]
     lib.cd_train_error_string.restype = ctypes.c_char_p

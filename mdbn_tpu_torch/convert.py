@@ -17,7 +17,7 @@ import torch
 
 from .config import _from_jsonable, _to_jsonable
 from .core.rbm_math import RBMParams, torch_dtype, zero_velocity
-from .core.state import TrainState, default_device
+from .core.state import TrainState, chain_rows, default_device
 from .models.dbn import DBN
 from .models.mdbn import MDBN
 from .models.rbm import RBM
@@ -74,7 +74,7 @@ def rbm_from_numpy(cfg, arrays: Dict[str, np.ndarray], seed: Optional[int] = Non
     device = torch.device(device) if device is not None else default_device()
     params = params_from_numpy(arrays, torch_dtype(cfg.param_dtype), device)
     state = TrainState(params=params, velocity=zero_velocity(params),
-                       chain_h=torch.zeros((cfg.batch_size, cfg.n_hidden),
+                       chain_h=torch.zeros((chain_rows(cfg), cfg.n_hidden),
                                            dtype=params.W.dtype, device=device),
                        generator=torch.Generator().manual_seed(
                            cfg.seed if seed is None else seed),

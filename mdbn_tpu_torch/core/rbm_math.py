@@ -2,7 +2,8 @@
 
 Port of ``mdbn_tpu/core/rbm_math.py`` at the same ``[V, H]`` weight layout.
 All sampling randomness enters through the explicit ``uniforms`` dict (the
-layout of ``ops.cd_step.draw_uniforms``), so every function here is pure and
+layout of ``ops.cd_step.draw_uniforms``, or ``draw_pt_uniforms`` for a
+tempering ladder), so every function here is pure and
 can be held against the JAX package and ``mdbn_tpu/oracle.py`` by feeding
 both the same uniforms.
 
@@ -149,11 +150,9 @@ def cd_step_stats(
     ``grads`` is the log-likelihood ascent direction (positive minus
     negative phase, batch mean). ``chain_h`` is the persistent hidden sample
     for PCD (None for CD). Mirrors ``mdbn_tpu.core.rbm_math.cd_step_stats``
-    including the enhanced-gradient and learned-variance branches.
+    including the enhanced-gradient and learned-variance branches; a
+    tempering ladder (``cfg.pt_temps > 1``) goes through ``pt_step_stats``.
     """
-    if cfg.pt_temps > 1:
-        raise ValueError("pt_temps > 1 (parallel tempering) is not ported yet "
-                         "(ROADMAP.md Queue 1, PT in the core)")
     dtype = v0.dtype
     h0p = hidden_mean(params, v0, cfg)
     h0s = (uniforms["h0"] < h0p).to(dtype)
@@ -179,6 +178,25 @@ def cd_step_stats(
         hmean = hidden_mean(params, vs, cfg)
         h = (uniforms["h"][t] < hmean).to(dtype)
 
+    grads = _grads(params, v0, h0p, vs, hmean, cfg)
+    # PCD: the monitor reconstructs the DATA chain (one step from h0s)
+    if cfg.persistent and chain_h is not None:
+        v1mean_data = visible_mean(params, h0s, cfg)
+    else:
+        v1mean_data = v1mean
+    return grads, h, _monitor(v0, v1mean_data, cfg)
+
+
+def _monitor(v0: torch.Tensor, v1mean: torch.Tensor, cfg: RBMConfig) -> torch.Tensor:
+    metric = cfg.error_metric if cfg.error_metric in ("mse", "xent") else "mse"
+    return recon_error(v0, v1mean, metric)
+
+
+def _grads(params: RBMParams, v0: torch.Tensor, h0p: torch.Tensor, vs: torch.Tensor,
+           hmean: torch.Tensor, cfg: RBMConfig) -> RBMParams:
+    """The update direction from one step's positive phase (v0, h0p) and
+    negative phase (vs, hmean): plain, learned-variance and enhanced
+    statistics plus the sparsity term, in the JAX core's order."""
     inv_b = 1.0 / v0.shape[0]
     s = inv_sigma2(params)
     # learned variance: W/b statistics see precision-scaled visibles
@@ -208,15 +226,7 @@ def cd_step_stats(
     if cfg.sparsity_target is not None and cfg.sparsity_cost:
         gc = gc + cfg.sparsity_cost * (
             cfg.sparsity_target - torch.sum(h0p, dim=0) * inv_b)
-    grads = RBMParams(W=gW, b=gb, c=gc, z=gz)
-    # PCD: the monitor reconstructs the DATA chain (one step from h0s)
-    if cfg.persistent and chain_h is not None:
-        v1mean_data = visible_mean(params, h0s, cfg)
-    else:
-        v1mean_data = v1mean
-    metric = cfg.error_metric if cfg.error_metric in ("mse", "xent") else "mse"
-    err = recon_error(v0, v1mean_data, metric)
-    return grads, h, err
+    return RBMParams(W=gW, b=gb, c=gc, z=gz)
 
 
 def enhance_grads(gW, gb, gc, mu, lam, cfg: Optional[RBMConfig] = None):
@@ -230,6 +240,119 @@ def enhance_grads(gW, gb, gc, mu, lam, cfg: Optional[RBMConfig] = None):
     return (gW,
             gb - _dot(gW, lam[:, None], cfg.compute_dtype, cfg.matmul_precision)[:, 0],
             gc - _dot(gW.T, mu[:, None], cfg.compute_dtype, cfg.matmul_precision)[:, 0])
+
+
+def pt_betas(cfg: RBMConfig, device: torch.device | str = "cpu") -> torch.Tensor:
+    """The tempering ladder: inverse temperatures linspace(1, pt_beta_min, M)
+    in float32. Rung 0 is beta = 1 exactly (the model), so its statistics
+    stay unbiased."""
+    return torch.linspace(1.0, cfg.pt_beta_min, cfg.pt_temps,
+                          dtype=torch.float64).to(device=device, dtype=torch.float32)
+
+
+def tempered_log_p_h(params: RBMParams, h: torch.Tensor, beta,
+                     cfg: RBMConfig) -> torch.Tensor:
+    """log p*_beta(h), the visible marginal of p_beta(v, h) ∝ exp(-beta E)
+    up to an h-independent constant. Bernoulli: beta c.h + sum softplus(beta
+    (b + W h)); Gaussian: beta (c.h + sum_i (b_i (Wh)_i + (Wh)_i^2 / 2) /
+    sigma_i^2). ``h`` [..., H]; ``beta`` broadcasts against the leading dims."""
+    beta = torch.as_tensor(beta, dtype=torch.float32, device=h.device)
+    hc = _dot(h, params.c[:, None], cfg.compute_dtype, cfg.matmul_precision)[..., 0]
+    pre = _dot(h, params.W.T, cfg.compute_dtype, cfg.matmul_precision) + params.b
+    if cfg.visible == "bernoulli":
+        return beta * hc + F.softplus(beta[..., None] * pre).sum(-1)
+    s = inv_sigma2(params)
+    wh = pre - params.b
+    bw = params.b if s is None else params.b * s
+    sq = wh * wh if s is None else wh * wh * s
+    quad = (_dot(wh, bw[:, None], cfg.compute_dtype, cfg.matmul_precision)[..., 0]
+            + 0.5 * torch.sum(sq, dim=-1))
+    return beta * (hc + quad)
+
+
+def pt_log_accept(params: RBMParams, h: torch.Tensor, betas: torch.Tensor,
+                  cfg: RBMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Log Metropolis ratio of swapping rungs m and m+1, per row: [M-1, B],
+    and the sum of the magnitudes of its four terms (the scale of its fp32
+    rounding)."""
+    lp_self = tempered_log_p_h(params, h, betas[:, None], cfg)       # [M, B]
+    lp_up = tempered_log_p_h(params, h[1:], betas[:-1, None], cfg)   # h_{m+1} at beta_m
+    lp_dn = tempered_log_p_h(params, h[:-1], betas[1:, None], cfg)   # h_m at beta_{m+1}
+    log_a = lp_up + lp_dn - lp_self[:-1] - lp_self[1:]
+    scale = lp_up.abs() + lp_dn.abs() + lp_self[:-1].abs() + lp_self[1:].abs()
+    return log_a, scale
+
+
+def _pt_swap_round(params: RBMParams, h: torch.Tensor, betas: torch.Tensor,
+                   u_swap: torch.Tensor, parity: int, cfg: RBMConfig) -> torch.Tensor:
+    """One Metropolis replica-swap round over the adjacent rung pairs (m,
+    m+1) with m % 2 == parity, per row: accept when log u < log_a."""
+    log_a, _ = pt_log_accept(params, h, betas, cfg)
+    accept = torch.log(torch.clamp(u_swap, min=1e-38)) < log_a
+    rungs = list(h)
+    for m in range(parity, h.shape[0] - 1, 2):
+        a = accept[m][:, None]
+        hm, hm1 = rungs[m], rungs[m + 1]
+        rungs[m] = torch.where(a, hm1, hm)
+        rungs[m + 1] = torch.where(a, hm, hm1)
+    return torch.stack(rungs)
+
+
+def pt_visible_mean(params: RBMParams, h: torch.Tensor, bM: torch.Tensor,
+                    cfg: RBMConfig) -> torch.Tensor:
+    """Tempered v|h per rung: sigmoid(beta pre) (Bernoulli) or pre
+    (Gaussian, whose variance widens to sigma^2 / beta instead)."""
+    pre_v = _dot(h, params.W.T, cfg.compute_dtype, cfg.matmul_precision) + params.b
+    return torch.sigmoid(bM * pre_v) if cfg.visible == "bernoulli" else pre_v
+
+
+def pt_visible_sample(params: RBMParams, vmean: torch.Tensor, uniforms, t: int,
+                      bM: torch.Tensor, cfg: RBMConfig) -> torch.Tensor:
+    if cfg.visible == "bernoulli":
+        return ((uniforms["v"][t] < vmean).to(vmean.dtype)
+                if cfg.resolved_sample_visible else vmean)
+    if not cfg.resolved_sample_visible:
+        return vmean
+    noise = uniforms["noise"][t] / torch.sqrt(bM)
+    return vmean + (noise if params.z is None else noise * torch.exp(0.5 * params.z))
+
+
+def pt_hidden_mean(params: RBMParams, vs: torch.Tensor, bM: torch.Tensor,
+                   cfg: RBMConfig) -> torch.Tensor:
+    s = inv_sigma2(params)
+    vin = vs if s is None else vs * s
+    return torch.sigmoid(bM * (_dot(vin, params.W, cfg.compute_dtype,
+                                    cfg.matmul_precision) + params.c))
+
+
+def pt_step_stats(
+    params: RBMParams,
+    v0: torch.Tensor,
+    chains_h: torch.Tensor,
+    uniforms: Dict[str, torch.Tensor],
+    cfg: RBMConfig,
+) -> Tuple[RBMParams, torch.Tensor, torch.Tensor]:
+    """One PT-PCD update's statistics (Desjardins et al. 2010); mirrors
+    ``mdbn_tpu.core.rbm_math.pt_step_stats``. ``chains_h`` [M, B, H] (rung 0
+    at beta = 1); ``uniforms`` in the ``draw_pt_uniforms`` layout. Every rung
+    takes k tempered Gibbs sweeps, then an even and an odd swap round couple
+    the ladder; the statistics come from rung 0 before the swaps and the
+    monitor reconstructs the data chain. Returns (grads, new_chains, err)."""
+    dtype = v0.dtype
+    betas = pt_betas(cfg, v0.device)
+    bM = betas[:, None, None]
+    h0p = hidden_mean(params, v0, cfg)
+    h0s = (uniforms["h0"] < h0p).to(dtype)
+    h, vs, hmean = chains_h, None, None
+    for t in range(cfg.k):
+        vs = pt_visible_sample(params, pt_visible_mean(params, h, bM, cfg), uniforms, t,
+                               bM, cfg)
+        hmean = pt_hidden_mean(params, vs, bM, cfg)
+        h = (uniforms["h"][t] < hmean).to(dtype)
+    h = _pt_swap_round(params, h, betas, uniforms["swap"][0], 0, cfg)
+    h = _pt_swap_round(params, h, betas, uniforms["swap"][1], 1, cfg)
+    grads = _grads(params, v0, h0p, vs[0], hmean[0], cfg)
+    return grads, h, _monitor(v0, visible_mean(params, h0s, cfg), cfg)
 
 
 def pseudo_likelihood(params: RBMParams, v: torch.Tensor, bit_index: int,

@@ -22,13 +22,21 @@ from .rbm_math import RBMParams, init_params, torch_dtype, zero_velocity
 class TrainState:
     params: RBMParams
     velocity: RBMParams
-    chain_h: torch.Tensor  # [batch, n_hidden] persistent hidden samples (PCD); zeros if CD
+    # [batch, n_hidden] persistent hidden samples (PCD), zeros if CD; a
+    # tempering ladder keeps pt_temps chains stacked rung-major:
+    # [pt_temps * batch, n_hidden], rung m = rows [m * batch, (m + 1) * batch)
+    chain_h: torch.Tensor
     generator: torch.Generator  # CPU generator for this RBM's training
     epoch: int
 
     @property
     def device(self) -> torch.device:
         return self.params.W.device
+
+
+def chain_rows(cfg: RBMConfig) -> int:
+    """Rows of the persistent chain: batch_size, times pt_temps under tempering."""
+    return cfg.batch_size * max(cfg.pt_temps, 1)
 
 
 def default_device() -> torch.device:
@@ -45,7 +53,7 @@ def init_train_state(cfg: RBMConfig, generator: Optional[torch.Generator] = None
     device = torch.device(device) if device is not None else default_device()
     params = init_params(cfg, generator, device)
     # Theano-tutorial convention: the persistent chain starts at zeros
-    chain_h = torch.zeros((cfg.batch_size, cfg.n_hidden),
+    chain_h = torch.zeros((chain_rows(cfg), cfg.n_hidden),
                           dtype=torch_dtype(cfg.param_dtype), device=device)
     return TrainState(params=params, velocity=zero_velocity(params),
                       chain_h=chain_h, generator=generator, epoch=0)

@@ -2,7 +2,10 @@
 //
 // Replaces: mdbn_tpu/ops/cd_epoch_pallas.py::_cd_train_kernel in its
 // const-block single-device mode (ndev=1, hbm_state=False), the kernel every
-// layer of the graded configs trains through on the TPU.
+// layer of the graded configs trains through on the TPU, with its estimator
+// modes: parallel tempering (:995-1113), the enhanced gradient (:1568-1586),
+// learned variance (:980-989, :1589-1596) and the pseudo-likelihood monitor
+// (_pseudo_likelihood_err :654, used at :1604-1610).
 //
 // What it computes, for e in [0, E), i in [0, nb) (one update each):
 //   v0   = data rows [order[e,i]*B, +B)
@@ -19,13 +22,33 @@
 //   sigmoid(h0s W^T + b), the reconstruction of the data chain)
 //   errs[e] = mean over the epoch's updates of the monitor.
 // The chain is written back only in PCD mode, as the TPU kernel does.
+// The modes:
+//   tempering (M rungs): the chain is [M*B, H], rung m = rows [m*B, (m+1)*B)
+//     at inverse temperature betas[m] (betas[0] = 1). The Gibbs steps run on
+//     all M*B rows: means sigmoid(beta (pre)), Gaussian noise scaled by
+//     1/sqrt(beta). Then pre_lp = h W^T + b of the whole ladder, and two
+//     Metropolis swap rounds (even pairs, then odd) on log p*_beta(h). The
+//     statistics come from rung 0 before the swaps; the monitor reconstructs
+//     from h0s.
+//   enhanced: gW_e = gW - mu gc^T - gb lam^T, gb_e = gb - gW_e lam,
+//     gc_e = gc - gW_e^T mu (mu, lam: data+model means of v, h), then the
+//     sparsity term on gc_e.
+//   learned variance: z [V] = log sigma^2; s = e^{-z} scales the visibles
+//     that enter the hidden units and the W / b statistics; sigma = e^{z/2}
+//     scales the visible noise; gz = s sum_r (A_data - A_model)/B (-1/2 under
+//     a mean-field negative phase), A = (v - b)^2/2 - v (W h); z follows the
+//     momentum rule at lr_z with clipping and no decay.
+//   pseudo monitor: flip bit i = ((start_epoch+e)*nb + i) mod V of each row
+//     of v0: V * softplus(FE(v0) - FE(flip)), from pre_h0 = v0 W + c, row i
+//     of W and b_i, all before the update.
 //
 // Random numbers: Philox4x32-10 keyed by the 64-bit seed the wrapper draws
 // from its torch.Generator, counter (col, row, kind<<8 | t, absolute update
 // index), so a draw does not depend on the launch's grid shape. Uniforms use
 // the 23-bit mantissa trick of _uniform_from_bits, normals Box-Muller as in
-// _normal_from_bits. Inject mode reads the draw_uniform_blocks layout
-// ([E, nb(,k), B, D]) from device buffers instead.
+// _normal_from_bits. Swap draws are a kind of their own, counter (0, m*B+r,
+// kind<<8 | round, update). Inject mode reads the draw_uniform_blocks layout
+// ([E, nb(,k), rows, D], swap [E, nb, 2, (M-1)*B]) from device buffers.
 //
 // Precision: with f32 compute every product is an fp32 FMA with fp32
 // accumulation, at least the precision of the TPU kernel's default
@@ -36,8 +59,10 @@
 // 78 MFLOP (three Gibbs products and the gradient, each 2*B*V*H = 15.7 MFLOP)
 // and moves about 8-12 MB of W and velocity through L2 (W is 1.57 MB and stays
 // L2-resident in the 50 MB L2). Neither FLOPs nor bytes bound it: the update is
-// a chain of 2 + 2k dependent phases, each separated by a grid-wide barrier,
-// so it is bound by barrier and memory latency.
+// a chain of 2 + 2k dependent phases (plus 1 product phase for tempering or
+// learned variance, 2 swap rounds for tempering, 1 bias phase for enhanced),
+// each separated by a grid-wide barrier, so it is bound by barrier and memory
+// latency.
 //
 // Design now: one persistent cooperative launch per run
 // (cudaLaunchCooperativeKernel, grid no larger than the co-resident block
@@ -51,6 +76,14 @@
 // deterministic and independent of the grid size. Any B is handled by
 // looping over row tiles. The optional trace records each phase's start on
 // block 0's clock (chip_smoke.py prints the breakdown).
+// In-place hazards of the modes: W, b, c and z change in place in the update
+// phase, so nothing in that phase may read them. The pseudo monitor reads W
+// and b, so it runs as extra units of the first visible phase; learned
+// variance reads s = e^{-z} in the update phase, so the first phase of every
+// update snapshots s and sigma into scratch and every later phase reads the
+// snapshot. The enhanced bias sums need every W unit's gW_e, so each unit
+// writes per-unit partial sums and a bias phase after one more barrier adds
+// them in a fixed order. A tempering swap exchanges the two rows it owns.
 // Later: keep W in the distributed shared memory of a thread-block cluster
 // (fewer L2 round trips, cluster barriers instead of grid barriers), prefetch
 // W tiles with TMA/cp.async, and use wgmma tensor-core products once batches
@@ -83,34 +116,52 @@ enum Flags {
   kClip = 64,
   kSparsity = 128,
   kMomentumSchedule = 256,
+  kTempering = 512,
+  kEnhanced = 1024,
+  kLearnVar = 2048,
+  kPseudo = 4096,
 };
 
-enum DrawKind { kDrawH0 = 0, kDrawH = 1, kDrawV = 2 };
+enum DrawKind { kDrawH0 = 0, kDrawH = 1, kDrawV = 2, kDrawSwap = 3 };
 
 struct Args {
-  const float* data;   // [n_rows, V]
-  const int* order;    // [E, nb] minibatch index of each update
-  const float* u_h0;   // inject: [E, nb, B, H]
-  const float* u_h;    // inject: [E, nb, k, B, H]
-  const float* u_v;    // inject: [E, nb, k, B, V] uniforms or normals
-  float* W;            // [V, H]
-  float* b;            // [V]
-  float* c;            // [H]
+  const float* data;    // [n_rows, V]
+  const int* order;     // [E, nb] minibatch index of each update
+  const float* u_h0;    // inject: [E, nb, B, H]
+  const float* u_h;     // inject: [E, nb, k, CR, H]
+  const float* u_v;     // inject: [E, nb, k, CR, V] uniforms or normals
+  const float* u_swap;  // inject, tempering: [E, nb, 2, (M-1)*B]
+  const float* betas;   // tempering: [M], betas[0] = 1
+  float* W;             // [V, H]
+  float* b;             // [V]
+  float* c;             // [H]
   float* vW;
   float* vb;
   float* vc;
-  float* chain;        // [B, H]
-  float* errs;         // [E]
-  float* h0p;          // scratch [B, H]
-  float* h0s;          // scratch [B, H]
-  float* hbuf;         // scratch [B, H] CD chain sample
-  float* hmean;        // scratch [B, H]
-  float* vs;           // scratch [B, V]
-  float* v1mean;       // scratch [B, V]
-  float* rowerr;       // scratch [B]
-  unsigned long long* trace;  // optional [E, nb, 3 + 2k] phase start times (ns)
-  int V, H, B, nb, E, k, start_epoch, switch_epoch, flags;
-  float lr, momentum, initial_momentum, l2, grad_clip, sparsity_target,
+  float* z;             // learned variance: [V] log sigma^2
+  float* vz;
+  float* chain;         // [CR, H], CR = M*B under tempering, else B
+  float* errs;          // [E]
+  float* h0p;           // scratch [B, H]
+  float* h0s;           // scratch [B, H]
+  float* hbuf;          // scratch [B, H] CD chain sample
+  float* hmean;         // scratch [CR, H]
+  float* vs;            // scratch [CR, V]
+  float* v1mean;        // scratch [B, V]
+  float* rowerr;        // scratch [B]
+  float* pre_h0;        // pseudo: scratch [B, H] v0 W + c
+  float* s_lv;          // learned variance: scratch [V] e^{-z} of this update
+  float* sig_lv;        // learned variance: scratch [V] e^{z/2} of this update
+  float* wh_a;          // learned variance: scratch [2B, V] A of the data ; model rows
+  float* pre_lp;        // tempering: scratch [CR, V] h W^T + b of the ladder
+  float* g_b;           // enhanced: scratch [V] plain gb
+  float* g_c;           // enhanced: scratch [H] plain gc
+  float* h0_mean;       // enhanced: scratch [H] mean of h0p (sparsity)
+  float* part_b;        // enhanced: scratch [njc, V] partial sums of gW_e lam
+  float* part_c;        // enhanced: scratch [nstrip, H] partial sums of gW_e^T mu
+  unsigned long long* trace;  // optional [E, nb, stamps] phase start times (ns)
+  int V, H, B, M, CR, nb, E, k, start_epoch, switch_epoch, flags;
+  float lr, lr_z, momentum, initial_momentum, l2, grad_clip, sparsity_target,
       sparsity_cost;
   unsigned long long seed;
 };
@@ -173,6 +224,11 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// log(1 + e^x), as jax.nn.softplus computes it.
+__device__ __forceinline__ float softplusf(float x) {
+  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
+}
+
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
@@ -180,6 +236,12 @@ __device__ __forceinline__ float round_bf16(float x) {
 template <bool kBf>
 __device__ __forceinline__ float op(float x) {
   return kBf ? round_bf16(x) : x;
+}
+
+// Inverse temperature of chain row r (1 off a tempering ladder).
+template <bool kModes>
+__device__ __forceinline__ float row_beta(const Args& a, int r) {
+  return (kModes && (a.flags & kTempering)) ? a.betas[r / a.B] : 1.0f;
 }
 
 // Fixed-shape butterfly: every lane ends with the same sum, in the same
@@ -190,9 +252,31 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Warp-per-item work split (b and c of the update phase). Warps are
-// numbered across blocks first (warp w of block g is global warp w*grid + g)
-// so that a loop with few items still spreads over every SM.
+// Sums each of x[0..N) over the block's threads in a fixed order (butterfly,
+// then warps in order); every thread ends with the totals. red: kWarps * N
+// floats of shared memory. All threads of the block call it.
+template <int N>
+__device__ __forceinline__ void block_sum(float (&x)[N], float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int n = 0; n < N; ++n) x[n] = warp_sum(x[n]);
+  __syncthreads();  // red is no longer read
+  if (lane == 0) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) red[warp * N + n] = x[n];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float t = 0.0f;
+    for (int w = 0; w < kWarps; ++w) t += red[w * N + n];
+    x[n] = t;
+  }
+}
+
+// Warp-per-item work split (b, c and z updates). Warps are numbered across
+// blocks first (warp w of block g is global warp w*grid + g) so that a loop
+// with few items still spreads over every SM.
 struct Split {
   int lane, gwarp, nwarps;
   __device__ Split() {
@@ -204,33 +288,43 @@ struct Split {
 
 // Copies rows [r0, r0 + kRowTile) x columns [c0, c0 + n) of the row-major
 // [rows, ld] matrix src into tile[kRowTile][kStage] (zero past the last row),
+// times scale[column] when scale is given (e^{-scale[column]} when scale_z),
 // rounding to bf16 when kBf. All threads of the block take part.
-template <bool kBf>
+template <bool kBf, bool kModes>
 __device__ __forceinline__ void stage_rows(float* tile, const float* src, int rows, int ld,
-                                           int r0, int c0, int n) {
+                                           int r0, int c0, int n, const float* scale,
+                                           bool scale_z) {
   for (int idx = threadIdx.x; idx < kRowTile * n; idx += kThreads) {
     const int rr = idx / n, cc = idx - rr * n;
-    tile[rr * kStage + cc] =
-        r0 + rr < rows ? op<kBf>(src[static_cast<size_t>(r0 + rr) * ld + c0 + cc]) : 0.0f;
+    float x = 0.0f;
+    if (r0 + rr < rows) {
+      x = src[static_cast<size_t>(r0 + rr) * ld + c0 + cc];
+      if (kModes && scale) x *= scale_z ? expf(-scale[c0 + cc]) : scale[c0 + cc];
+      x = op<kBf>(x);
+    }
+    tile[rr * kStage + cc] = x;
   }
 }
 
-// h = sigmoid(x W + c) for all B*H outputs, then h_sample = (u < h); x [B, V].
-// Work unit: 32 hidden columns (lane = column) x kRowTile batch rows, one
-// block. The unit's rows of x are staged in shared memory (kStage columns at
-// a time); warp w sums the products over v = w, w + kWarps, ... into
-// kRowTile registers, so each W element is read once per row tile; the
-// kWarps partial sums are then added in warp order. The summation order
-// depends only on kWarps, not on the grid.
-template <bool kBf>
-__device__ void hidden_phase(const Args& a, float* smem, const float* x, float* hprob,
-                             float* hsample, const float* u, unsigned upd, int kind,
-                             int t) {
+// h = sigmoid(beta_r (x W + c)) for all rows x H outputs, then h_sample =
+// (u < h); x [rows, V], scaled per column as stage_rows says (learned
+// variance); beta_r = 1 off a tempering ladder. pre_out, when given,
+// receives x W + c (the pseudo monitor's pre_h0).
+// Work unit: 32 hidden columns (lane = column) x kRowTile rows, one block.
+// The unit's rows of x are staged in shared memory (kStage columns at a
+// time); warp w sums the products over v = w, w + kWarps, ... into kRowTile
+// registers, so each W element is read once per row tile; the kWarps partial
+// sums are then added in warp order. The summation order depends only on
+// kWarps, not on the grid.
+template <bool kBf, bool kModes>
+__device__ void hidden_phase(const Args& a, float* smem, const float* x, int rows,
+                             const float* scale, bool scale_z, float* hprob, float* hsample,
+                             float* pre_out, const float* u, unsigned upd, int kind, int t) {
   float* xs = smem;                       // [kRowTile][kStage]
   float* part = smem + kRowTile * kStage;  // [kWarps][kRowTile][32]
-  const int V = a.V, H = a.H, B = a.B;
+  const int V = a.V, H = a.H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ncol = (H + 31) / 32, nrow = (B + kRowTile - 1) / kRowTile;
+  const int ncol = (H + 31) / 32, nrow = (rows + kRowTile - 1) / kRowTile;
   for (int unit = blockIdx.x; unit < ncol * nrow; unit += gridDim.x) {
     const int j0 = (unit % ncol) * 32, r0 = (unit / ncol) * kRowTile;
     const int j = j0 + lane;
@@ -240,7 +334,7 @@ __device__ void hidden_phase(const Args& a, float* smem, const float* x, float* 
     for (int q0 = 0; q0 < V; q0 += kStage) {
       const int nq = min(kStage, V - q0);
       __syncthreads();  // the previous tile is no longer read
-      stage_rows<kBf>(xs, x, B, V, r0, q0, nq);
+      stage_rows<kBf, kModes>(xs, x, rows, V, r0, q0, nq, scale, scale_z);
       __syncthreads();
       if (j < H) {
         const float* wcol = a.W + static_cast<size_t>(q0) * H + j;
@@ -257,12 +351,14 @@ __device__ void hidden_phase(const Args& a, float* smem, const float* x, float* 
     __syncthreads();
     if (threadIdx.x < kRowTile * 32) {
       const int rr = threadIdx.x >> 5, r = r0 + rr, jj = j0 + lane;
-      if (r < B && jj < H) {
+      if (r < rows && jj < H) {
         float sum = 0.0f;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) sum += part[(w * kRowTile + rr) * 32 + lane];
-        const int idx = r * H + jj;
-        const float p = sigmoidf(sum + a.c[jj]);
+        const size_t idx = static_cast<size_t>(r) * H + jj;
+        const float pre = sum + a.c[jj];
+        if (kModes && pre_out) pre_out[idx] = pre;
+        const float p = sigmoidf(row_beta<kModes>(a, r) * pre);
         hprob[idx] = p;
         const float uu = u ? u[idx] : draw_uniform(a, upd, kind, t, r, jj);
         hsample[idx] = uu < p ? 1.0f : 0.0f;
@@ -271,34 +367,76 @@ __device__ void hidden_phase(const Args& a, float* smem, const float* x, float* 
   }
 }
 
-// The visible half-step of Gibbs step t: vmean = sigmoid(h W^T + b) or the
-// Gaussian mean, then the visible sample. Work unit: kRowTile batch rows x
-// kWarps * kQPerWarp visible units, one block, with the rows of h staged in
-// shared memory; each warp takes kQPerWarp visible units, its lanes stride
-// over H (coalesced rows of W) and a fixed butterfly sums each output. At
-// t == 0 it also writes the monitor's visible mean (PCD: a second set of
-// units, from h0s).
-template <bool kBf>
-__device__ void visible_phase(const Args& a, float* smem, const float* hsrc, unsigned upd,
-                              int e, int i, int t) {
+// Row r of the pseudo-likelihood monitor. Flipping visible bit `bit` moves
+// the hidden pre-activation by delta W[bit] (a rank-1 update of pre_h0), so
+// FE(v0) - FE(flip) = delta b_bit + sum_j [softplus(pre + delta W[bit, j]) -
+// softplus(pre)]; rowerr[r] = V softplus(that). Reads W and b, so it runs
+// before the update phase.
+__device__ void pseudo_row(const Args& a, float* smem, const float* v0, int r, int bit) {
+  const int H = a.H, V = a.V;
+  const float delta = 1.0f - 2.0f * v0[static_cast<size_t>(r) * V + bit];
+  const float* pre = a.pre_h0 + static_cast<size_t>(r) * H;
+  const float* w = a.W + static_cast<size_t>(bit) * H;
+  float acc[1] = {0.0f};
+  for (int j = threadIdx.x; j < H; j += kThreads)
+    acc[0] += softplusf(pre[j] + delta * w[j]) - softplusf(pre[j]);
+  block_sum<1>(acc, smem);
+  if (threadIdx.x == 0)
+    a.rowerr[r] = static_cast<float>(V) * softplusf(delta * a.b[bit] + acc[0]);
+}
+
+// What a visible-shaped product (rows of src [rows, H] times W^T) is for.
+enum Role {
+  kRoleGibbs,    // Gibbs step t's visible mean and sample -> vs (CD: v1mean at t = 0)
+  kRoleMonitor,  // the data chain's reconstruction -> v1mean (src = h0s)
+  kRolePreLp,    // the ladder's h W^T + b -> pre_lp (tempering swap rounds)
+  kRoleWhData,   // A = (v0 - b)^2/2 - v0 (W h0p) -> wh_a rows [0, B)
+  kRoleWhModel,  // A = (vs - b)^2/2 - vs (W hmean) -> wh_a rows [B, 2B)
+};
+
+struct Seg {
+  const float* src;
+  int rows;
+  int role;
+};
+
+// Visible-shaped products of nseg row segments, each with its role's
+// epilogue, in one phase; then, when pseudo_bit >= 0, B units of the pseudo
+// monitor. Work unit: kRowTile rows x kWarps * kQPerWarp visible units, one
+// block, with the rows of src staged in shared memory; each warp takes
+// kQPerWarp visible units, its lanes stride over H (coalesced rows of W)
+// and a fixed butterfly sums each output.
+template <bool kBf, bool kModes>
+__device__ void visible_phase(const Args& a, float* smem, const Seg* segs, int nseg,
+                              const float* v0, unsigned upd, size_t ei, int t, int pseudo_bit) {
   float* hs = smem;  // [kRowTile][kStage]
   const int V = a.V, H = a.H, B = a.B;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool gaussian = a.flags & kGaussian;
   const bool sample_v = a.flags & kSampleVisible;
   const bool persistent = a.flags & kPersistent;
+  const bool tempering = kModes && (a.flags & kTempering);
+  const bool lv = kModes && (a.flags & kLearnVar);
   constexpr int kQBlock = kWarps * kQPerWarp;
-  const int nrow = (B + kRowTile - 1) / kRowTile, nqb = (V + kQBlock - 1) / kQBlock;
-  const int nunit = nrow * nqb;
-  const int nout = (persistent && t == 0) ? 2 * nunit : nunit;
+  const int nqb = (V + kQBlock - 1) / kQBlock;
+  int base[4] = {0, 0, 0, 0};
+  for (int sg = 0; sg < nseg; ++sg)
+    base[sg + 1] = base[sg] + ((segs[sg].rows + kRowTile - 1) / kRowTile) * nqb;
+  const int nprod = base[nseg];
+  const int nout = nprod + ((kModes && pseudo_bit >= 0) ? B : 0);
   const float* uv = nullptr;
   if ((a.flags & kInject) && sample_v)
-    uv = a.u_v + ((static_cast<size_t>(e) * a.nb + i) * a.k + t) * B * V;
+    uv = a.u_v + (ei * a.k + t) * static_cast<size_t>(a.CR) * V;
   for (int unit = blockIdx.x; unit < nout; unit += gridDim.x) {
-    const bool monitor = unit >= nunit;
-    const int uu = monitor ? unit - nunit : unit;
+    if (unit >= nprod) {
+      pseudo_row(a, smem, v0, unit - nprod, pseudo_bit);
+      continue;
+    }
+    int sg = 0;
+    while (unit >= base[sg + 1]) ++sg;
+    const Seg seg = segs[sg];
+    const int uu = unit - base[sg];
     const int r0 = (uu / nqb) * kRowTile, qbase = (uu % nqb) * kQBlock + warp * kQPerWarp;
-    const float* src = monitor ? a.h0s : hsrc;
     float acc[kQPerWarp][kRowTile];
 #pragma unroll
     for (int qi = 0; qi < kQPerWarp; ++qi)
@@ -307,7 +445,7 @@ __device__ void visible_phase(const Args& a, float* smem, const float* hsrc, uns
     for (int j0 = 0; j0 < H; j0 += kStage) {
       const int nj = min(kStage, H - j0);
       __syncthreads();
-      stage_rows<kBf>(hs, src, B, H, r0, j0, nj);
+      stage_rows<kBf, false>(hs, seg.src, seg.rows, H, r0, j0, nj, nullptr, false);
       __syncthreads();
 #pragma unroll
       for (int qi = 0; qi < kQPerWarp; ++qi) {
@@ -332,47 +470,146 @@ __device__ void visible_phase(const Args& a, float* smem, const float* hsrc, uns
         if (lane == rr) mine = tot;
       }
       const int q = qbase + qi, r = r0 + lane;
-      if (q >= V || lane >= kRowTile || r >= B) continue;
-      const int idx = r * V + q;
-      const float pre = mine + a.b[q];
-      const float mean = gaussian ? pre : sigmoidf(pre);
-      if (monitor) {
-        a.v1mean[idx] = mean;
-        continue;
-      }
-      if (t == 0 && !persistent) a.v1mean[idx] = mean;
-      float sample = mean;
-      if (sample_v) {
-        if (gaussian) {
-          sample = mean + (uv ? uv[idx] : draw_normal(a, upd, kDrawV, t, r, q));
-        } else {
-          const float uu2 = uv ? uv[idx] : draw_uniform(a, upd, kDrawV, t, r, q);
-          sample = uu2 < mean ? 1.0f : 0.0f;
+      if (q >= V || lane >= kRowTile || r >= seg.rows) continue;
+      const size_t idx = static_cast<size_t>(r) * V + q;
+      switch (seg.role) {
+        case kRoleGibbs: {
+          const float pre = mine + a.b[q];
+          const float beta = row_beta<kModes>(a, r);
+          const float mean = gaussian ? pre : sigmoidf(beta * pre);
+          if (t == 0 && !persistent) a.v1mean[idx] = mean;
+          float sample = mean;
+          if (sample_v) {
+            if (gaussian) {
+              float n = uv ? uv[idx] : draw_normal(a, upd, kDrawV, t, r, q);
+              if (tempering) n = n / sqrtf(beta);  // variance sigma^2 / beta
+              if (lv) n = n * a.sig_lv[q];
+              sample = mean + n;
+            } else {
+              const float u2 = uv ? uv[idx] : draw_uniform(a, upd, kDrawV, t, r, q);
+              sample = u2 < mean ? 1.0f : 0.0f;
+            }
+          }
+          a.vs[idx] = sample;
+          break;
+        }
+        case kRoleMonitor: {
+          const float pre = mine + a.b[q];
+          a.v1mean[idx] = gaussian ? pre : sigmoidf(pre);
+          break;
+        }
+        case kRolePreLp:
+          a.pre_lp[idx] = mine + a.b[q];
+          break;
+        case kRoleWhData: {
+          const float x = v0[idx], d = x - a.b[q];
+          a.wh_a[idx] = 0.5f * (d * d) - x * mine;
+          break;
+        }
+        default: {  // kRoleWhModel
+          const float x = a.vs[idx], d = x - a.b[q];
+          a.wh_a[static_cast<size_t>(B) * V + idx] = 0.5f * (d * d) - x * mine;
+          break;
         }
       }
-      a.vs[idx] = sample;
     }
   }
 }
 
-// Clip, L2 (W only), momentum and the in-place update of one parameter.
+// Swap round p of the tempering ladder. For each pair (m, m+1), m = p, p+2,
+// ... < M-1, and each row r: the Metropolis log ratio of exchanging the two
+// rungs' hidden states, log a = lp_{b_m}(h_{m+1}) + lp_{b_m+1}(h_m) -
+// lp_{b_m}(h_m) - lp_{b_m+1}(h_{m+1}), with log p*_beta(h) = beta c.h +
+// sum_q softplus(beta pre_lp) (Bernoulli) or beta (c.h + sum_q (wh b +
+// wh^2/2) s), wh = pre_lp - b (Gaussian). An accepted pair exchanges its
+// chain rows and its pre_lp rows (pre_lp is a function of h alone). One
+// block per (pair, row): the rows it reads and writes are its own.
+template <bool kBf>
+__device__ void swap_phase(const Args& a, float* smem, unsigned upd, size_t ei, int p) {
+  const int B = a.B, V = a.V, H = a.H, M = a.M;
+  const bool gaussian = a.flags & kGaussian, lv = a.flags & kLearnVar;
+  const int npairs = (M - p) / 2;
+  for (int unit = blockIdx.x; unit < npairs * B; unit += gridDim.x) {
+    const int m = p + 2 * (unit / B), r = unit % B;
+    const size_t r0 = static_cast<size_t>(m) * B + r, r1 = r0 + B;
+    const float b0 = a.betas[m], b1 = a.betas[m + 1];
+    float* x0 = a.pre_lp + r0 * V;
+    float* x1 = a.pre_lp + r1 * V;
+    float* h0 = a.chain + r0 * H;
+    float* h1 = a.chain + r1 * H;
+    // Bernoulli: softplus sums of h_m at b_m, b_m+1, of h_m+1 at b_m+1, b_m;
+    // Gaussian: the quadratic sums of h_m, h_m+1 in [0], [1]; then c.h_m, c.h_m+1
+    float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int q = threadIdx.x; q < V; q += kThreads) {
+      if (gaussian) {
+        const float bq = a.b[q], sq = lv ? a.s_lv[q] : 1.0f;
+        const float w0 = x0[q] - bq, w1 = x1[q] - bq;
+        acc[0] += (w0 * bq + 0.5f * w0 * w0) * sq;
+        acc[1] += (w1 * bq + 0.5f * w1 * w1) * sq;
+      } else {
+        acc[0] += softplusf(b0 * x0[q]);
+        acc[1] += softplusf(b1 * x0[q]);
+        acc[2] += softplusf(b1 * x1[q]);
+        acc[3] += softplusf(b0 * x1[q]);
+      }
+    }
+    for (int j = threadIdx.x; j < H; j += kThreads) {
+      const float cj = op<kBf>(a.c[j]);
+      acc[4] = fmaf(h0[j], cj, acc[4]);
+      acc[5] = fmaf(h1[j], cj, acc[5]);
+    }
+    block_sum<6>(acc, smem);  // every thread holds the same sums
+    float log_a;
+    if (gaussian) {
+      const float l0 = acc[4] + acc[0], l1 = acc[5] + acc[1];
+      log_a = b0 * l1 + b1 * l0 - b0 * l0 - b1 * l1;
+    } else {
+      log_a = (b0 * acc[5] + acc[3]) + (b1 * acc[4] + acc[1]) - (b0 * acc[4] + acc[0]) -
+              (b1 * acc[5] + acc[2]);
+    }
+    const float u = (a.flags & kInject)
+                        ? a.u_swap[(ei * 2 + p) * static_cast<size_t>(M - 1) * B +
+                                   static_cast<size_t>(m) * B + r]
+                        : draw_uniform(a, upd, kDrawSwap, p, static_cast<int>(r0), 0);
+    if (logf(fmaxf(u, 1e-38f)) < log_a) {  // the same outcome in every thread
+      for (int j = threadIdx.x; j < H; j += kThreads) {
+        const float tmp = h0[j];
+        h0[j] = h1[j];
+        h1[j] = tmp;
+      }
+      for (int q = threadIdx.x; q < V; q += kThreads) {
+        const float tmp = x0[q];
+        x0[q] = x1[q];
+        x1[q] = tmp;
+      }
+    }
+  }
+}
+
+// Clip, L2 (when decay), momentum and the in-place update of one parameter.
 __device__ __forceinline__ void apply(const Args& a, float* p, float* vel, float g, float m,
-                                      bool decay) {
+                                      float lr, bool decay) {
   if (a.flags & kClip) g = fminf(fmaxf(g, -a.grad_clip), a.grad_clip);
   if (decay && a.l2 != 0.0f) g = g - a.l2 * *p;
-  const float nv = m * *vel + a.lr * g;
+  const float nv = m * *vel + lr * g;
   *vel = nv;
   *p = *p + nv;
 }
 
-// Gradient and update of W, b and c, plus the per-row monitor sums.
+// Gradient and update of W, b, c (and z), plus the per-row monitor sums.
 // W unit (one block): kQStrip consecutive visible units x kThreads hidden
-// columns (thread = column). The strip's v0 and vs columns are staged in
-// shared memory; each thread reads its columns of h0p and hmean once and sums
-// each element over the B rows in row order. Monitor unit (one block): one
-// batch row, summed by a fixed-shape tree. b and c: one warp per element,
-// lanes over the rows, fixed butterfly.
-template <bool kBf>
+// columns (thread = column). The strip's v0 and vs columns (learned variance:
+// times the snapshot s) are staged in shared memory; each thread reads its
+// columns of h0p and hmean once and sums each element over the B rows in row
+// order. Enhanced: every thread also sums its strip's v columns and its own
+// h column, which gives it gb, mu, gc and lam for its elements, so it
+// recombines gW_e in place; the unit writes its partial sums of gW_e lam
+// (block sum over its columns) and gW_e^T mu (per column, over its strip),
+// and the bias phase adds them up after the next barrier. Monitor unit (one
+// block): one batch row, summed by a fixed-shape tree. b, c and z: one warp
+// per element, lanes over the rows, fixed butterfly (enhanced: in the bias
+// phase).
+template <bool kBf, bool kModes>
 __device__ void update_phase(const Args& a, float* smem, const Split& s, const float* v0,
                              float m) {
   const int V = a.V, H = a.H, B = a.B;
@@ -381,7 +618,10 @@ __device__ void update_phase(const Args& a, float* smem, const Split& s, const f
   const int nstrip = (V + kQStrip - 1) / kQStrip, njc = (H + kThreads - 1) / kThreads;
   const int nwu = nstrip * njc;
   const bool xent = a.flags & kXent;
-  for (int unit = blockIdx.x; unit < nwu + B; unit += gridDim.x) {
+  const bool lv = kModes && (a.flags & kLearnVar);
+  const bool enh = kModes && (a.flags & kEnhanced);
+  const int nmon = (kModes && (a.flags & kPseudo)) ? 0 : B;  // the pseudo monitor ran already
+  for (int unit = blockIdx.x; unit < nwu + nmon; unit += gridDim.x) {
     __syncthreads();  // shared memory of the previous unit is no longer read
     if (unit >= nwu) {  // monitor: sum over row r of the reconstruction error
       const int r = unit - nwu;
@@ -407,33 +647,73 @@ __device__ void update_phase(const Args& a, float* smem, const Split& s, const f
       }
       continue;
     }
-    const int q0 = (unit % nstrip) * kQStrip, j = (unit / nstrip) * kThreads + threadIdx.x;
+    const int strip = unit % nstrip, cu = unit / nstrip;
+    const int q0 = strip * kQStrip, j = cu * kThreads + threadIdx.x;
     const int nq = min(kQStrip, V - q0);
-    float pos[kQStrip], neg[kQStrip];
+    float pos[kQStrip], neg[kQStrip], dsum[kQStrip], msum[kQStrip];
 #pragma unroll
-    for (int qi = 0; qi < kQStrip; ++qi) pos[qi] = neg[qi] = 0.0f;
+    for (int qi = 0; qi < kQStrip; ++qi) pos[qi] = neg[qi] = dsum[qi] = msum[qi] = 0.0f;
+    float hdif = 0.0f, hsum = 0.0f, hpos = 0.0f;  // enhanced: sums of column j over the rows
     for (int rc = 0; rc < B; rc += kRowChunk) {
       const int nr = min(kRowChunk, B - rc);
       __syncthreads();
       for (int idx = threadIdx.x; idx < nr * kQStrip; idx += kThreads) {
         const int rr = idx / kQStrip, qi = idx - rr * kQStrip;
         const size_t g = static_cast<size_t>(rc + rr) * V + q0 + qi;
-        smem[rr * 2 * kQStrip + qi] = qi < nq ? op<kBf>(v0[g]) : 0.0f;
-        smem[rr * 2 * kQStrip + kQStrip + qi] = qi < nq ? op<kBf>(a.vs[g]) : 0.0f;
+        const float sc = (lv && qi < nq) ? a.s_lv[q0 + qi] : 1.0f;
+        smem[rr * 2 * kQStrip + qi] = qi < nq ? v0[g] * sc : 0.0f;
+        smem[rr * 2 * kQStrip + kQStrip + qi] = qi < nq ? a.vs[g] * sc : 0.0f;
       }
       __syncthreads();
       if (j < H) {
 #pragma unroll 4
         for (int rr = 0; rr < nr; ++rr) {
-          const float hp = op<kBf>(a.h0p[(rc + rr) * H + j]);
-          const float hm = op<kBf>(a.hmean[(rc + rr) * H + j]);
+          const float hp_raw = a.h0p[(rc + rr) * H + j];
+          const float hm_raw = a.hmean[(rc + rr) * H + j];
+          const float hp = op<kBf>(hp_raw), hm = op<kBf>(hm_raw);
           const float* sv = smem + rr * 2 * kQStrip;
 #pragma unroll
           for (int qi = 0; qi < kQStrip; ++qi) {
-            pos[qi] = fmaf(sv[qi], hp, pos[qi]);
-            neg[qi] = fmaf(sv[kQStrip + qi], hm, neg[qi]);
+            pos[qi] = fmaf(op<kBf>(sv[qi]), hp, pos[qi]);
+            neg[qi] = fmaf(op<kBf>(sv[kQStrip + qi]), hm, neg[qi]);
+          }
+          if (enh) {
+#pragma unroll
+            for (int qi = 0; qi < kQStrip; ++qi) {
+              dsum[qi] += sv[qi] - sv[kQStrip + qi];
+              msum[qi] += sv[qi] + sv[kQStrip + qi];
+            }
+            hdif += hp_raw - hm_raw;
+            hsum += hp_raw + hm_raw;
+            hpos += hp_raw;
           }
         }
+      }
+    }
+    // pos := the gradient of each element; enhanced: neg := gW_e lam terms
+#pragma unroll
+    for (int qi = 0; qi < kQStrip; ++qi) pos[qi] = (pos[qi] - neg[qi]) * inv_b;
+    if (enh) {
+      const float gc_j = hdif * inv_b, lam_j = 0.5f * hsum * inv_b;
+      float pc = 0.0f;
+#pragma unroll
+      for (int qi = 0; qi < kQStrip; ++qi) {
+        const float gb_q = dsum[qi] * inv_b, mu_q = 0.5f * msum[qi] * inv_b;
+        pos[qi] = pos[qi] - mu_q * gc_j - gb_q * lam_j;
+        neg[qi] = (j < H && qi < nq) ? pos[qi] * lam_j : 0.0f;
+        if (qi < nq) pc = fmaf(pos[qi], mu_q, pc);
+      }
+      if (j < H) a.part_c[static_cast<size_t>(strip) * H + j] = pc;
+      block_sum<kQStrip>(neg, smem);
+      if (threadIdx.x == 0) {
+        for (int qi = 0; qi < nq; ++qi) {
+          a.part_b[static_cast<size_t>(cu) * V + q0 + qi] = neg[qi];
+          if (cu == 0) a.g_b[q0 + qi] = dsum[qi] * inv_b;
+        }
+      }
+      if (strip == 0 && j < H) {
+        a.g_c[j] = gc_j;
+        a.h0_mean[j] = hpos * inv_b;
       }
     }
     if (j < H) {
@@ -441,36 +721,79 @@ __device__ void update_phase(const Args& a, float* smem, const Split& s, const f
       for (int qi = 0; qi < kQStrip; ++qi) {
         if (qi < nq) {
           const size_t w = static_cast<size_t>(q0 + qi) * H + j;
-          apply(a, a.W + w, a.vW + w, (pos[qi] - neg[qi]) * inv_b, m, true);
+          apply(a, a.W + w, a.vW + w, pos[qi], m, a.lr, true);
         }
       }
     }
   }
-  for (int o = s.gwarp; o < V + H; o += s.nwarps) {
+  if (enh) return;  // b and c: enhanced_bias_phase, after the next barrier
+  const int nz = lv ? V : 0;
+  for (int o = s.gwarp; o < V + H + nz; o += s.nwarps) {
     float acc = 0.0f, on = 0.0f;
     if (o < V) {
       for (int r = s.lane; r < B; r += 32)
         acc += v0[static_cast<size_t>(r) * V + o] - a.vs[static_cast<size_t>(r) * V + o];
-    } else {
+    } else if (o < V + H) {
       for (int r = s.lane; r < B; r += 32) {
         acc += a.h0p[r * H + o - V] - a.hmean[r * H + o - V];
         on += a.h0p[r * H + o - V];
       }
+    } else {
+      const int q = o - V - H;
+      for (int r = s.lane; r < B; r += 32)
+        acc += a.wh_a[static_cast<size_t>(r) * V + q] -
+               a.wh_a[static_cast<size_t>(B + r) * V + q];
     }
     acc = warp_sum(acc);
     on = warp_sum(on);
     if (s.lane != 0) continue;
     if (o < V) {
-      apply(a, a.b + o, a.vb + o, acc * inv_b, m, false);
-    } else {
+      float g = acc * inv_b;
+      if (lv) g = g * a.s_lv[o];
+      apply(a, a.b + o, a.vb + o, g, m, a.lr, false);
+    } else if (o < V + H) {
       float g = acc * inv_b;
       if (a.flags & kSparsity) g = g + a.sparsity_cost * (a.sparsity_target - on * inv_b);
-      apply(a, a.c + o - V, a.vc + o - V, g, m, false);
+      apply(a, a.c + o - V, a.vc + o - V, g, m, a.lr, false);
+    } else {
+      const int q = o - V - H;
+      float g = a.s_lv[q] * acc * inv_b;
+      if (!(a.flags & kSampleVisible)) g = g - 0.5f;  // mean-field: E[(v-b)^2] adds sigma^2
+      apply(a, a.z + q, a.vz + q, g, m, a.lr_z, false);
     }
   }
 }
 
-template <bool kBf>
+// The enhanced gradient's bias updates: gb_e = gb - gW_e lam and gc_e = gc -
+// gW_e^T mu (+ the sparsity term), each from the W units' partial sums added
+// in a fixed order. One warp per element.
+__device__ void enhanced_bias_phase(const Args& a, const Split& s, float m) {
+  const int V = a.V, H = a.H;
+  const int nstrip = (V + kQStrip - 1) / kQStrip, njc = (H + kThreads - 1) / kThreads;
+  for (int o = s.gwarp; o < V + H; o += s.nwarps) {
+    float acc = 0.0f;
+    if (o < V) {
+      for (int u = s.lane; u < njc; u += 32) acc += a.part_b[static_cast<size_t>(u) * V + o];
+    } else {
+      for (int u = s.lane; u < nstrip; u += 32)
+        acc += a.part_c[static_cast<size_t>(u) * H + o - V];
+    }
+    acc = warp_sum(acc);
+    if (s.lane != 0) continue;
+    if (o < V) {
+      apply(a, a.b + o, a.vb + o, a.g_b[o] - acc, m, a.lr, false);
+    } else {
+      const int jj = o - V;
+      float g = a.g_c[jj] - acc;
+      if (a.flags & kSparsity) g = g + a.sparsity_cost * (a.sparsity_target - a.h0_mean[jj]);
+      apply(a, a.c + jj, a.vc + jj, g, m, a.lr, false);
+    }
+  }
+}
+
+// kModes: the estimator modes are compiled in (the plain CD/PCD run leaves
+// them out, and with them their registers and branches).
+template <bool kBf, bool kModes>
 __global__ void __launch_bounds__(kThreads, 1) cd_train_kernel(Args a) {
   __shared__ float smem[kSmemFloats];  // 36 KB: staged row tiles + partial sums
   cg::grid_group grid = cg::this_grid();
@@ -478,9 +801,15 @@ __global__ void __launch_bounds__(kThreads, 1) cd_train_kernel(Args a) {
   const bool inject = a.flags & kInject;
   const bool persistent = a.flags & kPersistent;
   const bool xent = a.flags & kXent;
+  const bool tempering = kModes && (a.flags & kTempering);
+  const bool lv = kModes && (a.flags & kLearnVar);
+  const bool enh = kModes && (a.flags & kEnhanced);
+  const bool pseudo = kModes && (a.flags & kPseudo);
   const bool lead_warp = blockIdx.x == 0 && threadIdx.x < 32;  // sums the monitor
-  const int B = a.B, V = a.V, H = a.H;
-  const size_t bh = static_cast<size_t>(B) * H;
+  const int B = a.B, V = a.V, CR = a.CR;
+  const size_t bh = static_cast<size_t>(B) * a.H, ch = static_cast<size_t>(CR) * a.H;
+  const int nstamp = 3 + 2 * a.k + ((tempering || lv) ? 1 : 0) + (tempering ? 2 : 0) +
+                     (enh ? 1 : 0);
   float err_sum = 0.0f;  // lead warp: the epoch's running monitor sum
   for (int e = 0; e < a.E; ++e) {
     const int abs_epoch = a.start_epoch + e;
@@ -492,35 +821,71 @@ __global__ void __launch_bounds__(kThreads, 1) cd_train_kernel(Args a) {
                                static_cast<unsigned>(a.nb) + static_cast<unsigned>(i);
       const size_t ei = static_cast<size_t>(e) * a.nb + i;
       const float* v0 = a.data + static_cast<size_t>(a.order[ei]) * B * V;
+      const int bit = static_cast<int>(
+          (static_cast<long long>(abs_epoch) * a.nb + i) % V);  // pseudo monitor
       // block 0 stamps the start of each phase (after the barrier before it)
       unsigned long long* stamp =
-          (a.trace && blockIdx.x == 0 && threadIdx.x == 0) ? a.trace + ei * (3 + 2 * a.k) : nullptr;
+          (a.trace && blockIdx.x == 0 && threadIdx.x == 0) ? a.trace + ei * nstamp : nullptr;
       if (stamp) *stamp++ = globaltimer_ns();
-      hidden_phase<kBf>(a, smem, v0, a.h0p, a.h0s, inject ? a.u_h0 + ei * bh : nullptr,
+      hidden_phase<kBf, kModes>(a, smem, v0, B, lv ? a.z : nullptr, true, a.h0p, a.h0s,
+                        pseudo ? a.pre_h0 : nullptr, inject ? a.u_h0 + ei * bh : nullptr,
                         upd, kDrawH0, 0);
+      if (lv) {  // this update's precision and std-dev, read by the later phases
+        for (int q = blockIdx.x * kThreads + threadIdx.x; q < V; q += gridDim.x * kThreads) {
+          a.s_lv[q] = expf(-a.z[q]);
+          a.sig_lv[q] = expf(0.5f * a.z[q]);
+        }
+      }
       grid.sync();
       float* hdst = persistent ? a.chain : a.hbuf;
       for (int t = 0; t < a.k; ++t) {
         const float* hsrc = t > 0 ? hdst : (persistent ? a.chain : a.h0s);
+        const Seg segs[2] = {{hsrc, CR, kRoleGibbs}, {a.h0s, B, kRoleMonitor}};
         if (stamp) *stamp++ = globaltimer_ns();
-        visible_phase<kBf>(a, smem, hsrc, upd, e, i, t);
+        visible_phase<kBf, kModes>(a, smem, segs, (t == 0 && persistent && !pseudo) ? 2 : 1, v0, upd,
+                           ei, t, (t == 0 && pseudo) ? bit : -1);
         grid.sync();
         if (stamp) *stamp++ = globaltimer_ns();
-        hidden_phase<kBf>(a, smem, a.vs, a.hmean, hdst,
-                          inject ? a.u_h + (ei * a.k + t) * bh : nullptr, upd,
+        hidden_phase<kBf, kModes>(a, smem, a.vs, CR, lv ? a.s_lv : nullptr, false, a.hmean, hdst,
+                          nullptr, inject ? a.u_h + (ei * a.k + t) * ch : nullptr, upd,
                           kDrawH, t);
         grid.sync();
       }
+      if (tempering || lv) {  // the ladder's pre_lp; the z statistic's A terms
+        Seg segs[3];
+        int nseg = 0;
+        if (tempering) segs[nseg++] = {a.chain, CR, kRolePreLp};
+        if (lv) {
+          segs[nseg++] = {a.h0p, B, kRoleWhData};
+          segs[nseg++] = {a.hmean, B, kRoleWhModel};
+        }
+        if (stamp) *stamp++ = globaltimer_ns();
+        visible_phase<kBf, kModes>(a, smem, segs, nseg, v0, upd, ei, 0, -1);
+        grid.sync();
+      }
+      if (tempering) {
+        for (int p = 0; p < 2; ++p) {
+          if (stamp) *stamp++ = globaltimer_ns();
+          swap_phase<kBf>(a, smem, upd, ei, p);
+          grid.sync();
+        }
+      }
       if (stamp) *stamp++ = globaltimer_ns();
-      update_phase<kBf>(a, smem, s, v0, m);
+      update_phase<kBf, kModes>(a, smem, s, v0, m);
       grid.sync();
+      if (enh) {
+        if (stamp) *stamp++ = globaltimer_ns();
+        enhanced_bias_phase(a, s, m);
+        grid.sync();
+      }
       if (stamp) *stamp++ = globaltimer_ns();
       if (lead_warp) {
         float tot = 0.0f;
         for (int r = threadIdx.x; r < B; r += 32) tot += a.rowerr[r];
         tot = warp_sum(tot);
-        err_sum += xent ? -tot / static_cast<float>(B)
-                        : tot / (static_cast<float>(B) * static_cast<float>(V));
+        err_sum += pseudo ? tot / static_cast<float>(B)
+                   : xent ? -tot / static_cast<float>(B)
+                          : tot / (static_cast<float>(B) * static_cast<float>(V));
       }
     }
     if (lead_warp && threadIdx.x == 0) {
@@ -528,6 +893,39 @@ __global__ void __launch_bounds__(kThreads, 1) cd_train_kernel(Args a) {
       err_sum = 0.0f;
     }
   }
+}
+
+// Points the scratch fields of `a` into `base` (when not null) and returns
+// the floats they take; a buffer of a mode that is off takes none.
+long long carve_scratch(Args& a, float* base, int V, int H, int B, int M, int flags) {
+  const long long CR = (flags & kTempering) ? static_cast<long long>(M) * B : B;
+  const long long bh = static_cast<long long>(B) * H, bv = static_cast<long long>(B) * V;
+  const long long nstrip = (V + kQStrip - 1) / kQStrip, njc = (H + kThreads - 1) / kThreads;
+  const bool pt = flags & kTempering, enh = flags & kEnhanced, lv = flags & kLearnVar;
+  long long n = 0;
+  auto take = [&](long long count) {
+    float* p = base ? base + n : nullptr;
+    n += count;
+    return p;
+  };
+  a.h0p = take(bh);
+  a.h0s = take(bh);
+  a.hbuf = take(bh);
+  a.hmean = take(CR * H);
+  a.vs = take(CR * V);
+  a.v1mean = take(bv);
+  a.rowerr = take(B);
+  a.pre_h0 = take((flags & kPseudo) ? bh : 0);
+  a.s_lv = take(lv ? V : 0);
+  a.sig_lv = take(lv ? V : 0);
+  a.wh_a = take(lv ? 2 * bv : 0);
+  a.pre_lp = take(pt ? CR * V : 0);
+  a.g_b = take(enh ? V : 0);
+  a.g_c = take(enh ? H : 0);
+  a.h0_mean = take(enh ? H : 0);
+  a.part_b = take(enh ? njc * V : 0);
+  a.part_c = take(enh ? nstrip * H : 0);
+  return n;
 }
 
 }  // namespace
@@ -538,14 +936,14 @@ extern "C" {
 // Returns a cudaError_t (0 on success); a grid larger than the co-resident
 // block count returns cudaErrorCooperativeLaunchTooLarge without launching.
 int cd_train_run(const float* data, const int* order, const float* u_h0,
-                 const float* u_h, const float* u_v, float* W, float* b,
-                 float* c, float* vW, float* vb, float* vc, float* chain,
-                 float* errs, float* scratch, unsigned long long* trace, int V, int H,
-                 int B, int nb,
-                 int E, int k, int start_epoch, int switch_epoch, int flags,
-                 float lr, float momentum, float initial_momentum, float l2,
-                 float grad_clip, float sparsity_target, float sparsity_cost,
-                 unsigned long long seed, int device, int grid, void* stream) {
+                 const float* u_h, const float* u_v, const float* u_swap,
+                 const float* betas, float* W, float* b, float* c, float* vW, float* vb,
+                 float* vc, float* z, float* vz, float* chain, float* errs, float* scratch,
+                 unsigned long long* trace, int V, int H, int B, int M, int nb, int E, int k,
+                 int start_epoch, int switch_epoch, int flags, float lr, float lr_z,
+                 float momentum, float initial_momentum, float l2, float grad_clip,
+                 float sparsity_target, float sparsity_cost, unsigned long long seed,
+                 int device, int grid, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int coop = 0, nsm = 0, per_sm = 0;
@@ -555,8 +953,12 @@ int cd_train_run(const float* data, const int* order, const float* u_h0,
   if ((err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return err;
   const bool bf = flags & kBf16;
-  const void* fn = bf ? reinterpret_cast<const void*>(&cd_train_kernel<true>)
-                      : reinterpret_cast<const void*>(&cd_train_kernel<false>);
+  const bool modes = flags & (kTempering | kEnhanced | kLearnVar | kPseudo);
+  const void* fn =
+      bf ? (modes ? reinterpret_cast<const void*>(&cd_train_kernel<true, true>)
+                  : reinterpret_cast<const void*>(&cd_train_kernel<true, false>))
+         : (modes ? reinterpret_cast<const void*>(&cd_train_kernel<false, true>)
+                  : reinterpret_cast<const void*>(&cd_train_kernel<false, false>));
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0)) !=
       cudaSuccess)
     return err;
@@ -565,20 +967,15 @@ int cd_train_run(const float* data, const int* order, const float* u_h0,
 
   Args a;
   a.data = data; a.order = order; a.u_h0 = u_h0; a.u_h = u_h; a.u_v = u_v;
-  a.W = W; a.b = b; a.c = c; a.vW = vW; a.vb = vb; a.vc = vc; a.chain = chain;
-  a.errs = errs;
-  const size_t bh = static_cast<size_t>(B) * H, bv = static_cast<size_t>(B) * V;
-  a.h0p = scratch;
-  a.h0s = a.h0p + bh;
-  a.hbuf = a.h0s + bh;
-  a.hmean = a.hbuf + bh;
-  a.vs = a.hmean + bh;
-  a.v1mean = a.vs + bv;
-  a.rowerr = a.v1mean + bv;
+  a.u_swap = u_swap; a.betas = betas;
+  a.W = W; a.b = b; a.c = c; a.vW = vW; a.vb = vb; a.vc = vc; a.z = z; a.vz = vz;
+  a.chain = chain; a.errs = errs;
+  carve_scratch(a, scratch, V, H, B, M, flags);
   a.trace = trace;
-  a.V = V; a.H = H; a.B = B; a.nb = nb; a.E = E; a.k = k;
+  a.V = V; a.H = H; a.B = B; a.M = M; a.CR = (flags & kTempering) ? M * B : B;
+  a.nb = nb; a.E = E; a.k = k;
   a.start_epoch = start_epoch; a.switch_epoch = switch_epoch; a.flags = flags;
-  a.lr = lr; a.momentum = momentum; a.initial_momentum = initial_momentum;
+  a.lr = lr; a.lr_z = lr_z; a.momentum = momentum; a.initial_momentum = initial_momentum;
   a.l2 = l2; a.grad_clip = grad_clip; a.sparsity_target = sparsity_target;
   a.sparsity_cost = sparsity_cost; a.seed = seed;
 
@@ -590,8 +987,9 @@ int cd_train_run(const float* data, const int* order, const float* u_h0,
 }
 
 // Scratch floats the wrapper allocates for one run.
-long long cd_train_scratch_floats(int V, int H, int B) {
-  return 4LL * B * H + 2LL * B * V + B;
+long long cd_train_scratch_floats(int V, int H, int B, int M, int flags) {
+  Args a;
+  return carve_scratch(a, nullptr, V, H, B, M, flags);
 }
 
 const char* cd_train_error_string(int err) {

@@ -32,9 +32,6 @@ from ..ops import cd_epoch_cuda
 
 def resolve_engine(cfg: RBMConfig, device: torch.device) -> str:
     """The engine a run of ``cfg`` on ``device`` uses: "cuda" or "eager"."""
-    if cfg.pt_temps > 1:
-        raise ValueError("pt_temps > 1 (parallel tempering) is not ported yet: "
-                         "ROADMAP.md Queue 1, PT in the core")
     if cfg.engine == "xla":
         return "eager"
     reason = cd_epoch_cuda.kernel_unsupported(cfg)

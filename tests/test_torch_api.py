@@ -85,10 +85,18 @@ def test_engine_selection():
     with pytest.raises(ValueError, match="engine='pallas'"):
         RBM(cfg.replace(engine="pallas", epochs=1), device="cpu").train(
             mnist_like(40, n_features=8, seed=0))
-    unsupported = [cfg.replace(gradient="enhanced"),
-                   cfg.replace(visible="gaussian", learn_variance=True),
-                   cfg.replace(error_metric="pseudo"),
-                   cfg.replace(param_dtype="bfloat16")]
+    # the estimator modes run on the kernel: only bf16 storage and k > 255 do not
+    modes = [cfg.replace(gradient="enhanced"),
+             cfg.replace(visible="gaussian", learn_variance=True),
+             cfg.replace(error_metric="pseudo"),
+             cfg.replace(persistent=True, pt_temps=3, pt_beta_min=0.2),
+             cfg.replace(visible="gaussian", learn_variance=True, persistent=True, pt_temps=3)]
+    for m in modes:
+        assert K.kernel_unsupported(m) is None
+        assert resolve_engine(m, CUDA) == "cuda"
+        assert resolve_engine(m.replace(engine="pallas"), CUDA) == "cuda"
+        assert resolve_engine(m, CPU) == "eager"
+    unsupported = [cfg.replace(param_dtype="bfloat16")]
     for u in unsupported:
         assert "ROADMAP.md" in K.kernel_unsupported(u)
         with pytest.raises(ValueError, match="ROADMAP.md"):
@@ -96,8 +104,7 @@ def test_engine_selection():
         with pytest.raises(ValueError, match="ROADMAP.md"):
             resolve_engine(u.replace(engine="pallas"), CUDA)
         assert resolve_engine(u, CUDA) == "eager"  # auto: chosen by config, not by failure
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        resolve_engine(cfg.replace(persistent=True, pt_temps=3), CPU)
+    assert "Philox" in K.kernel_unsupported(cfg.replace(k=256))
     assert K.kernel_unsupported(cfg.replace(persistent=True, k=2, momentum=0.5, l2=1e-4,
                                             visible="gaussian")) is None
 

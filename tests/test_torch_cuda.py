@@ -9,6 +9,8 @@ Inject mode, hardened uniforms: both sides see the same draws, so the
 trajectories agree to fp32 summation-order noise. Tolerance rtol=atol=1e-4
 over 2 epochs of a small problem (the two differ only in the order of fp32
 sums; a single flipped sample would show as an O(lr/B) = 1e-2 jump).
+The estimator modes (tempering, enhanced gradient, learned variance, the
+pseudo-likelihood monitor) are held the same way.
 """
 
 import numpy as np
@@ -21,18 +23,37 @@ from mdbn_tpu_torch.ops import cd_epoch_cuda as K
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
+SMALL = dict(n_visible=40, n_hidden=24, batch_size=8)
 CASES = [
-    RBMConfig(n_visible=40, n_hidden=24, batch_size=8, lr=0.1),
-    RBMConfig(n_visible=40, n_hidden=24, batch_size=8, k=2, persistent=True,
-              momentum=0.5, l2=1e-3, lr=0.1),
-    RBMConfig(n_visible=40, n_hidden=24, batch_size=8, visible="gaussian", lr=0.01),
-    RBMConfig(n_visible=40, n_hidden=24, batch_size=8, visible="gaussian", lr=0.01,
-              sample_visible=True, k=2),
-    RBMConfig(n_visible=40, n_hidden=24, batch_size=8, momentum=0.9, initial_momentum=0.5,
-              momentum_switch_epoch=1, sparsity_target=0.1, sparsity_cost=0.5,
-              grad_clip=0.05, error_metric="xent"),
-    RBMConfig(n_visible=40, n_hidden=24, batch_size=8, compute_dtype="bfloat16"),
+    RBMConfig(**SMALL, lr=0.1),
+    RBMConfig(**SMALL, k=2, persistent=True, momentum=0.5, l2=1e-3, lr=0.1),
+    RBMConfig(**SMALL, visible="gaussian", lr=0.01),
+    RBMConfig(**SMALL, visible="gaussian", lr=0.01, sample_visible=True, k=2),
+    RBMConfig(**SMALL, momentum=0.9, initial_momentum=0.5, momentum_switch_epoch=1,
+              sparsity_target=0.1, sparsity_cost=0.5, grad_clip=0.05, error_metric="xent"),
+    RBMConfig(**SMALL, compute_dtype="bfloat16"),
 ]
+# the estimator modes; PT ladders warm enough that swaps are accepted and rejected
+MODES = {
+    "pt-bernoulli": RBMConfig(**SMALL, lr=0.1, k=2, momentum=0.5, persistent=True,
+                              pt_temps=4, pt_beta_min=0.2),
+    "pt-gaussian-sampled": RBMConfig(**SMALL, visible="gaussian", lr=0.005, persistent=True,
+                                     pt_temps=3, pt_beta_min=0.3, sample_visible=True,
+                                     grad_clip=1.0),
+    "pt-learn-variance": RBMConfig(**SMALL, visible="gaussian", lr=0.005, persistent=True,
+                                   pt_temps=3, pt_beta_min=0.3, learn_variance=True,
+                                   momentum=0.5),
+    "enhanced-sparsity": RBMConfig(**SMALL, lr=0.1, gradient="enhanced", momentum=0.5,
+                                   sparsity_target=0.1, sparsity_cost=0.5),
+    "learn-variance": RBMConfig(**SMALL, visible="gaussian", lr=0.005, learn_variance=True),
+    "learn-variance-meanfield-pcd": RBMConfig(**SMALL, visible="gaussian", lr=0.005,
+                                              learn_variance=True, sample_visible=False,
+                                              persistent=True, lr_variance=0.002),
+    "pseudo": RBMConfig(**SMALL, lr=0.1, error_metric="pseudo"),
+    "pseudo-pt-enhanced": RBMConfig(**SMALL, lr=0.1, error_metric="pseudo",
+                                    gradient="enhanced", persistent=True, pt_temps=3,
+                                    pt_beta_min=0.5),
+}
 
 
 @pytest.fixture
@@ -57,6 +78,15 @@ def _inputs(cfg, device, E=2, nb=6, seed=0):
     return st, data, K.batch_order(cfg, nb, E, None), u
 
 
+def _check(got, want):
+    for a, b in zip(got[:2], want[:2]):
+        for name in ("W", "b", "c", "z"):
+            if getattr(b, name) is not None:
+                torch.testing.assert_close(getattr(a, name), getattr(b, name), **TOL)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)  # chain: exact samples
+    torch.testing.assert_close(got[3], want[3], **TOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cfg", CASES, ids=range(len(CASES)))
 def test_kernel_matches_plain_inject(cuda, cfg):
@@ -66,32 +96,53 @@ def test_kernel_matches_plain_inject(cuda, cfg):
     torch.cuda.synchronize()
     assert K.cd_train_launches == before + 1
     want = K.cd_train_run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
-    for a, b in zip(got[:2], want[:2]):
-        for name in ("W", "b", "c"):
-            torch.testing.assert_close(getattr(a, name), getattr(b, name), **TOL)
-    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)  # chain: exact samples
-    torch.testing.assert_close(got[3], want[3], **TOL)
+    _check(got, want)
 
 
 @pytest.mark.cuda
-def test_kernel_sampling_is_grid_independent_and_trains(cuda):
-    cfg = RBMConfig(n_visible=40, n_hidden=24, batch_size=8, lr=0.1)
+@pytest.mark.parametrize("name", list(MODES))
+def test_kernel_modes_match_plain_inject(cuda, name):
+    cfg = MODES[name]
+    st, data, order, u = _inputs(cfg, cuda)
+    before = K.cd_train_launches
+    got = K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
+    torch.cuda.synchronize()
+    assert K.cd_train_launches == before + 1
+    _check(got, K.cd_train_run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
+                                     u))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["plain-cd1", "pt-bernoulli", "pt-learn-variance",
+                                  "enhanced-sparsity", "pseudo-pt-enhanced"])
+def test_kernel_sampling_is_grid_independent_and_trains(cuda, name):
+    cfg = MODES.get(name, RBMConfig(**SMALL, lr=0.1))
     st, data, order, _ = _inputs(cfg, cuda, E=4)
+    trace = [torch.zeros((4, 6, K.trace_len(cfg)), dtype=torch.int64, device=cuda)
+             for _ in range(3)]
     runs = [K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
-                           torch.Generator().manual_seed(3), grid=g) for g in (1, 7, 0)]
+                           torch.Generator().manual_seed(3), grid=g, trace=tr)
+            for g, tr in zip((1, 7, 0), trace)]
     for r in runs[1:]:
-        torch.testing.assert_close(r[0].W, runs[0][0].W, rtol=0, atol=0)
+        for name in ("W", "b", "c", "z"):
+            if getattr(r[0], name) is not None:
+                torch.testing.assert_close(getattr(r[0], name), getattr(runs[0][0], name),
+                                           rtol=0, atol=0)
+        torch.testing.assert_close(r[2], runs[0][2], rtol=0, atol=0)
         torch.testing.assert_close(r[3], runs[0][3], rtol=0, atol=0)
+    assert bool((trace[2].diff(dim=2) >= 0).all()) and bool((trace[2] > 0).all())
     errs = runs[0][3].tolist()
-    assert all(np.isfinite(errs)) and errs[-1] < errs[0]
+    assert all(np.isfinite(errs))
+    if name == "plain-cd1":
+        assert errs[-1] < errs[0]
 
 
 @pytest.mark.cuda
 def test_kernel_rejects_bad_inputs(cuda):
     cfg = RBMConfig(n_visible=40, n_hidden=24, batch_size=8)
     st, data, order, _ = _inputs(cfg, cuda)
-    with pytest.raises(ValueError, match="enhanced"):
-        K.cd_train_run(cfg.replace(gradient="enhanced"), st.params, st.velocity,
+    with pytest.raises(ValueError, match="bf16|bfloat16"):
+        K.cd_train_run(cfg.replace(param_dtype="bfloat16"), st.params, st.velocity,
                        st.chain_h, data, order, 0, None, torch.Generator())
     with pytest.raises(ValueError, match="float32"):
         K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data.double(), order, 0,
