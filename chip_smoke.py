@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernel from mdbn_tpu_torch/csrc (nvcc, sm_90a) and runs eight
-phases, one line each:
+Builds the CUDA kernels from mdbn_tpu_torch/csrc (nvcc, sm_90a: cd_train.cu and
+cd_train_wide.cu, each at float32 and bfloat16 storage, in parallel) and runs
+eleven phases, one line each:
 
 1. device: torch and CUDA versions, the card's name and power limit, build time;
 2. the kernel against its plain PyTorch version on the card, inject mode with
@@ -26,9 +27,22 @@ phases, one line each:
    (c1) as whole runs;
 7. each mode trained for 10 epochs through RBM.train on the kernel (engine
    "pallas"): final errors inside PARITY.md's bands, the pseudo monitor falls;
-8. kernel and plain time per epoch of each mode, and the kernel's phases.
+8. kernel and plain time per epoch of each mode, and the kernel's phases;
+9. the wide slice (scripts/bench_wide.py's shapes, Gaussian, batch 20:
+   20000x400 plain, x512, learned variance, momentum, momentum at bf16
+   storage, enhanced, 3-rung tempering at bf16; 28000x400 and 40000x1000 bf16
+   on the W-blocked kernel, which 20000x400 at batch 64 takes when asked):
+   each kernel against its plain version at full width for 2 epochs, whole
+   runs at float32, one update at a time for PCD, tempering, momentum and
+   bf16 storage (one bf16 ulp); which kernel launched, by the two counters;
+   identical bits on grids of 1, 7 and 132 blocks;
+10. 20000x400, 20000x400 with momentum at bf16, 28000x400 and 40000x1000 bf16
+    for 10 epochs through RBM.train (engine "pallas"): the kernel the
+    admission rule picks launched, parameters finite, the monitor falls;
+11. kernel and plain time per epoch of each wide row, the kernel's phases,
+    and the bound (the weights beyond the L2 move once per update).
 
-Then a JSON line describing the kernel and its modes, and last
+Then a JSON line describing the kernels, and last
 {"ok": true, "device": ...}. Exits non-zero, printing no result, when there
 is no CUDA device, when the package is missing, or when any phase fails.
 Imports no JAX.
@@ -61,8 +75,34 @@ MODE_BANDS = {"pt5": (0.0741, 0.001), "enhanced": (0.0746, 0.001),
               "lv": (0.9553, 0.005), "pseudo": None}
 MODE_REPLACES = {"pt5": 995, "enhanced": 1568, "lv": 980, "pseudo": 654}
 REPLAYED_MODES = ("pt5", "lv")  # PCD-like dynamics: compared one update at a time
-# NVIDIA H100 SXM peaks (NVIDIA's data sheet): f32 on CUDA cores, HBM
-PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# NVIDIA H100 SXM peaks (NVIDIA's data sheet): f32 on CUDA cores, bf16 on the
+# tensor cores (dense), HBM
+PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
+# The wide slice (scripts/bench_wide.py's shapes): name -> (config fields on
+# top of WIDE_BASE, data rows, the kernel the run takes, compared one update
+# at a time). The W-blocked kernel takes w20k_b64 only because the caller
+# asks for it.
+WIDE_BASE = dict(visible="gaussian", lr=0.001, batch_size=20, k=1, seed=0)
+BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+WIDE_ROWS = {
+    "w20k": (dict(n_visible=20000, n_hidden=400), 400, "cd_train", False),
+    "w20k_h512": (dict(n_visible=20000, n_hidden=512), 400, "cd_train", False),
+    "w20k_lv": (dict(n_visible=20000, n_hidden=400, learn_variance=True), 400, "cd_train",
+                False),
+    "w20k_mom": (dict(n_visible=20000, n_hidden=400, momentum=0.5), 400, "cd_train", True),
+    "w20k_mom_bf16": (dict(n_visible=20000, n_hidden=400, momentum=0.5, **BF16), 400,
+                      "cd_train", True),
+    "w20k_enh": (dict(n_visible=20000, n_hidden=400, gradient="enhanced"), 400, "cd_train",
+                 False),
+    "w20k_pt3_bf16": (dict(n_visible=20000, n_hidden=400, persistent=True, pt_temps=3,
+                           pt_beta_min=0.3, **BF16), 400, "cd_train", True),
+    "w28k": (dict(n_visible=28000, n_hidden=400), 400, "cd_train_wide", False),
+    "w40k_bf16": (dict(n_visible=40000, n_hidden=1000, **BF16), 200, "cd_train_wide", True),
+    "w20k_b64": (dict(n_visible=20000, n_hidden=400, batch_size=64), 640, "cd_train_wide",
+                 False),
+}
+WIDE_TRAINED = ("w20k", "w20k_mom_bf16", "w28k", "w40k_bf16")  # through RBM.train
+GRID_ROWS = ("w20k", "w20k_pt3_bf16", "w28k", "w40k_bf16")  # run on grids 1, 7, 132 too
 
 
 def phase(name: str, **fields) -> None:
@@ -97,20 +137,28 @@ def update_flops(cfg) -> float:
     return 2.0 * rows * V * H
 
 
-def bound(cfg, nb: int):
+def bound(cfg, nb: int, l2_bytes: int):
     """(ms, what bounds it): the least time the card needs for one epoch of
-    nb updates, the larger of its operations at the f32 peak and of its bytes
-    (the data read once; W, b, c, their velocities, z, vz and the chain read
-    and written once) at the memory rate."""
+    nb updates, the larger of its operations at the peak rate of the compute
+    dtype and of its bytes at the memory rate. Bytes, at the storage width:
+    the data read once; W, b, c, their velocities, z, vz and the chain read
+    and written once. Where W and its velocity together exceed the L2, the
+    part beyond it cannot stay on the chip between updates and is read and
+    written once per update instead."""
     B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
-    state = 2 * (V * H + V + H) + (2 * V if cfg.learn_variance else 0)
-    state += B * max(cfg.pt_temps, 1) * H
-    ops_s = update_flops(cfg) * nb / PEAK_F32_FLOPS
-    bytes_s = 4.0 * (nb * B * V + 2 * state + 1) / PEAK_BYTES_PER_S
+    width = 2 if cfg.param_dtype == "bfloat16" else 4
+    weights = 2 * V * H * width
+    rest = (2 * (V + H) + (2 * V if cfg.learn_variance else 0)
+            + B * max(cfg.pt_temps, 1) * H) * width
+    beyond = max(0, weights - l2_bytes)
+    moved = nb * B * V * width + 2 * (weights - beyond + rest) + 2 * beyond * nb
+    peak = PEAK_BF16_FLOPS if cfg.compute_dtype == "bfloat16" else PEAK_F32_FLOPS
+    ops_s = update_flops(cfg) * nb / peak
+    bytes_s = moved / PEAK_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
-def _inputs(cfg, data, n_epochs, device, seed, harden=True):
+def _inputs(cfg, data, n_epochs, device, seed, harden=True, wide=False):
     from mdbn_tpu_torch.core.state import init_train_state
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
 
@@ -122,48 +170,87 @@ def _inputs(cfg, data, n_epochs, device, seed, harden=True):
                               n_epochs, nb)
     if harden:
         u = K.harden_uniform_blocks(cfg, st.params, st.velocity, st.chain_h, data, u,
-                                    n_epochs)
+                                    n_epochs, wide=wide)
     return st, u, nb
 
 
-def _max_diff(got, want, rtol, atol) -> float:
-    """Assert kernel output ``got`` matches ``want``; return the largest |diff|."""
+def _max_diff(got, want, rtol, atol, off=None) -> float:
+    """Assert kernel output ``got`` matches ``want``; return the largest |diff|.
+    float32 state: rtol and atol. bf16 state: both sides round float32
+    results into bf16, so they agree except where the two results straddle a
+    rounding boundary. A velocity is rounded once: it may differ by one bf16
+    ulp (at most 2^-7 of its value). A parameter is old + rounded velocity,
+    rounded once more: it may differ by the velocity's ulp and one of its
+    own. atol covers values near zero, where the float32 results themselves
+    differ by more than a bf16 ulp. ``off`` counts the bf16 elements that
+    differ."""
     import torch
 
-    pairs = [(getattr(got[i], n), getattr(want[i], n)) for i in (0, 1)
-             for n in ("W", "b", "c", "z") if getattr(want[i], n) is not None]
-    pairs.append((got[3], want[3]))
+    names = [(i, n) for i in (1, 0) for n in ("W", "b", "c", "z")
+             if getattr(want[i], n) is not None]
     err = 0.0
-    for a, b in pairs:
+    for i, n in names:
+        a, b = getattr(got[i], n), getattr(want[i], n)
         if not bool(torch.isfinite(a).all()):
             raise AssertionError("kernel output is not finite")
-        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+        if b.dtype == torch.bfloat16:
+            a, b = a.float(), b.float()
+            big = torch.maximum(a.abs(), b.abs())
+            if i == 0:  # a parameter: its velocity's ulp carries into it
+                big = big + torch.maximum(getattr(got[1], n).float().abs(),
+                                          getattr(want[1], n).float().abs())
+            d = (a - b).abs()
+            over = d > big * 2.0 ** -7 + atol
+            if bool(over.any()):
+                at = int((d - big * 2.0 ** -7).argmax())
+                raise AssertionError(
+                    f"{'v' * i}{n}: {int(over.sum())} bf16 values differ by over one ulp; the "
+                    f"worst: kernel {float(a.flatten()[at])}, plain {float(b.flatten()[at])}")
+            if off is not None:
+                off[0] += int((d > 0).sum())
+                off[1] += d.numel()
+        else:
+            torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
         err = max(err, float((a - b).abs().max()))
+    torch.testing.assert_close(got[3], want[3], rtol=rtol, atol=atol)
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)  # chain: identical samples
-    return err
+    return max(err, float((got[3] - want[3]).abs().max()))
 
 
-def compare_run(cfg, data, n_epochs, device, seed) -> float:
+def _runners(wide):
+    """(kernel, plain) of a comparison: the W-blocked pair when ``wide``."""
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
+
+    def kernel(*args):
+        return K.cd_train_run(*args, wide=wide)
+
+    return kernel, KW.cd_train_wide_run_plain if wide else K.cd_train_run_plain
+
+
+def compare_run(cfg, data, n_epochs, device, seed, wide=False) -> float:
     """The whole n_epochs run on the kernel and on the plain version, from the
     same state with the same hardened draws."""
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
 
     import torch
 
-    st, u, nb = _inputs(cfg, data, n_epochs, device, seed)
+    st, u, nb = _inputs(cfg, data, n_epochs, device, seed, wide=wide)
     order = K.batch_order(cfg, nb, n_epochs, None)
-    got = K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
-    want = K.cd_train_run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
+    kernel, plain = _runners(wide)
+    got = kernel(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
+    want = plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
     torch.cuda.synchronize()
     return _max_diff(got, want, RTOL, ATOL)
 
 
-def compare_replay(cfg, data, n_epochs, device, seed) -> float:
+def compare_replay(cfg, data, n_epochs, device, seed, wide=False, off=None) -> float:
     """Every update of the kernel's own n_epochs trajectory, replayed by the
     plain version from the same state. PCD with momentum amplifies fp32
     rounding differences from update to update (the plain version on the CPU
-    and on the GPU drift apart the same way), so the run is compared one
-    update at a time; the per-epoch errors are the means of the updates'.
+    and on the GPU drift apart the same way), and a bf16 state that differs
+    by one ulp stays apart, so the run is compared one update at a time; the
+    per-epoch errors are the means of the updates'.
     Each update's draws are hardened against the state that update starts
     from, so no draw sits on a knife edge however far the run has gone."""
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
@@ -174,16 +261,17 @@ def compare_replay(cfg, data, n_epochs, device, seed) -> float:
     B = cfg.batch_size
     one = torch.zeros((1, 1), dtype=torch.int32)
     p, v, chain = st.params, st.velocity, st.chain_h
+    kernel, plain = _runners(wide)
     err, errs_k, errs_p = 0.0, [], []
     for e in range(n_epochs):
         for i in range(nb):
             d = data[i * B:(i + 1) * B]
             ui = K.harden_uniform_blocks(
                 cfg, p, v, chain, d, {k: x[e:e + 1, i:i + 1] for k, x in u.items()}, 1,
-                start_epoch=e)
-            got = K.cd_train_run(cfg, p, v, chain, d, one, e, ui)
-            want = K.cd_train_run_plain(cfg, p, v, chain, d, one, e, ui)
-            err = max(err, _max_diff(got, want, REPLAY_RTOL, REPLAY_ATOL))
+                start_epoch=e, wide=wide)
+            got = kernel(cfg, p, v, chain, d, one, e, ui)
+            want = plain(cfg, p, v, chain, d, one, e, ui)
+            err = max(err, _max_diff(got, want, REPLAY_RTOL, REPLAY_ATOL, off=off))
             errs_k.append(got[3])
             errs_p.append(want[3])
             p, v, chain = got[:3]
@@ -217,6 +305,7 @@ def run_modes(dev, smi, c1, c1_data, ge) -> list:
     from mdbn_tpu_torch.core.state import init_train_state
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
 
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     # scripts/parity_harness.py:176-179: GE with a planted per-gene scale
     sig = np.exp(np.random.default_rng(0).uniform(-1.0, 1.0, ge.shape[1])).astype(np.float32)
     modes = mode_configs(c1, c1_data, ge * torch.as_tensor(sig, device=dev))
@@ -273,7 +362,7 @@ def run_modes(dev, smi, c1, c1_data, ge) -> list:
         kernel(trace=trace)
         torch.cuda.synchronize()
         spans = (trace[0, :, 1:] - trace[0, :, :-1]).double().median(0).values / 1e3
-        bound_ms, bound_by = bound(cfg, nb)
+        bound_ms, bound_by = bound(cfg, nb, l2)
         timing[name] = {"updates_per_run": nb, "kernel_ms": t_kernel * 1e3,
                         "plain_ms": t_plain * 1e3, "kernel_ms_calls": [t_kernel1 * 1e3,
                                                                       t_kernel2 * 1e3],
@@ -291,6 +380,177 @@ def run_modes(dev, smi, c1, c1_data, ge) -> list:
     return entries
 
 
+def wide_rows(dev):
+    """name -> (config, data, kernel, replayed) of the wide slice: standard
+    normal data [n, V] from a seeded generator, at the storage dtype."""
+    import torch
+
+    from mdbn_tpu_torch.config import RBMConfig
+    from mdbn_tpu_torch.core.rbm_math import torch_dtype
+
+    rows = {}
+    for name, (fields, n, kernel, replayed) in WIDE_ROWS.items():
+        cfg = RBMConfig(**{**WIDE_BASE, **fields})
+        gen = torch.Generator(device=dev).manual_seed(0)
+        data = torch.randn((n, cfg.n_visible), generator=gen, device=dev)
+        rows[name] = (cfg, data.to(torch_dtype(cfg.param_dtype)), kernel, replayed)
+    return rows
+
+
+def run_wide(dev, smi) -> list:
+    """The wide slice's phases; returns its entries of the kernel line."""
+    import numpy as np
+    import torch
+
+    from mdbn_tpu_torch import RBM
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
+
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    rows = wide_rows(dev)
+
+    def counts():
+        return {"cd_train": K.cd_train_launches, "cd_train_wide": KW.cd_train_wide_launches}
+
+    def launched(kernel, before):
+        """Assert that only ``kernel`` was launched since ``before``; how often."""
+        now = counts()
+        other = "cd_train" if kernel == "cd_train_wide" else "cd_train_wide"
+        if now[other] != before[other] or now[kernel] <= before[kernel]:
+            raise AssertionError(f"expected launches of {kernel} alone: {before} -> {now}")
+        return now[kernel] - before[kernel]
+
+    # kernel against plain at full width, 2 epochs, hardened draws. The
+    # W-blocked kernel is asked for (w20k_b64 lies below the admission rule);
+    # the other rows follow the rule.
+    errs, off = {}, {}
+    for name, (cfg, data, kernel, replayed) in rows.items():
+        wide = kernel == "cd_train_wide"
+        if K.select_kernel(cfg, dev) != kernel and name != "w20k_b64":
+            raise AssertionError(f"{name}: the admission rule picks "
+                                 f"{K.select_kernel(cfg, dev)}, expected {kernel}")
+        before = counts()
+        if replayed:
+            n_off = [0, 0]
+            errs[name] = compare_replay(cfg, data, 2, dev, seed=3, wide=wide, off=n_off)
+            if n_off[1]:
+                off[name] = {"differ": n_off[0], "of": n_off[1]}
+        else:
+            errs[name] = compare_run(cfg, data, 2, dev, seed=3, wide=wide)
+        launched(kernel, before)
+    # identical bits whatever the grid: 1, 7 and 132 blocks against the default,
+    # two updates with the kernel's own draws
+    for name in GRID_ROWS:
+        cfg, data, kernel, _ = rows[name]
+        st = init_train_state(cfg, device=dev)
+        order = K.batch_order(cfg, 2, 1, None)
+        runs = [K.cd_train_run(cfg, st.params, st.velocity, st.chain_h,
+                               data[: 2 * cfg.batch_size], order, 0, None,
+                               torch.Generator().manual_seed(7), grid=g,
+                               wide=kernel == "cd_train_wide") for g in (0, 1, 7, 132)]
+        for r in runs[1:]:
+            same = all(torch.equal(x, y) for i in (0, 1) for x, y in
+                       zip(r[i].as_dict().values(), runs[0][i].as_dict().values()))
+            if not (same and torch.equal(r[2], runs[0][2]) and torch.equal(r[3], runs[0][3])):
+                raise AssertionError(f"{name}: the result depends on the grid")
+    # asking for the W-blocked kernel outside its scope raises
+    cfg_lv, data_lv = rows["w20k_lv"][:2]
+    st = init_train_state(cfg_lv, device=dev)
+    try:
+        K.cd_train_run(cfg_lv, st.params, st.velocity, st.chain_h, data_lv,
+                       K.batch_order(cfg_lv, data_lv.shape[0] // cfg_lv.batch_size, 1, None),
+                       0, None, torch.Generator().manual_seed(0), wide=True)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("the W-blocked kernel took a learned-variance config")
+    phase("kernel_vs_plain_wide", max_abs_err=errs, bf16_elements_one_ulp_apart=off,
+          replayed=[n for n, r in rows.items() if r[3]], run_rtol=RTOL, run_atol=ATOL,
+          replay_rtol=REPLAY_RTOL, replay_atol=REPLAY_ATOL,
+          bf16_tolerance="a velocity one bf16 ulp (2^-7 of its value), a parameter its "
+                         "velocity's ulp and one of its own, + replay_atol",
+          identical_bits_on_grids={"grids": [1, 7, 132, "default"], "rows": list(GRID_ROWS)},
+          outside_scope_raises=refusal)
+
+    # wide_train: through RBM.train on the kernel the admission rule picks
+    trained, launches = {}, {}
+    for name in WIDE_TRAINED:
+        cfg, data, kernel, _ = rows[name]
+        before = counts()
+        t0 = time.perf_counter()
+        rbm = RBM(cfg.replace(epochs=10, engine="pallas"), device=dev).train(data)
+        seconds = time.perf_counter() - t0
+        launches[name] = launched(kernel, before)
+        hist = rbm.history
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in rbm.params.as_dict().values())
+        if rbm.metrics.engine != "cuda" or not finite:
+            raise AssertionError(f"{name}: engine {rbm.metrics.engine}, finite {finite}")
+        if len(hist) != 10 or not all(np.isfinite(hist)) or not hist[-1] < hist[0]:
+            raise AssertionError(f"{name}: the monitor did not fall: {hist}")
+        trained[name] = {"kernel": kernel, "launches": launches[name], "first_err": hist[0],
+                         "final_err": hist[-1], "seconds": round(seconds, 3)}
+    phase("wide_train", runs=trained)
+
+    # timing_wide: one epoch per call, plain, kernel, kernel, plain
+    timing = {}
+    for name, (cfg, data, kernel, _) in rows.items():
+        wide = kernel == "cd_train_wide"
+        st = init_train_state(cfg, device=dev)
+        nb = data.shape[0] // cfg.batch_size
+        order = K.batch_order(cfg, nb, 1, None)
+        gen = torch.Generator().manual_seed(0)
+        run_plain = _runners(wide)[1]
+
+        def kernel_fn(trace=None):
+            K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None, gen,
+                           trace=trace, wide=wide)
+
+        def plain_fn():
+            run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None, gen)
+
+        t_plain1 = time_runs(plain_fn, 2)
+        t_kernel1 = time_runs(kernel_fn, 5)
+        t_kernel2 = time_runs(kernel_fn, 5)
+        t_plain2 = time_runs(plain_fn, 2)
+        t_kernel, t_plain = min(t_kernel1, t_kernel2), min(t_plain1, t_plain2)
+        phases = KW.wide_trace_phases(cfg) if wide else K.trace_phases(cfg)
+        trace = torch.zeros((1, nb, len(phases) + 1), dtype=torch.int64, device=dev)
+        kernel_fn(trace=trace)
+        torch.cuda.synchronize()
+        spans = (trace[0, :, 1:] - trace[0, :, :-1]).double().median(0).values / 1e3
+        bound_ms, bound_by = bound(cfg, nb, l2)
+        timing[name] = {"kernel": kernel, "updates_per_run": nb, "kernel_ms": t_kernel * 1e3,
+                        "plain_ms": t_plain * 1e3,
+                        "kernel_ms_calls": [t_kernel1 * 1e3, t_kernel2 * 1e3],
+                        "plain_ms_calls": [t_plain1 * 1e3, t_plain2 * 1e3],
+                        "kernel_us_per_update": t_kernel * 1e6 / nb,
+                        "plain_us_per_update": t_plain * 1e6 / nb,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "flops_per_update": update_flops(cfg),
+                        "kernel_phase_us_median": dict(zip(phases, spans.tolist()))}
+    phase("timing_wide", order="plain, kernel, kernel, plain", nvidia_smi=smi, l2_bytes=l2,
+          rows=timing)
+
+    def entry(name, row, source, line, what):
+        t = timing[row]
+        return {"name": name, "route": "cuda", "source": f"mdbn_tpu_torch/csrc/{source}",
+                "replaces": f"mdbn_tpu/ops/cd_epoch_pallas.py:{line}",
+                "launches": launches[row], "max_abs_err": errs[row], "ms": t["kernel_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None,
+                "ms_per": f"one epoch of {row} ({t['updates_per_run']} updates): {what}"}
+
+    return [entry("cd_train[w20k]", "w20k", "cd_train.cu", 755,
+                  "the wide-state modes' shapes, float32"),
+            entry("cd_train_bf16", "w20k_mom_bf16", "cd_train.cu", 970, "bf16 storage"),
+            entry("cd_train_wide", "w28k", "cd_train_wide.cu", 1981,
+                  "the W-blocked kernel, float32"),
+            entry("cd_train_wide[w40k_bf16]", "w40k_bf16", "cd_train_wide.cu", 1981,
+                  "the W-blocked kernel, bf16 storage and compute")]
+
+
 def run() -> int:
     import torch
 
@@ -303,7 +563,7 @@ def run() -> int:
         return 2
     sys.path.insert(0, HERE)
     from mdbn_tpu_torch import MDBN, RBM
-    from mdbn_tpu_torch._build import load_library
+    from mdbn_tpu_torch._build import build_all
     from mdbn_tpu_torch.config import load_config
     from mdbn_tpu_torch.data.synthetic import mnist_like, tcga_like
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
@@ -318,12 +578,13 @@ def run() -> int:
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    lib = load_library()
+    libs = build_all()  # one nvcc per kernel and storage dtype, all at once
     phase("device", torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi,
           kind=torch.cuda.get_device_name(0), build_s=round(time.perf_counter() - t0, 3),
-          nvcc_s=round(lib.seconds, 3),
-          ptxas=[ln.split(":", 1)[-1].strip() for ln in lib.log.splitlines()
-                 if "registers" in ln or "spill" in ln])
+          nvcc_s={f"{k}_{dt}": round(lib.seconds, 3) for (k, dt), lib in libs.items()},
+          ptxas={f"{k}_{dt}": [ln.split(":", 1)[-1].strip() for ln in lib.log.splitlines()
+                               if "registers" in ln or "spill" in ln]
+                 for (k, dt), lib in libs.items()})
 
     # 2. kernel against its plain version
     c1 = load_config(C1)["model"]
@@ -412,7 +673,7 @@ def run() -> int:
           kernel_phase_us_median=dict(zip(["hidden_from_data", "visible", "hidden",
                                            "update_and_monitor"], spans.tolist())))
 
-    bound_ms, bound_by = bound(c1, nb)
+    bound_ms, bound_by = bound(c1, nb, torch.cuda.get_device_properties(dev).L2_cache_size)
     entries = [{
         "name": "cd_train", "route": "cuda", "source": "mdbn_tpu_torch/csrc/cd_train.cu",
         "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:692", "launches": launches,
@@ -420,6 +681,7 @@ def run() -> int:
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "ms_per": f"one epoch at c1's shape ({nb} updates)"}]
     entries += run_modes(dev, smi, c1, c1_data, ge)
+    entries += run_wide(dev, smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

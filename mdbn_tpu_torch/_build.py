@@ -1,11 +1,14 @@
 """Build and load the package's CUDA kernels.
 
-``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build happens
-at first use (never at import, so the package imports on machines without
-a GPU or ``nvcc``) into ``mdbn_tpu_torch/_build/<key>/``, where the key
-hashes the sources and the flags; a later call with the same sources loads
-the cached library.
+Each ``csrc/<kernel>.cu`` is compiled with ``nvcc`` for ``sm_90a`` once per
+storage type (``-DMDBN_STORE_BF16=0|1``: float32 or bfloat16 parameters, see
+``csrc/cd_common.cuh``) into a shared library of its own with a plain C
+interface, loaded with ``ctypes``. The build happens at first use (never at
+import, so the package imports on machines without a GPU or ``nvcc``) into
+``mdbn_tpu_torch/_build/<key>/``, where the key hashes the sources and the
+flags; the first use of any kernel builds every library that is missing, one
+``nvcc`` process each, all started together; a later call with the same
+sources loads the cached libraries.
 """
 
 from __future__ import annotations
@@ -17,22 +20,25 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List
+from typing import Dict, List, Tuple
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+KERNELS = ("cd_train", "cd_train_wide")
+STORAGE = ("float32", "bfloat16")
 
 
 @dataclass
 class Library:
     lib: ctypes.CDLL
     path: Path
-    seconds: float  # wall time of the build (0.0 when loaded from the cache)
+    seconds: float  # wall time of this library's nvcc (0.0 when loaded from the cache)
     log: str  # the compiler's output (ptxas register/spill report)
 
 
@@ -60,44 +66,92 @@ def _key() -> str:
     return h.hexdigest()[:16]
 
 
+def _so(out_dir: Path, kernel: str, storage: str) -> Path:
+    return out_dir / f"lib{kernel}_{storage}.so"
+
+
+def _compile(nvcc: str, out_dir: Path, kernel: str, storage: str) -> Tuple[float, str]:
+    so = _so(out_dir, kernel, storage)
+    tmp = out_dir / f"{so.stem}.{os.getpid()}.tmp.so"
+    cmd = [nvcc, *NVCC_FLAGS, f"-DMDBN_STORE_BF16={int(storage == 'bfloat16')}",
+           "-o", str(tmp), str(CSRC / f"{kernel}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    so.with_suffix(".log").write_text(log)
+    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    return seconds, log
+
+
 @functools.lru_cache(maxsize=None)
-def load_library() -> Library:
-    """Compile (if not cached) and load the kernels' shared library. Raises
-    with the compiler's output when nvcc is missing or the build fails."""
+def build_all() -> Dict[Tuple[str, str], Library]:
+    """Compile (where not cached) and load every kernel library:
+    {(kernel, storage): Library}. Raises with the compiler's output when nvcc
+    is missing or a build fails."""
     out_dir = BUILD_DIR / _key()
-    so = out_dir / "libmdbn_kernels.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
+    units = [(k, s) for k in KERNELS for s in STORAGE]
+    missing = [u for u in units if not _so(out_dir, *u).exists()]
+    built: Dict[Tuple[str, str], Tuple[float, str]] = {}
+    if missing:
         nvcc = find_nvcc()
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libmdbn_kernels.{os.getpid()}.tmp.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-        (out_dir / "build.log").write_text(log)
-    elif (out_dir / "build.log").exists():
-        log = (out_dir / "build.log").read_text()
-    lib = ctypes.CDLL(str(so))
-    _declare(lib)
-    return Library(lib=lib, path=so, seconds=seconds, log=log)
+        with ThreadPoolExecutor(len(missing)) as pool:
+            jobs = {u: pool.submit(_compile, nvcc, out_dir, *u) for u in missing}
+            built = {u: job.result() for u, job in jobs.items()}
+    libs = {}
+    for u in units:
+        so = _so(out_dir, *u)
+        seconds, log = built.get(u, (0.0, ""))
+        if u not in built and so.with_suffix(".log").exists():
+            log = so.with_suffix(".log").read_text()
+        lib = ctypes.CDLL(str(so))
+        _DECLARE[u[0]](lib)
+        libs[u] = Library(lib=lib, path=so, seconds=seconds, log=log)
+    return libs
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+def load_library(kernel: str = "cd_train", storage: str = "float32") -> Library:
+    """The library of ``kernel`` ("cd_train", "cd_train_wide") at ``storage``
+    ("float32", "bfloat16"), built at first use."""
+    return build_all()[(kernel, storage)]
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_TAIL = [ctypes.c_uint64, _I, _I, _P]  # seed, device, grid, stream
+
+
+def _declare_error_string(lib: ctypes.CDLL, name: str) -> None:
+    fn = getattr(lib, name)
+    fn.argtypes = [_I]
+    fn.restype = ctypes.c_char_p
+
+
+def _declare_cd_train(lib: ctypes.CDLL) -> None:
     lib.cd_train_run.argtypes = (
-        [p] * 19  # data, order, u_h0, u_h, u_v, u_swap, betas, W, b, c, vW, vb, vc, z, vz,
-                  # chain, errs, scratch, trace
-        + [i] * 10  # V, H, B, M, nb, E, k, start_epoch, switch_epoch, flags
-        + [f] * 8  # lr, lr_z, momentum, initial_momentum, l2, grad_clip, sparsity_target/cost
-        + [ctypes.c_uint64, i, i, p])  # seed, device, grid, stream
-    lib.cd_train_run.restype = i
-    lib.cd_train_scratch_floats.argtypes = [i, i, i, i, i]  # V, H, B, M, flags
+        [_P] * 19  # data, order, u_h0, u_h, u_v, u_swap, betas, W, b, c, vW, vb, vc, z, vz,
+                   # chain, errs, scratch, trace
+        + [_I] * 10  # V, H, B, M, nb, E, k, start_epoch, switch_epoch, flags
+        + [_F] * 8  # lr, lr_z, momentum, initial_momentum, l2, grad_clip, sparsity_target/cost
+        + _TAIL)
+    lib.cd_train_run.restype = _I
+    lib.cd_train_scratch_floats.argtypes = [_I] * 5  # V, H, B, M, flags
     lib.cd_train_scratch_floats.restype = ctypes.c_longlong
-    lib.cd_train_error_string.argtypes = [i]
-    lib.cd_train_error_string.restype = ctypes.c_char_p
+    _declare_error_string(lib, "cd_train_error_string")
+
+
+def _declare_cd_train_wide(lib: ctypes.CDLL) -> None:
+    lib.cd_train_wide_run.argtypes = (
+        [_P] * 14  # data, order, u_h0, u_h, W, b, c, vW, vb, vc, chain, errs, scratch, trace
+        + [_I] * 9  # V, H, B, nb, E, k, start_epoch, switch_epoch, flags
+        + [_F] * 7  # lr, momentum, initial_momentum, l2, grad_clip, sparsity_target/cost
+        + _TAIL)
+    lib.cd_train_wide_run.restype = _I
+    lib.cd_train_wide_scratch_floats.argtypes = [_I] * 3  # V, H, B
+    lib.cd_train_wide_scratch_floats.restype = ctypes.c_longlong
+    _declare_error_string(lib, "cd_train_wide_error_string")
+
+
+_DECLARE = {"cd_train": _declare_cd_train, "cd_train_wide": _declare_cd_train_wide}

@@ -34,11 +34,18 @@ def config_to_dict(cfg) -> dict:
     return _to_jsonable(cfg)
 
 
+def _tensor(array, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """numpy has no bfloat16: bf16 state travels as float32 arrays that hold
+    bf16 values (``np.asarray(x, np.float32)`` of a JAX bf16 array), which
+    round into torch.bfloat16 unchanged."""
+    return torch.tensor(np.asarray(array, np.float32)).to(device=device, dtype=dtype)
+
+
 def params_from_numpy(arrays: Dict[str, np.ndarray], dtype: torch.dtype = torch.float32,
                       device=None) -> RBMParams:
     device = torch.device(device) if device is not None else default_device()
-    return RBMParams(**{k: torch.tensor(np.asarray(v)).to(device=device, dtype=dtype)
-                        for k, v in arrays.items() if v is not None})
+    return RBMParams(**{k: _tensor(v, dtype, device) for k, v in arrays.items()
+                        if v is not None})
 
 
 def params_to_numpy(params: RBMParams) -> Dict[str, np.ndarray]:
@@ -53,7 +60,7 @@ def state_from_numpy(tree: dict, seed: int = 0, dtype: torch.dtype = torch.float
     return TrainState(
         params=params_from_numpy(tree["params"], dtype, device),
         velocity=params_from_numpy(tree["velocity"], dtype, device),
-        chain_h=torch.tensor(np.asarray(tree["chain_h"])).to(device=device, dtype=dtype),
+        chain_h=_tensor(tree["chain_h"], dtype, device),
         generator=torch.Generator().manual_seed(seed),
         epoch=int(np.asarray(tree["epoch"])),
     )

@@ -84,6 +84,12 @@ def inv_sigma2(params: RBMParams) -> Optional[torch.Tensor]:
     return None if params.z is None else torch.exp(-params.z.float())
 
 
+def noise_scale(params: RBMParams) -> Optional[torch.Tensor]:
+    """[V] std-dev sigma of the Gaussian visible units (None = 1), in fp32
+    whatever the storage dtype of z."""
+    return None if params.z is None else torch.exp(0.5 * params.z.float())
+
+
 def _dot(a: torch.Tensor, w: torch.Tensor, compute_dtype: str,
          matmul_precision: str = "auto") -> torch.Tensor:
     """``a @ w`` with fp32 accumulation and an fp32 result (see module doc)."""
@@ -144,6 +150,7 @@ def cd_step_stats(
     chain_h: Optional[torch.Tensor],
     uniforms: Dict[str, torch.Tensor],
     cfg: RBMConfig,
+    factor_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[RBMParams, torch.Tensor, torch.Tensor]:
     """One CD-k/PCD step's statistics. Returns (grads, new_chain_h, err).
 
@@ -152,6 +159,10 @@ def cd_step_stats(
     for PCD (None for CD). Mirrors ``mdbn_tpu.core.rbm_math.cd_step_stats``
     including the enhanced-gradient and learned-variance branches; a
     tempering ladder (``cfg.pt_temps > 1``) goes through ``pt_step_stats``.
+    ``factor_dtype``: the negative-phase visibles round through this dtype
+    before they enter the hidden units and the gradient, as in the W-blocked
+    kernel, which keeps its factors at the storage dtype; the monitor sees
+    the unrounded mean.
     """
     dtype = v0.dtype
     h0p = hidden_mean(params, v0, cfg)
@@ -171,10 +182,12 @@ def cd_step_stats(
         elif cfg.resolved_sample_visible:
             noise = uniforms["noise"][t]
             if params.z is not None:
-                noise = noise * torch.exp(0.5 * params.z)  # N(mean, sigma^2)
+                noise = noise * noise_scale(params)  # N(mean, sigma^2)
             vs = vmean + noise
         else:
             vs = vmean
+        if factor_dtype is not None:
+            vs = vs.to(factor_dtype).to(vmean.dtype)
         hmean = hidden_mean(params, vs, cfg)
         h = (uniforms["h"][t] < hmean).to(dtype)
 
@@ -314,7 +327,7 @@ def pt_visible_sample(params: RBMParams, vmean: torch.Tensor, uniforms, t: int,
     if not cfg.resolved_sample_visible:
         return vmean
     noise = uniforms["noise"][t] / torch.sqrt(bM)
-    return vmean + (noise if params.z is None else noise * torch.exp(0.5 * params.z))
+    return vmean + (noise if params.z is None else noise * noise_scale(params))
 
 
 def pt_hidden_mean(params: RBMParams, vs: torch.Tensor, bM: torch.Tensor,

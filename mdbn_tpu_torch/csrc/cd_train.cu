@@ -1,11 +1,17 @@
 // Fused multi-epoch CD-k / PCD training run of one RBM in ONE launch.
 //
 // Replaces: mdbn_tpu/ops/cd_epoch_pallas.py::_cd_train_kernel in its
-// const-block single-device mode (ndev=1, hbm_state=False), the kernel every
-// layer of the graded configs trains through on the TPU, with its estimator
-// modes: parallel tempering (:995-1113), the enhanced gradient (:1568-1586),
-// learned variance (:980-989, :1589-1596) and the pseudo-likelihood monitor
-// (_pseudo_likelihood_err :654, used at :1604-1610).
+// single-device modes (ndev=1), the kernel every layer of the graded configs
+// trains through on the TPU, with its estimator modes: parallel tempering
+// (:995-1113), the enhanced gradient (:1568-1586), learned variance (:980-989,
+// :1589-1596) and the pseudo-likelihood monitor (_pseudo_likelihood_err :654,
+// used at :1604-1610); with bf16 storage (:970-973, :1634-1711); and at the
+// widths the TPU kernel needs its wide-state modes for (hbm_state :755-812,
+// chunk_update _upd_w_chunk :1352, stream_vel, h_real :887-896). Those modes
+// compute the same function under a VMEM budget: one master copy DMA'd in and
+// out, the gradient applied in row chunks, velocity chunks staged from HBM, H
+// padded to 128 lanes. This kernel keeps all state in device memory at any
+// width and never holds gW whole, so it has no such modes.
 //
 // What it computes, for e in [0, E), i in [0, nb) (one update each):
 //   v0   = data rows [order[e,i]*B, +B)
@@ -53,7 +59,12 @@
 // Precision: with f32 compute every product is an fp32 FMA with fp32
 // accumulation, at least the precision of the TPU kernel's default
 // one-pass-MXU "auto" mode. With bf16 compute the operands are rounded with
-// __float2bfloat16 and accumulated in fp32. Storage is f32.
+// __float2bfloat16 and accumulated in fp32. Storage (W, b, c, z, their
+// velocities, the chain, the data) is f32 or bf16, chosen when the file is
+// compiled (Store, cd_common.cuh): every read widens to fp32, the update
+// arithmetic is fp32, a velocity rounds once into storage and a parameter is
+// old + rounded velocity, rounded once. Scratch (h0p, hmean, vs, pre_lp, the
+// enhanced partial sums) stays fp32.
 //
 // What bounds it on an H100: at batch 20 and 784x500 one CD-1 update is about
 // 78 MFLOP (three Gibbs products and the gradient, each 2*B*V*H = 15.7 MFLOP)
@@ -62,7 +73,11 @@
 // a chain of 2 + 2k dependent phases (plus 1 product phase for tempering or
 // learned variance, 2 swap rounds for tempering, 1 bias phase for enhanced),
 // each separated by a grid-wide barrier, so it is bound by barrier and memory
-// latency.
+// latency. At the wide shapes (20000x400, W 32 MB) the hidden phase is the
+// cost: a block walks all of V for its 32 columns x 4 rows, so there are
+// ceil(H/32) x ceil(B/4) = 65 units for 132 SMs and W is read once per row
+// tile (5 times per phase); csrc/cd_train_wide.cu splits these products over
+// V instead, and takes the runs whose W does not fit the L2.
 //
 // Design now: one persistent cooperative launch per run
 // (cudaLaunchCooperativeKernel, grid no larger than the co-resident block
@@ -89,62 +104,37 @@
 // W tiles with TMA/cp.async, and use wgmma tensor-core products once batches
 // are large enough to fill them.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
+#include "cd_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kRowTile = 4;    // batch rows per accumulator tile (any B: loop over tiles)
 constexpr int kStage = 2048;   // columns of a row tile staged in shared memory at once
 constexpr int kQPerWarp = 4;   // visible units per warp in the visible phase
 constexpr int kQStrip = 16;    // visible units per W unit of the update phase
 constexpr int kSmemFloats = kRowTile * kStage + kWarps * kRowTile * 32;
 
-enum Flags {
-  kGaussian = 1,
-  kSampleVisible = 2,
-  kPersistent = 4,
-  kBf16 = 8,
-  kXent = 16,
-  kInject = 32,
-  kClip = 64,
-  kSparsity = 128,
-  kMomentumSchedule = 256,
-  kTempering = 512,
-  kEnhanced = 1024,
-  kLearnVar = 2048,
-  kPseudo = 4096,
-};
-
-enum DrawKind { kDrawH0 = 0, kDrawH = 1, kDrawV = 2, kDrawSwap = 3 };
-
 struct Args {
-  const float* data;    // [n_rows, V]
+  const Store* data;    // [n_rows, V]
   const int* order;     // [E, nb] minibatch index of each update
   const float* u_h0;    // inject: [E, nb, B, H]
   const float* u_h;     // inject: [E, nb, k, CR, H]
   const float* u_v;     // inject: [E, nb, k, CR, V] uniforms or normals
   const float* u_swap;  // inject, tempering: [E, nb, 2, (M-1)*B]
   const float* betas;   // tempering: [M], betas[0] = 1
-  float* W;             // [V, H]
-  float* b;             // [V]
-  float* c;             // [H]
-  float* vW;
-  float* vb;
-  float* vc;
-  float* z;             // learned variance: [V] log sigma^2
-  float* vz;
-  float* chain;         // [CR, H], CR = M*B under tempering, else B
+  Store* W;             // [V, H]
+  Store* b;             // [V]
+  Store* c;             // [H]
+  Store* vW;
+  Store* vb;
+  Store* vc;
+  Store* z;             // learned variance: [V] log sigma^2
+  Store* vz;
+  Store* chain;         // [CR, H], CR = M*B under tempering, else B
   float* errs;          // [E]
   float* h0p;           // scratch [B, H]
-  float* h0s;           // scratch [B, H]
-  float* hbuf;          // scratch [B, H] CD chain sample
+  Store* h0s;           // scratch [B, H] samples of h0p
+  Store* hbuf;          // scratch [B, H] CD chain sample
   float* hmean;         // scratch [CR, H]
   float* vs;            // scratch [CR, V]
   float* v1mean;        // scratch [B, V]
@@ -166,140 +156,28 @@ struct Args {
   unsigned long long seed;
 };
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const unsigned lo0 = 0xD2511F53u * ctr.x;
-    const unsigned hi0 = __umulhi(0xD2511F53u, ctr.x);
-    const unsigned lo1 = 0xCD9E8D57u * ctr.z;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, ctr.z);
-    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
-    key.x += 0x9E3779B9u;
-    key.y += 0xBB67AE85u;
-  }
-  return ctr;
-}
-
-// U[0,1) from 23 random mantissa bits: [1,2) by bit pattern, minus 1.
-__device__ __forceinline__ float uniform_from_bits(unsigned bits) {
-  return __uint_as_float((bits & 0x007FFFFFu) | 0x3F800000u) - 1.0f;
-}
-
-__device__ __forceinline__ uint4 draw_bits(const Args& a, unsigned upd,
-                                           int kind, int t, int row, int col) {
-  const uint2 key = make_uint2(static_cast<unsigned>(a.seed),
-                               static_cast<unsigned>(a.seed >> 32));
-  const uint4 ctr = make_uint4(static_cast<unsigned>(col),
-                               static_cast<unsigned>(row),
-                               (static_cast<unsigned>(kind) << 8) |
-                                   static_cast<unsigned>(t),
-                               upd);
-  return philox4x32_10(ctr, key);
-}
-
-__device__ __forceinline__ float draw_uniform(const Args& a, unsigned upd,
-                                              int kind, int t, int row,
-                                              int col) {
-  return uniform_from_bits(draw_bits(a, upd, kind, t, row, col).x);
-}
-
-// N(0,1) by Box-Muller from two uniforms of one Philox block.
-__device__ __forceinline__ float draw_normal(const Args& a, unsigned upd,
-                                             int kind, int t, int row,
-                                             int col) {
-  const uint4 x = draw_bits(a, upd, kind, t, row, col);
-  const float u1 = uniform_from_bits(x.x);
-  const float u2 = uniform_from_bits(x.y);
-  const float r = sqrtf(-2.0f * logf(1.0f - u1 + 1e-12f));
-  return r * cosf(6.2831855f * u2);
-}
-
-__device__ __forceinline__ unsigned long long globaltimer_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
-  return t;
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// log(1 + e^x), as jax.nn.softplus computes it.
-__device__ __forceinline__ float softplusf(float x) {
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-template <bool kBf>
-__device__ __forceinline__ float op(float x) {
-  return kBf ? round_bf16(x) : x;
-}
-
 // Inverse temperature of chain row r (1 off a tempering ladder).
 template <bool kModes>
 __device__ __forceinline__ float row_beta(const Args& a, int r) {
   return (kModes && (a.flags & kTempering)) ? a.betas[r / a.B] : 1.0f;
 }
 
-// Fixed-shape butterfly: every lane ends with the same sum, in the same
-// order on every run.
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Sums each of x[0..N) over the block's threads in a fixed order (butterfly,
-// then warps in order); every thread ends with the totals. red: kWarps * N
-// floats of shared memory. All threads of the block call it.
-template <int N>
-__device__ __forceinline__ void block_sum(float (&x)[N], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int n = 0; n < N; ++n) x[n] = warp_sum(x[n]);
-  __syncthreads();  // red is no longer read
-  if (lane == 0) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) red[warp * N + n] = x[n];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    float t = 0.0f;
-    for (int w = 0; w < kWarps; ++w) t += red[w * N + n];
-    x[n] = t;
-  }
-}
-
-// Warp-per-item work split (b, c and z updates). Warps are numbered across
-// blocks first (warp w of block g is global warp w*grid + g) so that a loop
-// with few items still spreads over every SM.
-struct Split {
-  int lane, gwarp, nwarps;
-  __device__ Split() {
-    lane = threadIdx.x & 31;
-    gwarp = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
-    nwarps = kWarps * gridDim.x;
-  }
-};
-
 // Copies rows [r0, r0 + kRowTile) x columns [c0, c0 + n) of the row-major
 // [rows, ld] matrix src into tile[kRowTile][kStage] (zero past the last row),
-// times scale[column] when scale is given (e^{-scale[column]} when scale_z),
-// rounding to bf16 when kBf. All threads of the block take part.
-template <bool kBf, bool kModes>
-__device__ __forceinline__ void stage_rows(float* tile, const float* src, int rows, int ld,
+// times scale[column] when scale is given, times e^{-zscale[column]} when
+// zscale is given, rounding to bf16 when kBf. T: Store (data, samples) or
+// float (scratch). All threads of the block take part.
+template <bool kBf, bool kModes, typename T>
+__device__ __forceinline__ void stage_rows(float* tile, const T* src, int rows, int stride,
                                            int r0, int c0, int n, const float* scale,
-                                           bool scale_z) {
+                                           const Store* zscale) {
   for (int idx = threadIdx.x; idx < kRowTile * n; idx += kThreads) {
     const int rr = idx / n, cc = idx - rr * n;
     float x = 0.0f;
     if (r0 + rr < rows) {
-      x = src[static_cast<size_t>(r0 + rr) * ld + c0 + cc];
-      if (kModes && scale) x *= scale_z ? expf(-scale[c0 + cc]) : scale[c0 + cc];
+      x = ld(src + static_cast<size_t>(r0 + rr) * stride + c0 + cc);
+      if (kModes && scale) x *= scale[c0 + cc];
+      if (kModes && zscale) x *= expf(-ld(zscale + c0 + cc));
       x = op<kBf>(x);
     }
     tile[rr * kStage + cc] = x;
@@ -307,7 +185,7 @@ __device__ __forceinline__ void stage_rows(float* tile, const float* src, int ro
 }
 
 // h = sigmoid(beta_r (x W + c)) for all rows x H outputs, then h_sample =
-// (u < h); x [rows, V], scaled per column as stage_rows says (learned
+// (u < h); x [rows, V] (the data, or f32 scratch), scaled per column as stage_rows says (learned
 // variance); beta_r = 1 off a tempering ladder. pre_out, when given,
 // receives x W + c (the pseudo monitor's pre_h0).
 // Work unit: 32 hidden columns (lane = column) x kRowTile rows, one block.
@@ -316,10 +194,11 @@ __device__ __forceinline__ void stage_rows(float* tile, const float* src, int ro
 // registers, so each W element is read once per row tile; the kWarps partial
 // sums are then added in warp order. The summation order depends only on
 // kWarps, not on the grid.
-template <bool kBf, bool kModes>
-__device__ void hidden_phase(const Args& a, float* smem, const float* x, int rows,
-                             const float* scale, bool scale_z, float* hprob, float* hsample,
-                             float* pre_out, const float* u, unsigned upd, int kind, int t) {
+template <bool kBf, bool kModes, typename T>
+__device__ void hidden_phase(const Args& a, float* smem, const T* x, int rows,
+                             const float* scale, const Store* zscale, float* hprob,
+                             Store* hsample, float* pre_out, const float* u, unsigned upd,
+                             int kind, int t) {
   float* xs = smem;                       // [kRowTile][kStage]
   float* part = smem + kRowTile * kStage;  // [kWarps][kRowTile][32]
   const int V = a.V, H = a.H;
@@ -334,13 +213,13 @@ __device__ void hidden_phase(const Args& a, float* smem, const float* x, int row
     for (int q0 = 0; q0 < V; q0 += kStage) {
       const int nq = min(kStage, V - q0);
       __syncthreads();  // the previous tile is no longer read
-      stage_rows<kBf, kModes>(xs, x, rows, V, r0, q0, nq, scale, scale_z);
+      stage_rows<kBf, kModes>(xs, x, rows, V, r0, q0, nq, scale, zscale);
       __syncthreads();
       if (j < H) {
-        const float* wcol = a.W + static_cast<size_t>(q0) * H + j;
+        const Store* wcol = a.W + static_cast<size_t>(q0) * H + j;
 #pragma unroll 8
         for (int qq = warp; qq < nq; qq += kWarps) {
-          const float w = op<kBf>(wcol[static_cast<size_t>(qq) * H]);
+          const float w = op<kBf>(ld(wcol + static_cast<size_t>(qq) * H));
 #pragma unroll
           for (int rr = 0; rr < kRowTile; ++rr) acc[rr] = fmaf(xs[rr * kStage + qq], w, acc[rr]);
         }
@@ -356,12 +235,12 @@ __device__ void hidden_phase(const Args& a, float* smem, const float* x, int row
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) sum += part[(w * kRowTile + rr) * 32 + lane];
         const size_t idx = static_cast<size_t>(r) * H + jj;
-        const float pre = sum + a.c[jj];
+        const float pre = sum + ld(a.c + jj);
         if (kModes && pre_out) pre_out[idx] = pre;
         const float p = sigmoidf(row_beta<kModes>(a, r) * pre);
         hprob[idx] = p;
-        const float uu = u ? u[idx] : draw_uniform(a, upd, kind, t, r, jj);
-        hsample[idx] = uu < p ? 1.0f : 0.0f;
+        const float uu = u ? u[idx] : draw_uniform(a.seed, upd, kind, t, r, jj);
+        st(hsample + idx, uu < p ? 1.0f : 0.0f);
       }
     }
   }
@@ -372,17 +251,17 @@ __device__ void hidden_phase(const Args& a, float* smem, const float* x, int row
 // FE(v0) - FE(flip) = delta b_bit + sum_j [softplus(pre + delta W[bit, j]) -
 // softplus(pre)]; rowerr[r] = V softplus(that). Reads W and b, so it runs
 // before the update phase.
-__device__ void pseudo_row(const Args& a, float* smem, const float* v0, int r, int bit) {
+__device__ void pseudo_row(const Args& a, float* smem, const Store* v0, int r, int bit) {
   const int H = a.H, V = a.V;
-  const float delta = 1.0f - 2.0f * v0[static_cast<size_t>(r) * V + bit];
+  const float delta = 1.0f - 2.0f * ld(v0 + static_cast<size_t>(r) * V + bit);
   const float* pre = a.pre_h0 + static_cast<size_t>(r) * H;
-  const float* w = a.W + static_cast<size_t>(bit) * H;
+  const Store* w = a.W + static_cast<size_t>(bit) * H;
   float acc[1] = {0.0f};
   for (int j = threadIdx.x; j < H; j += kThreads)
-    acc[0] += softplusf(pre[j] + delta * w[j]) - softplusf(pre[j]);
+    acc[0] += softplusf(pre[j] + delta * ld(w + j)) - softplusf(pre[j]);
   block_sum<1>(acc, smem);
   if (threadIdx.x == 0)
-    a.rowerr[r] = static_cast<float>(V) * softplusf(delta * a.b[bit] + acc[0]);
+    a.rowerr[r] = static_cast<float>(V) * softplusf(delta * ld(a.b + bit) + acc[0]);
 }
 
 // What a visible-shaped product (rows of src [rows, H] times W^T) is for.
@@ -394,8 +273,11 @@ enum Role {
   kRoleWhModel,  // A = (vs - b)^2/2 - vs (W hmean) -> wh_a rows [B, 2B)
 };
 
+// The rows come from samples (the chain, h0s, the CD chain buffer: Store) or
+// from probs (h0p, hmean: f32 scratch); the other pointer is null.
 struct Seg {
-  const float* src;
+  const Store* samples;
+  const float* probs;
   int rows;
   int role;
 };
@@ -408,7 +290,7 @@ struct Seg {
 // and a fixed butterfly sums each output.
 template <bool kBf, bool kModes>
 __device__ void visible_phase(const Args& a, float* smem, const Seg* segs, int nseg,
-                              const float* v0, unsigned upd, size_t ei, int t, int pseudo_bit) {
+                              const Store* v0, unsigned upd, size_t ei, int t, int pseudo_bit) {
   float* hs = smem;  // [kRowTile][kStage]
   const int V = a.V, H = a.H, B = a.B;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -445,16 +327,19 @@ __device__ void visible_phase(const Args& a, float* smem, const Seg* segs, int n
     for (int j0 = 0; j0 < H; j0 += kStage) {
       const int nj = min(kStage, H - j0);
       __syncthreads();
-      stage_rows<kBf, false>(hs, seg.src, seg.rows, H, r0, j0, nj, nullptr, false);
+      if (seg.samples)
+        stage_rows<kBf, false>(hs, seg.samples, seg.rows, H, r0, j0, nj, nullptr, nullptr);
+      else
+        stage_rows<kBf, false>(hs, seg.probs, seg.rows, H, r0, j0, nj, nullptr, nullptr);
       __syncthreads();
 #pragma unroll
       for (int qi = 0; qi < kQPerWarp; ++qi) {
         const int q = qbase + qi;
         if (q >= V) break;
-        const float* wrow = a.W + static_cast<size_t>(q) * H + j0;
+        const Store* wrow = a.W + static_cast<size_t>(q) * H + j0;
 #pragma unroll 4
         for (int j = lane; j < nj; j += 32) {
-          const float w = op<kBf>(wrow[j]);
+          const float w = op<kBf>(ld(wrow + j));
 #pragma unroll
           for (int rr = 0; rr < kRowTile; ++rr)
             acc[qi][rr] = fmaf(hs[rr * kStage + j], w, acc[qi][rr]);
@@ -474,19 +359,19 @@ __device__ void visible_phase(const Args& a, float* smem, const Seg* segs, int n
       const size_t idx = static_cast<size_t>(r) * V + q;
       switch (seg.role) {
         case kRoleGibbs: {
-          const float pre = mine + a.b[q];
+          const float pre = mine + ld(a.b + q);
           const float beta = row_beta<kModes>(a, r);
           const float mean = gaussian ? pre : sigmoidf(beta * pre);
           if (t == 0 && !persistent) a.v1mean[idx] = mean;
           float sample = mean;
           if (sample_v) {
             if (gaussian) {
-              float n = uv ? uv[idx] : draw_normal(a, upd, kDrawV, t, r, q);
+              float n = uv ? uv[idx] : draw_normal(a.seed, upd, kDrawV, t, r, q);
               if (tempering) n = n / sqrtf(beta);  // variance sigma^2 / beta
               if (lv) n = n * a.sig_lv[q];
               sample = mean + n;
             } else {
-              const float u2 = uv ? uv[idx] : draw_uniform(a, upd, kDrawV, t, r, q);
+              const float u2 = uv ? uv[idx] : draw_uniform(a.seed, upd, kDrawV, t, r, q);
               sample = u2 < mean ? 1.0f : 0.0f;
             }
           }
@@ -494,20 +379,20 @@ __device__ void visible_phase(const Args& a, float* smem, const Seg* segs, int n
           break;
         }
         case kRoleMonitor: {
-          const float pre = mine + a.b[q];
+          const float pre = mine + ld(a.b + q);
           a.v1mean[idx] = gaussian ? pre : sigmoidf(pre);
           break;
         }
         case kRolePreLp:
-          a.pre_lp[idx] = mine + a.b[q];
+          a.pre_lp[idx] = mine + ld(a.b + q);
           break;
         case kRoleWhData: {
-          const float x = v0[idx], d = x - a.b[q];
+          const float x = ld(v0 + idx), d = x - ld(a.b + q);
           a.wh_a[idx] = 0.5f * (d * d) - x * mine;
           break;
         }
         default: {  // kRoleWhModel
-          const float x = a.vs[idx], d = x - a.b[q];
+          const float x = a.vs[idx], d = x - ld(a.b + q);
           a.wh_a[static_cast<size_t>(B) * V + idx] = 0.5f * (d * d) - x * mine;
           break;
         }
@@ -535,14 +420,14 @@ __device__ void swap_phase(const Args& a, float* smem, unsigned upd, size_t ei, 
     const float b0 = a.betas[m], b1 = a.betas[m + 1];
     float* x0 = a.pre_lp + r0 * V;
     float* x1 = a.pre_lp + r1 * V;
-    float* h0 = a.chain + r0 * H;
-    float* h1 = a.chain + r1 * H;
+    Store* h0 = a.chain + r0 * H;
+    Store* h1 = a.chain + r1 * H;
     // Bernoulli: softplus sums of h_m at b_m, b_m+1, of h_m+1 at b_m+1, b_m;
     // Gaussian: the quadratic sums of h_m, h_m+1 in [0], [1]; then c.h_m, c.h_m+1
     float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     for (int q = threadIdx.x; q < V; q += kThreads) {
       if (gaussian) {
-        const float bq = a.b[q], sq = lv ? a.s_lv[q] : 1.0f;
+        const float bq = ld(a.b + q), sq = lv ? a.s_lv[q] : 1.0f;
         const float w0 = x0[q] - bq, w1 = x1[q] - bq;
         acc[0] += (w0 * bq + 0.5f * w0 * w0) * sq;
         acc[1] += (w1 * bq + 0.5f * w1 * w1) * sq;
@@ -554,9 +439,9 @@ __device__ void swap_phase(const Args& a, float* smem, unsigned upd, size_t ei, 
       }
     }
     for (int j = threadIdx.x; j < H; j += kThreads) {
-      const float cj = op<kBf>(a.c[j]);
-      acc[4] = fmaf(h0[j], cj, acc[4]);
-      acc[5] = fmaf(h1[j], cj, acc[5]);
+      const float cj = op<kBf>(ld(a.c + j));
+      acc[4] = fmaf(ld(h0 + j), cj, acc[4]);
+      acc[5] = fmaf(ld(h1 + j), cj, acc[5]);
     }
     block_sum<6>(acc, smem);  // every thread holds the same sums
     float log_a;
@@ -570,10 +455,10 @@ __device__ void swap_phase(const Args& a, float* smem, unsigned upd, size_t ei, 
     const float u = (a.flags & kInject)
                         ? a.u_swap[(ei * 2 + p) * static_cast<size_t>(M - 1) * B +
                                    static_cast<size_t>(m) * B + r]
-                        : draw_uniform(a, upd, kDrawSwap, p, static_cast<int>(r0), 0);
+                        : draw_uniform(a.seed, upd, kDrawSwap, p, static_cast<int>(r0), 0);
     if (logf(fmaxf(u, 1e-38f)) < log_a) {  // the same outcome in every thread
       for (int j = threadIdx.x; j < H; j += kThreads) {
-        const float tmp = h0[j];
+        const Store tmp = h0[j];
         h0[j] = h1[j];
         h1[j] = tmp;
       }
@@ -584,16 +469,6 @@ __device__ void swap_phase(const Args& a, float* smem, unsigned upd, size_t ei, 
       }
     }
   }
-}
-
-// Clip, L2 (when decay), momentum and the in-place update of one parameter.
-__device__ __forceinline__ void apply(const Args& a, float* p, float* vel, float g, float m,
-                                      float lr, bool decay) {
-  if (a.flags & kClip) g = fminf(fmaxf(g, -a.grad_clip), a.grad_clip);
-  if (decay && a.l2 != 0.0f) g = g - a.l2 * *p;
-  const float nv = m * *vel + lr * g;
-  *vel = nv;
-  *p = *p + nv;
 }
 
 // Gradient and update of W, b, c (and z), plus the per-row monitor sums.
@@ -610,7 +485,7 @@ __device__ __forceinline__ void apply(const Args& a, float* p, float* vel, float
 // per element, lanes over the rows, fixed butterfly (enhanced: in the bias
 // phase).
 template <bool kBf, bool kModes>
-__device__ void update_phase(const Args& a, float* smem, const Split& s, const float* v0,
+__device__ void update_phase(const Args& a, float* smem, const Split& s, const Store* v0,
                              float m) {
   const int V = a.V, H = a.H, B = a.B;
   const float inv_b = 1.0f / static_cast<float>(B);
@@ -624,27 +499,8 @@ __device__ void update_phase(const Args& a, float* smem, const Split& s, const f
   for (int unit = blockIdx.x; unit < nwu + nmon; unit += gridDim.x) {
     __syncthreads();  // shared memory of the previous unit is no longer read
     if (unit >= nwu) {  // monitor: sum over row r of the reconstruction error
-      const int r = unit - nwu;
-      float acc = 0.0f;
-      for (int q = threadIdx.x; q < V; q += kThreads) {
-        const float x = v0[static_cast<size_t>(r) * V + q];
-        const float y = a.v1mean[static_cast<size_t>(r) * V + q];
-        if (xent) {
-          const float pc = fminf(fmaxf(y, 1e-7f), 1.0f - 1e-7f);
-          acc += x * logf(pc) + (1.0f - x) * logf(1.0f - pc);
-        } else {
-          const float d = x - y;
-          acc = fmaf(d, d, acc);
-        }
-      }
-      acc = warp_sum(acc);
-      if (s.lane == 0) smem[threadIdx.x >> 5] = acc;
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        float tot = 0.0f;
-        for (int w = 0; w < kWarps; ++w) tot += smem[w];
-        a.rowerr[r] = tot;
-      }
+      const size_t row = static_cast<size_t>(unit - nwu) * V;
+      monitor_row(v0 + row, a.v1mean + row, V, xent, smem, a.rowerr + (unit - nwu));
       continue;
     }
     const int strip = unit % nstrip, cu = unit / nstrip;
@@ -661,7 +517,7 @@ __device__ void update_phase(const Args& a, float* smem, const Split& s, const f
         const int rr = idx / kQStrip, qi = idx - rr * kQStrip;
         const size_t g = static_cast<size_t>(rc + rr) * V + q0 + qi;
         const float sc = (lv && qi < nq) ? a.s_lv[q0 + qi] : 1.0f;
-        smem[rr * 2 * kQStrip + qi] = qi < nq ? v0[g] * sc : 0.0f;
+        smem[rr * 2 * kQStrip + qi] = qi < nq ? ld(v0 + g) * sc : 0.0f;
         smem[rr * 2 * kQStrip + kQStrip + qi] = qi < nq ? a.vs[g] * sc : 0.0f;
       }
       __syncthreads();
@@ -696,12 +552,15 @@ __device__ void update_phase(const Args& a, float* smem, const Split& s, const f
     if (enh) {
       const float gc_j = hdif * inv_b, lam_j = 0.5f * hsum * inv_b;
       float pc = 0.0f;
+      // the two matvecs gW_e lam and gW_e^T mu are products under the compute
+      // dtype (core.rbm_math.enhance_grads); the outer products are not
 #pragma unroll
       for (int qi = 0; qi < kQStrip; ++qi) {
         const float gb_q = dsum[qi] * inv_b, mu_q = 0.5f * msum[qi] * inv_b;
         pos[qi] = pos[qi] - mu_q * gc_j - gb_q * lam_j;
-        neg[qi] = (j < H && qi < nq) ? pos[qi] * lam_j : 0.0f;
-        if (qi < nq) pc = fmaf(pos[qi], mu_q, pc);
+        const float ge = op<kBf>(pos[qi]);
+        neg[qi] = (j < H && qi < nq) ? ge * op<kBf>(lam_j) : 0.0f;
+        if (qi < nq) pc = fmaf(ge, op<kBf>(mu_q), pc);
       }
       if (j < H) a.part_c[static_cast<size_t>(strip) * H + j] = pc;
       block_sum<kQStrip>(neg, smem);
@@ -717,13 +576,8 @@ __device__ void update_phase(const Args& a, float* smem, const Split& s, const f
       }
     }
     if (j < H) {
-#pragma unroll
-      for (int qi = 0; qi < kQStrip; ++qi) {
-        if (qi < nq) {
-          const size_t w = static_cast<size_t>(q0 + qi) * H + j;
-          apply(a, a.W + w, a.vW + w, pos[qi], m, a.lr, true);
-        }
-      }
+      const size_t w = static_cast<size_t>(q0) * H + j;
+      apply_column<kQStrip>(a, a.W + w, a.vW + w, H, nq, pos, m);
     }
   }
   if (enh) return;  // b and c: enhanced_bias_phase, after the next barrier
@@ -732,7 +586,7 @@ __device__ void update_phase(const Args& a, float* smem, const Split& s, const f
     float acc = 0.0f, on = 0.0f;
     if (o < V) {
       for (int r = s.lane; r < B; r += 32)
-        acc += v0[static_cast<size_t>(r) * V + o] - a.vs[static_cast<size_t>(r) * V + o];
+        acc += ld(v0 + static_cast<size_t>(r) * V + o) - a.vs[static_cast<size_t>(r) * V + o];
     } else if (o < V + H) {
       for (int r = s.lane; r < B; r += 32) {
         acc += a.h0p[r * H + o - V] - a.hmean[r * H + o - V];
@@ -820,33 +674,33 @@ __global__ void __launch_bounds__(kThreads, 1) cd_train_kernel(Args a) {
       const unsigned upd = static_cast<unsigned>(abs_epoch) *
                                static_cast<unsigned>(a.nb) + static_cast<unsigned>(i);
       const size_t ei = static_cast<size_t>(e) * a.nb + i;
-      const float* v0 = a.data + static_cast<size_t>(a.order[ei]) * B * V;
+      const Store* v0 = a.data + static_cast<size_t>(a.order[ei]) * B * V;
       const int bit = static_cast<int>(
           (static_cast<long long>(abs_epoch) * a.nb + i) % V);  // pseudo monitor
       // block 0 stamps the start of each phase (after the barrier before it)
       unsigned long long* stamp =
           (a.trace && blockIdx.x == 0 && threadIdx.x == 0) ? a.trace + ei * nstamp : nullptr;
       if (stamp) *stamp++ = globaltimer_ns();
-      hidden_phase<kBf, kModes>(a, smem, v0, B, lv ? a.z : nullptr, true, a.h0p, a.h0s,
+      hidden_phase<kBf, kModes>(a, smem, v0, B, nullptr, lv ? a.z : nullptr, a.h0p, a.h0s,
                         pseudo ? a.pre_h0 : nullptr, inject ? a.u_h0 + ei * bh : nullptr,
                         upd, kDrawH0, 0);
       if (lv) {  // this update's precision and std-dev, read by the later phases
         for (int q = blockIdx.x * kThreads + threadIdx.x; q < V; q += gridDim.x * kThreads) {
-          a.s_lv[q] = expf(-a.z[q]);
-          a.sig_lv[q] = expf(0.5f * a.z[q]);
+          a.s_lv[q] = expf(-ld(a.z + q));
+          a.sig_lv[q] = expf(0.5f * ld(a.z + q));
         }
       }
       grid.sync();
-      float* hdst = persistent ? a.chain : a.hbuf;
+      Store* hdst = persistent ? a.chain : a.hbuf;
       for (int t = 0; t < a.k; ++t) {
-        const float* hsrc = t > 0 ? hdst : (persistent ? a.chain : a.h0s);
-        const Seg segs[2] = {{hsrc, CR, kRoleGibbs}, {a.h0s, B, kRoleMonitor}};
+        const Store* hsrc = t > 0 ? hdst : (persistent ? a.chain : a.h0s);
+        const Seg segs[2] = {{hsrc, nullptr, CR, kRoleGibbs}, {a.h0s, nullptr, B, kRoleMonitor}};
         if (stamp) *stamp++ = globaltimer_ns();
         visible_phase<kBf, kModes>(a, smem, segs, (t == 0 && persistent && !pseudo) ? 2 : 1, v0, upd,
                            ei, t, (t == 0 && pseudo) ? bit : -1);
         grid.sync();
         if (stamp) *stamp++ = globaltimer_ns();
-        hidden_phase<kBf, kModes>(a, smem, a.vs, CR, lv ? a.s_lv : nullptr, false, a.hmean, hdst,
+        hidden_phase<kBf, kModes>(a, smem, a.vs, CR, lv ? a.s_lv : nullptr, nullptr, a.hmean, hdst,
                           nullptr, inject ? a.u_h + (ei * a.k + t) * ch : nullptr, upd,
                           kDrawH, t);
         grid.sync();
@@ -854,10 +708,10 @@ __global__ void __launch_bounds__(kThreads, 1) cd_train_kernel(Args a) {
       if (tempering || lv) {  // the ladder's pre_lp; the z statistic's A terms
         Seg segs[3];
         int nseg = 0;
-        if (tempering) segs[nseg++] = {a.chain, CR, kRolePreLp};
+        if (tempering) segs[nseg++] = {a.chain, nullptr, CR, kRolePreLp};
         if (lv) {
-          segs[nseg++] = {a.h0p, B, kRoleWhData};
-          segs[nseg++] = {a.hmean, B, kRoleWhModel};
+          segs[nseg++] = {nullptr, a.h0p, B, kRoleWhData};
+          segs[nseg++] = {nullptr, a.hmean, B, kRoleWhModel};
         }
         if (stamp) *stamp++ = globaltimer_ns();
         visible_phase<kBf, kModes>(a, smem, segs, nseg, v0, upd, ei, 0, -1);
@@ -880,9 +734,7 @@ __global__ void __launch_bounds__(kThreads, 1) cd_train_kernel(Args a) {
       }
       if (stamp) *stamp++ = globaltimer_ns();
       if (lead_warp) {
-        float tot = 0.0f;
-        for (int r = threadIdx.x; r < B; r += 32) tot += a.rowerr[r];
-        tot = warp_sum(tot);
+        const float tot = rows_total(a.rowerr, B);
         err_sum += pseudo ? tot / static_cast<float>(B)
                    : xent ? -tot / static_cast<float>(B)
                           : tot / (static_cast<float>(B) * static_cast<float>(V));
@@ -909,8 +761,8 @@ long long carve_scratch(Args& a, float* base, int V, int H, int B, int M, int fl
     return p;
   };
   a.h0p = take(bh);
-  a.h0s = take(bh);
-  a.hbuf = take(bh);
+  a.h0s = reinterpret_cast<Store*>(take(bh));  // samples, in a float-sized slot each
+  a.hbuf = reinterpret_cast<Store*>(take(bh));
   a.hmean = take(CR * H);
   a.vs = take(CR * V);
   a.v1mean = take(bv);
@@ -935,10 +787,10 @@ extern "C" {
 // Launches the whole run on `stream`. grid <= 0 picks one block per SM.
 // Returns a cudaError_t (0 on success); a grid larger than the co-resident
 // block count returns cudaErrorCooperativeLaunchTooLarge without launching.
-int cd_train_run(const float* data, const int* order, const float* u_h0,
+int cd_train_run(const Store* data, const int* order, const float* u_h0,
                  const float* u_h, const float* u_v, const float* u_swap,
-                 const float* betas, float* W, float* b, float* c, float* vW, float* vb,
-                 float* vc, float* z, float* vz, float* chain, float* errs, float* scratch,
+                 const float* betas, Store* W, Store* b, Store* c, Store* vW, Store* vb,
+                 Store* vc, Store* z, Store* vz, Store* chain, float* errs, float* scratch,
                  unsigned long long* trace, int V, int H, int B, int M, int nb, int E, int k,
                  int start_epoch, int switch_epoch, int flags, float lr, float lr_z,
                  float momentum, float initial_momentum, float l2, float grad_clip,

@@ -1,12 +1,19 @@
 """A whole E-epoch CD-k/PCD training run of one RBM: CUDA kernel and plain version.
 
-Port of the single-device const-block mode of
+Port of the single-device modes of
 ``mdbn_tpu/ops/cd_epoch_pallas.py::_cd_train_kernel``, with its estimator
-modes: parallel tempering, the enhanced gradient, learned variance and the
-pseudo-likelihood monitor. ``cd_train_run`` wraps the hand-written kernel
-``csrc/cd_train.cu`` (one cooperative launch per run); ``cd_train_run_plain``
-is the same function in plain PyTorch, built from ``core.rbm_math``'s
-``cd_step_stats`` / ``pt_step_stats`` and ``apply_update``. Both take
+modes (parallel tempering, the enhanced gradient, learned variance, the
+pseudo-likelihood monitor) and both storage dtypes (float32 and bfloat16
+parameters, velocities, chain and data; update arithmetic in fp32, rounded
+once). ``cd_train_run`` wraps the hand-written kernel ``csrc/cd_train.cu``
+(one cooperative launch per run); ``cd_train_run_plain`` is the same function
+in plain PyTorch, built from ``core.rbm_math``'s ``cd_step_stats`` /
+``pt_step_stats`` and ``apply_update``. The TPU kernel's wide-state modes
+(``hbm_state``, ``chunk_update``, ``stream_vel``, H padding) compute the same
+function under a VMEM budget; this kernel keeps all state in device memory
+at any width, so they have no counterpart of their own. A run whose weights
+do not fit the card's L2 goes to the W-blocked kernel of
+``ops.cd_epoch_wide_cuda`` instead (``select_kernel``). Both take
 
 - ``params`` / ``velocity`` (``RBMParams``, with ``z`` under learned
   variance) and the PCD ``chain`` [CR, H], CR = B, or M*B rung-major under
@@ -27,14 +34,16 @@ changes only in PCD mode, as in the TPU kernel.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..config import RBMConfig
-from ..core.rbm_math import (RBMParams, apply_update, hidden_mean, pseudo_likelihood,
-                             pt_betas, pt_hidden_mean, pt_log_accept, pt_visible_mean,
-                             pt_visible_sample, _pt_swap_round, visible_mean)
+from ..core.rbm_math import (RBMParams, apply_update, cd_step_stats, hidden_mean, noise_scale,
+                             pseudo_likelihood, pt_betas, pt_hidden_mean, pt_log_accept,
+                             pt_visible_mean, pt_visible_sample, torch_dtype, _pt_swap_round,
+                             visible_mean)
 from ..core.state import chain_rows
 from .cd_step import draw_pt_uniforms, draw_uniforms, step_stats
 
@@ -49,9 +58,6 @@ _F_TEMPERING, _F_ENHANCED, _F_LEARN_VAR, _F_PSEUDO = 512, 1024, 2048, 4096
 
 def kernel_unsupported(cfg: RBMConfig) -> Optional[str]:
     """Why the CUDA kernel does not take ``cfg`` (None when it does)."""
-    if cfg.param_dtype != "float32":
-        return ("param_dtype='bfloat16' storage is not in the CUDA kernel yet: "
-                "ROADMAP.md Queue 2, K2 (bf16 storage)")
     if cfg.k > 255:
         return "k > 255 does not fit the kernel's Philox counter layout"
     return None
@@ -61,6 +67,43 @@ def check_kernel_supports(cfg: RBMConfig) -> None:
     reason = kernel_unsupported(cfg)
     if reason is not None:
         raise ValueError(reason)
+
+
+def wide_unsupported(cfg: RBMConfig) -> Optional[str]:
+    """Why the W-blocked kernel (``csrc/cd_train_wide.cu``) does not take
+    ``cfg`` (None when it does). Its scope is that of the TPU's W-blocked
+    kernel (``needs_w_chunking``) without that kernel's layout limits on V
+    and the batch size."""
+    outside = [name for name, on in (
+        ("sampled visibles", cfg.resolved_sample_visible),
+        ("the pseudo-likelihood monitor", cfg.error_metric not in ("mse", "xent")),
+        ("the enhanced gradient", cfg.gradient != "plain"),
+        ("tempering", cfg.pt_temps > 1),
+        ("learned variance", cfg.learn_variance)) if on]
+    if outside:
+        return ("the W-blocked kernel runs a mean-field negative phase with an mse or xent "
+                f"monitor and the plain gradient; it does not take {', '.join(outside)}")
+    return kernel_unsupported(cfg)
+
+
+# The share of the L2 that W may take before a run goes to the W-blocked
+# kernel. An update reads W in each of its three products, and cd_train.cu
+# counts on finding it in the L2 again; the L2 also holds the update's
+# activations and the velocity that streams through it in the update phase.
+WIDE_L2_SHARE = 0.8
+
+
+def select_kernel(cfg: RBMConfig, device: Optional[torch.device] = None,
+                  l2_bytes: Optional[int] = None) -> str:
+    """The kernel a run of ``cfg`` takes on ``device``: "cd_train_wide" when
+    the config lies in the W-blocked kernel's scope and W at storage width
+    exceeds ``WIDE_L2_SHARE`` of the L2 (``l2_bytes``, default the device's),
+    else "cd_train". Decided from the config and the device alone."""
+    if l2_bytes is None:
+        l2_bytes = torch.cuda.get_device_properties(device).L2_cache_size
+    w_bytes = (2 if cfg.param_dtype == "bfloat16" else 4) * cfg.n_visible * cfg.n_hidden
+    wide = wide_unsupported(cfg) is None and w_bytes > WIDE_L2_SHARE * l2_bytes
+    return "cd_train_wide" if wide else "cd_train"
 
 
 def trace_phases(cfg: RBMConfig) -> List[str]:
@@ -127,16 +170,26 @@ def _step_uniforms(cfg: RBMConfig, uniforms: Dict[str, torch.Tensor], e: int, i:
                    else x.reshape(cfg.k, M, B, -1)) for name, x in u.items()}
 
 
+def _step_fn(cfg: RBMConfig, wide: bool, storage: torch.dtype) -> Callable:
+    """(params, v0, chain, u) -> (grads, chain, err) of one update: the core's
+    step, with the W-blocked kernel's factor rounding when ``wide``."""
+    if not wide:
+        return lambda params, v0, chain, u: step_stats(cfg, params, v0, chain, u)
+    return lambda params, v0, chain, u: cd_step_stats(
+        params, v0, chain if cfg.persistent else None, u, cfg, factor_dtype=storage)
+
+
 def harden_uniform_blocks(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
                           chain: torch.Tensor, data: torch.Tensor,
                           uniforms: Dict[str, torch.Tensor], n_epochs: int,
-                          eps: float = 1e-4, start_epoch: int = 0, swap_eps: float = 1e-5
-                          ) -> Dict[str, torch.Tensor]:
+                          eps: float = 1e-4, start_epoch: int = 0, swap_eps: float = 1e-5,
+                          wide: bool = False) -> Dict[str, torch.Tensor]:
     """Move every Bernoulli draw that lies within ``eps`` of its threshold
     away from it, keeping each ``u < p`` outcome, so the run's trajectory is
     unchanged but no draw sits on a knife edge where the kernel's and the
     plain version's fp32 probabilities (which differ in summation order)
-    could sample differently. Replays the run in order with the plain math.
+    could sample differently. Replays the run in order with the plain math
+    (that of the W-blocked kernel when ``wide``).
     Port of ``mdbn_tpu/ops/cd_epoch_pallas.py::harden_uniform_blocks``,
     extended to tempering (which the JAX version refuses): the rung draws are
     nudged like the others, and each swap draw whose log lies within
@@ -149,6 +202,9 @@ def harden_uniform_blocks(cfg: RBMConfig, params: RBMParams, velocity: RBMParams
     nb = data.shape[0] // B
     batches = data[: nb * B].reshape(nb, B, V).float()
     hard = {name: u.clone() for name, u in uniforms.items()}
+    storage = chain.dtype
+    step = _step_fn(cfg, wide, storage)
+    chain = chain.float()
 
     def nudge(dst: torch.Tensor, p: torch.Tensor) -> None:
         d = dst - p
@@ -165,8 +221,9 @@ def harden_uniform_blocks(cfg: RBMConfig, params: RBMParams, velocity: RBMParams
                 _harden_ladder(cfg, params, chain, u, nudge, swap_eps)
             else:
                 _harden_chain(cfg, params, chain if cfg.persistent
-                              else (u["h0"] < hm).float(), u, nudge)
-            grads, new_chain, _ = step_stats(cfg, params, v0, chain, u)
+                              else (u["h0"] < hm).float(), u, nudge,
+                              storage if wide else None)
+            grads, new_chain, _ = step(params, v0, chain, u)
             if cfg.persistent:
                 chain = new_chain
             params, velocity = apply_update(params, velocity, grads, cfg,
@@ -175,7 +232,8 @@ def harden_uniform_blocks(cfg: RBMConfig, params: RBMParams, velocity: RBMParams
 
 
 def _harden_chain(cfg: RBMConfig, params: RBMParams, h: torch.Tensor,
-                  u: Dict[str, torch.Tensor], nudge: Callable) -> None:
+                  u: Dict[str, torch.Tensor], nudge: Callable,
+                  factor_dtype: Optional[torch.dtype]) -> None:
     for t in range(cfg.k):
         vmean = visible_mean(params, h, cfg)
         if cfg.resolved_sample_visible and cfg.visible == "bernoulli":
@@ -183,9 +241,11 @@ def _harden_chain(cfg: RBMConfig, params: RBMParams, h: torch.Tensor,
             vs = (u["v"][t] < vmean).float()
         elif cfg.resolved_sample_visible:
             noise = u["noise"][t]
-            vs = vmean + (noise if params.z is None else noise * torch.exp(0.5 * params.z))
+            vs = vmean + (noise if params.z is None else noise * noise_scale(params))
         else:
             vs = vmean
+        if factor_dtype is not None:
+            vs = vs.to(factor_dtype).float()
         hm = hidden_mean(params, vs, cfg)
         nudge(u["h"][t], hm)
         h = (u["h"][t] < hm).float()
@@ -226,29 +286,31 @@ def _draw_seed(generator: Optional[torch.Generator]) -> int:
     return int(torch.randint(0, 2 ** 62, (1,), generator=generator))
 
 
-def cd_train_run_plain(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
-                       chain: torch.Tensor, data: torch.Tensor, order: torch.Tensor,
-                       start_epoch: int = 0,
-                       uniforms: Optional[Dict[str, torch.Tensor]] = None,
-                       generator: Optional[torch.Generator] = None,
-                       ) -> Tuple[RBMParams, RBMParams, torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of the run (see module doc). It also serves
-    the config the kernel does not take: bf16 storage."""
+def run_plain(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
+              chain: torch.Tensor, data: torch.Tensor, order: torch.Tensor,
+              start_epoch: int, uniforms: Optional[Dict[str, torch.Tensor]],
+              generator: Optional[torch.Generator], wide: bool,
+              ) -> Tuple[RBMParams, RBMParams, torch.Tensor, torch.Tensor]:
+    """The run in plain PyTorch, with the W-blocked kernel's factor rounding
+    when ``wide``. Data and chain widen to fp32 as they are read (the kernels
+    do the same); the chain rounds back into its storage dtype (0 and 1 are
+    exact in bf16)."""
     B, V = cfg.batch_size, cfg.n_visible
     nb = data.shape[0] // B
     batches = data[: nb * B].reshape(nb, B, V)
     dgen = (None if uniforms is not None else
             torch.Generator(device=data.device).manual_seed(_draw_seed(generator)))
     draw = draw_pt_uniforms if cfg.pt_temps > 1 else draw_uniforms
+    step = _step_fn(cfg, wide, chain.dtype)
     errs = []
     for e, row in enumerate(order.tolist()):
         epoch = start_epoch + e
         epoch_errs = []
         for i, j in enumerate(row):
-            v0 = batches[j]
+            v0 = batches[j].float()
             u = (_step_uniforms(cfg, uniforms, e, i) if uniforms is not None
                  else draw(cfg, B, dgen, data.device))
-            grads, new_chain, err = step_stats(cfg, params, v0, chain, u)
+            grads, new_chain, err = step(params, v0, chain.float(), u)
             if cfg.error_metric == "pseudo":
                 err = pseudo_likelihood(params, v0, (epoch * nb + i) % V, cfg)
             params, velocity = apply_update(params, velocity, grads, cfg, epoch=epoch)
@@ -259,11 +321,24 @@ def cd_train_run_plain(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
     return params, velocity, chain, torch.stack(errs)
 
 
-def _f32_cuda(t: torch.Tensor, name: str, shape, device: torch.device) -> torch.Tensor:
+def cd_train_run_plain(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
+                       chain: torch.Tensor, data: torch.Tensor, order: torch.Tensor,
+                       start_epoch: int = 0,
+                       uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                       generator: Optional[torch.Generator] = None,
+                       ) -> Tuple[RBMParams, RBMParams, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the run (see module doc)."""
+    return run_plain(cfg, params, velocity, chain, data, order, start_epoch, uniforms,
+                     generator, wide=False)
+
+
+def _on_device(t: torch.Tensor, name: str, shape, device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} (the config's param_dtype for state and "
+                         f"data, float32 for draws), got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     return t.contiguous()
@@ -285,30 +360,34 @@ def kernel_flags(cfg: RBMConfig) -> int:
             | (_F_PSEUDO if cfg.error_metric == "pseudo" else 0))
 
 
-def cd_train_run(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
-                 chain: torch.Tensor, data: torch.Tensor, order: torch.Tensor,
-                 start_epoch: int = 0,
-                 uniforms: Optional[Dict[str, torch.Tensor]] = None,
-                 generator: Optional[torch.Generator] = None, grid: int = 0,
-                 trace: Optional[torch.Tensor] = None,
-                 ) -> Tuple[RBMParams, RBMParams, torch.Tensor, torch.Tensor]:
-    """The run on the CUDA kernel (see module doc); one launch on the current
-    stream. CPU tensors take ``cd_train_run_plain``. ``grid`` is the
-    cooperative grid (0: one block per SM); the result does not depend on it,
-    which the tests check by launching several grids.
-    ``trace``, an int64 CUDA tensor [E, nb, trace_len(cfg)], receives the
-    device clock (ns) at the start of each phase of each update (see
-    ``trace_len``) as block 0 sees it.
-    Raises ValueError for a config or input the kernel does not take and
-    RuntimeError when the launch fails."""
-    global cd_train_launches
-    if data.device.type == "cpu":
-        return cd_train_run_plain(cfg, params, velocity, chain, data, order,
-                                  start_epoch, uniforms, generator)
-    if data.device.type != "cuda":
-        raise ValueError(f"cd_train_run takes CPU or CUDA tensors, got {data.device}")
-    check_kernel_supports(cfg)
+@dataclass
+class KernelInputs:
+    """One run's inputs as a kernel takes them: checked, contiguous, on the
+    device. The state tensors are fresh copies (the kernels update in place);
+    a tensor the config does not use is None."""
+
+    data: torch.Tensor
+    order: torch.Tensor
+    params: RBMParams
+    velocity: RBMParams
+    chain: torch.Tensor
+    draws: Dict[str, Optional[torch.Tensor]]  # h0, h, v, swap (inject mode)
+    flags: int
+    seed: int
+    nb: int
+    n_epochs: int
+    device_index: int
+    stream: int
+
+
+def kernel_inputs(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
+                  chain: torch.Tensor, data: torch.Tensor, order: torch.Tensor,
+                  uniforms: Optional[Dict[str, torch.Tensor]],
+                  generator: Optional[torch.Generator]) -> KernelInputs:
+    """Check a run's inputs against ``cfg`` and lay them out for a kernel.
+    Raises ValueError for what the kernels do not take."""
     device = data.device
+    sdt = torch_dtype(cfg.param_dtype)
     B, V, H, k, CR = cfg.batch_size, cfg.n_visible, cfg.n_hidden, cfg.k, chain_rows(cfg)
     M = cfg.pt_temps
     nb = data.shape[0] // B
@@ -319,70 +398,127 @@ def cd_train_run(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
     if int(order.min()) < 0 or int(order.max()) >= nb:
         raise ValueError(f"order holds minibatch indices outside [0, {nb})")
     n_epochs = order.shape[0]
-    data = _f32_cuda(data[: nb * B], "data", (nb * B, V), device)
-    W = _f32_cuda(params.W, "W", (V, H), device).clone()
-    b = _f32_cuda(params.b, "b", (V,), device).clone()
-    c = _f32_cuda(params.c, "c", (H,), device).clone()
-    vW = _f32_cuda(velocity.W, "vW", (V, H), device).clone()
-    vb = _f32_cuda(velocity.b, "vb", (V,), device).clone()
-    vc = _f32_cuda(velocity.c, "vc", (H,), device).clone()
-    z = vz = betas = None
-    if cfg.learn_variance:
-        if params.z is None or velocity.z is None:
-            raise ValueError("learn_variance=True needs z in params and velocity")
-        z = _f32_cuda(params.z, "z", (V,), device).clone()
-        vz = _f32_cuda(velocity.z, "vz", (V,), device).clone()
-    chain = _f32_cuda(chain, "chain", (CR, H), device).clone()
-    order_d = order.to(device=device, dtype=torch.int32).contiguous()
-    n_stamps = trace_len(cfg)
-    if trace is not None and (trace.device != device or trace.dtype != torch.int64
-                              or tuple(trace.shape) != (n_epochs, nb, n_stamps)
-                              or not trace.is_contiguous()):
-        raise ValueError(f"trace must be a contiguous int64 tensor [{n_epochs}, {nb}, "
-                         f"{n_stamps}] on {device}")
-    if M > 1:
-        betas = pt_betas(cfg, device)
+    if cfg.learn_variance and (params.z is None or velocity.z is None):
+        raise ValueError("learn_variance=True needs z in params and velocity")
+    shapes = {"W": (V, H), "b": (V,), "c": (H,), "z": (V,)}
+    names = ("W", "b", "c", "z") if cfg.learn_variance else ("W", "b", "c")
+
+    def state(part: RBMParams, prefix: str) -> RBMParams:
+        return RBMParams(**{n: _on_device(getattr(part, n), prefix + n, shapes[n], device,
+                                          sdt).clone() for n in names})
 
     flags = kernel_flags(cfg)
-    u_h0 = u_h = u_v = u_swap = None
+    draws: Dict[str, Optional[torch.Tensor]] = dict(h0=None, h=None, v=None, swap=None)
     seed = 0
     if uniforms is not None:
         flags |= _F_INJECT
-        u_h0 = _f32_cuda(uniforms["h0"], "uniforms['h0']", (n_epochs, nb, B, H), device)
-        u_h = _f32_cuda(uniforms["h"], "uniforms['h']", (n_epochs, nb, k, CR, H), device)
+        f32 = torch.float32
+        draws["h0"] = _on_device(uniforms["h0"], "uniforms['h0']", (n_epochs, nb, B, H),
+                                 device, f32)
+        draws["h"] = _on_device(uniforms["h"], "uniforms['h']", (n_epochs, nb, k, CR, H),
+                                device, f32)
         if cfg.resolved_sample_visible:
             kv = "v" if cfg.visible == "bernoulli" else "noise"
-            u_v = _f32_cuda(uniforms[kv], f"uniforms['{kv}']", (n_epochs, nb, k, CR, V), device)
+            draws["v"] = _on_device(uniforms[kv], f"uniforms['{kv}']",
+                                    (n_epochs, nb, k, CR, V), device, f32)
         if M > 1:
-            u_swap = _f32_cuda(uniforms["swap"], "uniforms['swap']",
-                               (n_epochs, nb, 2, (M - 1) * B), device)
+            draws["swap"] = _on_device(uniforms["swap"], "uniforms['swap']",
+                                       (n_epochs, nb, 2, (M - 1) * B), device, f32)
     else:
         seed = _draw_seed(generator)
+    return KernelInputs(
+        data=_on_device(data[: nb * B], "data", (nb * B, V), device, sdt),
+        order=order.to(device=device, dtype=torch.int32).contiguous(),
+        params=state(params, ""), velocity=state(velocity, "v"),
+        chain=_on_device(chain, "chain", (CR, H), device, sdt).clone(),
+        draws=draws, flags=flags, seed=seed, nb=nb, n_epochs=n_epochs,
+        device_index=device.index if device.index is not None else torch.cuda.current_device(),
+        stream=torch.cuda.current_stream(device).cuda_stream)
 
-    from .._build import load_library  # builds the kernel at first use
 
-    lib = load_library().lib
-    errs = torch.empty(n_epochs, dtype=torch.float32, device=device)
-    scratch = torch.empty(int(lib.cd_train_scratch_floats(V, H, B, M, flags)),
+def check_trace(trace: Optional[torch.Tensor], shape, device: torch.device) -> None:
+    if trace is not None and (trace.device != device or trace.dtype != torch.int64
+                              or tuple(trace.shape) != tuple(shape)
+                              or not trace.is_contiguous()):
+        raise ValueError(f"trace must be a contiguous int64 tensor {list(shape)} on {device}")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def schedule_args(cfg: RBMConfig) -> Tuple[float, float, float, float, float, float]:
+    """momentum, initial_momentum, l2, grad_clip, sparsity_target and
+    sparsity_cost as the kernels take them (0 where the config has None; the
+    mode bits say which apply)."""
+    return (cfg.momentum, cfg.initial_momentum if cfg.initial_momentum is not None else 0.0,
+            cfg.l2, cfg.grad_clip if cfg.grad_clip is not None else 0.0,
+            cfg.sparsity_target if cfg.sparsity_target is not None else 0.0,
+            cfg.sparsity_cost)
+
+
+def cd_train_run(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
+                 chain: torch.Tensor, data: torch.Tensor, order: torch.Tensor,
+                 start_epoch: int = 0,
+                 uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                 generator: Optional[torch.Generator] = None, grid: int = 0,
+                 trace: Optional[torch.Tensor] = None, wide: Optional[bool] = None,
+                 ) -> Tuple[RBMParams, RBMParams, torch.Tensor, torch.Tensor]:
+    """The run on a CUDA kernel (see module doc); one launch on the current
+    stream. CPU tensors take ``cd_train_run_plain``. ``grid`` is the
+    cooperative grid (0: the kernel's default); the result does not depend on
+    it, which the tests check by launching several grids.
+    ``wide``: None lets ``select_kernel`` choose between ``csrc/cd_train.cu``
+    and the W-blocked ``csrc/cd_train_wide.cu``
+    (``ops.cd_epoch_wide_cuda.cd_train_wide_run``); True asks for the
+    W-blocked kernel at any size and raises for a config outside its scope;
+    False asks for ``cd_train.cu``.
+    ``trace``, an int64 CUDA tensor [E, nb, trace_len(cfg)] (W-blocked:
+    ``wide_trace_len``), receives the device clock (ns) at the start of each
+    phase of each update as block 0 sees it.
+    Raises ValueError for a config or input the kernel does not take and
+    RuntimeError when the launch fails."""
+    global cd_train_launches
+    if data.device.type == "cpu":
+        if wide:
+            from .cd_epoch_wide_cuda import cd_train_wide_run_plain
+
+            return cd_train_wide_run_plain(cfg, params, velocity, chain, data, order,
+                                           start_epoch, uniforms, generator)
+        return cd_train_run_plain(cfg, params, velocity, chain, data, order,
+                                  start_epoch, uniforms, generator)
+    if data.device.type != "cuda":
+        raise ValueError(f"cd_train_run takes CPU or CUDA tensors, got {data.device}")
+    if wide is None:
+        wide = select_kernel(cfg, data.device) == "cd_train_wide"
+    if wide:
+        from .cd_epoch_wide_cuda import cd_train_wide_run
+
+        return cd_train_wide_run(cfg, params, velocity, chain, data, order, start_epoch,
+                                 uniforms, generator, grid, trace)
+    check_kernel_supports(cfg)
+    x = kernel_inputs(cfg, params, velocity, chain, data, order, uniforms, generator)
+    device = data.device
+    B, V, H, M = cfg.batch_size, cfg.n_visible, cfg.n_hidden, cfg.pt_temps
+    check_trace(trace, (x.n_epochs, x.nb, trace_len(cfg)), device)
+    betas = pt_betas(cfg, device) if M > 1 else None
+
+    from .._build import load_library  # builds the kernels at first use
+
+    lib = load_library("cd_train", cfg.param_dtype).lib
+    errs = torch.empty(x.n_epochs, dtype=torch.float32, device=device)
+    scratch = torch.empty(int(lib.cd_train_scratch_floats(V, H, B, M, x.flags)),
                           dtype=torch.float32, device=device)
-
-    def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-        return None if t is None else t.data_ptr()
-
+    p, v, u = x.params, x.velocity, x.draws
     rc = lib.cd_train_run(
-        ptr(data), ptr(order_d), ptr(u_h0), ptr(u_h), ptr(u_v), ptr(u_swap), ptr(betas),
-        ptr(W), ptr(b), ptr(c), ptr(vW), ptr(vb), ptr(vc), ptr(z), ptr(vz), ptr(chain),
-        ptr(errs), ptr(scratch), ptr(trace),
-        V, H, B, M, nb, n_epochs, k, start_epoch, cfg.momentum_switch_epoch, flags,
-        cfg.lr, cfg.lr if cfg.lr_variance is None else cfg.lr_variance, cfg.momentum,
-        cfg.initial_momentum if cfg.initial_momentum is not None else 0.0,
-        cfg.l2, cfg.grad_clip if cfg.grad_clip is not None else 0.0,
-        cfg.sparsity_target if cfg.sparsity_target is not None else 0.0,
-        cfg.sparsity_cost, seed, device.index if device.index is not None
-        else torch.cuda.current_device(), grid,
-        torch.cuda.current_stream(device).cuda_stream)
+        ptr(x.data), ptr(x.order), ptr(u["h0"]), ptr(u["h"]), ptr(u["v"]), ptr(u["swap"]),
+        ptr(betas), ptr(p.W), ptr(p.b), ptr(p.c), ptr(v.W), ptr(v.b), ptr(v.c), ptr(p.z),
+        ptr(v.z), ptr(x.chain), ptr(errs), ptr(scratch), ptr(trace),
+        V, H, B, M, x.nb, x.n_epochs, cfg.k, start_epoch, cfg.momentum_switch_epoch, x.flags,
+        cfg.lr, cfg.lr if cfg.lr_variance is None else cfg.lr_variance, *schedule_args(cfg),
+        x.seed, x.device_index, grid, x.stream)
     if rc != 0:
         raise RuntimeError(f"cd_train kernel launch failed: cudaError {rc} "
                            f"({lib.cd_train_error_string(rc).decode()})")
     cd_train_launches += 1
-    return RBMParams(W=W, b=b, c=c, z=z), RBMParams(W=vW, b=vb, c=vc, z=vz), chain, errs
+    return p, v, x.chain, errs

@@ -7,9 +7,12 @@ runs when the caller needs per-epoch callbacks or checkpoints.
 
 Engines (``cfg.engine``):
 
-- ``"pallas"`` -> ``"cuda"``: the hand-written kernel
-  (``ops.cd_epoch_cuda.cd_train_run``, one launch per run). Raises on the
-  CPU, and for a config the kernel does not take.
+- ``"pallas"`` -> ``"cuda"``: a hand-written kernel
+  (``ops.cd_epoch_cuda.cd_train_run``, one launch per run):
+  ``csrc/cd_train.cu``, or the W-blocked ``csrc/cd_train_wide.cu`` for a
+  run whose weights do not fit the card's L2
+  (``ops.cd_epoch_cuda.select_kernel``, from the config and the device).
+  Raises on the CPU, and for a config the kernel does not take.
 - ``"xla"`` -> ``"eager"``: ``ops.cd_epoch_cuda.cd_train_run_plain``, the
   plain PyTorch version of the same run, on any device.
 - ``"auto"``: ``"cuda"`` when the state lies on a CUDA device and the kernel

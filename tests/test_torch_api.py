@@ -85,8 +85,11 @@ def test_engine_selection():
     with pytest.raises(ValueError, match="engine='pallas'"):
         RBM(cfg.replace(engine="pallas", epochs=1), device="cpu").train(
             mnist_like(40, n_features=8, seed=0))
-    # the estimator modes run on the kernel: only bf16 storage and k > 255 do not
+    # the estimator modes and bf16 storage run on the kernel: only k > 255 does not
     modes = [cfg.replace(gradient="enhanced"),
+             cfg.replace(param_dtype="bfloat16"),
+             cfg.replace(param_dtype="bfloat16", compute_dtype="bfloat16", persistent=True,
+                         pt_temps=3, pt_beta_min=0.3),
              cfg.replace(visible="gaussian", learn_variance=True),
              cfg.replace(error_metric="pseudo"),
              cfg.replace(persistent=True, pt_temps=3, pt_beta_min=0.2),
@@ -96,15 +99,14 @@ def test_engine_selection():
         assert resolve_engine(m, CUDA) == "cuda"
         assert resolve_engine(m.replace(engine="pallas"), CUDA) == "cuda"
         assert resolve_engine(m, CPU) == "eager"
-    unsupported = [cfg.replace(param_dtype="bfloat16")]
+    unsupported = [cfg.replace(k=256)]
     for u in unsupported:
-        assert "ROADMAP.md" in K.kernel_unsupported(u)
-        with pytest.raises(ValueError, match="ROADMAP.md"):
+        assert "Philox" in K.kernel_unsupported(u)
+        with pytest.raises(ValueError, match="Philox"):
             K.check_kernel_supports(u)
-        with pytest.raises(ValueError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="Philox"):
             resolve_engine(u.replace(engine="pallas"), CUDA)
         assert resolve_engine(u, CUDA) == "eager"  # auto: chosen by config, not by failure
-    assert "Philox" in K.kernel_unsupported(cfg.replace(k=256))
     assert K.kernel_unsupported(cfg.replace(persistent=True, k=2, momentum=0.5, l2=1e-4,
                                             visible="gaussian")) is None
 

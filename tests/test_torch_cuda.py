@@ -10,7 +10,12 @@ trajectories agree to fp32 summation-order noise. Tolerance rtol=atol=1e-4
 over 2 epochs of a small problem (the two differ only in the order of fp32
 sums; a single flipped sample would show as an O(lr/B) = 1e-2 jump).
 The estimator modes (tempering, enhanced gradient, learned variance, the
-pseudo-likelihood monitor) are held the same way.
+pseudo-likelihood monitor) are held the same way, and so is the W-blocked
+kernel (csrc/cd_train_wide.cu) against its own plain version. At bf16
+storage both sides round one float32 result into bf16, so they agree except
+where the two results straddle a rounding boundary; over the 12 updates of a
+run such an ulp can carry on, so stored bf16 values are held to two ulps
+(rtol=2^-6) beside the same atol.
 """
 
 import numpy as np
@@ -19,9 +24,13 @@ import torch
 
 from mdbn_tpu_torch.config import RBMConfig
 from mdbn_tpu_torch.core.state import init_train_state
+from mdbn_tpu_torch.core.rbm_math import torch_dtype
 from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_TOL = dict(rtol=2.0 ** -6, atol=1e-4)
+BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
 
 SMALL = dict(n_visible=40, n_hidden=24, batch_size=8)
 CASES = [
@@ -56,6 +65,36 @@ MODES = {
 }
 
 
+# bf16 storage on cd_train.cu, with f32 and with bf16 compute
+BF16_CASES = {
+    "cd1-f32-compute": RBMConfig(**SMALL, lr=0.1, param_dtype="bfloat16"),
+    "pcd-momentum": RBMConfig(**SMALL, k=2, persistent=True, momentum=0.5, l2=1e-3, lr=0.1,
+                              **BF16),
+    "gaussian-sampled": RBMConfig(**SMALL, visible="gaussian", lr=0.01, sample_visible=True,
+                                  **BF16),
+    "pt": RBMConfig(**SMALL, lr=0.1, persistent=True, pt_temps=3, pt_beta_min=0.3, **BF16),
+    "learn-variance": RBMConfig(**SMALL, visible="gaussian", lr=0.005, learn_variance=True,
+                                **BF16),
+    "enhanced": RBMConfig(**SMALL, lr=0.1, gradient="enhanced", momentum=0.5, **BF16),
+}
+# the W-blocked kernel: V over several strips would need V > 512, so one case is wider
+MEANFIELD = dict(sample_visible=False, l2=1e-4, grad_clip=0.5)
+WIDE_CASES = {
+    "gaussian": RBMConfig(**SMALL, visible="gaussian", lr=0.01, **MEANFIELD),
+    "gaussian-momentum": RBMConfig(**SMALL, visible="gaussian", lr=0.01, momentum=0.5,
+                                   **MEANFIELD),
+    "bernoulli-xent-sparsity": RBMConfig(**SMALL, lr=0.1, error_metric="xent",
+                                         sparsity_target=0.1, sparsity_cost=0.5, **MEANFIELD),
+    "bernoulli-pcd-k2": RBMConfig(**SMALL, lr=0.1, k=2, persistent=True, momentum=0.5,
+                                  **MEANFIELD),
+    "three-strips-batch-40": RBMConfig(n_visible=1100, n_hidden=72, batch_size=40,
+                                       visible="gaussian", lr=0.005, **MEANFIELD),
+    "bf16-gaussian": RBMConfig(**SMALL, visible="gaussian", lr=0.01, **MEANFIELD, **BF16),
+    "bf16-pcd-momentum": RBMConfig(**SMALL, lr=0.1, persistent=True, momentum=0.5,
+                                   **MEANFIELD, **BF16),
+}
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -63,18 +102,19 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(cfg, device, E=2, nb=6, seed=0):
+def _inputs(cfg, device, E=2, nb=6, seed=0, wide=False):
     rng = np.random.default_rng(seed)
     n = nb * cfg.batch_size
     if cfg.visible == "bernoulli":
         data = (rng.random((n, cfg.n_visible)) < 0.3).astype(np.float32)
     else:
         data = rng.standard_normal((n, cfg.n_visible)).astype(np.float32)
-    data = torch.as_tensor(data, device=device)
+    data = torch.as_tensor(data, device=device).to(torch_dtype(cfg.param_dtype))
     st = init_train_state(cfg, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     u = K.draw_uniform_blocks(cfg, gen, E, nb)
-    u = K.harden_uniform_blocks(cfg, st.params, st.velocity, st.chain_h, data, u, E)
+    u = K.harden_uniform_blocks(cfg, st.params, st.velocity, st.chain_h, data, u, E,
+                                wide=wide)
     return st, data, K.batch_order(cfg, nb, E, None), u
 
 
@@ -82,7 +122,10 @@ def _check(got, want):
     for a, b in zip(got[:2], want[:2]):
         for name in ("W", "b", "c", "z"):
             if getattr(b, name) is not None:
-                torch.testing.assert_close(getattr(a, name), getattr(b, name), **TOL)
+                x, y = getattr(a, name), getattr(b, name)
+                assert x.dtype == y.dtype
+                tol = BF16_TOL if y.dtype == torch.bfloat16 else TOL
+                torch.testing.assert_close(x.float(), y.float(), **tol)
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)  # chain: exact samples
     torch.testing.assert_close(got[3], want[3], **TOL)
 
@@ -114,9 +157,11 @@ def test_kernel_modes_match_plain_inject(cuda, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["plain-cd1", "pt-bernoulli", "pt-learn-variance",
-                                  "enhanced-sparsity", "pseudo-pt-enhanced"])
+                                  "enhanced-sparsity", "pseudo-pt-enhanced", "bf16-pcd-momentum",
+                                  "bf16-pt"])
 def test_kernel_sampling_is_grid_independent_and_trains(cuda, name):
-    cfg = MODES.get(name, RBMConfig(**SMALL, lr=0.1))
+    cfg = {**MODES, "bf16-pcd-momentum": BF16_CASES["pcd-momentum"],
+           "bf16-pt": BF16_CASES["pt"]}.get(name, RBMConfig(**SMALL, lr=0.1))
     st, data, order, _ = _inputs(cfg, cuda, E=4)
     trace = [torch.zeros((4, 6, K.trace_len(cfg)), dtype=torch.int64, device=cuda)
              for _ in range(3)]
@@ -141,7 +186,7 @@ def test_kernel_sampling_is_grid_independent_and_trains(cuda, name):
 def test_kernel_rejects_bad_inputs(cuda):
     cfg = RBMConfig(n_visible=40, n_hidden=24, batch_size=8)
     st, data, order, _ = _inputs(cfg, cuda)
-    with pytest.raises(ValueError, match="bf16|bfloat16"):
+    with pytest.raises(ValueError, match="bfloat16"):  # float32 state under a bf16 config
         K.cd_train_run(cfg.replace(param_dtype="bfloat16"), st.params, st.velocity,
                        st.chain_h, data, order, 0, None, torch.Generator())
     with pytest.raises(ValueError, match="float32"):
@@ -150,3 +195,83 @@ def test_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(RuntimeError, match="cudaError"):
         K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
                        torch.Generator(), grid=1 << 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(BF16_CASES))
+def test_kernel_bf16_storage_matches_plain_inject(cuda, name):
+    cfg = BF16_CASES[name]
+    st, data, order, u = _inputs(cfg, cuda)
+    assert st.params.W.dtype == data.dtype == torch.bfloat16
+    before = K.cd_train_launches, KW.cd_train_wide_launches
+    got = K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
+    torch.cuda.synchronize()
+    assert (K.cd_train_launches, KW.cd_train_wide_launches) == (before[0] + 1, before[1])
+    assert got[0].W.dtype == got[1].W.dtype == got[2].dtype == torch.bfloat16
+    _check(got, K.cd_train_run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
+                                     u))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WIDE_CASES))
+def test_wide_kernel_matches_plain_inject(cuda, name):
+    cfg = WIDE_CASES[name]
+    st, data, order, u = _inputs(cfg, cuda, wide=True)
+    before = K.cd_train_launches, KW.cd_train_wide_launches
+    got = K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u,
+                         wide=True)
+    torch.cuda.synchronize()
+    assert (K.cd_train_launches, KW.cd_train_wide_launches) == (before[0], before[1] + 1)
+    _check(got, KW.cd_train_wide_run_plain(cfg, st.params, st.velocity, st.chain_h, data,
+                                           order, 0, u))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gaussian-momentum", "bernoulli-pcd-k2",
+                                  "three-strips-batch-40", "bf16-pcd-momentum"])
+def test_wide_kernel_sampling_is_grid_independent_and_trains(cuda, name):
+    cfg = WIDE_CASES[name]
+    st, data, order, _ = _inputs(cfg, cuda, E=4, wide=True)
+    trace = [torch.zeros((4, 6, KW.wide_trace_len(cfg)), dtype=torch.int64, device=cuda)
+             for _ in range(4)]
+    runs = [KW.cd_train_wide_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
+                                 torch.Generator().manual_seed(3), grid=g, trace=tr)
+            for g, tr in zip((1, 7, 132, 0), trace)]
+    for r in runs[1:]:
+        for name in ("W", "b", "c"):
+            for part in (0, 1):
+                torch.testing.assert_close(getattr(r[part], name),
+                                           getattr(runs[0][part], name), rtol=0, atol=0)
+        torch.testing.assert_close(r[2], runs[0][2], rtol=0, atol=0)
+        torch.testing.assert_close(r[3], runs[0][3], rtol=0, atol=0)
+    assert bool((trace[3].diff(dim=2) >= 0).all()) and bool((trace[3] > 0).all())
+    errs = runs[0][3].tolist()
+    assert all(np.isfinite(errs)) and errs[-1] < errs[0]
+
+
+@pytest.mark.cuda
+def test_kernels_draw_alike_from_one_seed(cuda):
+    """The two kernels share the Philox keying: at float32 storage, where
+    they compute the same function, one seed gives the same samples."""
+    cfg = WIDE_CASES["bernoulli-pcd-k2"]
+    st, data, order, _ = _inputs(cfg, cuda, wide=True)
+    a, b = (K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
+                           torch.Generator().manual_seed(5), wide=w) for w in (False, True))
+    torch.testing.assert_close(a[2], b[2], rtol=0, atol=0)
+    torch.testing.assert_close(a[0].W, b[0].W, **TOL)
+
+
+@pytest.mark.cuda
+def test_wide_kernel_raises_outside_its_scope(cuda):
+    cfg = RBMConfig(**SMALL, lr=0.1)  # Bernoulli CD samples its visibles
+    st, data, order, _ = _inputs(cfg, cuda)
+    for outside in (cfg, cfg.replace(sample_visible=False, error_metric="pseudo"),
+                    cfg.replace(sample_visible=False, gradient="enhanced")):
+        before = K.cd_train_launches, KW.cd_train_wide_launches
+        with pytest.raises(ValueError, match="W-blocked"):
+            K.cd_train_run(outside, st.params, st.velocity, st.chain_h, data, order, 0, None,
+                           torch.Generator(), wide=True)
+        assert (K.cd_train_launches, KW.cd_train_wide_launches) == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        KW.cd_train_wide_run(cfg.replace(sample_visible=False), st.params, st.velocity,
+                             st.chain_h, data.cpu(), order, 0, None, torch.Generator())
