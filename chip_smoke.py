@@ -30,17 +30,23 @@ eleven phases, one line each:
 8. kernel and plain time per epoch of each mode, and the kernel's phases;
 9. the wide slice (scripts/bench_wide.py's shapes, Gaussian, batch 20:
    20000x400 plain, x512, learned variance, momentum, momentum at bf16
-   storage, enhanced, 3-rung tempering at bf16; 28000x400 and 40000x1000 bf16
-   on the W-blocked kernel, which 20000x400 at batch 64 takes when asked):
+   storage, enhanced, 3-rung tempering at bf16 on cd_train.cu; 28000x400,
+   40000x1000 bf16 and 20000x400 at batch 64 on the W-blocked kernel):
    each kernel against its plain version at full width for 2 epochs, whole
    runs at float32, one update at a time for PCD, tempering, momentum and
-   bf16 storage (one bf16 ulp); which kernel launched, by the two counters;
-   identical bits on grids of 1, 7 and 132 blocks;
+   bf16 storage (one bf16 ulp); a 20000-wide row that the admission rule
+   gives to the W-blocked kernel is compared on both kernels; which kernel
+   launched, by the two counters; identical bits on grids of 1, 7 and 132
+   blocks;
 10. 20000x400, 20000x400 with momentum at bf16, 28000x400 and 40000x1000 bf16
-    for 10 epochs through RBM.train (engine "pallas"): the kernel the
-    admission rule picks launched, parameters finite, the monitor falls;
-11. kernel and plain time per epoch of each wide row, the kernel's phases,
-    and the bound (the weights beyond the L2 move once per update).
+    (W-blocked kernel), 20000x400 enhanced and 3-rung tempering at bf16
+    (cd_train.cu) for 10 epochs through RBM.train (engine "pallas"): the
+    kernel the admission rule picks launched, parameters finite, the
+    monitor falls;
+11. kernel and plain time per epoch of each wide row (on both kernels where
+    phase 9 compared both), the kernel's phases, and the bound (what of W and
+    its velocity the L2 cannot hold moves once per update; the velocity is
+    read only under momentum).
 
 Then a JSON line describing the kernels, and last
 {"ok": true, "device": ...}. Exits non-zero, printing no result, when there
@@ -79,9 +85,10 @@ REPLAYED_MODES = ("pt5", "lv")  # PCD-like dynamics: compared one update at a ti
 # tensor cores (dense), HBM
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
 # The wide slice (scripts/bench_wide.py's shapes): name -> (config fields on
-# top of WIDE_BASE, data rows, the kernel the run takes, compared one update
-# at a time). The W-blocked kernel takes w20k_b64 only because the caller
-# asks for it.
+# top of WIDE_BASE, data rows, the kernel the row is compared and timed on,
+# compared one update at a time). cd_train.cu is asked for on the 20000-wide
+# rows that the admission rule gives to the W-blocked kernel (WIDE_ADMITTED):
+# those rows are held against their plain version on both kernels.
 WIDE_BASE = dict(visible="gaussian", lr=0.001, batch_size=20, k=1, seed=0)
 BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
 WIDE_ROWS = {
@@ -101,7 +108,11 @@ WIDE_ROWS = {
     "w20k_b64": (dict(n_visible=20000, n_hidden=400, batch_size=64), 640, "cd_train_wide",
                  False),
 }
-WIDE_TRAINED = ("w20k", "w20k_mom_bf16", "w28k", "w40k_bf16")  # through RBM.train
+WIDE_ADMITTED = ("w20k", "w20k_h512", "w20k_mom", "w20k_mom_bf16", "w28k", "w40k_bf16",
+                 "w20k_b64")  # select_kernel gives these to cd_train_wide.cu
+# through RBM.train: four rows in the W-blocked kernel's scope, and one row
+# outside it at each storage dtype, which cd_train.cu takes at this width
+WIDE_TRAINED = ("w20k", "w20k_mom_bf16", "w28k", "w40k_bf16", "w20k_enh", "w20k_pt3_bf16")
 GRID_ROWS = ("w20k", "w20k_pt3_bf16", "w28k", "w40k_bf16")  # run on grids 1, 7, 132 too
 
 
@@ -141,17 +152,22 @@ def bound(cfg, nb: int, l2_bytes: int):
     """(ms, what bounds it): the least time the card needs for one epoch of
     nb updates, the larger of its operations at the peak rate of the compute
     dtype and of its bytes at the memory rate. Bytes, at the storage width:
-    the data read once; W, b, c, their velocities, z, vz and the chain read
-    and written once. Where W and its velocity together exceed the L2, the
-    part beyond it cannot stay on the chip between updates and is read and
-    written once per update instead."""
+    the data read once; b, c, z, their velocities and the chain read and
+    written once; W read and written once; W's velocity written once, and
+    read once only under momentum (at momentum 0 the run stores lr*g and
+    never needs the old value). What of W, and then of its velocity, the L2
+    cannot hold between updates moves once per update instead."""
     B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
     width = 2 if cfg.param_dtype == "bfloat16" else 4
-    weights = 2 * V * H * width
+    w = V * H * width
+    vel_moves = 2 if cfg.momentum != 0 or cfg.initial_momentum is not None else 1
     rest = (2 * (V + H) + (2 * V if cfg.learn_variance else 0)
             + B * max(cfg.pt_temps, 1) * H) * width
-    beyond = max(0, weights - l2_bytes)
-    moved = nb * B * V * width + 2 * (weights - beyond + rest) + 2 * beyond * nb
+    keep_w = min(w, l2_bytes)
+    keep_vel = min(w, l2_bytes - keep_w)
+    once = 2 * keep_w + vel_moves * keep_vel + 2 * rest
+    per_update = 2 * (w - keep_w) + vel_moves * (w - keep_vel)
+    moved = nb * B * V * width + once + nb * per_update
     peak = PEAK_BF16_FLOPS if cfg.compute_dtype == "bfloat16" else PEAK_F32_FLOPS
     ops_s = update_flops(cfg) * nb / peak
     bytes_s = moved / PEAK_BYTES_PER_S
@@ -410,35 +426,36 @@ def run_wide(dev, smi) -> list:
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     rows = wide_rows(dev)
 
-    def counts():
-        return {"cd_train": K.cd_train_launches, "cd_train_wide": KW.cd_train_wide_launches}
+    def only(kernel, name):
+        """Assert that ``kernel`` alone was launched since the counts were
+        set to 0; how often."""
+        n = {"cd_train": K.cd_train_launches, "cd_train_wide": KW.cd_train_wide_launches}
+        if n.pop(kernel) < 1 or any(n.values()):
+            raise AssertionError(f"{name}: expected launches of {kernel} alone, got cd_train "
+                                 f"{K.cd_train_launches}, cd_train_wide "
+                                 f"{KW.cd_train_wide_launches}")
+        return K.cd_train_launches + KW.cd_train_wide_launches
 
-    def launched(kernel, before):
-        """Assert that only ``kernel`` was launched since ``before``; how often."""
-        now = counts()
-        other = "cd_train" if kernel == "cd_train_wide" else "cd_train_wide"
-        if now[other] != before[other] or now[kernel] <= before[kernel]:
-            raise AssertionError(f"expected launches of {kernel} alone: {before} -> {now}")
-        return now[kernel] - before[kernel]
-
-    # kernel against plain at full width, 2 epochs, hardened draws. The
-    # W-blocked kernel is asked for (w20k_b64 lies below the admission rule);
-    # the other rows follow the rule.
+    # kernel against plain at full width, 2 epochs, hardened draws, on the
+    # row's kernel and, where the admission rule picks the other one, on that
+    # too (keyed "<row>@cd_train_wide")
     errs, off = {}, {}
     for name, (cfg, data, kernel, replayed) in rows.items():
-        wide = kernel == "cd_train_wide"
-        if K.select_kernel(cfg, dev) != kernel and name != "w20k_b64":
-            raise AssertionError(f"{name}: the admission rule picks "
-                                 f"{K.select_kernel(cfg, dev)}, expected {kernel}")
-        before = counts()
-        if replayed:
-            n_off = [0, 0]
-            errs[name] = compare_replay(cfg, data, 2, dev, seed=3, wide=wide, off=n_off)
-            if n_off[1]:
-                off[name] = {"differ": n_off[0], "of": n_off[1]}
-        else:
-            errs[name] = compare_run(cfg, data, 2, dev, seed=3, wide=wide)
-        launched(kernel, before)
+        admitted = K.select_kernel(cfg)
+        if (admitted == "cd_train_wide") != (name in WIDE_ADMITTED):
+            raise AssertionError(f"{name}: the admission rule picks {admitted}")
+        for kern in dict.fromkeys((kernel, admitted)):
+            key = name if kern == kernel else f"{name}@{kern}"
+            wide = kern == "cd_train_wide"
+            K.cd_train_launches = KW.cd_train_wide_launches = 0
+            if replayed:
+                n_off = [0, 0]
+                errs[key] = compare_replay(cfg, data, 2, dev, seed=3, wide=wide, off=n_off)
+                if n_off[1]:
+                    off[key] = {"differ": n_off[0], "of": n_off[1]}
+            else:
+                errs[key] = compare_run(cfg, data, 2, dev, seed=3, wide=wide)
+            only(kern, key)
     # identical bits whatever the grid: 1, 7 and 132 blocks against the default,
     # two updates with the kernel's own draws
     for name in GRID_ROWS:
@@ -476,12 +493,13 @@ def run_wide(dev, smi) -> list:
     # wide_train: through RBM.train on the kernel the admission rule picks
     trained, launches = {}, {}
     for name in WIDE_TRAINED:
-        cfg, data, kernel, _ = rows[name]
-        before = counts()
+        cfg, data = rows[name][:2]
+        kernel = "cd_train_wide" if name in WIDE_ADMITTED else "cd_train"
+        K.cd_train_launches = KW.cd_train_wide_launches = 0
         t0 = time.perf_counter()
         rbm = RBM(cfg.replace(epochs=10, engine="pallas"), device=dev).train(data)
         seconds = time.perf_counter() - t0
-        launches[name] = launched(kernel, before)
+        launches[name] = only(kernel, name)
         hist = rbm.history
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in rbm.params.as_dict().values())
@@ -493,62 +511,71 @@ def run_wide(dev, smi) -> list:
                          "final_err": hist[-1], "seconds": round(seconds, 3)}
     phase("wide_train", runs=trained)
 
-    # timing_wide: one epoch per call, plain, kernel, kernel, plain
+    # timing_wide: one epoch per call, plain, kernel, kernel, plain; a row that
+    # the admission rule gives to the other kernel is timed on that one too
     timing = {}
     for name, (cfg, data, kernel, _) in rows.items():
-        wide = kernel == "cd_train_wide"
         st = init_train_state(cfg, device=dev)
         nb = data.shape[0] // cfg.batch_size
         order = K.batch_order(cfg, nb, 1, None)
         gen = torch.Generator().manual_seed(0)
-        run_plain = _runners(wide)[1]
-
-        def kernel_fn(trace=None):
-            K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None, gen,
-                           trace=trace, wide=wide)
-
-        def plain_fn():
-            run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None, gen)
-
-        t_plain1 = time_runs(plain_fn, 2)
-        t_kernel1 = time_runs(kernel_fn, 5)
-        t_kernel2 = time_runs(kernel_fn, 5)
-        t_plain2 = time_runs(plain_fn, 2)
-        t_kernel, t_plain = min(t_kernel1, t_kernel2), min(t_plain1, t_plain2)
-        phases = KW.wide_trace_phases(cfg) if wide else K.trace_phases(cfg)
-        trace = torch.zeros((1, nb, len(phases) + 1), dtype=torch.int64, device=dev)
-        kernel_fn(trace=trace)
-        torch.cuda.synchronize()
-        spans = (trace[0, :, 1:] - trace[0, :, :-1]).double().median(0).values / 1e3
         bound_ms, bound_by = bound(cfg, nb, l2)
-        timing[name] = {"kernel": kernel, "updates_per_run": nb, "kernel_ms": t_kernel * 1e3,
-                        "plain_ms": t_plain * 1e3,
-                        "kernel_ms_calls": [t_kernel1 * 1e3, t_kernel2 * 1e3],
-                        "plain_ms_calls": [t_plain1 * 1e3, t_plain2 * 1e3],
-                        "kernel_us_per_update": t_kernel * 1e6 / nb,
-                        "plain_us_per_update": t_plain * 1e6 / nb,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "flops_per_update": update_flops(cfg),
-                        "kernel_phase_us_median": dict(zip(phases, spans.tolist()))}
+        for kern in dict.fromkeys((kernel, K.select_kernel(cfg))):
+            wide = kern == "cd_train_wide"
+            run_plain = _runners(wide)[1]
+
+            def kernel_fn(trace=None):
+                K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
+                               gen, trace=trace, wide=wide)
+
+            def plain_fn():
+                run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None, gen)
+
+            t_plain1 = time_runs(plain_fn, 2)
+            t_kernel1 = time_runs(kernel_fn, 5)
+            t_kernel2 = time_runs(kernel_fn, 5)
+            t_plain2 = time_runs(plain_fn, 2)
+            t_kernel, t_plain = min(t_kernel1, t_kernel2), min(t_plain1, t_plain2)
+            phases = KW.wide_trace_phases(cfg) if wide else K.trace_phases(cfg)
+            trace = torch.zeros((1, nb, len(phases) + 1), dtype=torch.int64, device=dev)
+            kernel_fn(trace=trace)
+            torch.cuda.synchronize()
+            spans = (trace[0, :, 1:] - trace[0, :, :-1]).double().median(0).values / 1e3
+            timing[name if kern == kernel else f"{name}@{kern}"] = {
+                "kernel": kern, "updates_per_run": nb, "kernel_ms": t_kernel * 1e3,
+                "plain_ms": t_plain * 1e3,
+                "kernel_ms_calls": [t_kernel1 * 1e3, t_kernel2 * 1e3],
+                "plain_ms_calls": [t_plain1 * 1e3, t_plain2 * 1e3],
+                "kernel_us_per_update": t_kernel * 1e6 / nb,
+                "plain_us_per_update": t_plain * 1e6 / nb,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "flops_per_update": update_flops(cfg),
+                "kernel_phase_us_median": dict(zip(phases, spans.tolist()))}
     phase("timing_wide", order="plain, kernel, kernel, plain", nvidia_smi=smi, l2_bytes=l2,
           rows=timing)
 
-    def entry(name, row, source, line, what):
-        t = timing[row]
-        return {"name": name, "route": "cuda", "source": f"mdbn_tpu_torch/csrc/{source}",
+    def entry(name, row, line, what, key=None):
+        t = timing[key or row]
+        return {"name": name, "route": "cuda",
+                "source": f"mdbn_tpu_torch/csrc/{t['kernel']}.cu",
                 "replaces": f"mdbn_tpu/ops/cd_epoch_pallas.py:{line}",
-                "launches": launches[row], "max_abs_err": errs[row], "ms": t["kernel_ms"],
-                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "launches": launches[row], "max_abs_err": errs[key or row],
+                "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": None,
                 "ms_per": f"one epoch of {row} ({t['updates_per_run']} updates): {what}"}
 
-    return [entry("cd_train[w20k]", "w20k", "cd_train.cu", 755,
-                  "the wide-state modes' shapes, float32"),
-            entry("cd_train_bf16", "w20k_mom_bf16", "cd_train.cu", 970, "bf16 storage"),
-            entry("cd_train_wide", "w28k", "cd_train_wide.cu", 1981,
-                  "the W-blocked kernel, float32"),
-            entry("cd_train_wide[w40k_bf16]", "w40k_bf16", "cd_train_wide.cu", 1981,
-                  "the W-blocked kernel, bf16 storage and compute")]
+    return [entry("cd_train[w20k_enh]", "w20k_enh", 755,
+                  "a wide-state mode's shape outside the W-blocked kernel's scope, float32"),
+            entry("cd_train_bf16", "w20k_pt3_bf16", 970, "bf16 storage"),
+            entry("cd_train_wide", "w28k", 1981, "the W-blocked kernel, float32"),
+            entry("cd_train_wide[w40k_bf16]", "w40k_bf16", 1981,
+                  "the W-blocked kernel, bf16 storage and compute"),
+            entry("cd_train_wide[w20k]", "w20k", 1981,
+                  "the W-blocked kernel where cd_train.cu was timed too",
+                  key="w20k@cd_train_wide"),
+            entry("cd_train_wide[w20k_mom_bf16]", "w20k_mom_bf16", 1981,
+                  "the W-blocked kernel under momentum at bf16",
+                  key="w20k_mom_bf16@cd_train_wide")]
 
 
 def run() -> int:
@@ -623,11 +650,11 @@ def run() -> int:
                                          for k, t in m4.towers.items()},
                              joint=m4.joint.replace(engine="pallas"))
     mods, _ = build_data(exp4["data"])
-    before = K.cd_train_launches
+    K.cd_train_launches = 0
     t0 = time.perf_counter()
     mdbn = MDBN(m4, device=dev).train(mods)
     c4_s = time.perf_counter() - t0
-    c4_launches = K.cd_train_launches - before
+    c4_launches = K.cd_train_launches
     n_layers = sum(len(t.layer_sizes) for t in m4.towers.values()) + 1
     layers = [r for t in mdbn.towers.values() for r in t.layers] + [mdbn.joint]
     if c4_launches != n_layers or any(r.metrics.engine != "cuda" for r in layers):
@@ -641,7 +668,7 @@ def run() -> int:
     phase("c4_mdbn_train", launches=c4_launches, layers=n_layers, seconds=round(c4_s, 3),
           errors={name: [[h[0], h[-1]] for h in hist] if name != "joint" else [hist[0], hist[-1]]
                   for name, hist in mdbn.history.items()})
-    launches = K.cd_train_launches
+    launches = c1_launches + c4_launches
 
     # 5. timing at c1's shape: one epoch (100 updates) per call
     st = init_train_state(c1, device=dev)

@@ -27,14 +27,16 @@
 // Philox keying and inject layout, so one seed gives both kernels the same
 // draws.
 //
-// What bounds it on an H100: W does not stay in the 50 MB L2 at these shapes
-// (44.8 MB f32 at 28000x400 beside its velocity's writes, 80 MB bf16 at
+// What bounds it on an H100 at the widest shapes: W does not stay in the 50 MB
+// L2 (44.8 MB f32 at 28000x400 beside its velocity's writes, 80 MB bf16 at
 // 40000x1000), so one CD-1 update streams W from device memory for each of
 // its three products and reads and writes it once in the update: five passes,
 // 224 MB or 67 us at 28000x400, 400 MB or 119 us at 40000x1000, beside 2.2
 // and 8 GFLOP (33 and 119 us at the f32 peak). Both bounds are of the same
 // size, and cd_train.cu's hidden phase cannot approach either here: it walks
-// all of V in one block and re-reads W per 4-row tile.
+// all of V in one block and re-reads W per 4-row tile. Splitting the products
+// over V pays from about 4000 columns on, whether W fits the L2 or not
+// (scripts/torch_wide_crossover.py; ops.cd_epoch_cuda.WIDE_MIN_VISIBLE).
 //
 // Design: one persistent cooperative launch per run, grid barriers between
 // the phases of an update, as cd_train.cu.
@@ -47,7 +49,7 @@
 //   [B, 32] partial sums; after a barrier the reduce phase adds the strips'
 //   partials in strip order, adds c, takes the sigmoid and samples. The
 //   strip size is fixed, not derived from the grid, and nothing is atomic:
-//   grids 1, 7 and 264 give identical bits.
+//   grids 1, 7, 132 and the default give identical bits (the tests' grids).
 // - h W^T: a unit is 32 rows of W (4 per warp); the row tiles of h loop
 //   inside the unit, so a W row comes from device memory once and from L1
 //   for the later row tiles. No reduction across blocks. Under PCD the

@@ -11,9 +11,9 @@ in plain PyTorch, built from ``core.rbm_math``'s ``cd_step_stats`` /
 ``pt_step_stats`` and ``apply_update``. The TPU kernel's wide-state modes
 (``hbm_state``, ``chunk_update``, ``stream_vel``, H padding) compute the same
 function under a VMEM budget; this kernel keeps all state in device memory
-at any width, so they have no counterpart of their own. A run whose weights
-do not fit the card's L2 goes to the W-blocked kernel of
-``ops.cd_epoch_wide_cuda`` instead (``select_kernel``). Both take
+at any width, so they have no counterpart of their own. A wide run inside
+its scope goes to the W-blocked kernel of ``ops.cd_epoch_wide_cuda`` instead
+(``select_kernel``). Both take
 
 - ``params`` / ``velocity`` (``RBMParams``, with ``z`` under learned
   variance) and the PCD ``chain`` [CR, H], CR = B, or M*B rung-major under
@@ -86,23 +86,21 @@ def wide_unsupported(cfg: RBMConfig) -> Optional[str]:
     return kernel_unsupported(cfg)
 
 
-# The share of the L2 that W may take before a run goes to the W-blocked
-# kernel. An update reads W in each of its three products, and cd_train.cu
-# counts on finding it in the L2 again; the L2 also holds the update's
-# activations and the velocity that streams through it in the update phase.
-WIDE_L2_SHARE = 0.8
+# The visible width from which a run inside the W-blocked kernel's scope takes
+# it. cd_train.cu gives a hidden phase's unit all V rows of its W columns, so
+# its time per update grows with V from a low floor; cd_train_wide.cu splits
+# every x W product over strips of V and starts from a higher floor (3 + 3k
+# grid barriers per update against 2 + 2k). Timed on an H100 at H 400, batch 20
+# (scripts/torch_wide_crossover.py), cd_train.cu is ahead at V 2000 and the
+# W-blocked kernel from V 5000 on, by 2x at 20000 and beyond.
+WIDE_MIN_VISIBLE = 4096
 
 
-def select_kernel(cfg: RBMConfig, device: Optional[torch.device] = None,
-                  l2_bytes: Optional[int] = None) -> str:
-    """The kernel a run of ``cfg`` takes on ``device``: "cd_train_wide" when
-    the config lies in the W-blocked kernel's scope and W at storage width
-    exceeds ``WIDE_L2_SHARE`` of the L2 (``l2_bytes``, default the device's),
-    else "cd_train". Decided from the config and the device alone."""
-    if l2_bytes is None:
-        l2_bytes = torch.cuda.get_device_properties(device).L2_cache_size
-    w_bytes = (2 if cfg.param_dtype == "bfloat16" else 4) * cfg.n_visible * cfg.n_hidden
-    wide = wide_unsupported(cfg) is None and w_bytes > WIDE_L2_SHARE * l2_bytes
+def select_kernel(cfg: RBMConfig) -> str:
+    """The kernel a run of ``cfg`` takes: "cd_train_wide" when the config lies
+    in the W-blocked kernel's scope and is at least ``WIDE_MIN_VISIBLE``
+    wide, else "cd_train". Decided from the config alone."""
+    wide = wide_unsupported(cfg) is None and cfg.n_visible >= WIDE_MIN_VISIBLE
     return "cd_train_wide" if wide else "cd_train"
 
 
@@ -490,7 +488,7 @@ def cd_train_run(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
     if data.device.type != "cuda":
         raise ValueError(f"cd_train_run takes CPU or CUDA tensors, got {data.device}")
     if wide is None:
-        wide = select_kernel(cfg, data.device) == "cd_train_wide"
+        wide = select_kernel(cfg) == "cd_train_wide"
     if wide:
         from .cd_epoch_wide_cuda import cd_train_wide_run
 

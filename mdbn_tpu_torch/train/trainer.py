@@ -10,8 +10,8 @@ Engines (``cfg.engine``):
 - ``"pallas"`` -> ``"cuda"``: a hand-written kernel
   (``ops.cd_epoch_cuda.cd_train_run``, one launch per run):
   ``csrc/cd_train.cu``, or the W-blocked ``csrc/cd_train_wide.cu`` for a
-  run whose weights do not fit the card's L2
-  (``ops.cd_epoch_cuda.select_kernel``, from the config and the device).
+  wide run inside that kernel's scope
+  (``ops.cd_epoch_cuda.select_kernel``, from the config alone).
   Raises on the CPU, and for a config the kernel does not take.
 - ``"xla"`` -> ``"eager"``: ``ops.cd_epoch_cuda.cd_train_run_plain``, the
   plain PyTorch version of the same run, on any device.

@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Time both CUDA train kernels on the shapes both take, on one card.
+
+    python3 scripts/torch_wide_crossover.py [--reps 5]
+
+``ops.cd_epoch_cuda.select_kernel`` sends a run either to ``csrc/cd_train.cu``
+or to the W-blocked ``csrc/cd_train_wide.cu``. This script measures where the
+second overtakes the first: Gaussian RBMs inside the W-blocked kernel's scope
+(mean-field negative phase, mse monitor, plain gradient), CD-1, lr 0.001,
+standard-normal data from a seed, at H 400 and batch 20 for V = 784, 2000,
+3000, 4096, 5000, 10000 and 20000, and the in-scope rows of the wide slice
+(scripts/bench_wide.py's shapes: 20000x512, momentum 0.5 at float32 and at
+bf16 storage, batch 64, 28000x400, 40000x1000 bf16). Each shape runs one epoch
+of 20 updates (10 at batch 64 and at 40000x1000) per call, timed with CUDA
+events in the order cd_train, wide, wide, cd_train after a warm-up call each;
+the better of each side's two times counts. Prints one JSON line per shape
+with both kernels' µs per update and the weights' bytes, then a summary line
+with the card's name and power limit. Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BASE = dict(visible="gaussian", lr=0.001, batch_size=20, k=1, seed=0, n_hidden=400)
+BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+SHAPES = {  # name -> (config fields on top of BASE, data rows)
+    "v784": (dict(n_visible=784), 400),
+    "v2000": (dict(n_visible=2000), 400),
+    "v3000": (dict(n_visible=3000), 400),
+    "v4096": (dict(n_visible=4096), 400),
+    "v5000": (dict(n_visible=5000), 400),
+    "v10000": (dict(n_visible=10000), 400),
+    "w20k": (dict(n_visible=20000), 400),
+    "w20k_h512": (dict(n_visible=20000, n_hidden=512), 400),
+    "w20k_mom": (dict(n_visible=20000, momentum=0.5), 400),
+    "w20k_mom_bf16": (dict(n_visible=20000, momentum=0.5, **BF16), 400),
+    "w20k_b64": (dict(n_visible=20000, batch_size=64), 640),
+    "w28k": (dict(n_visible=28000), 400),
+    "w40k_bf16": (dict(n_visible=40000, n_hidden=1000, **BF16), 200),
+}
+
+
+def time_runs(fn, reps: int) -> float:
+    """Mean seconds per call of ``fn`` on the card, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3 / reps
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_wide_crossover: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from mdbn_tpu_torch._build import build_all
+    from mdbn_tpu_torch.config import RBMConfig
+    from mdbn_tpu_torch.core.rbm_math import torch_dtype
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    build_all()
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    faster = {}
+    for name, (fields, n) in SHAPES.items():
+        cfg = RBMConfig(**{**BASE, **fields})
+        gen = torch.Generator(device=dev).manual_seed(0)
+        data = torch.randn((n, cfg.n_visible), generator=gen,
+                           device=dev).to(torch_dtype(cfg.param_dtype))
+        st = init_train_state(cfg, device=dev)
+        nb = n // cfg.batch_size
+        order = K.batch_order(cfg, nb, 1, None)
+        seeds = torch.Generator().manual_seed(0)
+
+        def run(wide):
+            K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
+                           seeds, wide=wide)
+
+        times = [time_runs(lambda w=w: run(w), args.reps) * 1e6 / nb
+                 for w in (False, True, True, False)]
+        plain, wide = min(times[0], times[3]), min(times[1], times[2])
+        width = 2 if cfg.param_dtype == "bfloat16" else 4
+        faster[name] = "cd_train_wide" if wide < plain else "cd_train"
+        print(json.dumps({
+            "shape": name, "V": cfg.n_visible, "H": cfg.n_hidden, "B": cfg.batch_size,
+            "momentum": cfg.momentum, "param_dtype": cfg.param_dtype,
+            "w_bytes": cfg.n_visible * cfg.n_hidden * width, "updates_per_run": nb,
+            "cd_train_us_per_update": plain, "cd_train_wide_us_per_update": wide,
+            "cd_train_us_calls": [times[0], times[3]],
+            "cd_train_wide_us_calls": [times[1], times[2]],
+            "select_kernel": K.select_kernel(cfg), "faster": faster[name]}), flush=True)
+    print(json.dumps({"order": "cd_train, wide, wide, cd_train", "nvidia_smi": smi,
+                      "l2_bytes": l2, "faster": faster}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -267,17 +267,17 @@ def test_wide_plain_is_the_train_plain_at_f32_and_keeps_its_scope():
 
 # ---- admission ------------------------------------------------------------------
 
-L2 = 50 * 1024 * 1024  # an H100's L2, as torch reports it
 WIDE = dict(visible="gaussian", lr=0.001, batch_size=20, k=1, seed=0)
 BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
 SLICE = {  # scripts/bench_wide.py's shapes -> the kernel each takes
-    "w20k": (RBMConfig(n_visible=20000, n_hidden=400, **WIDE), "cd_train"),
-    "w20k_h512": (RBMConfig(n_visible=20000, n_hidden=512, **WIDE), "cd_train"),
+    "w20k": (RBMConfig(n_visible=20000, n_hidden=400, **WIDE), "cd_train_wide"),
+    "w20k_h512": (RBMConfig(n_visible=20000, n_hidden=512, **WIDE), "cd_train_wide"),
     "w20k_lv": (RBMConfig(n_visible=20000, n_hidden=400, learn_variance=True, **WIDE),
                 "cd_train"),
-    "w20k_mom": (RBMConfig(n_visible=20000, n_hidden=400, momentum=0.5, **WIDE), "cd_train"),
+    "w20k_mom": (RBMConfig(n_visible=20000, n_hidden=400, momentum=0.5, **WIDE),
+                 "cd_train_wide"),
     "w20k_mom_bf16": (RBMConfig(n_visible=20000, n_hidden=400, momentum=0.5, **WIDE, **BF16),
-                      "cd_train"),
+                      "cd_train_wide"),
     "w20k_enh": (RBMConfig(n_visible=20000, n_hidden=400, gradient="enhanced", **WIDE),
                  "cd_train"),
     "w20k_pt3_bf16": (RBMConfig(n_visible=20000, n_hidden=400, persistent=True, pt_temps=3,
@@ -285,7 +285,7 @@ SLICE = {  # scripts/bench_wide.py's shapes -> the kernel each takes
     "w28k": (RBMConfig(n_visible=28000, n_hidden=400, **WIDE), "cd_train_wide"),
     "w40k_bf16": (RBMConfig(n_visible=40000, n_hidden=1000, **WIDE, **BF16), "cd_train_wide"),
     "w20k_b64": (RBMConfig(n_visible=20000, n_hidden=400, **{**WIDE, "batch_size": 64}),
-                 "cd_train"),  # the W-blocked kernel only when the caller asks for it
+                 "cd_train_wide"),
 }
 
 
@@ -293,18 +293,21 @@ SLICE = {  # scripts/bench_wide.py's shapes -> the kernel each takes
 def test_admission(name):
     cfg, kernel = SLICE[name]
     tcfg = convert_config(cfg)
-    assert K.select_kernel(tcfg, l2_bytes=L2) == kernel
+    assert K.select_kernel(tcfg) == kernel
     assert K.kernel_unsupported(tcfg) is None
     cuda = torch.device("cuda")
     assert resolve_engine(tcfg, cuda) == "cuda"
     assert resolve_engine(tcfg.replace(engine="pallas"), cuda) == "cuda"
-    # a cache that holds everything takes no run away from cd_train.cu; one
-    # that holds nothing sends every run in the W-blocked kernel's scope there
-    assert K.select_kernel(tcfg, l2_bytes=1 << 40) == "cd_train"
+    # the W-blocked kernel takes every run in its scope from WIDE_MIN_VISIBLE
+    # columns on, and none below it or outside its scope
     in_scope = K.wide_unsupported(tcfg) is None
-    assert K.select_kernel(tcfg, l2_bytes=0) == ("cd_train_wide" if in_scope else "cd_train")
+    assert in_scope == (kernel == "cd_train_wide")
     assert in_scope == (name in ("w20k", "w20k_h512", "w20k_mom", "w20k_mom_bf16", "w28k",
                                  "w40k_bf16", "w20k_b64"))
+    at = tcfg.replace(n_visible=K.WIDE_MIN_VISIBLE)
+    assert K.select_kernel(at) == ("cd_train_wide" if in_scope else "cd_train")
+    assert K.select_kernel(at.replace(n_visible=K.WIDE_MIN_VISIBLE - 1)) == "cd_train"
+    assert K.select_kernel(at.replace(n_visible=2000)) == "cd_train"  # c2's width
 
 
 # ---- bf16 state through convert.py, a checkpoint and the API ---------------------
