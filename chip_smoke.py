@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from mdbn_tpu_torch/csrc (nvcc, sm_90a: cd_train.cu and
-cd_train_wide.cu, each at float32 and bfloat16 storage, in parallel) and runs
-eleven phases, one line each:
+cd_train_wide.cu, each at float32 and bfloat16 storage, and cd_grads.cu at
+float32, in parallel) and runs fourteen phases, one line each:
 
 1. device: torch and CUDA versions, the card's name and power limit, build time;
 2. the kernel against its plain PyTorch version on the card, inject mode with
@@ -46,7 +46,24 @@ eleven phases, one line each:
 11. kernel and plain time per epoch of each wide row (on both kernels where
     phase 9 compared both), the kernel's phases, and the bound (what of W and
     its velocity the L2 cannot hold moves once per update; the velocity is
-    read only under momentum).
+    read only under momentum);
+12. the data-parallel path's per-step kernel (cd_grads.cu) against its plain
+    version on the same hardened draws, one step each, at full width: c1
+    (784x500, batch 20), c1's third shard of a 3-way split of 20 (7 rows, one
+    pad row masked, norm 20/3) with mse and with xent and sparsity, and c5's
+    tower recipe at c2's width (Gaussian 2000x400, PCD k=2, sparsity);
+    identical bits on grids of 1, 7 and 132 blocks; its time per launch, the
+    plain version's and the bound;
+13. dp_world1: train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh,
+    c1 for 10 epochs: 1000 launches of the kernel, the final error within
+    0.001 of 0.0744; ms per epoch, and the shares of the all-reduce and the
+    update;
+14. dp_ranks: RBM.train with a mesh of 3 gloo ranks, one process each, all on
+    the one card, c1 for 10 epochs: the engine is cuda_dp on every rank, 1000
+    launches each, the parameters bit-identical across ranks, the error in
+    the band; then 2 epochs on injected per-rank draws held against a replay
+    in this process (per-shard plain step, mean, update) at rtol 2e-4 /
+    atol 2e-6.
 
 Then a JSON line describing the kernels, and last
 {"ok": true, "device": ...}. Exits non-zero, printing no result, when there
@@ -57,10 +74,12 @@ Imports no JAX.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -114,6 +133,14 @@ WIDE_ADMITTED = ("w20k", "w20k_h512", "w20k_mom", "w20k_mom_bf16", "w28k", "w40k
 # outside it at each storage dtype, which cd_train.cu takes at this width
 WIDE_TRAINED = ("w20k", "w20k_mom_bf16", "w28k", "w40k_bf16", "w20k_enh", "w20k_pt3_bf16")
 GRID_ROWS = ("w20k", "w20k_pt3_bf16", "w28k", "w40k_bf16")  # run on grids 1, 7, 132 too
+# The data-parallel path: 3 ranks on the one card split c1's batch of 20 into
+# shards of 7 rows, the last with one pad row. Its replay is held at the
+# tolerance of tests/test_pallas_dp.py: the all-reduce adds the shards in
+# another order than the replay's mean, norm 20/3 is not an integer, and 200
+# updates carry the differences on.
+DP_RANKS, DP_RTOL, DP_ATOL = 3, 2e-4, 2e-6
+DP_RANKS_LIMIT_S = 240.0  # the spawned ranks' whole run (34 s on an H100)
+GRADS_GRIDS = (1, 7, 132)
 
 
 def phase(name: str, **fields) -> None:
@@ -578,6 +605,332 @@ def run_wide(dev, smi) -> list:
                   key="w20k_mom_bf16@cd_train_wide")]
 
 
+def grads_bound(cfg):
+    """(ms, what bounds it) of one step of the per-step kernel: operations
+    2*rows*V*H for the hidden phase from the data, a visible and a hidden
+    phase per Gibbs step, the data chain's reconstruction under PCD and the
+    gradient's 2B rows, at the f32 peak; bytes: W, b, c, v0 and the chain
+    read once, gW, gb, gc and the chain written once."""
+    B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
+    rows = B * (1 + 2 * cfg.k + (1 if cfg.persistent else 0) + 2)
+    ops_s = 2.0 * rows * V * H / PEAK_F32_FLOPS
+    bytes_s = 4.0 * (2 * V * H + 2 * (V + H) + B * V + 2 * B * H) / PEAK_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def grads_cases(dev, c1, c1_data, ge):
+    """name -> (config at the shard's rows, v0, mask, norm) of the per-step
+    kernel's comparison, at full width."""
+    import torch
+
+    from mdbn_tpu_torch.config import RBMConfig
+
+    shard = torch.cat([c1_data[14:20], torch.zeros_like(c1_data[:1])])  # rank 2 of 3, one pad
+    mask = torch.tensor([1.0] * 6 + [0.0], device=dev)[:, None]
+    c5_tower = RBMConfig(n_visible=2000, n_hidden=400, visible="gaussian", k=2, persistent=True,
+                         lr=0.005, batch_size=20, sparsity_target=0.1, sparsity_cost=0.1)
+    return {"c1": (c1, c1_data[:20], None, None),
+            "c1_rank2_of_3": (c1.replace(batch_size=7), shard, mask, 20 / 3),
+            "c1_xent_sparsity_rank2_of_3": (
+                c1.replace(batch_size=7, error_metric="xent", sparsity_target=0.1,
+                           sparsity_cost=0.1), shard, mask, 20 / 3),
+            "c5_tower_c2": (c5_tower, ge[:20], None, None)}
+
+
+def _grads_state(cfg, dev, seed):
+    """Parameters with some structure (W at 10x its init scale, small biases)
+    and a random 0/1 chain."""
+    import torch
+
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.core.state import init_train_state
+
+    st = init_train_state(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = RBMParams(W=st.params.W * 10.0,
+                  b=0.1 * torch.randn(cfg.n_visible, generator=gen, device=dev),
+                  c=0.1 * torch.randn(cfg.n_hidden, generator=gen, device=dev))
+    chain = (torch.rand((cfg.batch_size, cfg.n_hidden), generator=gen, device=dev) < 0.5).float()
+    return p, st.velocity, chain
+
+
+def harden_step(cfg, params, velocity, chain, v0, u):
+    """One step's draws (the draw_uniforms layout) moved off their thresholds
+    against the plain version's probabilities (ops.cd_epoch_cuda's hardening
+    of a one-update run)."""
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+
+    hard = K.harden_uniform_blocks(cfg, params, velocity, chain, v0,
+                                   {k: x[None, None] for k, x in u.items()}, 1)
+    return {k: x[0, 0] for k, x in hard.items()}
+
+
+def run_grads(dev, smi, c1, c1_data, ge):
+    """Phase 12: the per-step kernel against its plain version; its timing.
+    Returns (max abs diff, timing dict)."""
+    import torch
+
+    from mdbn_tpu_torch._build import load_library
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops.cd_epoch_cuda import ptr
+    from mdbn_tpu_torch.ops.cd_step import draw_uniforms
+
+    errs, grids = {}, {}
+    for n, (name, (cfg, v0, mask, norm)) in enumerate(grads_cases(dev, c1, c1_data, ge).items()):
+        p, vel, chain = _grads_state(cfg, dev, n)
+        u = draw_uniforms(cfg, cfg.batch_size, torch.Generator(device=dev).manual_seed(n))
+        u = harden_step(cfg, p, vel, chain, v0, u)
+        got = G.cd_grads_step(cfg, p, v0, chain, uniforms=u, mask=mask, norm=norm)
+        want = G.cd_grads_step_plain(cfg, p, v0, chain, uniforms=u, mask=mask, norm=norm)
+        torch.cuda.synchronize()
+        diff = {}
+        for part, a, b in (("gW", got[0].W, want[0].W), ("gb", got[0].b, want[0].b),
+                           ("gc", got[0].c, want[0].c), ("err", got[2], want[2])):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{name}: {part} is not finite")
+            torch.testing.assert_close(a, b, rtol=REPLAY_RTOL, atol=REPLAY_ATOL)
+            diff[part] = float((a - b).abs().max())
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)  # chain: the same samples
+        diff["chain"] = float((got[1] - want[1]).abs().max())
+        errs[name] = diff
+        if name in ("c1", "c1_rank2_of_3"):  # the kernel's own draws on several grids
+            runs = [G.cd_grads_step(cfg, p, v0, chain, seed=11, mask=mask, norm=norm, grid=g)
+                    for g in (0,) + GRADS_GRIDS]
+            for r in runs[1:]:
+                if not (all(torch.equal(x, y) for x, y in zip(r[0].as_dict().values(),
+                                                              runs[0][0].as_dict().values()))
+                        and torch.equal(r[1], runs[0][1]) and torch.equal(r[2], runs[0][2])):
+                    raise AssertionError(f"{name}: the step depends on the grid")
+            grids[name] = list(GRADS_GRIDS) + ["default"]
+    max_err = max(max(d.values()) for d in errs.values())
+
+    # timing at c1's shape: the kernel alone (its C entry point on fixed
+    # buffers), the wrapper, and the plain version; plain, kernel, kernel, plain
+    cfg, v0 = c1, c1_data[:20]
+    p, _, chain = _grads_state(cfg, dev, 0)
+    lib = load_library("cd_grads", "float32").lib
+    V, H, B = cfg.n_visible, cfg.n_hidden, cfg.batch_size
+    out = [torch.empty(s, device=dev) for s in ((V, H), (V,), (H,), (B, H), (1,),
+                                               (int(lib.cd_grads_scratch_floats(V, H, B)),))]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flags = G.kernel_flags(cfg)
+
+    def kernel():
+        rc = lib.cd_grads_step(ptr(v0), None, None, None, None, ptr(p.W), ptr(p.b), ptr(p.c),
+                               ptr(chain), *[ptr(t) for t in out], V, H, B, cfg.k, flags,
+                               1.0 / B, 0.0, 0.0, 5, dev.index or 0, 0, stream)
+        if rc != 0:
+            raise RuntimeError(f"cd_grads launch failed: {rc}")
+
+    def wrapper():
+        G.cd_grads_step(cfg, p, v0, chain, seed=5)
+
+    def plain():
+        G.cd_grads_step_plain(cfg, p, v0, chain, seed=5)
+
+    t_plain1 = time_runs(plain, 50)
+    t_kernel1 = time_runs(kernel, 500)
+    t_kernel2 = time_runs(kernel, 500)
+    t_plain2 = time_runs(plain, 50)
+    t_wrapper = time_runs(wrapper, 500)
+    bound_ms, bound_by = grads_bound(cfg)
+    timing = {"kernel_us": min(t_kernel1, t_kernel2) * 1e6,
+              "kernel_us_calls": [t_kernel1 * 1e6, t_kernel2 * 1e6],
+              "wrapper_us": t_wrapper * 1e6, "plain_us": min(t_plain1, t_plain2) * 1e6,
+              "plain_us_calls": [t_plain1 * 1e6, t_plain2 * 1e6],
+              "bound_us": bound_ms * 1e3, "bound_by": bound_by}
+    phase("kernel_vs_plain_grads", max_abs_diff=errs, rtol=REPLAY_RTOL, atol=REPLAY_ATOL,
+          chain="identical samples", identical_bits_on_grids=grids,
+          timing_c1=timing, order="plain, kernel, kernel, plain", nvidia_smi=smi)
+    return max_err, timing
+
+
+def _dp_rank(rank, world, port, out_dir, cfg, data, uniforms, inject_epochs):
+    """One rank of phase 14, in a process of its own on the one card."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from mdbn_tpu_torch import RBM
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.parallel.dp import train_rbm_shard_map
+    from mdbn_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(world, backend="gloo")
+        dev = torch.device("cuda", 0)
+        data = torch.as_tensor(data, device=dev)
+        G.cd_grads_launches = 0
+        t0 = time.perf_counter()
+        rbm = RBM(cfg.replace(epochs=10), device=dev).train(data, mesh=mesh)
+        torch.cuda.synchronize()
+        res = {"engine": rbm.metrics.engine, "launches": G.cd_grads_launches,
+               "seconds": time.perf_counter() - t0, "history": rbm.history,
+               "params": {k: v.cpu() for k, v in rbm.params.as_dict().items()},
+               "mesh": [mesh.rank, mesh.size, str(mesh.device), mesh.backend]}
+        G.cd_grads_launches = 0
+        st, errs = train_rbm_shard_map(init_train_state(cfg, device=dev), data, cfg, mesh,
+                                       inject_epochs, pallas_step=True, uniforms=uniforms)
+        torch.cuda.synchronize()
+        res["inject"] = {"launches": G.cd_grads_launches, "errs": errs.cpu(),
+                         "params": {k: v.cpu() for k, v in st.params.as_dict().items()},
+                         "velocity": {k: v.cpu() for k, v in st.velocity.as_dict().items()}}
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_replay(cfg, data, ndev, n_epochs, dev, seed):
+    """Per-rank draws for an injected run of n_epochs, hardened step by step
+    against the replay's own state, and the replay: each shard's plain step
+    (cd_grads_step_plain, masked, norm B / ndev), their mean, apply_update.
+    Returns (uniforms {name: [E, nb, ndev, ...]} on the CPU, params, velocity,
+    errs)."""
+    import torch
+
+    from mdbn_tpu_torch.core.rbm_math import RBMParams, apply_update
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops.cd_step import draw_uniforms
+
+    B, V = cfg.batch_size, cfg.n_visible
+    lb = -(-B // ndev)
+    local, norm = cfg.replace(batch_size=lb), B / ndev
+    nb = data.shape[0] // B
+    batches = torch.nn.functional.pad(data[: nb * B].reshape(nb, B, V), (0, 0, 0, lb * ndev - B))
+    st = init_train_state(cfg, device=dev)
+    params, vel = st.params, st.velocity
+    chain = torch.zeros((lb, cfg.n_hidden), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    steps, errs = [], []
+    for e in range(n_epochs):
+        step_errs = []
+        for i in range(nb):
+            us, gs, es = [], [], []
+            for d in range(ndev):
+                v0 = batches[i, d * lb:(d + 1) * lb]
+                mask = ((d * lb + torch.arange(lb, device=dev)) < B).float()[:, None]
+                u = harden_step(local, params, vel, chain, v0, draw_uniforms(local, lb, gen))
+                g, _, err = G.cd_grads_step_plain(local, params, v0, chain, uniforms=u,
+                                                  mask=mask, norm=norm)
+                us.append({k: x.cpu() for k, x in u.items()})
+                gs.append(g)
+                es.append(err)
+            grads = RBMParams(*[sum(getattr(g, n) for g in gs) / ndev for n in ("W", "b", "c")])
+            params, vel = apply_update(params, vel, grads, cfg, epoch=e)
+            step_errs.append(sum(es) / ndev)
+            steps.append(us)
+        errs.append(torch.stack(step_errs).mean())
+    uniforms = {k: torch.stack([torch.stack([u[k] for u in s]) for s in steps])
+                .reshape(n_epochs, nb, ndev, *steps[0][0][k].shape) for k in steps[0][0]}
+    return uniforms, params, vel, torch.stack(errs)
+
+
+def run_dp(dev, smi, c1, t_cd_train_ms):
+    """Phases 13 and 14: the data-parallel path through its entry points.
+    Returns (launches in dp_world1, its timing dict)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from mdbn_tpu_torch.config import load_config
+    from mdbn_tpu_torch.core.rbm_math import apply_update
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.parallel import dp
+    from mdbn_tpu_torch.parallel.mesh import _free_port, make_mesh
+    from mdbn_tpu_torch.run import build_data
+
+    c1_train, _ = build_data(load_config(C1)["data"])
+    data = torch.as_tensor(c1_train, device=dev)
+    cfg = c1.replace(engine="pallas")
+    nb = data.shape[0] // cfg.batch_size
+
+    # 13. one rank, NCCL, through train_rbm_shard_map on the kernel
+    mesh = make_mesh(1, backend="nccl")
+    G.cd_grads_launches = 0
+    t0 = time.perf_counter()
+    st, errs = dp.train_rbm_shard_map(init_train_state(cfg, device=dev), data, cfg, mesh, 10,
+                                      pallas_step=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = G.cd_grads_launches
+    final = float(errs[-1])
+    if launches != 10 * nb:
+        raise AssertionError(f"dp_world1: {launches} launches of cd_grads, expected {10 * nb}")
+    if abs(final - C1_FINAL_ERR) > C1_ERR_TOL:
+        raise AssertionError(f"dp_world1: final error {final} not within {C1_ERR_TOL} of "
+                             f"{C1_FINAL_ERR}")
+    # one epoch per call; then where a step's time goes: the all-reduce and
+    # the update alone, at the step's shapes
+    ep = lambda: dp.train_rbm_shard_map(st, data, cfg, mesh, 1, pallas_step=True)
+    t_epoch = min(time_runs(ep, 3), time_runs(ep, 3))
+    g, _, err = G.cd_grads_step(cfg, st.params, data[:20], st.chain_h, seed=1)
+    t_reduce = time_runs(lambda: dp._all_reduce_mean(g, err, mesh), 200)
+    t_update = time_runs(lambda: apply_update(st.params, st.velocity, g, cfg, epoch=0), 200)
+    timing = {"epoch_ms": t_epoch * 1e3, "updates_per_s": nb / t_epoch,
+              "step_us": t_epoch * 1e6 / nb, "all_reduce_us": t_reduce * 1e6,
+              "apply_update_us": t_update * 1e6,
+              "all_reduce_share": t_reduce / (t_epoch / nb),
+              "apply_update_share": t_update / (t_epoch / nb),
+              "cd_train_epoch_ms": t_cd_train_ms, "vs_cd_train": t_epoch * 1e3 / t_cd_train_ms}
+    phase("dp_world1", launches=launches, first_err=float(errs[0]), final_err=final,
+          seconds=round(seconds, 3), nvidia_smi=smi, **timing)
+    dist.destroy_process_group()
+
+    # 14. three ranks on the one card over gloo, one process each
+    E_INJ = 2
+    uniforms, params, vel, errs_r = dp_replay(c1, data, DP_RANKS, E_INJ, dev, seed=9)
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        ranks = mp.spawn(_dp_rank, args=(DP_RANKS, _free_port(), out, cfg, c1_train, uniforms,
+                                         E_INJ), nprocs=DP_RANKS, join=False)
+        while not ranks.join(timeout=1.0):  # a failed rank raises here, the others stopped
+            if time.perf_counter() - t0 > DP_RANKS_LIMIT_S:
+                for proc in ranks.processes:
+                    proc.kill()
+                raise AssertionError(f"dp_ranks: the ranks did not finish in "
+                                     f"{DP_RANKS_LIMIT_S} s")
+        spawn_s = time.perf_counter() - t0
+        got = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(DP_RANKS)]
+    for r, g in enumerate(got):
+        if g["engine"] != "cuda_dp" or g["launches"] != 10 * nb:
+            raise AssertionError(f"dp_ranks rank {r}: engine {g['engine']}, "
+                                 f"{g['launches']} launches")
+        if g["inject"]["launches"] != E_INJ * nb:
+            raise AssertionError(f"dp_ranks rank {r}: {g['inject']['launches']} launches in "
+                                 "the injected run")
+        for k, x in g["params"].items():
+            if not torch.equal(x, got[0]["params"][k]):
+                raise AssertionError(f"dp_ranks: rank {r}'s {k} differs from rank 0's")
+        for part in ("params", "velocity"):
+            for k, x in g["inject"][part].items():
+                if not torch.equal(x, got[0]["inject"][part][k]):
+                    raise AssertionError(f"dp_ranks (injected): rank {r}'s {part} {k} differs")
+    hist = got[0]["history"]
+    if len(hist) != 10 or not all(np.isfinite(hist)) or abs(hist[-1] - C1_FINAL_ERR) > C1_ERR_TOL:
+        raise AssertionError(f"dp_ranks: final error {hist[-1]} not within {C1_ERR_TOL} of "
+                             f"{C1_FINAL_ERR}")
+    inj = got[0]["inject"]
+    diff = {}
+    for name, a, b in (("W", inj["params"]["W"], params.W), ("b", inj["params"]["b"], params.b),
+                       ("c", inj["params"]["c"], params.c),
+                       ("vW", inj["velocity"]["W"], vel.W), ("errs", inj["errs"], errs_r)):
+        torch.testing.assert_close(a, b.cpu(), rtol=DP_RTOL, atol=DP_ATOL)
+        diff[name] = float((a - b.cpu()).abs().max())
+    phase("dp_ranks", ranks=DP_RANKS, backend="gloo", mesh=[g["mesh"] for g in got],
+          engine=[g["engine"] for g in got], launches=[g["launches"] for g in got],
+          first_err=hist[0], final_err=hist[-1],
+          train_seconds=[round(g["seconds"], 3) for g in got], spawn_seconds=round(spawn_s, 3),
+          identical_bits_across_ranks=True, injected_epochs=E_INJ,
+          injected_vs_replay_max_abs_diff=diff, rtol=DP_RTOL, atol=DP_ATOL, nvidia_smi=smi)
+    return launches, timing
+
+
 def run() -> int:
     import torch
 
@@ -709,6 +1062,15 @@ def run() -> int:
         "ms_per": f"one epoch at c1's shape ({nb} updates)"}]
     entries += run_modes(dev, smi, c1, c1_data, ge)
     entries += run_wide(dev, smi)
+    grads_err, grads_t = run_grads(dev, smi, c1, c1_data, ge)
+    dp_launches, _ = run_dp(dev, smi, c1, t_kernel * 1e3)
+    entries.append({
+        "name": "cd_grads", "route": "cuda", "source": "mdbn_tpu_torch/csrc/cd_grads.cu",
+        "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:3184", "launches": dp_launches,
+        "max_abs_err": grads_err, "ms": grads_t["kernel_us"] / 1e3,
+        "plain_ms": grads_t["plain_us"] / 1e3, "bound_ms": grads_t["bound_us"] / 1e3,
+        "bound_by": grads_t["bound_by"], "library_ms": None,
+        "ms_per": "one step at c1's shape (784x500, batch 20, CD-1)"})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 Each ``csrc/<kernel>.cu`` is compiled with ``nvcc`` for ``sm_90a`` once per
-storage type (``-DMDBN_STORE_BF16=0|1``: float32 or bfloat16 parameters, see
-``csrc/cd_common.cuh``) into a shared library of its own with a plain C
+storage type it takes (``-DMDBN_STORE_BF16=0|1``: float32 or bfloat16
+parameters, see ``csrc/cd_common.cuh``; ``cd_grads`` is float32 only, like the
+TPU kernel it replaces) into a shared library of its own with a plain C
 interface, loaded with ``ctypes``. The build happens at first use (never at
 import, so the package imports on machines without a GPU or ``nvcc``) into
 ``mdbn_tpu_torch/_build/<key>/``, where the key hashes the sources and the
@@ -30,8 +31,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("cd_train", "cd_train_wide")
-STORAGE = ("float32", "bfloat16")
+# kernel -> the storage types it is built at
+KERNELS = {"cd_train": ("float32", "bfloat16"), "cd_train_wide": ("float32", "bfloat16"),
+           "cd_grads": ("float32",)}
 
 
 @dataclass
@@ -92,7 +94,7 @@ def build_all() -> Dict[Tuple[str, str], Library]:
     {(kernel, storage): Library}. Raises with the compiler's output when nvcc
     is missing or a build fails."""
     out_dir = BUILD_DIR / _key()
-    units = [(k, s) for k in KERNELS for s in STORAGE]
+    units = [(k, s) for k, storages in KERNELS.items() for s in storages]
     missing = [u for u in units if not _so(out_dir, *u).exists()]
     built: Dict[Tuple[str, str], Tuple[float, str]] = {}
     if missing:
@@ -114,7 +116,7 @@ def build_all() -> Dict[Tuple[str, str], Library]:
 
 
 def load_library(kernel: str = "cd_train", storage: str = "float32") -> Library:
-    """The library of ``kernel`` ("cd_train", "cd_train_wide") at ``storage``
+    """The library of ``kernel`` (a key of ``KERNELS``) at ``storage``
     ("float32", "bfloat16"), built at first use."""
     return build_all()[(kernel, storage)]
 
@@ -154,4 +156,18 @@ def _declare_cd_train_wide(lib: ctypes.CDLL) -> None:
     _declare_error_string(lib, "cd_train_wide_error_string")
 
 
-_DECLARE = {"cd_train": _declare_cd_train, "cd_train_wide": _declare_cd_train_wide}
+def _declare_cd_grads(lib: ctypes.CDLL) -> None:
+    lib.cd_grads_step.argtypes = (
+        [_P] * 15  # v0, mask, u_h0, u_h, u_v, W, b, c, chain_in, gW, gb, gc, chain_out, err,
+                   # scratch
+        + [_I] * 5  # V, H, B, k, flags
+        + [_F] * 3  # inv_norm, sparsity_target, sparsity_cost
+        + _TAIL)
+    lib.cd_grads_step.restype = _I
+    lib.cd_grads_scratch_floats.argtypes = [_I] * 3  # V, H, B
+    lib.cd_grads_scratch_floats.restype = ctypes.c_longlong
+    _declare_error_string(lib, "cd_grads_error_string")
+
+
+_DECLARE = {"cd_train": _declare_cd_train, "cd_train_wide": _declare_cd_train_wide,
+            "cd_grads": _declare_cd_grads}

@@ -132,15 +132,28 @@ def free_energy(params: RBMParams, v: torch.Tensor, cfg: RBMConfig) -> torch.Ten
     return 0.5 * quad.sum(dim=1) - softplus
 
 
-def recon_error(v0: torch.Tensor, v1mean: torch.Tensor, metric: str) -> torch.Tensor:
+def recon_error(v0: torch.Tensor, v1mean: torch.Tensor, metric: str,
+                row_mask: Optional[torch.Tensor] = None,
+                norm: Optional[float] = None) -> torch.Tensor:
     """Reconstruction-error monitor: "mse" (mean over all entries) or "xent"
-    (per-row summed cross-entropy, averaged over rows)."""
+    (per-row summed cross-entropy, averaged over rows). With ``row_mask``
+    ([B, 1] of 0/1) and ``norm`` (the row count to average over), pad rows
+    are left out: under uneven data parallelism the per-rank masked sums
+    scaled by 1/norm average over the ranks to the global-batch mean."""
+    masked = row_mask is not None or norm is not None
+    n = float(norm if norm is not None else v0.shape[0])
     if metric == "mse":
         d = v0 - v1mean
-        return torch.mean(d * d)
+        if row_mask is not None:
+            d = d * row_mask
+        return torch.sum(d * d) / (n * v0.shape[1]) if masked else torch.mean(d * d)
     eps = 1e-7
     p = torch.clamp(v1mean, eps, 1.0 - eps)
     xe = v0 * torch.log(p) + (1.0 - v0) * torch.log(1.0 - p)
+    if row_mask is not None:
+        xe = xe * row_mask
+    if masked:
+        return -torch.sum(xe) / n
     return -torch.mean(torch.sum(xe, dim=1))
 
 
@@ -151,6 +164,8 @@ def cd_step_stats(
     uniforms: Dict[str, torch.Tensor],
     cfg: RBMConfig,
     factor_dtype: Optional[torch.dtype] = None,
+    row_mask: Optional[torch.Tensor] = None,
+    norm: Optional[float] = None,
 ) -> Tuple[RBMParams, torch.Tensor, torch.Tensor]:
     """One CD-k/PCD step's statistics. Returns (grads, new_chain_h, err).
 
@@ -162,7 +177,9 @@ def cd_step_stats(
     ``factor_dtype``: the negative-phase visibles round through this dtype
     before they enter the hidden units and the gradient, as in the W-blocked
     kernel, which keeps its factors at the storage dtype; the monitor sees
-    the unrounded mean.
+    the unrounded mean. ``row_mask`` ([B, 1] of 0/1) and ``norm``: pad rows
+    are zeroed out of every statistic and sums divide by ``norm`` instead of
+    B (uneven data parallelism: ``parallel.dp``).
     """
     dtype = v0.dtype
     h0p = hidden_mean(params, v0, cfg)
@@ -191,34 +208,40 @@ def cd_step_stats(
         hmean = hidden_mean(params, vs, cfg)
         h = (uniforms["h"][t] < hmean).to(dtype)
 
-    grads = _grads(params, v0, h0p, vs, hmean, cfg)
+    grads = _grads(params, v0, h0p, vs, hmean, cfg, row_mask, norm)
     # PCD: the monitor reconstructs the DATA chain (one step from h0s)
     if cfg.persistent and chain_h is not None:
         v1mean_data = visible_mean(params, h0s, cfg)
     else:
         v1mean_data = v1mean
-    return grads, h, _monitor(v0, v1mean_data, cfg)
+    return grads, h, _monitor(v0, v1mean_data, cfg, row_mask, norm)
 
 
-def _monitor(v0: torch.Tensor, v1mean: torch.Tensor, cfg: RBMConfig) -> torch.Tensor:
+def _monitor(v0: torch.Tensor, v1mean: torch.Tensor, cfg: RBMConfig,
+             row_mask: Optional[torch.Tensor] = None,
+             norm: Optional[float] = None) -> torch.Tensor:
     metric = cfg.error_metric if cfg.error_metric in ("mse", "xent") else "mse"
-    return recon_error(v0, v1mean, metric)
+    return recon_error(v0, v1mean, metric, row_mask, norm)
 
 
 def _grads(params: RBMParams, v0: torch.Tensor, h0p: torch.Tensor, vs: torch.Tensor,
-           hmean: torch.Tensor, cfg: RBMConfig) -> RBMParams:
+           hmean: torch.Tensor, cfg: RBMConfig, row_mask: Optional[torch.Tensor] = None,
+           norm: Optional[float] = None) -> RBMParams:
     """The update direction from one step's positive phase (v0, h0p) and
     negative phase (vs, hmean): plain, learned-variance and enhanced
-    statistics plus the sparsity term, in the JAX core's order."""
-    inv_b = 1.0 / v0.shape[0]
+    statistics plus the sparsity term, in the JAX core's order. Masking the
+    v side of each outer product zeroes a pad row's contribution to W."""
+    inv_b = 1.0 / float(norm if norm is not None else v0.shape[0])
+    masked = (lambda x: x) if row_mask is None else (lambda x: x * row_mask)
+    v_pos, v_neg, h_pos, h_neg = masked(v0), masked(vs), masked(h0p), masked(hmean)
     s = inv_sigma2(params)
     # learned variance: W/b statistics see precision-scaled visibles
-    vp = v0 if s is None else v0 * s
-    vn = vs if s is None else vs * s
+    vp = v_pos if s is None else v_pos * s
+    vn = v_neg if s is None else v_neg * s
     gW = (_dot(vp.T, h0p, cfg.compute_dtype, cfg.matmul_precision)
           - _dot(vn.T, hmean, cfg.compute_dtype, cfg.matmul_precision)) * inv_b
     gb = torch.sum(vp - vn, dim=0) * inv_b
-    gc = torch.sum(h0p - hmean, dim=0) * inv_b
+    gc = torch.sum(h_pos - h_neg, dim=0) * inv_b
     gz = None
     if s is not None:
         # d log p / d z_i = e^{-z_i} (<A_i>_data - <A_i>_model),
@@ -227,18 +250,19 @@ def _grads(params: RBMParams, v0: torch.Tensor, h0p: torch.Tensor, vs: torch.Ten
         wh_m = _dot(hmean, params.W.T, cfg.compute_dtype, cfg.matmul_precision)
         A_d = 0.5 * (v0 - params.b) ** 2 - v0 * wh_d
         A_m = 0.5 * (vs - params.b) ** 2 - vs * wh_m
-        gz = s * torch.sum(A_d - A_m, dim=0) * inv_b
+        gz = s * torch.sum(masked(A_d - A_m), dim=0) * inv_b
         if not cfg.resolved_sample_visible:
             # mean-field negative phase: Rao-Blackwellize the conditional's
-            # own variance term E[(v-b)^2] = (mean-b)^2 + sigma^2
-            gz = gz - 0.5
+            # own variance term E[(v-b)^2] = (mean-b)^2 + sigma^2, times the
+            # share of real rows under masking
+            gz = gz - 0.5 * (1.0 if row_mask is None else torch.sum(row_mask) * inv_b)
     if cfg.gradient == "enhanced":
-        mu = 0.5 * (torch.sum(v0, dim=0) + torch.sum(vs, dim=0)) * inv_b
-        lam = 0.5 * (torch.sum(h0p, dim=0) + torch.sum(hmean, dim=0)) * inv_b
+        mu = 0.5 * (torch.sum(v_pos, dim=0) + torch.sum(v_neg, dim=0)) * inv_b
+        lam = 0.5 * (torch.sum(h_pos, dim=0) + torch.sum(h_neg, dim=0)) * inv_b
         gW, gb, gc = enhance_grads(gW, gb, gc, mu, lam, cfg)
     if cfg.sparsity_target is not None and cfg.sparsity_cost:
         gc = gc + cfg.sparsity_cost * (
-            cfg.sparsity_target - torch.sum(h0p, dim=0) * inv_b)
+            cfg.sparsity_target - torch.sum(h_pos, dim=0) * inv_b)
     return RBMParams(W=gW, b=gb, c=gc, z=gz)
 
 
@@ -344,13 +368,17 @@ def pt_step_stats(
     chains_h: torch.Tensor,
     uniforms: Dict[str, torch.Tensor],
     cfg: RBMConfig,
+    row_mask: Optional[torch.Tensor] = None,
+    norm: Optional[float] = None,
 ) -> Tuple[RBMParams, torch.Tensor, torch.Tensor]:
     """One PT-PCD update's statistics (Desjardins et al. 2010); mirrors
     ``mdbn_tpu.core.rbm_math.pt_step_stats``. ``chains_h`` [M, B, H] (rung 0
     at beta = 1); ``uniforms`` in the ``draw_pt_uniforms`` layout. Every rung
     takes k tempered Gibbs sweeps, then an even and an odd swap round couple
     the ladder; the statistics come from rung 0 before the swaps and the
-    monitor reconstructs the data chain. Returns (grads, new_chains, err)."""
+    monitor reconstructs the data chain. Returns (grads, new_chains, err).
+    ``row_mask`` and ``norm`` as in ``cd_step_stats``: each batch row owns
+    its whole ladder, so a pad row's ladder evolves but enters no statistic."""
     dtype = v0.dtype
     betas = pt_betas(cfg, v0.device)
     bM = betas[:, None, None]
@@ -364,8 +392,8 @@ def pt_step_stats(
         h = (uniforms["h"][t] < hmean).to(dtype)
     h = _pt_swap_round(params, h, betas, uniforms["swap"][0], 0, cfg)
     h = _pt_swap_round(params, h, betas, uniforms["swap"][1], 1, cfg)
-    grads = _grads(params, v0, h0p, vs[0], hmean[0], cfg)
-    return grads, h, _monitor(v0, visible_mean(params, h0s, cfg), cfg)
+    grads = _grads(params, v0, h0p, vs[0], hmean[0], cfg, row_mask, norm)
+    return grads, h, _monitor(v0, visible_mean(params, h0s, cfg), cfg, row_mask, norm)
 
 
 def pseudo_likelihood(params: RBMParams, v: torch.Tensor, bit_index: int,

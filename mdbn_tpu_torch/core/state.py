@@ -40,8 +40,13 @@ def chain_rows(cfg: RBMConfig) -> int:
 
 
 def default_device() -> torch.device:
-    """The device a model lives on when the caller names none."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device a model lives on when the caller names none: the CUDA
+    card. Raises when there is none; the CPU is used only when asked for."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; mdbn_tpu_torch runs on the card "
+                           "unless asked for the CPU: pass device=\"cpu\" (or "
+                           "--device cpu to the CLI)")
+    return torch.device("cuda")
 
 
 def init_train_state(cfg: RBMConfig, generator: Optional[torch.Generator] = None,

@@ -32,14 +32,15 @@ class DBN:
         self.device = torch.device(device) if device is not None else default_device()
         self.layers: List[RBM] = []
 
-    def train(self, data, runtime: Optional[TrainRuntimeConfig] = None,
+    def train(self, data, mesh=None, runtime: Optional[TrainRuntimeConfig] = None,
               layer_callback: Optional[Callable[[int, RBM], None]] = None,
               checkpointer=None) -> "DBN":
         """Greedy layer-wise pretraining. With a ``LayerCheckpointer``,
         completed layers are restored (through the RBM constructor, so they
         count as trained) instead of retrained, and each newly trained layer
         is saved. Layer l's RBM is initialised from its config's seed
-        (``DBNConfig.seed + l``)."""
+        (``DBNConfig.seed + l``). ``mesh`` goes to every layer's
+        ``RBM.train``; under it rank 0 alone writes the checkpoints."""
         reps = self._as_input(data)
         self.layers = []
         for l in range(len(self.cfg.layer_sizes)):
@@ -57,8 +58,8 @@ class DBN:
                 rbm = RBM(cfg, state=state, device=self.device)
             else:
                 rbm = RBM(expected_cfg, device=self.device)
-                rbm.train(reps, runtime=runtime)
-                if checkpointer is not None:
+                rbm.train(reps, mesh=mesh, runtime=runtime)
+                if checkpointer is not None and (mesh is None or mesh.rank == 0):
                     checkpointer.save_layer(name, rbm.state, rbm.cfg)
             self.layers.append(rbm)
             # callbacks fire only for layers trained in THIS run

@@ -45,17 +45,19 @@ class MDBN:
         return torch.cat([self.towers[name].transform(modalities[name])
                           for name in self.cfg.towers], dim=1)
 
-    def train(self, modalities, runtime: Optional[TrainRuntimeConfig] = None,
+    def train(self, modalities, mesh=None, runtime: Optional[TrainRuntimeConfig] = None,
               checkpoint_dir: Optional[str] = None) -> "MDBN":
         """With ``checkpoint_dir``, each tower layer and the joint RBM are
-        checkpointed as completed and restored on re-run."""
+        checkpointed as completed and restored on re-run. ``mesh`` goes to
+        every layer's ``RBM.train``; under it rank 0 alone writes the
+        checkpoints."""
         from ..checkpoint import LayerCheckpointer
 
         for name, tower_cfg in self.cfg.towers.items():
             ck = (LayerCheckpointer(f"{checkpoint_dir}/tower_{name}")
                   if checkpoint_dir else None)
             tower = DBN(tower_cfg, device=self.device)
-            tower.train(modalities[name], runtime=runtime, checkpointer=ck)
+            tower.train(modalities[name], mesh=mesh, runtime=runtime, checkpointer=ck)
             self.towers[name] = tower
         codes = self._tower_codes(modalities)
         joint_cfg = dataclasses.replace(self.cfg.joint, n_visible=codes.shape[1],
@@ -72,8 +74,8 @@ class MDBN:
         else:
             gen = torch.Generator().manual_seed(self.cfg.seed + JOINT_SEED_OFFSET)
             self.joint = RBM(joint_cfg, generator=gen, device=self.device)
-            self.joint.train(codes, runtime=runtime)
-            if jck is not None:
+            self.joint.train(codes, mesh=mesh, runtime=runtime)
+            if jck is not None and (mesh is None or mesh.rank == 0):
                 jck.save_layer("joint", self.joint.state, self.joint.cfg)
         return self
 

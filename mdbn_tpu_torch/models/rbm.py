@@ -24,8 +24,9 @@ class RBM:
     >>> rbm.train(data)              # data: [n_samples, 784]
     >>> codes = rbm.transform(data)  # mean-field hidden probabilities
 
-    ``device`` defaults to CUDA when available; a given ``state`` (e.g. a
-    checkpoint restore) is moved there and counts as trained.
+    ``device`` defaults to the CUDA card (``device="cpu"`` asks for the CPU);
+    a given ``state`` (e.g. a checkpoint restore) is moved there and counts
+    as trained.
     """
 
     def __init__(self, cfg: RBMConfig, generator: Optional[torch.Generator] = None,
@@ -48,11 +49,13 @@ class RBM:
 
     # -- reference API ------------------------------------------------------
 
-    def train(self, data, runtime: Optional[TrainRuntimeConfig] = None,
+    def train(self, data, mesh=None, runtime: Optional[TrainRuntimeConfig] = None,
               epoch_callback=None) -> "RBM":
+        """``mesh``: a ``parallel.mesh.Mesh`` of more than one rank trains
+        data-parallel; every rank calls ``train`` with the same data."""
         self.state, self.metrics = train_rbm(data, self.cfg, state=self.state,
                                              runtime=runtime,
-                                             epoch_callback=epoch_callback)
+                                             epoch_callback=epoch_callback, mesh=mesh)
         self._trained = True
         return self
 

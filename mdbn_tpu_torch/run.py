@@ -3,9 +3,12 @@
 Port of the model section of ``mdbn_tpu/run.py``: the experiment config's
 "model" (an RBMConfig / DBNConfig / MDBNConfig) trains on its "data" spec
 (synthetic kinds), and ``--save`` / ``--load`` / ``--transform-out`` persist
-the model and write latent codes. The config's "analysis" and "finetune"
-blocks, the real-data loaders and ``--dp/--tp`` raise an error that names
-the ROADMAP.md item porting them.
+the model and write latent codes. It runs on the CUDA card unless
+``--device cpu`` asks for the CPU. ``--dp N`` trains data-parallel over N
+ranks, one process each, under ``torchrun --nproc-per-node N``; rank 0
+writes the files. The config's "analysis" and "finetune" blocks, the
+real-data loaders and ``--tp`` raise an error that names the ROADMAP.md item
+porting them.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 from .config import DBNConfig, MDBNConfig, RBMConfig, TrainRuntimeConfig, load_config
 from .data import synthetic
@@ -65,6 +69,24 @@ def _check_sections(exp: dict) -> None:
                          "survival.py)", "8")
 
 
+def _dp_mesh(n: int, device: str):
+    """The mesh of ``--dp n``: this process is one of n ranks started by
+    torchrun. Ranks that share a card (or the CPU) talk over gloo, ranks with
+    a card each over NCCL."""
+    from .parallel.mesh import make_mesh
+
+    if os.environ.get("WORLD_SIZE") != str(n):
+        raise RuntimeError(f"--dp {n} runs one process per rank: launch it as "
+                           f"`torchrun --nproc-per-node {n} -m mdbn_tpu_torch.run "
+                           f"--config <config> --dp {n}` (WORLD_SIZE is "
+                           f"{os.environ.get('WORLD_SIZE')!r})")
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    mesh = make_mesh(n, backend="nccl" if cards >= n else "gloo")
+    if device == "cpu":
+        return dataclasses.replace(mesh, device=torch.device("cpu"))
+    return mesh
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="mdbn_tpu_torch experiment runner")
     ap.add_argument("--config", required=True)
@@ -73,7 +95,10 @@ def main(argv=None):
                     help="xla: eager PyTorch; pallas: the CUDA kernel")
     ap.add_argument("--metrics", default=None, help="JSONL metrics output path")
     ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--dp", type=int, default=0, help="data-parallel width (not ported)")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the model trains (default: the CUDA card)")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="data-parallel width: N ranks, launched by torchrun --nproc-per-node N")
     ap.add_argument("--tp", type=int, default=1, help="tensor-parallel width (not ported)")
     ap.add_argument("--save", default=None, metavar="DIR",
                     help="save the trained model to DIR after training")
@@ -82,8 +107,13 @@ def main(argv=None):
     ap.add_argument("--transform-out", default=None, metavar="PATH",
                     help="write latent codes for the configured data to PATH (.npy or .csv)")
     args = ap.parse_args(argv)
-    if args.dp or args.tp != 1:
-        raise not_ported("--dp/--tp (parallel/dp.py, parallel/mesh.py)", "11")
+    if args.tp != 1:
+        raise not_ported("--tp (the dp x tp mesh, make_mesh_2d)", "11")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; pass --device cpu to train on the CPU")
+    mesh = _dp_mesh(args.dp, args.device) if args.dp else None
+    device = mesh.device if mesh is not None else args.device
+    rank0 = mesh is None or mesh.rank == 0
 
     exp = load_config(args.config)
     model_cfg = exp["model"]
@@ -119,8 +149,8 @@ def main(argv=None):
         log.info("wrote %s latent codes to %s", codes.shape, out)
 
     if args.load:
-        model = model_cls.load(args.load)
-        if args.transform_out:
+        model = model_cls.load(args.load, device=device)
+        if args.transform_out and rank0:
             write_codes(model)
         _check_sections(exp)
         return 0
@@ -130,10 +160,10 @@ def main(argv=None):
                                  # DBN/MDBN at layer boundaries
                                  checkpoint_every_epochs=1 if args.checkpoint_dir else 0)
     layer_runtime = dataclasses.replace(runtime, checkpoint_every_epochs=0)
-    with MetricsWriter(args.metrics) as mw:
+    with MetricsWriter(args.metrics if rank0 else None) as mw:
         if model_cls is RBM:
-            model = RBM(override(model_cfg))
-            model.train(data, runtime=runtime)
+            model = RBM(override(model_cfg), device=device)
+            model.train(data, mesh=mesh, runtime=runtime)
             for ep, (err, ups) in enumerate(zip(model.metrics.errors,
                                                 model.metrics.updates_per_sec)):
                 mw.write({"kind": "epoch", "epoch": ep, "recon_error": err,
@@ -141,7 +171,7 @@ def main(argv=None):
             log.info("RBM trained (%s engine): err %.5f -> %.5f",
                      model.metrics.engine, model.history[0], model.history[-1])
         elif model_cls is DBN:
-            model = DBN(override(model_cfg))
+            model = DBN(override(model_cfg), device=device)
 
             def layer_cb(l, rbm):
                 mw.write({"kind": "layer", "layer": l, "errors": rbm.history,
@@ -156,20 +186,21 @@ def main(argv=None):
                 ck = LayerCheckpointer(args.checkpoint_dir)
                 if ck.completed():
                     log.info("resuming: restoring completed layers %s", ck.completed())
-            model.train(data, runtime=layer_runtime, layer_callback=layer_cb,
+            model.train(data, mesh=mesh, runtime=layer_runtime, layer_callback=layer_cb,
                         checkpointer=ck)
         else:
-            model = MDBN(override(model_cfg))
-            model.train(data, runtime=layer_runtime, checkpoint_dir=args.checkpoint_dir)
+            model = MDBN(override(model_cfg), device=device)
+            model.train(data, mesh=mesh, runtime=layer_runtime,
+                        checkpoint_dir=args.checkpoint_dir)
             for name, hist in model.history.items():
                 mw.write({"kind": "tower", "name": name, "history": hist})
                 log.info("%s trained", name)
-            if args.checkpoint_dir:
+            if args.checkpoint_dir and rank0:
                 model.save(os.path.join(args.checkpoint_dir, "mdbn_final"))
-        if args.save:
+        if args.save and rank0:
             model.save(args.save)
             log.info("model saved to %s", args.save)
-        if args.transform_out:
+        if args.transform_out and rank0:
             write_codes(model)
     _check_sections(exp)
     return 0

@@ -18,6 +18,13 @@ Engines (``cfg.engine``):
 - ``"auto"``: ``"cuda"`` when the state lies on a CUDA device and the kernel
   takes the config, else ``"eager"``. Decided from the config and the
   device before anything runs.
+
+Under a data-parallel ``mesh`` of more than one rank
+(``parallel.mesh.make_mesh``) the run goes through
+``parallel.dp.train_rbm_shard_map``: ``"cuda_dp"`` runs each rank's step on
+the per-step kernel ``csrc/cd_grads.cu`` (``engine="pallas"``, or ``"auto"``
+on CUDA for a config it takes), ``"eager_dp"`` on the core (``"xla"``, or
+``"auto"`` otherwise). A mesh of one rank takes the single-device path.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from ..config import RBMConfig, TrainRuntimeConfig
 from ..core.rbm_math import torch_dtype
 from ..core.state import TrainState, init_train_state
 from ..ops import cd_epoch_cuda
+from ..ops.cd_grads_cuda import grads_unsupported
+from ..parallel.dp import check_dp_supports, train_rbm_shard_map
 
 
 def resolve_engine(cfg: RBMConfig, device: torch.device) -> str:
@@ -49,13 +58,32 @@ def resolve_engine(cfg: RBMConfig, device: torch.device) -> str:
     return "cuda" if device.type == "cuda" and reason is None else "eager"
 
 
+def resolve_dp_engine(cfg: RBMConfig, device: torch.device) -> str:
+    """The engine a run of ``cfg`` on ``device`` under a mesh of more than one
+    rank uses: "cuda_dp" or "eager_dp". Raises for what neither takes."""
+    check_dp_supports(cfg, pallas_step=False)
+    if cfg.engine == "xla":
+        return "eager_dp"
+    reason = grads_unsupported(cfg)
+    if cfg.engine == "pallas":
+        if device.type != "cuda":
+            raise ValueError(f"engine='pallas' under a mesh runs the CUDA kernel cd_grads.cu, "
+                             f"and the model lies on {device}; use engine='xla' there")
+        if reason is not None:
+            raise ValueError(f"{reason}. Under a mesh engine='pallas' runs the per-step "
+                             "kernel; the fused DP kernel (K6, ROADMAP.md Queue 2) is not "
+                             "ported yet: use engine='xla'")
+        return "cuda_dp"
+    return "cuda_dp" if device.type == "cuda" and reason is None else "eager_dp"
+
+
 def _check_runtime(runtime: TrainRuntimeConfig) -> None:
-    not_ported = [name for name, on in (("data_parallel", runtime.data_parallel),
-                                        ("profile", runtime.profile),
+    # data_parallel has no effect, as in the JAX package: the mesh decides
+    not_ported = [name for name, on in (("profile", runtime.profile),
                                         ("debug_nans", runtime.debug_nans)) if on]
     if not_ported:
         raise ValueError(f"TrainRuntimeConfig {not_ported} are not ported yet "
-                         "(ROADMAP.md Queue 1, items 11 and later)")
+                         "(ROADMAP.md Queue 1, item 4)")
 
 
 class EpochMetrics:
@@ -80,22 +108,30 @@ def train_rbm(
     epoch_callback: Optional[Callable[[int, float, TrainState], None]] = None,
     uniforms: Optional[Dict[str, torch.Tensor]] = None,
     device: Optional[torch.device | str] = None,
+    mesh=None,
 ) -> Tuple[TrainState, EpochMetrics]:
     """Train one RBM for ``cfg.epochs`` epochs on the device of ``state``
-    (a fresh state goes on ``device``, default CUDA when available).
+    (a fresh state goes on ``device``, default the CUDA card).
 
     ``uniforms``: the run's random draws in the inject layout of
     ``ops.cd_epoch_cuda.draw_uniform_blocks`` (the layout of
-    ``mdbn_tpu``'s ``make_pallas_train_fn(..., inject=True)``), for exact
+    ``mdbn_tpu``'s ``make_pallas_train_fn(..., inject=True)``), or under a
+    mesh in that of ``parallel.dp.train_rbm_shard_map``, for exact
     comparisons; by default they come from the state's generator.
+    ``mesh``: a ``parallel.mesh.Mesh``; every rank calls ``train_rbm`` with
+    the same arguments, and rank 0 alone writes checkpoints and metrics.
     """
     runtime = runtime or TrainRuntimeConfig()
     _check_runtime(runtime)
     if state is None:
         state = init_train_state(cfg, device=device)
     dev = state.device
-    engine = resolve_engine(cfg, dev)
+    dp = mesh is not None and mesh.size > 1
+    engine = resolve_dp_engine(cfg, dev) if dp else resolve_engine(cfg, dev)
+    if dp and mesh.backend == "nccl" and dev != mesh.device:
+        raise ValueError(f"the model lies on {dev}, this rank's card is {mesh.device}")
     run = cd_epoch_cuda.cd_train_run if engine == "cuda" else cd_epoch_cuda.cd_train_run_plain
+    writes = not dp or mesh.rank == 0
     data = torch.as_tensor(data).to(device=dev, dtype=torch_dtype(cfg.param_dtype))
     nb = data.shape[0] // cfg.batch_size
     if nb == 0:
@@ -106,6 +142,10 @@ def train_rbm(
                     for name, u in uniforms.items()}
 
     def run_epochs(st: TrainState, lo: int, hi: int) -> Tuple[TrainState, torch.Tensor]:
+        if dp:
+            u = None if uniforms is None else _slice_epochs(uniforms, lo, hi)
+            return train_rbm_shard_map(st, data, cfg, mesh, hi - lo,
+                                       pallas_step=engine == "cuda_dp", uniforms=u)
         order = cd_epoch_cuda.batch_order(cfg, nb, hi - lo, st.generator)
         u = None if uniforms is None else _slice_epochs(uniforms, lo, hi)
         params, velocity, chain, errs = run(cfg, st.params, st.velocity, st.chain_h,
@@ -131,7 +171,8 @@ def train_rbm(
             metrics.updates_per_sec.append(nb / dt if dt > 0 else float("inf"))
             if epoch_callback is not None:
                 epoch_callback(ep, err, state)
-            if runtime.checkpoint_dir and ck_every > 0 and (ep + 1) % ck_every == 0:
+            if (writes and runtime.checkpoint_dir and ck_every > 0
+                    and (ep + 1) % ck_every == 0):
                 from ..checkpoint import save_state
 
                 save_state(state, f"{runtime.checkpoint_dir}/epoch{ep + 1:05d}.pt")
@@ -145,7 +186,7 @@ def train_rbm(
         metrics.wall_seconds = [per] * cfg.epochs
         metrics.updates_per_sec = [nb / per if per > 0 else float("inf")] * cfg.epochs
     # runtime.metrics_path: stream per-epoch records for programmatic users
-    if runtime.metrics_path:
+    if runtime.metrics_path and writes:
         from ..utils.metrics import MetricsWriter
 
         with MetricsWriter(runtime.metrics_path) as mw:

@@ -31,7 +31,10 @@ CUDA = torch.device("cuda")  # a device object only: nothing runs on it here
 
 
 def test_import_leaves_jax_out():
-    code = "import sys, mdbn_tpu_torch; print('jax' in sys.modules)"
+    code = ("import sys, mdbn_tpu_torch, mdbn_tpu_torch.parallel.dp, "
+            "mdbn_tpu_torch.ops.cd_grads_cuda; "
+            "print(any(m == 'jax' or m.startswith(('jax.', 'mdbn_tpu.')) or m == 'mdbn_tpu' "
+            "for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, check=True)
     assert out.stdout.strip() == "False"
@@ -202,9 +205,9 @@ def test_cli_train_save_load_resume(tmp_path):
     save_config({"model": RBMConfig(n_visible=64, n_hidden=8, epochs=2, batch_size=10),
                  "data": {"kind": "mnist_like", "n_samples": 40, "n_features": 64, "seed": 2}},
                 cfg_path)
-    assert main(["--config", cfg_path, "--save", str(tmp_path / "m"),
+    assert main(["--config", cfg_path, "--save", str(tmp_path / "m"), "--device", "cpu",
                  "--engine", "xla", "--metrics", str(tmp_path / "m.jsonl")]) == 0
-    assert main(["--config", cfg_path, "--load", str(tmp_path / "m"),
+    assert main(["--config", cfg_path, "--load", str(tmp_path / "m"), "--device", "cpu",
                  "--transform-out", str(tmp_path / "codes.npy")]) == 0
     codes = np.load(tmp_path / "codes.npy")
     assert codes.shape == (40, 8) and np.isfinite(codes).all()
@@ -214,8 +217,10 @@ def test_cli_train_save_load_resume(tmp_path):
                  "data": {"kind": "mnist_like", "n_samples": 64, "n_features": 64, "seed": 1}},
                 dbn_path)
     ck, m1, m2 = str(tmp_path / "ck"), str(tmp_path / "1.jsonl"), str(tmp_path / "2.jsonl")
-    assert main(["--config", dbn_path, "--checkpoint-dir", ck, "--metrics", m1]) == 0
-    assert main(["--config", dbn_path, "--checkpoint-dir", ck, "--metrics", m2]) == 0
+    assert main(["--config", dbn_path, "--checkpoint-dir", ck, "--metrics", m1,
+                 "--device", "cpu"]) == 0
+    assert main(["--config", dbn_path, "--checkpoint-dir", ck, "--metrics", m2,
+                 "--device", "cpu"]) == 0
     assert [json.loads(l)["kind"] for l in open(m1)].count("layer") == 2
     assert [json.loads(l) for l in open(m2) if json.loads(l)["kind"] == "layer"] == []
 
@@ -231,10 +236,17 @@ def test_cli_not_ported_sections_raise(tmp_path):
                         ({"data": {"kind": "omics_csv", "paths": {}}}, "item 1")):
         save_config({**base, **extra}, cfg_path)
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
-            main(["--config", cfg_path])
+            main(["--config", cfg_path, "--device", "cpu"])
     save_config(base, cfg_path)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(["--config", cfg_path, "--dp", "2"])
+    with pytest.raises(NotImplementedError, match="dp x tp.*item 11"):
+        main(["--config", cfg_path, "--device", "cpu", "--dp", "2", "--tp", "2"])
+    # --dp runs one process per rank: outside torchrun it names the command
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2 -m mdbn_tpu_torch.run"):
+        main(["--config", cfg_path, "--device", "cpu", "--dp", "2"])
+    # the card unless the CPU is asked for
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            main(["--config", cfg_path])
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -296,7 +308,8 @@ def test_cli_graded_configs_one_epoch(name, tmp_path):
     path = str(tmp_path / "exp.json")
     json.dump(exp, open(path, "w"))
     out = str(tmp_path / "codes.npy")
-    args = ["--config", path, "--epochs", "1", "--engine", "xla", "--transform-out", out]
+    args = ["--config", path, "--epochs", "1", "--engine", "xla", "--transform-out", out,
+            "--device", "cpu"]
     if name.startswith("c5"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 8"):
             main(args)

@@ -11,7 +11,9 @@ over 2 epochs of a small problem (the two differ only in the order of fp32
 sums; a single flipped sample would show as an O(lr/B) = 1e-2 jump).
 The estimator modes (tempering, enhanced gradient, learned variance, the
 pseudo-likelihood monitor) are held the same way, and so is the W-blocked
-kernel (csrc/cd_train_wide.cu) against its own plain version. At bf16
+kernel (csrc/cd_train_wide.cu) against its own plain version, and the
+data-parallel path's per-step kernel (csrc/cd_grads.cu) one step at a time,
+with a one-rank NCCL mesh through its entry points. At bf16
 storage both sides round one float32 result into bf16, so they agree except
 where the two results straddle a rounding boundary; over the 12 updates of a
 run such an ulp can carry on, so stored bf16 values are held to two ulps
@@ -275,3 +277,136 @@ def test_wide_kernel_raises_outside_its_scope(cuda):
     with pytest.raises(ValueError, match="CUDA tensors"):
         KW.cd_train_wide_run(cfg.replace(sample_visible=False), st.params, st.velocity,
                              st.chain_h, data.cpu(), order, 0, None, torch.Generator())
+
+
+# the data-parallel path's per-step kernel, csrc/cd_grads.cu, at the shapes of
+# chip_smoke.py's phase 12: c1 (784x500, batch 20), c1's third shard of a
+# 3-way split of 20 (7 rows, one pad row masked, norm 20/3), c5's tower recipe
+# at c2's width (Gaussian 2000x400, PCD k=2, sparsity). One step on hardened
+# draws: the two sides differ only in the order of fp32 sums, so they agree to
+# REPLAY_TOL, and sample the same chain.
+REPLAY_TOL = dict(rtol=1e-5, atol=1e-6)
+C1 = dict(n_visible=784, n_hidden=500, lr=0.1, batch_size=20)
+GRADS_CASES = {
+    "c1": (RBMConfig(**C1), None),
+    "c1-rank2-of-3": (RBMConfig(**{**C1, "batch_size": 7}), 20 / 3),
+    "c1-xent-sparsity-rank2-of-3": (RBMConfig(**{**C1, "batch_size": 7}, error_metric="xent",
+                                              sparsity_target=0.1, sparsity_cost=0.1), 20 / 3),
+    "c5-tower-c2": (RBMConfig(n_visible=2000, n_hidden=400, visible="gaussian", k=2,
+                              persistent=True, lr=0.005, batch_size=20, sparsity_target=0.1,
+                              sparsity_cost=0.1), None),
+}
+
+
+def _grads_inputs(cfg, norm, device, seed=0):
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.ops.cd_step import draw_uniforms
+
+    B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
+    gen = torch.Generator(device=device).manual_seed(seed)
+    st = init_train_state(cfg, device=device)
+    p = RBMParams(W=st.params.W * 10.0, b=0.1 * torch.randn(V, generator=gen, device=device),
+                  c=0.1 * torch.randn(H, generator=gen, device=device))
+    if cfg.visible == "bernoulli":
+        v0 = (torch.rand((B, V), generator=gen, device=device) < 0.3).float()
+    else:
+        v0 = torch.randn((B, V), generator=gen, device=device)
+    mask = None
+    if norm is not None:
+        mask = torch.ones((B, 1), device=device)
+        mask[-1] = 0.0
+        v0[-1] = 0.0  # a pad row
+    chain = (torch.rand((B, H), generator=gen, device=device) < 0.5).float()
+    u = draw_uniforms(cfg, B, gen)
+    u = K.harden_uniform_blocks(cfg, p, st.velocity, chain, v0,
+                                {k: x[None, None] for k, x in u.items()}, 1)
+    return p, v0, chain, mask, {k: x[0, 0] for k, x in u.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GRADS_CASES))
+def test_grads_kernel_matches_plain(cuda, name):
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+
+    cfg, norm = GRADS_CASES[name]
+    p, v0, chain, mask, u = _grads_inputs(cfg, norm, cuda)
+    before = G.cd_grads_launches
+    got = G.cd_grads_step(cfg, p, v0, chain, uniforms=u, mask=mask, norm=norm)
+    torch.cuda.synchronize()
+    assert G.cd_grads_launches == before + 1
+    want = G.cd_grads_step_plain(cfg, p, v0, chain, uniforms=u, mask=mask, norm=norm)
+    for a, b in ((got[0].W, want[0].W), (got[0].b, want[0].b), (got[0].c, want[0].c),
+                 (got[2], want[2])):
+        torch.testing.assert_close(a, b, **REPLAY_TOL)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    if not cfg.persistent:
+        assert torch.equal(got[1], chain)  # CD: the chain passes through
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["c1", "c1-rank2-of-3", "c5-tower-c2"])
+def test_grads_kernel_is_grid_independent(cuda, name):
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+
+    cfg, norm = GRADS_CASES[name]
+    p, v0, chain, mask, _ = _grads_inputs(cfg, norm, cuda)
+    runs = [G.cd_grads_step(cfg, p, v0, chain, seed=3, mask=mask, norm=norm, grid=g)
+            for g in (0, 1, 7, 132)]
+    for r in runs[1:]:
+        for a, b in zip(r[0].as_dict().values(), runs[0][0].as_dict().values()):
+            assert torch.equal(a, b)
+        assert torch.equal(r[1], runs[0][1]) and torch.equal(r[2], runs[0][2])
+    assert bool(torch.isfinite(runs[0][0].W).all())
+
+
+@pytest.mark.cuda
+def test_grads_kernel_refuses(cuda):
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+
+    cfg, norm = GRADS_CASES["c1-rank2-of-3"]
+    p, v0, chain, mask, _ = _grads_inputs(cfg, norm, cuda)
+    before = G.cd_grads_launches
+    with pytest.raises(ValueError, match="float32"):
+        G.cd_grads_step(cfg.replace(param_dtype="bfloat16"), p, v0, chain, seed=1)
+    with pytest.raises(ValueError, match="Philox"):
+        G.cd_grads_step(cfg.replace(k=256), p, v0, chain, seed=1)
+    with pytest.raises(ValueError, match="shape"):
+        G.cd_grads_step(cfg, p, v0[:-1], chain, seed=1)
+    with pytest.raises(ValueError, match="float32"):
+        G.cd_grads_step(cfg, p, v0.double(), chain, seed=1)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        G.cd_grads_step(cfg, p, v0, chain, seed=1, grid=1 << 20)
+    assert G.cd_grads_launches == before
+
+
+@pytest.mark.cuda
+def test_dp_one_rank_nccl(cuda):
+    """A mesh of one NCCL rank: RBM.train takes the single-device path; the
+    per-step kernel path of train_rbm_shard_map matches the core path on the
+    same hardened draws."""
+    import torch.distributed as dist
+
+    from mdbn_tpu_torch import RBM
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.parallel.dp import train_rbm_shard_map
+    from mdbn_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = RBMConfig(**SMALL, lr=0.1, k=2, persistent=True, momentum=0.5, epochs=2)
+    st, data, order, u = _inputs(cfg, cuda, E=2, nb=6)
+    mesh = make_mesh(1, backend="nccl")
+    try:
+        assert (mesh.size, mesh.backend, mesh.device) == (1, "nccl", torch.device("cuda", 0))
+        rbm = RBM(cfg, device=cuda).train(data, mesh=mesh)
+        assert rbm.metrics.engine == "cuda"
+        du = {k: x[:, :, None] for k, x in u.items()}
+        before = G.cd_grads_launches
+        a, ea = train_rbm_shard_map(st, data, cfg, mesh, 2, pallas_step=True, uniforms=du)
+        torch.cuda.synchronize()
+        assert G.cd_grads_launches == before + 12
+        b, eb = train_rbm_shard_map(st, data, cfg, mesh, 2, pallas_step=False, uniforms=du)
+        for x, y in ((a.params.W, b.params.W), (a.params.c, b.params.c),
+                     (a.velocity.W, b.velocity.W), (ea, eb)):
+            torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-6)
+        torch.testing.assert_close(a.chain_h, b.chain_h, rtol=0, atol=0)
+    finally:
+        dist.destroy_process_group()
