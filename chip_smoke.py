@@ -63,7 +63,8 @@ float32, in parallel) and runs fourteen phases, one line each:
     launches each, the parameters bit-identical across ranks, the error in
     the band; then 2 epochs on injected per-rank draws held against a replay
     in this process (per-shard plain step, mean, update) at rtol 2e-4 /
-    atol 2e-6.
+    atol 2e-6; then 2 epochs of PCD k=2, whose chain is gathered from the
+    ranks and must agree on every rank.
 
 Then a JSON line describing the kernels, and last
 {"ok": true, "device": ...}. Exits non-zero, printing no result, when there
@@ -778,6 +779,13 @@ def _dp_rank(rank, world, port, out_dir, cfg, data, uniforms, inject_epochs):
         res["inject"] = {"launches": G.cd_grads_launches, "errs": errs.cpu(),
                          "params": {k: v.cpu() for k, v in st.params.as_dict().items()},
                          "velocity": {k: v.cpu() for k, v in st.velocity.as_dict().items()}}
+        # PCD, k = 2: each rank's chain rows stay with it; the result's chain is
+        # gathered from all ranks (through the host under gloo)
+        G.cd_grads_launches = 0
+        pcd = RBM(cfg.replace(persistent=True, k=2, epochs=2), device=dev).train(data, mesh=mesh)
+        res["pcd"] = {"engine": pcd.metrics.engine, "launches": G.cd_grads_launches,
+                      "history": pcd.history, "chain": pcd.state.chain_h.cpu(),
+                      "W": pcd.params.W.cpu()}
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -911,6 +919,18 @@ def run_dp(dev, smi, c1, t_cd_train_ms):
             for k, x in g["inject"][part].items():
                 if not torch.equal(x, got[0]["inject"][part][k]):
                     raise AssertionError(f"dp_ranks (injected): rank {r}'s {part} {k} differs")
+    for r, g in enumerate(got):  # PCD: the gathered chain and W agree on every rank
+        p = g["pcd"]
+        if (p["engine"] != "cuda_dp" or p["launches"] != 2 * nb
+                or not torch.equal(p["chain"], got[0]["pcd"]["chain"])
+                or not torch.equal(p["W"], got[0]["pcd"]["W"])):
+            raise AssertionError(f"dp_ranks (PCD) rank {r}: engine {p['engine']}, "
+                                 f"{p['launches']} launches, or its chain or W differs")
+    pcd_chain, pcd_hist = got[0]["pcd"]["chain"], got[0]["pcd"]["history"]
+    if (tuple(pcd_chain.shape) != (cfg.batch_size, cfg.n_hidden)
+            or not bool(((pcd_chain == 0) | (pcd_chain == 1)).all())
+            or not pcd_hist[-1] < pcd_hist[0]):
+        raise AssertionError(f"dp_ranks (PCD): chain {tuple(pcd_chain.shape)}, errors {pcd_hist}")
     hist = got[0]["history"]
     if len(hist) != 10 or not all(np.isfinite(hist)) or abs(hist[-1] - C1_FINAL_ERR) > C1_ERR_TOL:
         raise AssertionError(f"dp_ranks: final error {hist[-1]} not within {C1_ERR_TOL} of "
@@ -927,7 +947,9 @@ def run_dp(dev, smi, c1, t_cd_train_ms):
           first_err=hist[0], final_err=hist[-1],
           train_seconds=[round(g["seconds"], 3) for g in got], spawn_seconds=round(spawn_s, 3),
           identical_bits_across_ranks=True, injected_epochs=E_INJ,
-          injected_vs_replay_max_abs_diff=diff, rtol=DP_RTOL, atol=DP_ATOL, nvidia_smi=smi)
+          injected_vs_replay_max_abs_diff=diff, rtol=DP_RTOL, atol=DP_ATOL,
+          pcd_k2_2_epochs={"errors": pcd_hist, "chain_gathered": list(pcd_chain.shape),
+                           "identical_across_ranks": True}, nvidia_smi=smi)
     return launches, timing
 
 

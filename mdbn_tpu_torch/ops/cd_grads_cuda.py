@@ -31,14 +31,14 @@ import torch
 
 from ..config import RBMConfig
 from ..core.rbm_math import RBMParams, cd_step_stats
-from .cd_epoch_cuda import _on_device, kernel_flags, ptr
+from .cd_epoch_cuda import _F_INJECT, _on_device, kernel_flags, ptr
 from .cd_step import draw_uniforms
 
 # Launches of the CUDA kernel in this process (incremented only where the
 # kernel is launched).
 cd_grads_launches = 0
 
-_F_INJECT, _F_MASK = 32, 8192
+_F_MASK = 8192  # a row mask is given (csrc/cd_grads.cu's kMasked)
 
 
 def grads_unsupported(cfg: RBMConfig) -> Optional[str]:
