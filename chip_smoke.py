@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from mdbn_tpu_torch/csrc (nvcc, sm_90a: cd_train.cu and
 cd_train_wide.cu, each at float32 and bfloat16 storage, and cd_grads.cu at
-float32, in parallel) and runs fourteen phases, one line each:
+float32, in parallel) and runs fifteen phases, one line each:
 
 1. device: torch and CUDA versions, the card's name and power limit, build time;
 2. the kernel against its plain PyTorch version on the card, inject mode with
@@ -54,17 +54,22 @@ float32, in parallel) and runs fourteen phases, one line each:
     tower recipe at c2's width (Gaussian 2000x400, PCD k=2, sparsity);
     identical bits on grids of 1, 7 and 132 blocks; its time per launch, the
     plain version's and the bound;
-13. dp_world1: train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh,
-    c1 for 10 epochs: 1000 launches of the kernel, the final error within
-    0.001 of 0.0744; ms per epoch, and the shares of the all-reduce and the
-    update;
-14. dp_ranks: RBM.train with a mesh of 3 gloo ranks, one process each, all on
+13. the update after the all-reduce (cd_grads.cu's second kernel) against its
+    plain version on the summed statistics of 3 ranks, at c1's settings and at
+    c5's tower recipe with momentum, decay and clipping: the same bits; its
+    time per launch, the plain version's, one fused torch.optim.SGD step's
+    (the same update, for comparison only) and the bound;
+14. dp_world1: train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh,
+    c1 for 10 epochs: 1000 launches of each kernel, the final error within
+    0.001 of 0.0744; then five epochs timed one at a time (ms each: their
+    spread);
+15. dp_ranks: RBM.train with a mesh of 3 gloo ranks, one process each, all on
     the one card, c1 for 10 epochs: the engine is cuda_dp on every rank, 1000
-    launches each, the parameters bit-identical across ranks, the error in
-    the band; then 2 epochs on injected per-rank draws held against a replay
-    in this process (per-shard plain step, mean, update) at rtol 2e-4 /
-    atol 2e-6; then 2 epochs of PCD k=2, whose chain is gathered from the
-    ranks and must agree on every rank.
+    launches of each kernel on each, the parameters bit-identical across
+    ranks, the error in the band; then 2 epochs on injected per-rank draws
+    held against a replay in this process (per-shard plain step, mean,
+    update) at rtol 2e-4 / atol 2e-6; then 2 epochs of PCD k=2, whose chain
+    is gathered from the ranks and must agree on every rank.
 
 Then a JSON line describing the kernels, and last
 {"ok": true, "device": ...}. Exits non-zero, printing no result, when there
@@ -746,8 +751,106 @@ def run_grads(dev, smi, c1, c1_data, ge):
     return max_err, timing
 
 
+def update_bound(cfg):
+    """(ms, what bounds it) of one launch of the update kernel under ``cfg``:
+    bytes: the sums read once, W, b, c and their velocities read and written
+    once; operations: per element the scale, the velocity's two products and
+    sum, and the parameter's sum (two more under decay on W), at the f32 peak."""
+    V, H = cfg.n_visible, cfg.n_hidden
+    n = V * H + V + H
+    bytes_s = 4.0 * (n + 1 + 4 * n + 1) / PEAK_BYTES_PER_S
+    ops_s = (5.0 * n + (2.0 * V * H if cfg.l2 else 0.0)) / PEAK_F32_FLOPS
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def run_update(dev, smi, c1):
+    """Phase 13: the update kernel against its plain version, bit for bit;
+    its timing. Returns (max abs diff, timing dict)."""
+    import torch
+
+    from mdbn_tpu_torch._build import load_library
+    from mdbn_tpu_torch.config import RBMConfig
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops.cd_epoch_cuda import ptr
+    from mdbn_tpu_torch.parallel.dp import world_scale
+
+    cases = {"c1": c1,
+             "c5_tower_c2_momentum_l2_clip": RBMConfig(
+                 n_visible=2000, n_hidden=400, visible="gaussian", k=2, persistent=True,
+                 lr=0.005, batch_size=20, momentum=0.9, initial_momentum=0.5, l2=1e-3,
+                 grad_clip=0.05)}
+    gen = torch.Generator(device=dev).manual_seed(13)
+    scale = world_scale(DP_RANKS)
+
+    def state(cfg):
+        rand = lambda *shape: 0.1 * torch.randn(shape, generator=gen, device=dev)
+        V, H = cfg.n_visible, cfg.n_hidden
+        return (RBMParams(W=rand(V, H), b=rand(V), c=rand(H)),
+                RBMParams(W=rand(V, H), b=rand(V), c=rand(H)), DP_RANKS * rand(G.flat_size(cfg)))
+
+    errs = {}
+    for name, cfg in cases.items():
+        for epoch in (0, 5):  # either side of the momentum switch
+            p, vel, sums = state(cfg)
+            want = G.cd_update_plain(cfg, p, vel, sums, scale, epoch)
+            got = G.cd_update(cfg, p.map(torch.clone), vel.map(torch.clone), sums, scale, epoch)
+            torch.cuda.synchronize()
+            pairs = (list(zip(got[0].as_dict().values(), want[0].as_dict().values()))
+                     + list(zip(got[1].as_dict().values(), want[1].as_dict().values()))
+                     + [(got[2], want[2])])
+            for a, b in pairs:
+                if not bool(torch.isfinite(a).all()) or not torch.equal(a, b):
+                    raise AssertionError(f"update {name} epoch {epoch}: the kernel and its "
+                                         "plain version differ")
+            errs[f"{name}@{epoch}"] = max(float((a - b).abs().max()) for a, b in pairs)
+    max_err = max(errs.values())
+
+    # timing at c1's shape on fixed buffers (the kernel updates in place);
+    # plain, kernel, kernel, plain; then one fused SGD step on the same sizes
+    cfg = c1
+    p, vel, sums = state(cfg)
+    lib = load_library("cd_grads", "float32").lib
+    err = torch.empty(1, device=dev)
+    ptrs = [ptr(t) for t in (sums, p.W, p.b, p.c, vel.W, vel.b, vel.c, err)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def kernel():  # the C entry point alone
+        rc = lib.cd_update_step(*ptrs, cfg.n_visible, cfg.n_hidden, 0, scale, cfg.lr,
+                                cfg.momentum, cfg.l2, 0.0, dev.index or 0, stream)
+        if rc != 0:
+            raise RuntimeError(f"cd_update launch failed: {rc}")
+
+    wrapper = lambda: G.cd_update(cfg, p, vel, sums, scale, 0)
+    plain = lambda: G.cd_update_plain(cfg, p, vel, sums, scale, 0)
+    t_plain1 = time_runs(plain, 200)
+    t_kernel1 = time_runs(kernel, 500)
+    t_kernel2 = time_runs(kernel, 500)
+    t_plain2 = time_runs(plain, 200)
+    t_wrapper = time_runs(wrapper, 500)
+    # torch.optim.SGD(maximize=True) is the same rule: its buffer is -vel / lr
+    leaves = [torch.nn.Parameter(t.clone()) for t in (p.W, p.b, p.c)]
+    grads, _ = G.flat_views(cfg, sums * scale)
+    for leaf, g in zip(leaves, (grads.W, grads.b, grads.c)):
+        leaf.grad = g.clone()
+    opt = torch.optim.SGD(leaves, lr=cfg.lr, momentum=cfg.momentum, weight_decay=cfg.l2,
+                          maximize=True, fused=True)
+    t_library = time_runs(opt.step, 500)
+    bound_ms, bound_by = update_bound(cfg)
+    timing = {"kernel_us": min(t_kernel1, t_kernel2) * 1e6,
+              "kernel_us_calls": [t_kernel1 * 1e6, t_kernel2 * 1e6],
+              "wrapper_us": t_wrapper * 1e6, "plain_us": min(t_plain1, t_plain2) * 1e6,
+              "plain_us_calls": [t_plain1 * 1e6, t_plain2 * 1e6],
+              "library_us": t_library * 1e6, "library": "torch.optim.SGD(fused=True).step",
+              "bound_us": bound_ms * 1e3, "bound_by": bound_by}
+    phase("kernel_vs_plain_update", max_abs_diff=errs, identical_bits=True, ranks=DP_RANKS,
+          timing_c1=timing, order="plain, kernel, kernel, plain, wrapper, library",
+          nvidia_smi=smi)
+    return max_err, timing
+
+
 def _dp_rank(rank, world, port, out_dir, cfg, data, uniforms, inject_epochs):
-    """One rank of phase 14, in a process of its own on the one card."""
+    """One rank of phase 15, in a process of its own on the one card."""
     import torch
     import torch.distributed as dist
 
@@ -764,26 +867,29 @@ def _dp_rank(rank, world, port, out_dir, cfg, data, uniforms, inject_epochs):
         mesh = make_mesh(world, backend="gloo")
         dev = torch.device("cuda", 0)
         data = torch.as_tensor(data, device=dev)
-        G.cd_grads_launches = 0
+        G.cd_grads_launches = G.cd_update_launches = 0
         t0 = time.perf_counter()
         rbm = RBM(cfg.replace(epochs=10), device=dev).train(data, mesh=mesh)
         torch.cuda.synchronize()
-        res = {"engine": rbm.metrics.engine, "launches": G.cd_grads_launches,
+        res = {"engine": rbm.metrics.engine,
+               "launches": [G.cd_grads_launches, G.cd_update_launches],
                "seconds": time.perf_counter() - t0, "history": rbm.history,
                "params": {k: v.cpu() for k, v in rbm.params.as_dict().items()},
                "mesh": [mesh.rank, mesh.size, str(mesh.device), mesh.backend]}
-        G.cd_grads_launches = 0
+        G.cd_grads_launches = G.cd_update_launches = 0
         st, errs = train_rbm_shard_map(init_train_state(cfg, device=dev), data, cfg, mesh,
                                        inject_epochs, pallas_step=True, uniforms=uniforms)
         torch.cuda.synchronize()
-        res["inject"] = {"launches": G.cd_grads_launches, "errs": errs.cpu(),
+        res["inject"] = {"launches": [G.cd_grads_launches, G.cd_update_launches],
+                         "errs": errs.cpu(),
                          "params": {k: v.cpu() for k, v in st.params.as_dict().items()},
                          "velocity": {k: v.cpu() for k, v in st.velocity.as_dict().items()}}
         # PCD, k = 2: each rank's chain rows stay with it; the result's chain is
         # gathered from all ranks (through the host under gloo)
-        G.cd_grads_launches = 0
+        G.cd_grads_launches = G.cd_update_launches = 0
         pcd = RBM(cfg.replace(persistent=True, k=2, epochs=2), device=dev).train(data, mesh=mesh)
-        res["pcd"] = {"engine": pcd.metrics.engine, "launches": G.cd_grads_launches,
+        res["pcd"] = {"engine": pcd.metrics.engine,
+                      "launches": [G.cd_grads_launches, G.cd_update_launches],
                       "history": pcd.history, "chain": pcd.state.chain_h.cpu(),
                       "W": pcd.params.W.cpu()}
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -838,15 +944,14 @@ def dp_replay(cfg, data, ndev, n_epochs, dev, seed):
 
 
 def run_dp(dev, smi, c1, t_cd_train_ms):
-    """Phases 13 and 14: the data-parallel path through its entry points.
-    Returns (launches in dp_world1, its timing dict)."""
+    """Phases 14 and 15: the data-parallel path through its entry points.
+    Returns {kernel: launches in dp_world1}."""
     import numpy as np
     import torch
     import torch.distributed as dist
     import torch.multiprocessing as mp
 
     from mdbn_tpu_torch.config import load_config
-    from mdbn_tpu_torch.core.rbm_math import apply_update
     from mdbn_tpu_torch.core.state import init_train_state
     from mdbn_tpu_torch.ops import cd_grads_cuda as G
     from mdbn_tpu_torch.parallel import dp
@@ -858,39 +963,40 @@ def run_dp(dev, smi, c1, t_cd_train_ms):
     cfg = c1.replace(engine="pallas")
     nb = data.shape[0] // cfg.batch_size
 
-    # 13. one rank, NCCL, through train_rbm_shard_map on the kernel
+    # 14. one rank, NCCL, through train_rbm_shard_map on the kernels
     mesh = make_mesh(1, backend="nccl")
-    G.cd_grads_launches = 0
+    G.cd_grads_launches = G.cd_update_launches = 0
     t0 = time.perf_counter()
     st, errs = dp.train_rbm_shard_map(init_train_state(cfg, device=dev), data, cfg, mesh, 10,
                                       pallas_step=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = G.cd_grads_launches
+    launches = {"cd_grads": G.cd_grads_launches, "cd_dp_update": G.cd_update_launches}
     final = float(errs[-1])
-    if launches != 10 * nb:
-        raise AssertionError(f"dp_world1: {launches} launches of cd_grads, expected {10 * nb}")
+    if launches != {"cd_grads": 10 * nb, "cd_dp_update": 10 * nb}:
+        raise AssertionError(f"dp_world1: launches {launches}, expected {10 * nb} of each")
     if abs(final - C1_FINAL_ERR) > C1_ERR_TOL:
         raise AssertionError(f"dp_world1: final error {final} not within {C1_ERR_TOL} of "
                              f"{C1_FINAL_ERR}")
-    # one epoch per call; then where a step's time goes: the all-reduce and
-    # the update alone, at the step's shapes
-    ep = lambda: dp.train_rbm_shard_map(st, data, cfg, mesh, 1, pallas_step=True)
-    t_epoch = min(time_runs(ep, 3), time_runs(ep, 3))
-    g, _, err = G.cd_grads_step(cfg, st.params, data[:20], st.chain_h, seed=1)
-    t_reduce = time_runs(lambda: dp._all_reduce_mean(g, err, mesh), 200)
-    t_update = time_runs(lambda: apply_update(st.params, st.velocity, g, cfg, epoch=0), 200)
-    timing = {"epoch_ms": t_epoch * 1e3, "updates_per_s": nb / t_epoch,
-              "step_us": t_epoch * 1e6 / nb, "all_reduce_us": t_reduce * 1e6,
-              "apply_update_us": t_update * 1e6,
-              "all_reduce_share": t_reduce / (t_epoch / nb),
-              "apply_update_share": t_update / (t_epoch / nb),
-              "cd_train_epoch_ms": t_cd_train_ms, "vs_cd_train": t_epoch * 1e3 / t_cd_train_ms}
+    # five epochs, one call each, timed one at a time (host clock around a
+    # synchronised call): their spread inside one run
+    epoch_ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp.train_rbm_shard_map(st, data, cfg, mesh, 1, pallas_step=True)
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+    epoch_ms = epoch_ms[1:]  # the first is a warm-up
+    med = sorted(epoch_ms)[len(epoch_ms) // 2]
+    timing = {"epoch_ms": epoch_ms, "epoch_ms_median": med, "updates_per_s": nb / med * 1e3,
+              "step_us_median": med * 1e3 / nb, "cd_train_epoch_ms": t_cd_train_ms,
+              "vs_cd_train": med / t_cd_train_ms}
     phase("dp_world1", launches=launches, first_err=float(errs[0]), final_err=final,
           seconds=round(seconds, 3), nvidia_smi=smi, **timing)
     dist.destroy_process_group()
 
-    # 14. three ranks on the one card over gloo, one process each
+    # 15. three ranks on the one card over gloo, one process each
     E_INJ = 2
     uniforms, params, vel, errs_r = dp_replay(c1, data, DP_RANKS, E_INJ, dev, seed=9)
     with tempfile.TemporaryDirectory() as out:
@@ -906,10 +1012,10 @@ def run_dp(dev, smi, c1, t_cd_train_ms):
         spawn_s = time.perf_counter() - t0
         got = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(DP_RANKS)]
     for r, g in enumerate(got):
-        if g["engine"] != "cuda_dp" or g["launches"] != 10 * nb:
+        if g["engine"] != "cuda_dp" or g["launches"] != [10 * nb] * 2:
             raise AssertionError(f"dp_ranks rank {r}: engine {g['engine']}, "
                                  f"{g['launches']} launches")
-        if g["inject"]["launches"] != E_INJ * nb:
+        if g["inject"]["launches"] != [E_INJ * nb] * 2:
             raise AssertionError(f"dp_ranks rank {r}: {g['inject']['launches']} launches in "
                                  "the injected run")
         for k, x in g["params"].items():
@@ -921,7 +1027,7 @@ def run_dp(dev, smi, c1, t_cd_train_ms):
                     raise AssertionError(f"dp_ranks (injected): rank {r}'s {part} {k} differs")
     for r, g in enumerate(got):  # PCD: the gathered chain and W agree on every rank
         p = g["pcd"]
-        if (p["engine"] != "cuda_dp" or p["launches"] != 2 * nb
+        if (p["engine"] != "cuda_dp" or p["launches"] != [2 * nb] * 2
                 or not torch.equal(p["chain"], got[0]["pcd"]["chain"])
                 or not torch.equal(p["W"], got[0]["pcd"]["W"])):
             raise AssertionError(f"dp_ranks (PCD) rank {r}: engine {p['engine']}, "
@@ -950,7 +1056,7 @@ def run_dp(dev, smi, c1, t_cd_train_ms):
           injected_vs_replay_max_abs_diff=diff, rtol=DP_RTOL, atol=DP_ATOL,
           pcd_k2_2_epochs={"errors": pcd_hist, "chain_gathered": list(pcd_chain.shape),
                            "identical_across_ranks": True}, nvidia_smi=smi)
-    return launches, timing
+    return launches
 
 
 def run() -> int:
@@ -1085,14 +1191,25 @@ def run() -> int:
     entries += run_modes(dev, smi, c1, c1_data, ge)
     entries += run_wide(dev, smi)
     grads_err, grads_t = run_grads(dev, smi, c1, c1_data, ge)
-    dp_launches, _ = run_dp(dev, smi, c1, t_kernel * 1e3)
+    update_err, update_t = run_update(dev, smi, c1)
+    dp_launches = run_dp(dev, smi, c1, t_kernel * 1e3)
     entries.append({
         "name": "cd_grads", "route": "cuda", "source": "mdbn_tpu_torch/csrc/cd_grads.cu",
-        "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:3184", "launches": dp_launches,
+        "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:3184",
+        "launches": dp_launches["cd_grads"],
         "max_abs_err": grads_err, "ms": grads_t["kernel_us"] / 1e3,
         "plain_ms": grads_t["plain_us"] / 1e3, "bound_ms": grads_t["bound_us"] / 1e3,
         "bound_by": grads_t["bound_by"], "library_ms": None,
         "ms_per": "one step at c1's shape (784x500, batch 20, CD-1)"})
+    entries.append({
+        "name": "cd_dp_update", "route": "cuda", "source": "mdbn_tpu_torch/csrc/cd_grads.cu",
+        "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:3039",
+        "launches": dp_launches["cd_dp_update"],
+        "max_abs_err": update_err, "ms": update_t["kernel_us"] / 1e3,
+        "plain_ms": update_t["plain_us"] / 1e3, "bound_ms": update_t["bound_us"] / 1e3,
+        "bound_by": update_t["bound_by"], "library_ms": update_t["library_us"] / 1e3,
+        "ms_per": "one update after the all-reduce at c1's shape (784x500, the DP "
+                  "mega-kernel's update, its exchange an NCCL all-reduce between launches)"})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

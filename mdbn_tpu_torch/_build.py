@@ -164,6 +164,12 @@ def _declare_cd_grads(lib: ctypes.CDLL) -> None:
         + [_F] * 3  # inv_norm, sparsity_target, sparsity_cost
         + _TAIL)
     lib.cd_grads_step.restype = _I
+    lib.cd_update_step.argtypes = (
+        [_P] * 8  # sums, W, b, c, vW, vb, vc, err
+        + [_I] * 3  # V, H, flags
+        + [_F] * 5  # scale, lr, momentum, l2, grad_clip
+        + [_I, _P])  # device, stream
+    lib.cd_update_step.restype = _I
     lib.cd_grads_scratch_floats.argtypes = [_I] * 3  # V, H, B
     lib.cd_grads_scratch_floats.restype = ctypes.c_longlong
     _declare_error_string(lib, "cd_grads_error_string")

@@ -5,14 +5,18 @@ the replicated parameters, velocities and generator and the whole dataset;
 the global minibatch (``cfg.batch_size`` rows) is split across the ranks,
 rank r taking rows ``[r * local_b, (r + 1) * local_b)``, ``local_b =
 ceil(B / ndev)``, with zero pad rows on the tail ranks when B does not
-divide. Per step each rank computes its shard's statistics, by the kernel
+divide. Per step each rank computes its shard's statistics into one flat
+buffer, (gW, gb, gc[, gz], err), by the kernel
 (``ops.cd_grads_cuda.cd_grads_step``, ``pallas_step=True``) or by the core
 (CD/PCD, or PT on the rank's ladders); the statistics are masked sums
-scaled by ``ndev / B``, so one all-reduce (SUM, then divided by the world
-size) of (gW, gb, gc[, gz], err) in one flat buffer gives every rank the
-global-batch mean, even when B does not divide. Every rank then applies the
-same update. Collectives run outside the kernel (``torch.distributed``), as
-the TPU's in-kernel remote copies map to NCCL on Hopper.
+scaled by ``ndev / B``, so one all-reduce (SUM) of the buffer, scaled by 1 /
+the world size, gives every rank the global-batch mean, even when B does
+not divide. Every rank then applies the same update to the same sums: the
+update kernel (``ops.cd_grads_cuda.cd_update``) under ``pallas_step``, the
+core's ``apply_update`` otherwise. Collectives run between the launches
+(``torch.distributed``), as the TPU's in-kernel remote copies map to NCCL
+on Hopper: grads kernel, all-reduce, update kernel are the port of the
+TPU's DP mega-kernel, one update at a time.
 """
 
 from __future__ import annotations
@@ -23,10 +27,11 @@ import torch
 import torch.distributed as dist
 
 from ..config import RBMConfig
-from ..core.rbm_math import RBMParams, apply_update, cd_step_stats, pt_step_stats
+from ..core.rbm_math import cd_step_stats, pt_step_stats
 from ..core.state import TrainState
 from ..ops.cd_epoch_cuda import batch_order
-from ..ops.cd_grads_cuda import cd_grads_step, check_grads_supports
+from ..ops.cd_grads_cuda import (cd_grads_step, cd_update, cd_update_plain, check_grads_supports,
+                                 flat_size, pack)
 from ..ops.cd_step import draw_pt_uniforms, draw_uniforms
 from .mesh import Mesh
 
@@ -83,28 +88,15 @@ def _gather_chain(cfg: RBMConfig, local: torch.Tensor, mesh: Mesh,
     B, M, H = cfg.batch_size, max(cfg.pt_temps, 1), local.shape[1]
     src = local.cpu() if mesh.backend == "gloo" else local
     parts = [torch.empty_like(src) for _ in range(mesh.size)]
-    dist.all_gather(parts, src, group=mesh.group)
+    dist.all_gather(parts, src)
     ch = torch.stack([p.reshape(M, local_b, H) for p in parts], dim=1)  # [M, ndev, lb, H]
     ch = ch.reshape(M, mesh.size * local_b, H)[:, :B]
     return ch.reshape(M * B, H).to(local.device)
 
 
-def _all_reduce_mean(grads: RBMParams, err: torch.Tensor, mesh: Mesh
-                     ) -> Tuple[RBMParams, torch.Tensor]:
-    """One collective: the statistics packed into one flat buffer, summed over
-    the ranks, divided by the world size, unpacked."""
-    parts = [t.reshape(-1) for t in (grads.W, grads.b, grads.c, grads.z) if t is not None]
-    buf = torch.cat(parts + [err.reshape(1)])
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
-    buf = buf / mesh.size
-    out, at = [], 0
-    for t in (grads.W, grads.b, grads.c, grads.z):
-        if t is None:
-            out.append(None)
-            continue
-        out.append(buf[at:at + t.numel()].view(t.shape))
-        at += t.numel()
-    return RBMParams(*out), buf[at]
+def world_scale(ndev: int) -> float:
+    """1 / ndev rounded to float32: the factor of the all-reduced sums."""
+    return float(torch.tensor(1.0 / ndev, dtype=torch.float32))
 
 
 def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, mesh: Mesh,
@@ -152,7 +144,11 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
         uniforms = {name: torch.as_tensor(u)[:, :, rank].to(device=dev, dtype=torch.float32)
                     for name, u in uniforms.items()}
     draw = draw_pt_uniforms if cfg.pt_temps > 1 else draw_uniforms
-    params, velocity = state.params, state.velocity
+    # this call's own parameters and velocities: the update kernel writes in place
+    params, velocity = state.params.map(torch.clone), state.velocity.map(torch.clone)
+    flat = torch.empty(flat_size(cfg), dtype=torch.float32, device=dev)
+    scale = world_scale(ndev)
+    update = cd_update if pallas_step else cd_update_plain
     errs: List[torch.Tensor] = []
     for e in range(n_epochs):
         epoch = state.epoch + e
@@ -161,11 +157,10 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
             v0 = my[j]
             u = None if uniforms is None else {name: x[e, i] for name, x in uniforms.items()}
             seed = None if seeds is None else fold_in(seeds[e][i], rank)
-            if pallas_step:
-                grads, new_chain, err = cd_grads_step(local_cfg, params, v0,
-                                                      chain if persistent else cd_chain,
-                                                      seed=seed, uniforms=u, mask=mask,
-                                                      norm=norm)
+            if pallas_step:  # the kernel writes the statistics into flat
+                _, new_chain, _ = cd_grads_step(local_cfg, params, v0,
+                                                chain if persistent else cd_chain, seed=seed,
+                                                uniforms=u, mask=mask, norm=norm, out=flat)
             else:
                 if u is None:
                     u = draw(local_cfg, local_b, torch.Generator(device=dev).manual_seed(seed))
@@ -177,8 +172,9 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
                 else:
                     grads, new_chain, err = cd_step_stats(params, v0, chain, u, local_cfg,
                                                           row_mask=mask, norm=norm)
-            grads, err = _all_reduce_mean(grads, err, mesh)
-            params, velocity = apply_update(params, velocity, grads, cfg, epoch=epoch)
+                pack(grads, err, flat)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            params, velocity, err = update(cfg, params, velocity, flat, scale, epoch)
             if persistent:
                 chain = new_chain
             step_errs.append(err)

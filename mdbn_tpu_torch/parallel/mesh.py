@@ -5,7 +5,8 @@ of devices driven by one program; here it is a process group with one rank
 per process, and its collectives are torch.distributed's (NCCL between
 cards, gloo on the CPU or between ranks that share a card). ``make_mesh_2d``
 (dp x tp) and ``interpret_safe_ndev`` (a TPU-interpreter workaround) have no
-counterpart.
+counterpart, and neither has the mesh's axis name: a process group has no
+named axis, and its collectives run over the whole default group.
 """
 
 from __future__ import annotations
@@ -23,14 +24,12 @@ TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 @dataclass(frozen=True)
 class Mesh:
-    """A 1-D data-parallel mesh as one rank sees it."""
+    """A 1-D data-parallel mesh (the default process group) as one rank sees it."""
 
-    group: Optional[dist.ProcessGroup]  # None: the default group
     rank: int
     size: int
     device: torch.device  # this rank's device
     backend: str  # "nccl" or "gloo"
-    axis: str = "dp"
 
 
 def _free_port() -> int:
@@ -39,8 +38,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def make_mesh(n_devices: Optional[int] = None, axis: str = "dp",
-              backend: Optional[str] = None) -> Mesh:
+def make_mesh(n_devices: Optional[int] = None, backend: Optional[str] = None) -> Mesh:
     """This rank's view of a data-parallel mesh of ``n_devices`` ranks.
 
     Joins the default process group when one exists, or starts it from the
@@ -90,4 +88,4 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "dp",
     device = torch.device("cuda", local % cards) if cards else torch.device("cpu")
     if backend == "nccl":
         torch.cuda.set_device(device)
-    return Mesh(group=None, rank=rank, size=size, device=device, backend=backend, axis=axis)
+    return Mesh(rank=rank, size=size, device=device, backend=backend)

@@ -22,9 +22,9 @@ Engines (``cfg.engine``):
 Under a data-parallel ``mesh`` of more than one rank
 (``parallel.mesh.make_mesh``) the run goes through
 ``parallel.dp.train_rbm_shard_map``: ``"cuda_dp"`` runs each rank's step on
-the per-step kernel ``csrc/cd_grads.cu`` (``engine="pallas"``, or ``"auto"``
-on CUDA for a config it takes), ``"eager_dp"`` on the core (``"xla"``, or
-``"auto"`` otherwise). A mesh of one rank takes the single-device path.
+the kernels of ``csrc/cd_grads.cu`` (``engine="pallas"`` or ``"auto"`` on
+CUDA; a config they do not take raises), ``"eager_dp"`` on the core
+(``"xla"``, or the CPU). A mesh of one rank takes the single-device path.
 """
 
 from __future__ import annotations
@@ -60,21 +60,23 @@ def resolve_engine(cfg: RBMConfig, device: torch.device) -> str:
 
 def resolve_dp_engine(cfg: RBMConfig, device: torch.device) -> str:
     """The engine a run of ``cfg`` on ``device`` under a mesh of more than one
-    rank uses: "cuda_dp" or "eager_dp". Raises for what neither takes."""
-    check_dp_supports(cfg, pallas_step=False)
-    if cfg.engine == "xla":
-        return "eager_dp"
-    reason = grads_unsupported(cfg)
-    if cfg.engine == "pallas":
-        if device.type != "cuda":
-            raise ValueError(f"engine='pallas' under a mesh runs the CUDA kernel cd_grads.cu, "
-                             f"and the model lies on {device}; use engine='xla' there")
+    rank uses: "cuda_dp" or "eager_dp". On CUDA, ``"pallas"`` and ``"auto"``
+    run the DP kernels (``csrc/cd_grads.cu``: the step's statistics, then the
+    update after the all-reduce) and raise for a config they do not take;
+    "eager_dp" is ``"xla"``, or the CPU. Raises for what neither takes."""
+    if cfg.engine != "xla" and device.type == "cuda":
+        reason = grads_unsupported(cfg)
         if reason is not None:
-            raise ValueError(f"{reason}. Under a mesh engine='pallas' runs the per-step "
-                             "kernel; the fused DP kernel (K6, ROADMAP.md Queue 2) is not "
-                             "ported yet: use engine='xla'")
+            raise ValueError(
+                f"{reason}. Under a mesh on CUDA engine={cfg.engine!r} runs the DP kernels "
+                "(cd_grads.cu); the TPU's DP mega-kernel (K6, ROADMAP.md Queue 2) fuses this "
+                "mode, and that part of it is not ported yet: use engine='xla'")
         return "cuda_dp"
-    return "cuda_dp" if device.type == "cuda" and reason is None else "eager_dp"
+    if cfg.engine == "pallas":
+        raise ValueError(f"engine='pallas' under a mesh runs the CUDA kernels of cd_grads.cu, "
+                         f"and the model lies on {device}; use engine='xla' there")
+    check_dp_supports(cfg, pallas_step=False)
+    return "eager_dp"
 
 
 def _check_runtime(runtime: TrainRuntimeConfig) -> None:

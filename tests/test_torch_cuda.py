@@ -379,11 +379,70 @@ def test_grads_kernel_refuses(cuda):
     assert G.cd_grads_launches == before
 
 
+# the update after the all-reduce, csrc/cd_grads.cu's second kernel: each
+# product and sum rounds on its own, as in its plain version, so the two agree
+# to the bit; c1's settings (no momentum, no decay) and c5's tower recipe with
+# momentum, decay and clipping, on the sums of 3 ranks
+UPDATE_CASES = {
+    "c1": RBMConfig(**C1),
+    "c5-tower-c2-momentum-l2-clip": RBMConfig(n_visible=2000, n_hidden=400, visible="gaussian",
+                                              k=2, persistent=True, lr=0.005, batch_size=20,
+                                              momentum=0.9, initial_momentum=0.5, l2=1e-3,
+                                              grad_clip=0.05),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(UPDATE_CASES))
+def test_update_kernel_matches_plain(cuda, name):
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.parallel.dp import world_scale
+
+    cfg = UPDATE_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    rand = lambda *shape: 0.1 * torch.randn(shape, generator=gen, device=cuda)
+    V, H = cfg.n_visible, cfg.n_hidden
+    for epoch in (0, 5):
+        p = RBMParams(W=rand(V, H), b=rand(V), c=rand(H))
+        vel = RBMParams(W=rand(V, H), b=rand(V), c=rand(H))
+        sums = 3 * rand(G.flat_size(cfg))
+        want = G.cd_update_plain(cfg, p, vel, sums, world_scale(3), epoch)
+        before = G.cd_update_launches
+        got = G.cd_update(cfg, p.map(torch.clone), vel.map(torch.clone), sums, world_scale(3),
+                          epoch)
+        torch.cuda.synchronize()
+        assert G.cd_update_launches == before + 1
+        for a, b in zip(list(got[0].as_dict().values()) + list(got[1].as_dict().values()),
+                        list(want[0].as_dict().values()) + list(want[1].as_dict().values())):
+            assert torch.equal(a, b)
+        assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.cuda
+def test_update_kernel_refuses(cuda):
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+
+    cfg = UPDATE_CASES["c1"]
+    st = init_train_state(cfg, device=cuda)
+    sums = torch.zeros(G.flat_size(cfg), device=cuda)
+    before = G.cd_update_launches
+    with pytest.raises(ValueError, match="float32"):
+        G.cd_update(cfg.replace(param_dtype="bfloat16"), st.params, st.velocity, sums, 1.0, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        G.cd_update(cfg, st.params.map(lambda t: t.t().contiguous().t()), st.velocity,
+                    sums, 1.0, 0)
+    with pytest.raises(ValueError, match="shape"):
+        G.cd_update(cfg, st.params, st.velocity, sums[:-1], 1.0, 0)
+    assert G.cd_update_launches == before
+
+
 @pytest.mark.cuda
 def test_dp_one_rank_nccl(cuda):
     """A mesh of one NCCL rank: RBM.train takes the single-device path; the
-    per-step kernel path of train_rbm_shard_map matches the core path on the
-    same hardened draws."""
+    kernel path of train_rbm_shard_map (step and update kernels) matches the
+    core path on the same hardened draws, and leaves its input state as it
+    was."""
     import torch.distributed as dist
 
     from mdbn_tpu_torch import RBM
@@ -399,10 +458,11 @@ def test_dp_one_rank_nccl(cuda):
         rbm = RBM(cfg, device=cuda).train(data, mesh=mesh)
         assert rbm.metrics.engine == "cuda"
         du = {k: x[:, :, None] for k, x in u.items()}
-        before = G.cd_grads_launches
+        before = (G.cd_grads_launches, G.cd_update_launches)
         a, ea = train_rbm_shard_map(st, data, cfg, mesh, 2, pallas_step=True, uniforms=du)
         torch.cuda.synchronize()
-        assert G.cd_grads_launches == before + 12
+        assert (G.cd_grads_launches, G.cd_update_launches) == (before[0] + 12, before[1] + 12)
+        assert torch.equal(st.params.W, init_train_state(cfg, device=cuda).params.W)
         b, eb = train_rbm_shard_map(st, data, cfg, mesh, 2, pallas_step=False, uniforms=du)
         for x, y in ((a.params.W, b.params.W), (a.params.c, b.params.c),
                      (a.velocity.W, b.velocity.W), (ea, eb)):

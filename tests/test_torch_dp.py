@@ -3,9 +3,11 @@
 - The port core's masked statistics (``row_mask``, ``norm``) against the JAX
   core at rtol=atol=2e-5 (tests/test_parity_core.py:20: float32 on both
   sides, sums in another order).
-- ``cd_grads_step_plain`` (the plain version of ``csrc/cd_grads.cu``)
-  against the interpret-mode ``_cd_grads_kernel`` on injected draws at
-  rtol 1e-5 / atol 1e-6 (tests/test_pallas_dp.py:450-456).
+- ``cd_grads_step_plain`` (the plain version of ``csrc/cd_grads.cu``'s step
+  kernel) against the interpret-mode ``_cd_grads_kernel`` on injected draws
+  at rtol 1e-5 / atol 1e-6 (tests/test_pallas_dp.py:450-456), and
+  ``cd_update_plain`` (the plain version of its update kernel) against the
+  JAX core's ``apply_update``.
 - The port's data-parallel run over 2 and 3 gloo ranks (one process each,
   torch.multiprocessing.spawn; the rank side is tests/torch_dp_ranks.py)
   against a replay on the JAX core: per-shard masked statistics with the same
@@ -37,6 +39,7 @@ from mdbn_tpu_torch.core import rbm_math as T
 from mdbn_tpu_torch.core.state import init_train_state
 from mdbn_tpu_torch.data.synthetic import mnist_like
 from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+from mdbn_tpu_torch.ops import cd_grads_cuda as G
 from mdbn_tpu_torch.ops.cd_grads_cuda import (cd_grads_step, cd_grads_step_plain,
                                               check_grads_supports, grads_unsupported)
 from mdbn_tpu_torch.parallel import dp
@@ -186,6 +189,59 @@ def test_plain_grads_match_interpret_kernel(name):
         close(et, ej, KERNEL_TOL)
 
 
+def test_grads_step_writes_the_flat_buffer():
+    """With out=, the step's statistics land in one flat buffer (gW, gb, gc,
+    err: the all-reduce's layout) and the returned tensors are its views."""
+    _, tc = both(**GRADS_CASES["pcd-k2-sparsity"][0])
+    rng = np.random.default_rng(6)
+    p, v0, u = params_np(tc, rng), visible_data(tc, 5, rng), draws(tc, 5, rng)
+    chain = torch.as_tensor((rng.random((5, tc.n_hidden)) < 0.5).astype(np.float32))
+    args = (tc, T.RBMParams(**th(p)), torch.as_tensor(v0), chain)
+    kw = dict(uniforms=th(u), mask=torch.as_tensor(MASK), norm=2.5)
+    g, c, e = cd_grads_step(*args, **kw)
+    flat = torch.full((G.flat_size(tc),), float("nan"))
+    gf, cf, ef = cd_grads_step(*args, **kw, out=flat)
+    assert flat.numel() == 32 * 16 + 32 + 16 + 1
+    torch.testing.assert_close(flat, torch.cat([g.W.reshape(-1), g.b, g.c, e.reshape(1)]),
+                               rtol=0, atol=0)
+    assert gf.W.data_ptr() == flat.data_ptr() and ef.data_ptr() == flat[-1:].data_ptr()
+    assert torch.equal(cf, c)
+
+
+UPDATE_CASES = {
+    "c1-like": dict(SMALL),
+    "momentum-schedule-l2": dict(SMALL, momentum=0.9, initial_momentum=0.5,
+                                 momentum_switch_epoch=1, l2=1e-2),
+    "clip-l2": dict(SMALL, momentum=0.5, l2=1e-3, grad_clip=0.05),
+}
+
+
+@pytest.mark.parametrize("name", list(UPDATE_CASES))
+def test_update_plain_matches_jax_apply_update(name):
+    """cd_update_plain (the plain version of the update kernel) on summed
+    statistics of 3 ranks against the JAX core's apply_update on their mean,
+    at epochs 0 and 1 (either side of a momentum switch), at rtol 1e-5 /
+    atol 1e-6: the port scales the sums by float32(1/3) where JAX divides by
+    3, one rounding apart; the wrapper takes the plain version on the CPU."""
+    jc, tc = both(**UPDATE_CASES[name])
+    rng = np.random.default_rng(8)
+    p, vel = params_np(jc, rng), params_np(jc, rng)
+    sums = rng.standard_normal(G.flat_size(tc)).astype(np.float32)
+    V, H = jc.n_visible, jc.n_hidden
+    g = J.RBMParams(W=sums[:V * H].reshape(V, H) / 3, b=sums[V * H:V * H + V] / 3,
+                    c=sums[V * H + V:-1] / 3)
+    scale = dp.world_scale(3)
+    for epoch in (0, 1):
+        pj, vj = J.apply_update(J.RBMParams(**p), J.RBMParams(**vel), g, jc, epoch=epoch)
+        for update in (G.cd_update_plain, G.cd_update):
+            pt, vt, et = update(tc, T.RBMParams(**th(p)), T.RBMParams(**th(vel)),
+                                torch.as_tensor(sums), scale, epoch)
+            for n in ("W", "b", "c"):
+                close(getattr(pt, n), getattr(pj, n), KERNEL_TOL)
+                close(getattr(vt, n), getattr(vj, n), KERNEL_TOL)
+            close(et, sums[-1] / 3, KERNEL_TOL)
+
+
 def test_grads_kernel_refusals():
     base = RBMConfig(**SMALL)
     refused = {"enhanced": base.replace(gradient="enhanced"),
@@ -204,7 +260,7 @@ def test_grads_kernel_refusals():
             cd_grads_step_plain(cfg, st.params, v0, st.chain_h, seed=1)
         with pytest.raises(ValueError, match=match):
             dp.train_rbm_shard_map(init_train_state(cfg, device="cpu"), v0, cfg,
-                                   Mesh(None, 0, 2, CPU, "gloo"), 1, pallas_step=True)
+                                   Mesh(0, 2, CPU, "gloo"), 1, pallas_step=True)
     assert grads_unsupported(base.replace(persistent=True, k=2, visible="gaussian",
                                           sparsity_target=0.1, sparsity_cost=0.5,
                                           error_metric="xent")) is None
@@ -218,13 +274,19 @@ def test_dp_engine_selection_and_refusals():
     assert resolve_dp_engine(base, CUDA) == "cuda_dp"
     assert resolve_dp_engine(base.replace(engine="xla"), CUDA) == "eager_dp"
     assert resolve_dp_engine(base.replace(engine="pallas"), CUDA) == "cuda_dp"
-    # auto: a config the per-step kernel refuses runs on the core; pallas raises, naming K6
+    # on CUDA, auto runs the DP kernels as pallas does: a config they refuse
+    # raises, naming K6; the eager path takes it under engine='xla'
     for cfg in (base.replace(persistent=True, pt_temps=3),
                 base.replace(visible="gaussian", learn_variance=True),
-                base.replace(param_dtype="bfloat16")):
-        assert resolve_dp_engine(cfg, CUDA) == "eager_dp"
-        with pytest.raises(ValueError, match="K6"):
-            resolve_dp_engine(cfg.replace(engine="pallas"), CUDA)
+                base.replace(param_dtype="bfloat16"),
+                base.replace(gradient="enhanced"),
+                base.replace(error_metric="pseudo")):
+        for engine in ("auto", "pallas"):
+            with pytest.raises(ValueError, match="K6"):
+                resolve_dp_engine(cfg.replace(engine=engine), CUDA)
+        if cfg.gradient != "enhanced" and cfg.error_metric != "pseudo":
+            assert resolve_dp_engine(cfg.replace(engine="xla"), CUDA) == "eager_dp"
+            assert resolve_dp_engine(cfg, CPU) == "eager_dp"
     with pytest.raises(ValueError, match="engine='pallas'"):
         resolve_dp_engine(base.replace(engine="pallas"), CPU)
     for cfg, match in ((base.replace(gradient="enhanced"), "enhanced"),
@@ -234,7 +296,7 @@ def test_dp_engine_selection_and_refusals():
                 resolve_dp_engine(cfg.replace(engine=engine), CPU)
     with pytest.raises(ValueError, match="engine='pallas'"):
         RBM(base.replace(engine="pallas", epochs=1), device="cpu").train(
-            mnist_like(10, n_features=32, seed=0), mesh=Mesh(None, 0, 2, CPU, "gloo"))
+            mnist_like(10, n_features=32, seed=0), mesh=Mesh(0, 2, CPU, "gloo"))
 
 
 def test_mesh_needs_a_process_per_rank(monkeypatch):
