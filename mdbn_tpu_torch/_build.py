@@ -1,9 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 Each ``csrc/<kernel>.cu`` is compiled with ``nvcc`` for ``sm_90a`` once per
-storage type it takes (``-DMDBN_STORE_BF16=0|1``: float32 or bfloat16
-parameters, see ``csrc/cd_common.cuh``; ``cd_grads`` is float32 only, like the
-TPU kernel it replaces) into a shared library of its own with a plain C
+storage type (``-DMDBN_STORE_BF16=0|1``: float32 or bfloat16 parameters, see
+``csrc/cd_common.cuh``) into a shared library of its own with a plain C
 interface, loaded with ``ctypes``. The build happens at first use (never at
 import, so the package imports on machines without a GPU or ``nvcc``) into
 ``mdbn_tpu_torch/_build/<key>/``, where the key hashes the sources and the
@@ -33,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # kernel -> the storage types it is built at
 KERNELS = {"cd_train": ("float32", "bfloat16"), "cd_train_wide": ("float32", "bfloat16"),
-           "cd_grads": ("float32",)}
+           "cd_grads": ("float32", "bfloat16")}
 
 
 @dataclass
@@ -158,19 +157,19 @@ def _declare_cd_train_wide(lib: ctypes.CDLL) -> None:
 
 def _declare_cd_grads(lib: ctypes.CDLL) -> None:
     lib.cd_grads_step.argtypes = (
-        [_P] * 15  # v0, mask, u_h0, u_h, u_v, W, b, c, chain_in, gW, gb, gc, chain_out, err,
-                   # scratch
-        + [_I] * 5  # V, H, B, k, flags
+        [_P] * 15  # v0, mask, u_h0, u_h, u_v, u_swap, betas, W, b, c, z, chain_in, out,
+                   # chain_out, scratch
+        + [_I] * 7  # V, H, B, M, k, flags, bit
         + [_F] * 3  # inv_norm, sparsity_target, sparsity_cost
         + _TAIL)
     lib.cd_grads_step.restype = _I
     lib.cd_update_step.argtypes = (
-        [_P] * 8  # sums, W, b, c, vW, vb, vc, err
+        [_P] * 11  # sums, W, b, c, z, vW, vb, vc, vz, err, bias_e
         + [_I] * 3  # V, H, flags
-        + [_F] * 5  # scale, lr, momentum, l2, grad_clip
+        + [_F] * 8  # scale, lr, lr_z, momentum, l2, grad_clip, sparsity_target/cost
         + [_I, _P])  # device, stream
     lib.cd_update_step.restype = _I
-    lib.cd_grads_scratch_floats.argtypes = [_I] * 3  # V, H, B
+    lib.cd_grads_scratch_floats.argtypes = [_I] * 5  # V, H, B, M, flags
     lib.cd_grads_scratch_floats.restype = ctypes.c_longlong
     _declare_error_string(lib, "cd_grads_error_string")
 

@@ -166,7 +166,8 @@ def cd_step_stats(
     factor_dtype: Optional[torch.dtype] = None,
     row_mask: Optional[torch.Tensor] = None,
     norm: Optional[float] = None,
-) -> Tuple[RBMParams, torch.Tensor, torch.Tensor]:
+    split: bool = False,
+):
     """One CD-k/PCD step's statistics. Returns (grads, new_chain_h, err).
 
     ``grads`` is the log-likelihood ascent direction (positive minus
@@ -179,7 +180,9 @@ def cd_step_stats(
     kernel, which keeps its factors at the storage dtype; the monitor sees
     the unrounded mean. ``row_mask`` ([B, 1] of 0/1) and ``norm``: pad rows
     are zeroed out of every statistic and sums divide by ``norm`` instead of
-    B (uneven data parallelism: ``parallel.dp``).
+    B (uneven data parallelism: ``parallel.dp``). ``split``: return
+    (grads, enhanced sums, new_chain_h, err) with the statistics in the form
+    a data-parallel exchange sums (``split_grads``).
     """
     dtype = v0.dtype
     h0p = hidden_mean(params, v0, cfg)
@@ -208,13 +211,15 @@ def cd_step_stats(
         hmean = hidden_mean(params, vs, cfg)
         h = (uniforms["h"][t] < hmean).to(dtype)
 
-    grads = _grads(params, v0, h0p, vs, hmean, cfg, row_mask, norm)
     # PCD: the monitor reconstructs the DATA chain (one step from h0s)
     if cfg.persistent and chain_h is not None:
         v1mean_data = visible_mean(params, h0s, cfg)
     else:
         v1mean_data = v1mean
-    return grads, h, _monitor(v0, v1mean_data, cfg, row_mask, norm)
+    err = _monitor(v0, v1mean_data, cfg, row_mask, norm)
+    if split:
+        return (*split_grads(params, v0, h0p, vs, hmean, cfg, row_mask, norm), h, err)
+    return _grads(params, v0, h0p, vs, hmean, cfg, row_mask, norm), h, err
 
 
 def _monitor(v0: torch.Tensor, v1mean: torch.Tensor, cfg: RBMConfig,
@@ -230,39 +235,83 @@ def _grads(params: RBMParams, v0: torch.Tensor, h0p: torch.Tensor, vs: torch.Ten
     """The update direction from one step's positive phase (v0, h0p) and
     negative phase (vs, hmean): plain, learned-variance and enhanced
     statistics plus the sparsity term, in the JAX core's order. Masking the
-    v side of each outer product zeroes a pad row's contribution to W."""
+    v side of each outer product zeroes a pad row's contribution to W. A
+    masked mean-field learned-variance step takes its 1/2 times the share of
+    real rows, as the JAX core does."""
+    grads, sums = split_grads(params, v0, h0p, vs, hmean, cfg, row_mask, norm)
+    share = 1.0
+    if row_mask is not None:
+        share = torch.sum(row_mask) / float(norm if norm is not None else v0.shape[0])
+    return finish_grads(params, grads, sums, cfg, share)
+
+
+@dataclass
+class EnhancedSums:
+    """The batch means the enhanced gradient recombines around, as masked
+    sums over ``norm`` (so a mean over data-parallel ranks is the
+    global-batch mean): ``mu`` [V] and ``lam`` [H], the averaged data and
+    model means of v and h, and ``h0`` [H], the data-phase mean of h (the
+    sparsity term's)."""
+
+    mu: torch.Tensor
+    lam: torch.Tensor
+    h0: torch.Tensor
+
+
+def split_grads(params: RBMParams, v0: torch.Tensor, h0p: torch.Tensor, vs: torch.Tensor,
+                hmean: torch.Tensor, cfg: RBMConfig, row_mask: Optional[torch.Tensor] = None,
+                norm: Optional[float] = None) -> Tuple[RBMParams, Optional[EnhancedSums]]:
+    """The statistics of ``_grads`` in the form a data-parallel exchange can
+    sum, since each is linear in the rows: the plain gW, gb (precision-scaled
+    under learned variance) and gc, with the sparsity term unless the
+    gradient is enhanced; under learned variance z holds the raw statistic
+    sum_r m_r (A_data - A_model) / norm; under the enhanced gradient the
+    ``EnhancedSums``. ``finish_grads`` on the mean over the ranks gives the
+    global-batch gradient. The order of the TPU's DP mega-kernel
+    (mdbn_tpu/ops/cd_epoch_pallas.py:1535-1596)."""
     inv_b = 1.0 / float(norm if norm is not None else v0.shape[0])
     masked = (lambda x: x) if row_mask is None else (lambda x: x * row_mask)
     v_pos, v_neg, h_pos, h_neg = masked(v0), masked(vs), masked(h0p), masked(hmean)
     s = inv_sigma2(params)
-    # learned variance: W/b statistics see precision-scaled visibles
     vp = v_pos if s is None else v_pos * s
     vn = v_neg if s is None else v_neg * s
     gW = (_dot(vp.T, h0p, cfg.compute_dtype, cfg.matmul_precision)
           - _dot(vn.T, hmean, cfg.compute_dtype, cfg.matmul_precision)) * inv_b
     gb = torch.sum(vp - vn, dim=0) * inv_b
     gc = torch.sum(h_pos - h_neg, dim=0) * inv_b
+    h0 = torch.sum(h_pos, dim=0) * inv_b
     gz = None
     if s is not None:
-        # d log p / d z_i = e^{-z_i} (<A_i>_data - <A_i>_model),
-        # A_i(v, h) = (v_i - b_i)^2 / 2 - v_i (W h)_i
         wh_d = _dot(h0p, params.W.T, cfg.compute_dtype, cfg.matmul_precision)
         wh_m = _dot(hmean, params.W.T, cfg.compute_dtype, cfg.matmul_precision)
         A_d = 0.5 * (v0 - params.b) ** 2 - v0 * wh_d
         A_m = 0.5 * (vs - params.b) ** 2 - vs * wh_m
-        gz = s * torch.sum(masked(A_d - A_m), dim=0) * inv_b
-        if not cfg.resolved_sample_visible:
-            # mean-field negative phase: Rao-Blackwellize the conditional's
-            # own variance term E[(v-b)^2] = (mean-b)^2 + sigma^2, times the
-            # share of real rows under masking
-            gz = gz - 0.5 * (1.0 if row_mask is None else torch.sum(row_mask) * inv_b)
+        gz = torch.sum(masked(A_d - A_m), dim=0) * inv_b
     if cfg.gradient == "enhanced":
         mu = 0.5 * (torch.sum(v_pos, dim=0) + torch.sum(v_neg, dim=0)) * inv_b
         lam = 0.5 * (torch.sum(h_pos, dim=0) + torch.sum(h_neg, dim=0)) * inv_b
-        gW, gb, gc = enhance_grads(gW, gb, gc, mu, lam, cfg)
+        return RBMParams(W=gW, b=gb, c=gc, z=gz), EnhancedSums(mu, lam, h0)
     if cfg.sparsity_target is not None and cfg.sparsity_cost:
-        gc = gc + cfg.sparsity_cost * (
-            cfg.sparsity_target - torch.sum(h_pos, dim=0) * inv_b)
+        gc = gc + cfg.sparsity_cost * (cfg.sparsity_target - h0)
+    return RBMParams(W=gW, b=gb, c=gc, z=gz), None
+
+
+def finish_grads(params: RBMParams, grads: RBMParams, sums: Optional[EnhancedSums],
+                 cfg: RBMConfig, share=1.0) -> RBMParams:
+    """The update direction from ``split_grads``' statistics averaged over
+    the ranks: the z statistic times the precision (minus 1/2 under a
+    mean-field negative phase: E[(v-b)^2] adds sigma^2; ``share`` of it on
+    a masked shard of its own), and the enhanced recombination of the plain
+    statistics followed by the sparsity term."""
+    gW, gb, gc, gz = grads.W, grads.b, grads.c, grads.z
+    if gz is not None:
+        gz = inv_sigma2(params) * gz
+        if not cfg.resolved_sample_visible:
+            gz = gz - 0.5 * share
+    if sums is not None:
+        gW, gb, gc = enhance_grads(gW, gb, gc, sums.mu, sums.lam, cfg)
+        if cfg.sparsity_target is not None and cfg.sparsity_cost:
+            gc = gc + cfg.sparsity_cost * (cfg.sparsity_target - sums.h0)
     return RBMParams(W=gW, b=gb, c=gc, z=gz)
 
 
@@ -370,7 +419,8 @@ def pt_step_stats(
     cfg: RBMConfig,
     row_mask: Optional[torch.Tensor] = None,
     norm: Optional[float] = None,
-) -> Tuple[RBMParams, torch.Tensor, torch.Tensor]:
+    split: bool = False,
+):
     """One PT-PCD update's statistics (Desjardins et al. 2010); mirrors
     ``mdbn_tpu.core.rbm_math.pt_step_stats``. ``chains_h`` [M, B, H] (rung 0
     at beta = 1); ``uniforms`` in the ``draw_pt_uniforms`` layout. Every rung
@@ -378,7 +428,8 @@ def pt_step_stats(
     the ladder; the statistics come from rung 0 before the swaps and the
     monitor reconstructs the data chain. Returns (grads, new_chains, err).
     ``row_mask`` and ``norm`` as in ``cd_step_stats``: each batch row owns
-    its whole ladder, so a pad row's ladder evolves but enters no statistic."""
+    its whole ladder, so a pad row's ladder evolves but enters no statistic.
+    ``split`` as in ``cd_step_stats``."""
     dtype = v0.dtype
     betas = pt_betas(cfg, v0.device)
     bM = betas[:, None, None]
@@ -392,21 +443,32 @@ def pt_step_stats(
         h = (uniforms["h"][t] < hmean).to(dtype)
     h = _pt_swap_round(params, h, betas, uniforms["swap"][0], 0, cfg)
     h = _pt_swap_round(params, h, betas, uniforms["swap"][1], 1, cfg)
-    grads = _grads(params, v0, h0p, vs[0], hmean[0], cfg, row_mask, norm)
-    return grads, h, _monitor(v0, visible_mean(params, h0s, cfg), cfg, row_mask, norm)
+    err = _monitor(v0, visible_mean(params, h0s, cfg), cfg, row_mask, norm)
+    if split:
+        return (*split_grads(params, v0, h0p, vs[0], hmean[0], cfg, row_mask, norm), h, err)
+    return _grads(params, v0, h0p, vs[0], hmean[0], cfg, row_mask, norm), h, err
 
 
 def pseudo_likelihood(params: RBMParams, v: torch.Tensor, bit_index: int,
-                      cfg: RBMConfig) -> torch.Tensor:
+                      cfg: RBMConfig, row_mask: Optional[torch.Tensor] = None,
+                      norm: Optional[float] = None) -> torch.Tensor:
     """Theano-tutorial stochastic pseudo-likelihood proxy (Bernoulli visible):
     flip one (rotating) bit per sample; ``n_visible * mean log sigmoid(FE(flip)
-    - FE(v))``, negated so the monitor decreases as the model improves."""
+    - FE(v))``, negated so the monitor decreases as the model improves.
+    ``row_mask`` and ``norm`` as in ``recon_error``: a masked sum over
+    ``norm`` rows, which a mean over data-parallel ranks makes the
+    global-batch monitor."""
     fe = free_energy(params, v, cfg)
     flip_col = F.one_hot(torch.tensor(bit_index, device=v.device),
                          v.shape[1]).to(v.dtype)
     v_flip = v * (1 - flip_col) + (1 - v) * flip_col
     fe_flip = free_energy(params, v_flip, cfg)
-    return -torch.mean(v.shape[1] * -F.softplus(-(fe_flip - fe)))
+    terms = v.shape[1] * -F.softplus(-(fe_flip - fe))
+    if row_mask is None and norm is None:
+        return -torch.mean(terms)
+    if row_mask is not None:
+        terms = terms * row_mask[:, 0]
+    return -torch.sum(terms) / float(norm if norm is not None else v.shape[0])
 
 
 def resolve_momentum(cfg: RBMConfig, epoch: int) -> float:

@@ -3,99 +3,126 @@
 //
 // Replaces: mdbn_tpu/ops/cd_epoch_pallas.py::_cd_grads_kernel (:3184), built
 // by make_pallas_grads_fn (:3279), which mdbn_tpu/parallel/dp.py calls once
-// per shard per step before its pmean. Here each rank launches this kernel,
-// which writes (gW, gb, gc, err) into one flat buffer, then all-reduces the
-// buffer with torch.distributed outside the kernel
-// (mdbn_tpu_torch/parallel/dp.py), and applies the update with the second
-// kernel of this file, cd_update_kernel (below): together with the NCCL
-// all-reduce the two stand for the TPU's DP mega-kernel, whose in-kernel
-// exchange maps to a collective between launches on this card.
+// per shard per step before its pmean, and the step of the TPU's DP
+// mega-kernel (the DP mode of _cd_train_kernel, :2743-2910) in every
+// estimator mode. Here each rank launches this kernel, which writes its
+// statistics into one flat buffer, then all-reduces the buffer with
+// torch.distributed outside the kernel (mdbn_tpu_torch/parallel/dp.py), and
+// applies the update with the second kernel of this file, cd_update_kernel
+// (below): together with the NCCL all-reduce the two stand for the TPU's DP
+// mega-kernel, whose in-kernel exchange maps to a collective between launches
+// on this card.
 //
-// What it computes (B rows of this shard, fixed variance, no tempering, the
-// plain gradient; the wrapper refuses the rest):
-//   h0p  = sigmoid(v0 W + c),  h0s = (u_h0 < h0p)
-//   h    = chain (PCD) or h0s (CD); k Gibbs steps:
-//            vmean = sigmoid(h W^T + b)  (Bernoulli)  or  h W^T + b  (Gaussian)
-//            vs    = (u_v < vmean) | vmean + noise | vmean  (sampled/mean-field)
-//            hmean = sigmoid(vs W + c),  h = (u_h < hmean)
+// What it computes (B rows of this shard; m_r the row mask, 1 when there is
+// none; n = norm; s = e^{-z} under learned variance, else 1):
+//   h0p  = sigmoid((s v0) W + c),  h0s = (u_h0 < h0p)
+//   h    = chain (PCD) or h0s (CD); k Gibbs steps on all chain rows:
+//            vmean = sigmoid(beta (h W^T + b))  (Bernoulli)  or  h W^T + b  (Gaussian)
+//            vs    = (u_v < vmean) | vmean + sigma noise / sqrt(beta) | vmean
+//            hmean = sigmoid(beta ((s vs) W + c)),  h = (u_h < hmean)
+//   tempering (M rungs): the chain is [M*B, H] rung-major, rung m at
+//     betas[m]; after the sweeps, pre_lp = h W^T + b of the ladder and two
+//     Metropolis swap rounds (cd_phases.cuh); the statistics use rung 0.
 //   PCD: chain_out = h, and the monitor reconstructs the data chain,
 //        v1mean = sigmoid(h0s W^T + b) (Gaussian: h0s W^T + b);
 //   CD:  chain_out = chain, v1mean = the t = 0 visible mean.
-//   With m_r the row mask (1 when there is none) and n = norm:
-//   gW = sum_r m_r (v0_r^T h0p_r - vs_r^T hmean_r) / n
-//   gb = sum_r m_r (v0_r - vs_r) / n
-//   gc = sum_r m_r (h0p_r - hmean_r) / n + cost (target - sum_r m_r h0p_r / n)
+//   The flat buffer (ops/cd_grads_cuda.py::flat_size), every entry a sum
+//   that the exchange can add up (core.rbm_math.split_grads):
+//   gW = sum_r m_r ((s v0_r)^T h0p_r - (s vs_r)^T hmean_r) / n
+//   gb = s sum_r m_r (v0_r - vs_r) / n
+//   gc = sum_r m_r (h0p_r - hmean_r) / n [+ cost (target - sum_r m_r h0p_r / n)]
+//   learned variance: gz = sum_r m_r (A_data - A_model) / n, the raw statistic,
+//     A = (v - b)^2/2 - v (W h); the update kernel scales it by s (and
+//     subtracts 1/2 under mean-field visibles) after the exchange;
+//   enhanced: the plain gW, gb, gc (no sparsity term) and mu = sum_r m_r
+//     (v0_r + vs_r) / 2n, lam = sum_r m_r (h0p_r + hmean_r) / 2n, h0 = sum_r
+//     m_r h0p_r / n; the update kernel recombines them after the exchange;
 //   err = mse: sum_r m_r |v0_r - v1mean_r|^2 / n / V
 //         xent: -sum_r m_r sum_q (v0 log p + (1 - v0) log(1 - p)) / n,
 //               p = clip(v1mean, 1e-7, 1 - 1e-7)
-// Pad rows (m_r = 0) still run their Gibbs chain; they enter no statistic.
+//         pseudo: sum_r m_r V softplus(FE(v0_r) - FE(flip_bit(v0_r))) / n, on
+//               the pre-update W and b (the bit is the wrapper's).
+// Pad rows (m_r = 0) still run their Gibbs chain (their ladder); they enter
+// no statistic.
 //
 // Random numbers: Philox4x32-10 (cd_common.cuh) keyed by the wrapper's 64-bit
 // seed, counter (col, row, kind<<8 | t, 0); the data-parallel path derives a
-// distinct seed per step and rank. Inject mode reads the ops/cd_step.draw_uniforms
-// layout: u_h0 [B, H], u_h [k, B, H], u_v [k, B, V] (uniforms, or normals for
-// Gaussian visibles).
+// distinct seed per step and rank. Inject mode reads the ops/cd_step layout:
+// u_h0 [B, H], u_h [k, CR, H], u_v [k, CR, V] (uniforms, or normals for
+// Gaussian visibles), u_swap [2, (M-1)*B] (draw_pt_uniforms under tempering).
 //
-// Precision: every input and output is f32 (the TPU kernel's refs are f32;
-// built at float32 storage only). With f32 compute every product is an fp32
-// FMA with fp32 accumulation; with bf16 compute the operands of every product
-// round to bf16 and accumulate in fp32, as core.rbm_math._dot does.
+// Precision: the parameters, the data and the chain are stored at the
+// library's storage type (Store, cd_common.cuh: f32 or bf16, -DMDBN_STORE_BF16)
+// and widen to f32 as they are read; the statistics, the scratch and the
+// draws are f32; the chain written back rounds into Store (0 and 1 are exact).
+// With f32 compute every product is an fp32 FMA with fp32 accumulation; with
+// bf16 compute the operands of every product round to bf16 and accumulate in
+// fp32, as core.rbm_math._dot does.
 //
 // What bounds it on an H100: at c1's shape (784x500, B 20, CD-1) one step is
 // 78 MFLOP (three Gibbs products 2*B*V*H each, the gradient 2*2B*V*H), 1.2 us
 // at the f32 peak, and moves W in and gW out, 3.1 MB, 0.9 us at the memory rate.
-// Neither bounds it: the step is 2 + 2k dependent phases with a grid-wide
-// barrier after each, so it is bound by barrier and L2 latency, like
-// cd_train.cu (whose c1 update takes about 35-40 us), plus one launch per step.
+// Neither bounds it: the step is 2 + 2k dependent phases (+1 products phase
+// under tempering or learned variance, +2 swap rounds under tempering) with a
+// grid-wide barrier after each, so it is bound by barrier and L2 latency,
+// like cd_train.cu, plus one launch per step.
 //
 // Design now: one cooperative launch per step (grid no larger than the
 // co-resident block count, one block per SM by default), cooperative_groups
-// grid sync between phases: hidden from data; k x (visible, hidden); gradient.
-// The product phases stage kRowTile batch rows in shared memory so each W
-// element is read once per row tile. The monitor's row sums ride as extra units
-// of the first hidden phase (v1mean is ready by then), and the gradient phase
-// adds them up. Each gW unit (kQStrip rows of W x kThreads columns, one block)
-// sums its elements over the 2B rows in row order; gb and gc take one warp per
-// element with a fixed butterfly. No atomics: the bits do not depend on the
-// grid. Later: keep the per-step launch but capture a whole epoch in a CUDA
-// graph, or fold the all-reduce into the kernel (the TPU's DP mega-kernel).
+// grid sync between phases. The product, pseudo and swap phases are
+// cd_train.cu's (cd_phases.cuh): the same tiles and the same order of sums.
+// The monitor's row sums ride as extra units of the first hidden phase
+// (v1mean is ready by then; the pseudo monitor's in the first visible phase,
+// as in cd_train.cu), and the gradient phase adds them up. Each gW unit
+// (kQStrip rows of W x kThreads columns, one block) sums its elements over
+// the 2B rows in row order; the vector statistics take one warp per element
+// with a fixed butterfly. No atomics: the bits do not depend on the grid.
+// kModes: tempering, learned variance, the enhanced sums and pseudo are
+// compiled in; the plain CD/PCD step leaves them out. Later: capture a whole
+// epoch in a CUDA graph, or fold the all-reduce into the kernel (the TPU's
+// DP mega-kernel).
 
-#include "cd_common.cuh"
+#include "cd_phases.cuh"
 
 namespace {
 
-static_assert(!MDBN_STORE_BF16, "cd_grads.cu is built at float32 storage only");
-
-constexpr int kRowTile = 4;   // batch rows per accumulator tile
-constexpr int kStage = 2048;  // columns of a row tile staged in shared memory at once
-constexpr int kQPerWarp = 4;  // visible units per warp in the visible phase
-constexpr int kQStrip = 16;   // visible units per gW unit
-constexpr int kSmemFloats = kRowTile * kStage + kWarps * kRowTile * 32;
 constexpr int kMasked = 8192;  // a row mask is given (the other bits: cd_common.cuh)
 
 struct Args {
-  const float* v0;        // [B, V]
+  const Store* v0;        // [B, V]
   const float* mask;      // kMasked: [B] of 0/1
   const float* u_h0;      // inject: [B, H]
-  const float* u_h;       // inject: [k, B, H]
-  const float* u_v;       // inject, sampled visibles: [k, B, V]
-  const float* W;         // [V, H]
-  const float* b;         // [V]
-  const float* c;         // [H]
-  const float* chain_in;  // [B, H]
-  float* gW;              // [V, H]
+  const float* u_h;       // inject: [k, CR, H]
+  const float* u_v;       // inject, sampled visibles: [k, CR, V]
+  const float* u_swap;    // inject, tempering: [2, (M-1)*B]
+  const float* betas;     // tempering: [M], betas[0] = 1
+  const Store* W;         // [V, H]
+  const Store* b;         // [V]
+  const Store* c;         // [H]
+  const Store* z;         // learned variance: [V] log sigma^2
+  const Store* chain_in;  // [CR, H]
+  Store* chain;           // [CR, H] the chain out
+  float* gW;              // [V, H]: views of the flat statistics buffer
   float* gb;              // [V]
   float* gc;              // [H]
-  float* chain_out;       // [B, H]
+  float* gz;              // learned variance: [V] the raw statistic
+  float* mu;              // enhanced: [V]
+  float* lam;             // enhanced: [H]
+  float* h0m;             // enhanced: [H] the data-phase mean of h
   float* err;             // [1]
   float* h0p;             // scratch [B, H]
-  float* h0s;             // scratch [B, H] samples of h0p
-  float* hbuf;            // scratch [B, H] CD chain samples
-  float* hmean;           // scratch [B, H]
-  float* vs;              // scratch [B, V]
+  Store* h0s;             // scratch [B, H] samples of h0p
+  Store* hbuf;            // scratch [B, H] CD chain samples
+  float* hmean;           // scratch [CR, H]
+  float* vs;              // scratch [CR, V]
   float* v1mean;          // scratch [B, V]
-  float* rowerr;          // scratch [B] masked monitor sum of each row
-  int V, H, B, k, flags;
+  float* rowerr;          // scratch [B] the monitor's sum over each row
+  float* pre_h0;          // pseudo: scratch [B, H] v0 W + c
+  float* s_lv;            // learned variance: scratch [V] e^{-z}
+  float* sig_lv;          // learned variance: scratch [V] e^{z/2}
+  float* wh_a;            // learned variance: scratch [2B, V] A of the data ; model rows
+  float* pre_lp;          // tempering: scratch [CR, V] h W^T + b of the ladder
+  int V, H, B, M, CR, k, flags, bit;
   float inv_norm, sparsity_target, sparsity_cost;
   unsigned long long seed;
 };
@@ -104,175 +131,30 @@ __device__ __forceinline__ float row_mask(const Args& a, int r) {
   return (a.flags & kMasked) ? a.mask[r] : 1.0f;
 }
 
-// Copies rows [r0, r0 + kRowTile) x columns [c0, c0 + n) of the row-major
-// [rows, stride] matrix src into tile[kRowTile][kStage] (zero past the last
-// row), rounding to bf16 when kBf. All threads of the block take part.
-template <bool kBf>
-__device__ __forceinline__ void stage_rows(float* tile, const float* src, int rows, int stride,
-                                           int r0, int c0, int n) {
-  for (int idx = threadIdx.x; idx < kRowTile * n; idx += kThreads) {
-    const int rr = idx / n, cc = idx - rr * n;
-    tile[rr * kStage + cc] =
-        r0 + rr < rows ? op<kBf>(src[static_cast<size_t>(r0 + rr) * stride + c0 + cc]) : 0.0f;
-  }
-}
-
-// hprob = sigmoid(x W + c) for the B rows of x [B, V], hsample = (u < hprob).
-// Work unit: 32 hidden columns (lane = column) x kRowTile rows, one block; the
-// unit's rows of x are staged in shared memory and warp w sums the products
-// over v = w, w + kWarps, ...; the kWarps partial sums are added in warp order.
-// When `monitor`, B more units each sum one row of the monitor into rowerr.
-template <bool kBf>
-__device__ void hidden_phase(const Args& a, float* smem, const float* x, float* hprob,
-                             float* hsample, const float* u, int kind, int t, bool monitor) {
-  float* xs = smem;                        // [kRowTile][kStage]
-  float* part = smem + kRowTile * kStage;  // [kWarps][kRowTile][32]
-  const int V = a.V, H = a.H, B = a.B;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ncol = (H + 31) / 32, nrow = (B + kRowTile - 1) / kRowTile;
-  const int nprod = ncol * nrow;
-  for (int unit = blockIdx.x; unit < nprod + (monitor ? B : 0); unit += gridDim.x) {
-    if (unit >= nprod) {
-      const int r = unit - nprod;
-      const size_t row = static_cast<size_t>(r) * V;
-      __syncthreads();  // smem of the previous unit is no longer read
-      monitor_row(a.v0 + row, a.v1mean + row, V, a.flags & kXent, smem, a.rowerr + r);
-      if (threadIdx.x == 0) a.rowerr[r] *= row_mask(a, r);
-      continue;
-    }
-    const int j0 = (unit % ncol) * 32, r0 = (unit / ncol) * kRowTile;
-    const int j = j0 + lane;
-    float acc[kRowTile];
-#pragma unroll
-    for (int rr = 0; rr < kRowTile; ++rr) acc[rr] = 0.0f;
-    for (int q0 = 0; q0 < V; q0 += kStage) {
-      const int nq = min(kStage, V - q0);
-      __syncthreads();  // the previous tile is no longer read
-      stage_rows<kBf>(xs, x, B, V, r0, q0, nq);
-      __syncthreads();
-      if (j < H) {
-        const float* wcol = a.W + static_cast<size_t>(q0) * H + j;
-#pragma unroll 8
-        for (int qq = warp; qq < nq; qq += kWarps) {
-          const float w = op<kBf>(wcol[static_cast<size_t>(qq) * H]);
-#pragma unroll
-          for (int rr = 0; rr < kRowTile; ++rr) acc[rr] = fmaf(xs[rr * kStage + qq], w, acc[rr]);
-        }
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < kRowTile; ++rr) part[(warp * kRowTile + rr) * 32 + lane] = acc[rr];
-    __syncthreads();
-    if (threadIdx.x < kRowTile * 32) {
-      const int rr = threadIdx.x >> 5, r = r0 + rr, jj = j0 + lane;
-      if (r < B && jj < H) {
-        float sum = 0.0f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) sum += part[(w * kRowTile + rr) * 32 + lane];
-        const size_t idx = static_cast<size_t>(r) * H + jj;
-        const float p = sigmoidf(sum + a.c[jj]);
-        hprob[idx] = p;
-        const float uu = u ? u[idx] : draw_uniform(a.seed, 0u, kind, t, r, jj);
-        hsample[idx] = uu < p ? 1.0f : 0.0f;
-      }
-    }
-  }
-}
-
-// Gibbs step t's visible mean and sample from h [B, H] -> vs (CD, t = 0: the
-// monitor's v1mean too); with `recon`, also the data chain's reconstruction
-// from h0s -> v1mean (PCD). Work unit: kRowTile rows x kWarps * kQPerWarp
-// visible units, one block, with the rows of h staged in shared memory; each
-// warp takes kQPerWarp visible units, its lanes stride over H (coalesced rows
-// of W) and a fixed butterfly sums each output.
-template <bool kBf>
-__device__ void visible_phase(const Args& a, float* smem, const float* h, int t, bool recon) {
-  float* hs = smem;  // [kRowTile][kStage]
-  const int V = a.V, H = a.H, B = a.B;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool gaussian = a.flags & kGaussian;
-  const bool sample_v = a.flags & kSampleVisible;
-  const bool persistent = a.flags & kPersistent;
-  constexpr int kQBlock = kWarps * kQPerWarp;
-  const int nqb = (V + kQBlock - 1) / kQBlock, nrow = (B + kRowTile - 1) / kRowTile;
-  const int nseg = nrow * nqb;
-  const float* uv =
-      ((a.flags & kInject) && sample_v) ? a.u_v + static_cast<size_t>(t) * B * V : nullptr;
-  for (int unit = blockIdx.x; unit < nseg * (recon ? 2 : 1); unit += gridDim.x) {
-    const bool is_recon = unit >= nseg;
-    const float* src = is_recon ? a.h0s : h;
-    const int uu = unit - (is_recon ? nseg : 0);
-    const int r0 = (uu / nqb) * kRowTile, qbase = (uu % nqb) * kQBlock + warp * kQPerWarp;
-    float acc[kQPerWarp][kRowTile];
-#pragma unroll
-    for (int qi = 0; qi < kQPerWarp; ++qi)
-#pragma unroll
-      for (int rr = 0; rr < kRowTile; ++rr) acc[qi][rr] = 0.0f;
-    for (int j0 = 0; j0 < H; j0 += kStage) {
-      const int nj = min(kStage, H - j0);
-      __syncthreads();
-      stage_rows<kBf>(hs, src, B, H, r0, j0, nj);
-      __syncthreads();
-#pragma unroll
-      for (int qi = 0; qi < kQPerWarp; ++qi) {
-        const int q = qbase + qi;
-        if (q >= V) break;
-        const float* wrow = a.W + static_cast<size_t>(q) * H + j0;
-#pragma unroll 4
-        for (int j = lane; j < nj; j += 32) {
-          const float w = op<kBf>(wrow[j]);
-#pragma unroll
-          for (int rr = 0; rr < kRowTile; ++rr)
-            acc[qi][rr] = fmaf(hs[rr * kStage + j], w, acc[qi][rr]);
-        }
-      }
-    }
-#pragma unroll
-    for (int qi = 0; qi < kQPerWarp; ++qi) {
-      float mine = 0.0f;  // lane rr keeps row r0 + rr
-#pragma unroll
-      for (int rr = 0; rr < kRowTile; ++rr) {
-        const float tot = warp_sum(acc[qi][rr]);
-        if (lane == rr) mine = tot;
-      }
-      const int q = qbase + qi, r = r0 + lane;
-      if (q >= V || lane >= kRowTile || r >= B) continue;
-      const size_t idx = static_cast<size_t>(r) * V + q;
-      const float pre = mine + a.b[q];
-      const float mean = gaussian ? pre : sigmoidf(pre);
-      if (is_recon) {
-        a.v1mean[idx] = mean;
-        continue;
-      }
-      if (t == 0 && !persistent) a.v1mean[idx] = mean;
-      float sample = mean;
-      if (sample_v) {
-        if (gaussian)
-          sample = mean + (uv ? uv[idx] : draw_normal(a.seed, 0u, kDrawV, t, r, q));
-        else
-          sample = (uv ? uv[idx] : draw_uniform(a.seed, 0u, kDrawV, t, r, q)) < mean ? 1.0f
-                                                                                    : 0.0f;
-      }
-      a.vs[idx] = sample;
-    }
-  }
-}
-
-// gW, gb, gc and err. gW unit (one block): kQStrip consecutive visible units x
-// kThreads hidden columns (thread = column); the strip's masked v0 and vs
-// columns are staged in shared memory, and each thread sums its elements over
-// the rows in row order. gb and gc: one warp per element, lanes over the rows,
-// fixed butterfly. err: block 0's first warp adds the monitor's row sums.
-template <bool kBf>
+// The flat buffer's statistics and err. gW unit (one block): kQStrip
+// consecutive visible units x kThreads hidden columns (thread = column); the
+// strip's masked (learned variance: precision-scaled) v0 and vs columns are
+// staged in shared memory, and each thread sums its elements over the rows in
+// row order. The vector statistics (gb, gc, gz, mu, lam, h0): one warp per
+// element, lanes over the rows, fixed butterfly. err: block 0's first warp
+// adds the monitor's masked row sums.
+template <bool kBf, bool kModes>
 __device__ void grads_phase(const Args& a, float* smem, const Split& s) {
   const int V = a.V, H = a.H, B = a.B;
   const float inv = a.inv_norm;
+  const bool lv = kModes && (a.flags & kLearnVar);
+  const bool enh = kModes && (a.flags & kEnhanced);
+  const bool pseudo = kModes && (a.flags & kPseudo);
   constexpr int kRowChunk = kSmemFloats / (2 * kQStrip);  // rows of a strip staged at once
   const int nstrip = (V + kQStrip - 1) / kQStrip, njc = (H + kThreads - 1) / kThreads;
   if (blockIdx.x == 0 && threadIdx.x < 32) {
-    const float tot = rows_total(a.rowerr, B);
+    float tot = 0.0f;
+    for (int r = threadIdx.x; r < B; r += 32) tot += a.rowerr[r] * row_mask(a, r);
+    tot = warp_sum(tot);
     if (threadIdx.x == 0)
-      *a.err = (a.flags & kXent) ? -tot * inv : tot * inv * (1.0f / static_cast<float>(V));
+      *a.err = pseudo                   ? tot * inv
+               : (a.flags & kXent) ? -tot * inv
+                                   : tot * inv * (1.0f / static_cast<float>(V));
   }
   for (int unit = blockIdx.x; unit < nstrip * njc; unit += gridDim.x) {
     const int strip = unit % nstrip, cu = unit / nstrip;
@@ -288,8 +170,9 @@ __device__ void grads_phase(const Args& a, float* smem, const Split& s) {
         const int rr = idx / kQStrip, qi = idx - rr * kQStrip;
         const size_t g = static_cast<size_t>(rc + rr) * V + q0 + qi;
         const float m = row_mask(a, rc + rr);
-        smem[rr * 2 * kQStrip + qi] = qi < nq ? op<kBf>(a.v0[g] * m) : 0.0f;
-        smem[rr * 2 * kQStrip + kQStrip + qi] = qi < nq ? op<kBf>(a.vs[g] * m) : 0.0f;
+        const float sc = (lv && qi < nq) ? a.s_lv[q0 + qi] : 1.0f;
+        smem[rr * 2 * kQStrip + qi] = qi < nq ? op<kBf>(ld(a.v0 + g) * m * sc) : 0.0f;
+        smem[rr * 2 * kQStrip + kQStrip + qi] = qi < nq ? op<kBf>(a.vs[g] * m * sc) : 0.0f;
       }
       __syncthreads();
       if (j < H) {
@@ -312,118 +195,258 @@ __device__ void grads_phase(const Args& a, float* smem, const Split& s) {
         if (qi < nq) a.gW[static_cast<size_t>(q0 + qi) * H + j] = (pos[qi] - neg[qi]) * inv;
     }
   }
-  for (int o = s.gwarp; o < V + H; o += s.nwarps) {
-    float acc = 0.0f, on = 0.0f;
+  // vector statistics: [0, V) visible units, [V, V + H) hidden units,
+  // [V + H, 2V + H) the z statistic (learned variance)
+  for (int o = s.gwarp; o < V + H + (lv ? V : 0); o += s.nwarps) {
+    float acc = 0.0f, sp = 0.0f, sn = 0.0f;
     if (o < V) {
+      const float sc = lv ? a.s_lv[o] : 1.0f;
       for (int r = s.lane; r < B; r += 32) {
         const size_t g = static_cast<size_t>(r) * V + o;
         const float m = row_mask(a, r);
-        acc += a.v0[g] * m - a.vs[g] * m;
+        const float x0 = ld(a.v0 + g) * m, xs = a.vs[g] * m;
+        acc += x0 * sc - xs * sc;
+        if (enh) {
+          sp += x0;
+          sn += xs;
+        }
       }
-    } else {
+    } else if (o < V + H) {
       for (int r = s.lane; r < B; r += 32) {
         const size_t g = static_cast<size_t>(r) * H + o - V;
         const float m = row_mask(a, r);
         acc += (a.h0p[g] - a.hmean[g]) * m;
-        on += a.h0p[g] * m;
+        sp += a.h0p[g] * m;
+        if (enh) sn += a.hmean[g] * m;
       }
+    } else {
+      const int q = o - V - H;
+      for (int r = s.lane; r < B; r += 32)
+        acc += (a.wh_a[static_cast<size_t>(r) * V + q] -
+                a.wh_a[static_cast<size_t>(B + r) * V + q]) * row_mask(a, r);
     }
-    acc = warp_sum(acc);
-    on = warp_sum(on);
+    acc = warp_sum(acc);  // o and enh are the same in every lane of the warp
+    if (enh || (o >= V && o < V + H)) sp = warp_sum(sp);
+    if (enh) sn = warp_sum(sn);
     if (s.lane != 0) continue;
     if (o < V) {
       a.gb[o] = acc * inv;
-    } else {
+      if (enh) a.mu[o] = 0.5f * (sp + sn) * inv;
+    } else if (o < V + H) {
+      const int jj = o - V;
       float g = acc * inv;
-      if (a.flags & kSparsity) g = g + a.sparsity_cost * (a.sparsity_target - on * inv);
-      a.gc[o - V] = g;
+      if (enh) {
+        a.lam[jj] = 0.5f * (sp + sn) * inv;
+        a.h0m[jj] = sp * inv;
+      } else if (a.flags & kSparsity) {
+        g = g + a.sparsity_cost * (a.sparsity_target - sp * inv);
+      }
+      a.gc[jj] = g;
+    } else {
+      a.gz[o - V - H] = acc * inv;
     }
   }
 }
 
-template <bool kBf>
+template <bool kBf, bool kModes>
 __global__ void __launch_bounds__(kThreads, 1) cd_grads_kernel(Args a) {
   __shared__ float smem[kSmemFloats];  // 36 KB: staged row tiles + partial sums
   cg::grid_group grid = cg::this_grid();
   const Split s;
   const bool inject = a.flags & kInject;
   const bool persistent = a.flags & kPersistent;
-  const size_t bh = static_cast<size_t>(a.B) * a.H;
-  hidden_phase<kBf>(a, smem, a.v0, a.h0p, a.h0s, inject ? a.u_h0 : nullptr, kDrawH0, 0, false);
+  const bool tempering = kModes && (a.flags & kTempering);
+  const bool lv = kModes && (a.flags & kLearnVar);
+  const bool pseudo = kModes && (a.flags & kPseudo);
+  const int B = a.B, V = a.V, CR = a.CR;
+  const size_t ch = static_cast<size_t>(CR) * a.H;
+  hidden_phase<kBf, kModes>(a, smem, a.v0, B, nullptr, lv ? a.z : nullptr, a.h0p, a.h0s,
+                            pseudo ? a.pre_h0 : nullptr, inject ? a.u_h0 : nullptr, 0u,
+                            kDrawH0, 0);
+  if (lv) {  // this step's precision and std-dev, read by the later phases
+    for (int q = blockIdx.x * kThreads + threadIdx.x; q < V; q += gridDim.x * kThreads) {
+      a.s_lv[q] = expf(-ld(a.z + q));
+      a.sig_lv[q] = expf(0.5f * ld(a.z + q));
+    }
+  }
   if (!persistent) {  // CD: the chain passes through unchanged
-    for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; i < bh;
+    for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; i < ch;
          i += static_cast<size_t>(gridDim.x) * kThreads)
-      a.chain_out[i] = a.chain_in[i];
+      a.chain[i] = a.chain_in[i];
   }
   grid.sync();
-  float* hdst = persistent ? a.chain_out : a.hbuf;
+  Store* hdst = persistent ? a.chain : a.hbuf;
   for (int t = 0; t < a.k; ++t) {
-    const float* hsrc = t > 0 ? hdst : (persistent ? a.chain_in : a.h0s);
-    visible_phase<kBf>(a, smem, hsrc, t, t == 0 && persistent);
+    const Store* hsrc = t > 0 ? hdst : (persistent ? a.chain_in : a.h0s);
+    const Seg recon = (t == 0 && persistent && !pseudo) ? Seg{a.h0s, nullptr, B, kRoleMonitor}
+                                                          : no_seg();
+    visible_phase<kBf, kModes>(a, smem, Seg{hsrc, nullptr, CR, kRoleGibbs}, recon, no_seg(),
+                               a.v0, 0u, 0, t, (t == 0 && pseudo) ? a.bit : -1);
     grid.sync();
-    hidden_phase<kBf>(a, smem, a.vs, a.hmean, hdst, inject ? a.u_h + t * bh : nullptr, kDrawH, t,
-                      t == 0);
+    hidden_phase<kBf, kModes>(a, smem, a.vs, CR, lv ? a.s_lv : nullptr, nullptr, a.hmean,
+                              hdst, nullptr, inject ? a.u_h + t * ch : nullptr, 0u, kDrawH, t,
+                              a.v0, (t == 0 && !pseudo) ? B : 0);
     grid.sync();
   }
-  grads_phase<kBf>(a, smem, s);
+  if (tempering || lv) {  // the ladder's pre_lp; the z statistic's A terms
+    visible_phase<kBf, kModes>(
+        a, smem, tempering ? Seg{a.chain, nullptr, CR, kRolePreLp} : no_seg(),
+        lv ? Seg{nullptr, a.h0p, B, kRoleWhData} : no_seg(),
+        lv ? Seg{nullptr, a.hmean, B, kRoleWhModel} : no_seg(), a.v0, 0u, 0, 0, -1);
+    grid.sync();
+  }
+  if (tempering) {
+    for (int p = 0; p < 2; ++p) {
+      swap_phase<kBf>(a, smem, 0u, 0, p);
+      grid.sync();
+    }
+  }
+  grads_phase<kBf, kModes>(a, smem, s);
 }
 
 // The update after the all-reduce, the second kernel of a data-parallel step:
-// every rank launches it on the same summed buffer, so every rank's W, b and c
-// stay bit-identical. Replaces the update in the body of the TPU's DP
-// mega-kernel (mdbn_tpu/ops/cd_epoch_pallas.py:1622-1687, the DP mode of
+// every rank launches it on the same summed buffer, so every rank's W, b, c
+// (and z) stay bit-identical. Replaces the update in the body of the TPU's DP
+// mega-kernel (mdbn_tpu/ops/cd_epoch_pallas.py:1568-1687, the DP mode of
 // _cd_train_kernel built at :3039), which there follows its in-kernel
 // exchange. Per element, with g = sums * scale (scale = 1 / ranks):
-//   clip g (when asked), g -= l2 * W (W only), vel = m * vel + lr * g,
-//   param += vel.
+//   learned variance: gz = e^{-z} g (- 1/2 under mean-field visibles);
+//   enhanced: gW_e = gW - mu gc^T - gb lam^T, gb_e = gb - gW_e lam,
+//     gc_e = gc - gW_e^T mu + cost (target - h0);
+//   clip g (when asked), g -= l2 * W (W only), vel = m * vel + lr * g
+//   (lr_z for z), param += vel.
 // Each product and sum rounds on its own (__fmul_rn, __fadd_rn: no fused
 // multiply-add), as the plain version's separate PyTorch ops do, so the two
-// give the same bits. Bound by bytes: it reads the sums, W, b, c and their
-// velocities once and writes the parameters and velocities once (c1: 7.8 MB,
-// 2.3 us at 3.35 TB/s); one element per thread, grid-stride.
+// give the same bits wherever the plain version is elementwise; at bf16
+// storage the velocity rounds once into Store and the parameter is old +
+// rounded velocity, rounded once (cd_common.cuh). The enhanced gradient's
+// two matvecs sum over all of gW_e, so they run first, as a kernel of their
+// own (cd_enhance_kernel): gb_e takes one warp per row of gW_e, gc_e one
+// block per 32 columns with its warps over the rows, each in a fixed order,
+// so every rank gets the same bits; gW_e is formed again, with the same
+// rounding, where W is updated. Bound by bytes: it reads the sums, W, b, c
+// and their velocities once and writes the parameters and velocities once
+// (c1: 7.8 MB, 2.3 us at 3.35 TB/s; the enhanced pass reads gW's sums once
+// more); one element per thread, grid-stride.
 struct UpdateArgs {
-  const float* sums;  // [V*H + V + H + 1]: gW, gb, gc, err summed over the ranks
-  float* W;           // [V, H], in place
-  float* b;           // [V]
-  float* c;           // [H]
-  float* vW;          // velocities, in place
-  float* vb;
-  float* vc;
-  float* err;  // [1]: the step's mean monitor
-  long long nW;
+  const float* sums;  // the flat statistics (ops/cd_grads_cuda.py::flat_size) summed over ranks
+  Store* W;           // [V, H], in place
+  Store* b;           // [V]
+  Store* c;           // [H]
+  Store* z;           // learned variance: [V]
+  Store* vW;          // velocities, in place
+  Store* vb;
+  Store* vc;
+  Store* vz;
+  float* err;     // [1]: the step's mean monitor
+  float* bias_e;  // enhanced: [V + H] gb_e, gc_e (cd_enhance_kernel's output)
+  long long nW, n_flat;
   int V, H, flags;
-  float scale, lr, m, l2, grad_clip;
+  float scale, lr, lr_z, m, l2, grad_clip, sparsity_target, sparsity_cost;
 };
 
-__device__ __forceinline__ void update_one(const UpdateArgs& a, float* p, float* vel, float g,
-                                           bool decay) {
-  if (a.flags & kClip) g = fminf(fmaxf(g, -a.grad_clip), a.grad_clip);
-  const float old = *p;
-  if (decay && a.l2 != 0.0f) g = __fsub_rn(g, __fmul_rn(a.l2, old));
-  const float nv = __fadd_rn(__fmul_rn(a.m, *vel), __fmul_rn(a.lr, g));
-  *vel = nv;
-  *p = __fadd_rn(old, nv);
+// Offsets of the flat buffer's parts.
+__device__ __forceinline__ long long off_extra(const UpdateArgs& a) {
+  return a.nW + a.V + a.H;  // gz (learned variance) or mu (enhanced)
 }
 
+__device__ __forceinline__ float sum_at(const UpdateArgs& a, long long i) {
+  return __fmul_rn(a.sums[i], a.scale);
+}
+
+// gW_e of element (q, j): gW - mu_q gc_j - gb_q lam_j, each op rounded.
+__device__ __forceinline__ float enhanced_w(const UpdateArgs& a, int q, int j) {
+  const long long x = off_extra(a);
+  const float g = sum_at(a, static_cast<long long>(q) * a.H + j);
+  const float t1 = __fmul_rn(sum_at(a, x + q), sum_at(a, a.nW + a.V + j));
+  const float t2 = __fmul_rn(sum_at(a, a.nW + q), sum_at(a, x + a.V + j));
+  return __fsub_rn(__fsub_rn(g, t1), t2);
+}
+
+__device__ __forceinline__ void update_one(const UpdateArgs& a, Store* p, Store* vel, float g,
+                                           float lr, bool decay) {
+  if (a.flags & kClip) g = fminf(fmaxf(g, -a.grad_clip), a.grad_clip);
+  const float old = ld(p);
+  if (decay && a.l2 != 0.0f) g = __fsub_rn(g, __fmul_rn(a.l2, old));
+  const float nv = round_store(__fadd_rn(__fmul_rn(a.m, ld(vel)), __fmul_rn(lr, g)));
+  st(vel, nv);
+  st(p, __fadd_rn(old, nv));
+}
+
+// gb_e and gc_e into bias_e. Blocks [0, ceil(V / kWarps)): one warp per row q
+// of gW_e, lanes over the columns, fixed butterfly. The next ceil(H / 32)
+// blocks: 32 columns each (lane = column), warp w over the rows w, w +
+// kWarps, ..., the warps' partial sums added in warp order. The products'
+// operands round to bf16 under bf16 compute (core.rbm_math.enhance_grads).
+template <bool kBf>
+__global__ void __launch_bounds__(kThreads) cd_enhance_kernel(UpdateArgs a) {
+  __shared__ float part[kWarps][32];
+  const int V = a.V, H = a.H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nbw = (V + kWarps - 1) / kWarps;
+  const long long x = off_extra(a);
+  if (static_cast<int>(blockIdx.x) < nbw) {
+    const int q = blockIdx.x * kWarps + warp;
+    if (q >= V) return;
+    float acc = 0.0f;
+    for (int j = lane; j < H; j += 32)
+      acc = fmaf(op<kBf>(enhanced_w(a, q, j)), op<kBf>(sum_at(a, x + V + j)), acc);
+    acc = warp_sum(acc);
+    if (lane == 0) a.bias_e[q] = __fsub_rn(sum_at(a, a.nW + q), acc);
+    return;
+  }
+  const int j = (blockIdx.x - nbw) * 32 + lane;
+  float acc = 0.0f;
+  if (j < H) {
+    for (int q = warp; q < V; q += kWarps)
+      acc = fmaf(op<kBf>(enhanced_w(a, q, j)), op<kBf>(sum_at(a, x + q)), acc);
+  }
+  part[warp][lane] = acc;
+  __syncthreads();
+  if (warp != 0 || j >= H) return;
+  float tot = 0.0f;
+  for (int w = 0; w < kWarps; ++w) tot += part[w][lane];
+  float g = __fsub_rn(sum_at(a, a.nW + a.V + j), tot);
+  if (a.flags & kSparsity)
+    g = __fadd_rn(g, __fmul_rn(a.sparsity_cost,
+                               __fsub_rn(a.sparsity_target, sum_at(a, x + V + H + j))));
+  a.bias_e[V + j] = g;
+}
+
+// kModes: learned variance and the enhanced gradient are compiled in; the
+// plain update leaves them out, and with them their registers.
+template <bool kModes>
 __global__ void __launch_bounds__(kThreads) cd_update_kernel(UpdateArgs a) {
-  const long long n = a.nW + a.V + a.H;
+  const bool lv = kModes && (a.flags & kLearnVar), enh = kModes && (a.flags & kEnhanced);
+  const long long nb = a.nW + a.V, nc = nb + a.H, n = nc + (lv ? a.V : 0);
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n;
        i += static_cast<long long>(gridDim.x) * kThreads) {
-    const float g = __fmul_rn(a.sums[i], a.scale);
-    if (i < a.nW)
-      update_one(a, a.W + i, a.vW + i, g, true);
-    else if (i < a.nW + a.V)
-      update_one(a, a.b + (i - a.nW), a.vb + (i - a.nW), g, false);
-    else
-      update_one(a, a.c + (i - a.nW - a.V), a.vc + (i - a.nW - a.V), g, false);
+    if (i < a.nW) {
+      const float g = enh ? enhanced_w(a, static_cast<int>(i / a.H), static_cast<int>(i % a.H))
+                          : sum_at(a, i);
+      update_one(a, a.W + i, a.vW + i, g, a.lr, true);
+    } else if (i < nb) {
+      const long long q = i - a.nW;
+      update_one(a, a.b + q, a.vb + q, enh ? a.bias_e[q] : sum_at(a, i), a.lr, false);
+    } else if (i < nc) {
+      const long long j = i - nb;
+      update_one(a, a.c + j, a.vc + j, enh ? a.bias_e[a.V + j] : sum_at(a, i), a.lr, false);
+    } else {
+      const long long q = i - nc;
+      float g = __fmul_rn(expf(-ld(a.z + q)), sum_at(a, i));
+      if (!(a.flags & kSampleVisible)) g = __fsub_rn(g, 0.5f);
+      update_one(a, a.z + q, a.vz + q, g, a.lr_z, false);
+    }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *a.err = __fmul_rn(a.sums[n], a.scale);
+  if (blockIdx.x == 0 && threadIdx.x == 0) *a.err = sum_at(a, a.n_flat - 1);
 }
 
 // Points the scratch fields of `a` into `base` (when not null) and returns
-// the floats they take.
-long long carve_scratch(Args& a, float* base, int V, int H, int B) {
+// the floats they take; a buffer of a mode that is off takes none.
+long long carve_scratch(Args& a, float* base, int V, int H, int B, int M, int flags) {
+  const long long CR = (flags & kTempering) ? static_cast<long long>(M) * B : B;
   const long long bh = static_cast<long long>(B) * H, bv = static_cast<long long>(B) * V;
+  const bool lv = flags & kLearnVar;
   long long n = 0;
   auto take = [&](long long count) {
     float* p = base ? base + n : nullptr;
@@ -431,36 +454,53 @@ long long carve_scratch(Args& a, float* base, int V, int H, int B) {
     return p;
   };
   a.h0p = take(bh);
-  a.h0s = take(bh);
-  a.hbuf = take(bh);
-  a.hmean = take(bh);
-  a.vs = take(bv);
+  a.h0s = reinterpret_cast<Store*>(take(bh));  // samples, in a float-sized slot each
+  a.hbuf = reinterpret_cast<Store*>(take(bh));
+  a.hmean = take(CR * H);
+  a.vs = take(CR * V);
   a.v1mean = take(bv);
   a.rowerr = take(B);
+  a.pre_h0 = take((flags & kPseudo) ? bh : 0);
+  a.s_lv = take(lv ? V : 0);
+  a.sig_lv = take(lv ? V : 0);
+  a.wh_a = take(lv ? 2 * bv : 0);
+  a.pre_lp = take((flags & kTempering) ? CR * V : 0);
   return n;
+}
+
+// The step kernel's variant for the compute type and the modes.
+const void* step_variant(int v) {
+  switch (v) {
+    case 0: return reinterpret_cast<const void*>(&cd_grads_kernel<false, false>);
+    case 1: return reinterpret_cast<const void*>(&cd_grads_kernel<false, true>);
+    case 2: return reinterpret_cast<const void*>(&cd_grads_kernel<true, false>);
+    default: return reinterpret_cast<const void*>(&cd_grads_kernel<true, true>);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one step on `stream`. grid <= 0 picks one block per SM. Returns a
-// cudaError_t (0 on success); a grid larger than the co-resident block count
-// returns cudaErrorCooperativeLaunchTooLarge without launching.
-int cd_grads_step(const float* v0, const float* mask, const float* u_h0, const float* u_h,
-                  const float* u_v, const float* W, const float* b, const float* c,
-                  const float* chain_in, float* gW, float* gb, float* gc, float* chain_out,
-                  float* err, float* scratch, int V, int H, int B, int k, int flags,
-                  float inv_norm, float sparsity_target, float sparsity_cost,
-                  unsigned long long seed, int device, int grid, void* stream) {
+// Launches one step on `stream`, writing the statistics into the flat
+// buffer `out` (ops/cd_grads_cuda.py::flat_size). grid <= 0 picks one block
+// per SM. Returns a cudaError_t (0 on success); a grid larger than the
+// co-resident block count returns cudaErrorCooperativeLaunchTooLarge without
+// launching.
+int cd_grads_step(const Store* v0, const float* mask, const float* u_h0, const float* u_h,
+                  const float* u_v, const float* u_swap, const float* betas, const Store* W,
+                  const Store* b, const Store* c, const Store* z, const Store* chain_in,
+                  float* out, Store* chain_out, float* scratch, int V, int H, int B, int M,
+                  int k, int flags, int bit, float inv_norm, float sparsity_target,
+                  float sparsity_cost, unsigned long long seed, int device, int grid,
+                  void* stream) {
   // the device's SM count and each variant's co-resident blocks per SM, asked once
-  static int nsm[64] = {0}, per_sm[64][2] = {{0}};
+  static int nsm[64] = {0}, per_sm[64][4] = {{0}};
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   cudaError_t err_ = cudaSetDevice(device);
   if (err_ != cudaSuccess) return err_;
-  const bool bf = flags & kBf16;
-  const void* fn = bf ? reinterpret_cast<const void*>(&cd_grads_kernel<true>)
-                      : reinterpret_cast<const void*>(&cd_grads_kernel<false>);
+  const bool modes = flags & (kTempering | kEnhanced | kLearnVar | kPseudo);
+  const int variant = ((flags & kBf16) ? 2 : 0) + (modes ? 1 : 0);
   if (nsm[device] == 0) {
     int coop = 0;
     if ((err_ = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device)) !=
@@ -471,39 +511,51 @@ int cd_grads_step(const float* v0, const float* mask, const float* u_h0, const f
     if ((err_ = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)) !=
         cudaSuccess)
       return err_;
-    for (int v = 0; v < 2; ++v) {
-      const void* f = v ? reinterpret_cast<const void*>(&cd_grads_kernel<true>)
-                        : reinterpret_cast<const void*>(&cd_grads_kernel<false>);
-      if ((err_ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[device][v], f, kThreads,
+    for (int v = 0; v < 4; ++v) {
+      if ((err_ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[device][v],
+                                                                step_variant(v), kThreads,
                                                                 0)) != cudaSuccess)
         return err_;
     }
     nsm[device] = n;
   }
   if (grid <= 0) grid = nsm[device];
-  if (grid > per_sm[device][bf ? 1 : 0] * nsm[device]) return cudaErrorCooperativeLaunchTooLarge;
+  if (grid > per_sm[device][variant] * nsm[device]) return cudaErrorCooperativeLaunchTooLarge;
 
+  const long long nW = static_cast<long long>(V) * H;
   Args a;
-  a.v0 = v0; a.mask = mask; a.u_h0 = u_h0; a.u_h = u_h; a.u_v = u_v;
-  a.W = W; a.b = b; a.c = c; a.chain_in = chain_in;
-  a.gW = gW; a.gb = gb; a.gc = gc; a.chain_out = chain_out; a.err = err;
-  carve_scratch(a, scratch, V, H, B);
-  a.V = V; a.H = H; a.B = B; a.k = k; a.flags = flags;
+  a.v0 = v0; a.mask = mask; a.u_h0 = u_h0; a.u_h = u_h; a.u_v = u_v; a.u_swap = u_swap;
+  a.betas = betas; a.W = W; a.b = b; a.c = c; a.z = z; a.chain_in = chain_in;
+  a.chain = chain_out;
+  a.gW = out; a.gb = out + nW; a.gc = out + nW + V;
+  float* extra = out + nW + V + H;
+  a.gz = (flags & kLearnVar) ? extra : nullptr;
+  a.mu = (flags & kEnhanced) ? extra : nullptr;
+  a.lam = (flags & kEnhanced) ? extra + V : nullptr;
+  a.h0m = (flags & kEnhanced) ? extra + V + H : nullptr;
+  a.err = extra + ((flags & kLearnVar) ? V : 0) + ((flags & kEnhanced) ? V + 2 * H : 0);
+  carve_scratch(a, scratch, V, H, B, M, flags);
+  a.V = V; a.H = H; a.B = B; a.M = M; a.CR = (flags & kTempering) ? M * B : B;
+  a.k = k; a.flags = flags; a.bit = bit;
   a.inv_norm = inv_norm; a.sparsity_target = sparsity_target; a.sparsity_cost = sparsity_cost;
   a.seed = seed;
 
   void* params[] = {&a};
-  err_ = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), params, 0,
-                                     static_cast<cudaStream_t>(stream));
+  err_ = cudaLaunchCooperativeKernel(step_variant(variant), dim3(grid), dim3(kThreads), params,
+                                     0, static_cast<cudaStream_t>(stream));
   if (err_ != cudaSuccess) return err_;
   return cudaGetLastError();
 }
 
-// Launches the update on `stream`: one thread per element of W, b and c, at
-// most 8 blocks per SM. Returns a cudaError_t (0 on success).
-int cd_update_step(const float* sums, float* W, float* b, float* c, float* vW, float* vb,
-                   float* vc, float* err, int V, int H, int flags, float scale, float lr,
-                   float m, float l2, float grad_clip, int device, void* stream) {
+// Launches the update on `stream`: under the enhanced gradient first
+// cd_enhance_kernel (into bias_e, V + H floats), then one thread per element
+// of W, b, c (and z), at most 8 blocks per SM. Returns a cudaError_t (0 on
+// success).
+int cd_update_step(const float* sums, Store* W, Store* b, Store* c, Store* z, Store* vW,
+                   Store* vb, Store* vc, Store* vz, float* err, float* bias_e, int V, int H,
+                   int flags, float scale, float lr, float lr_z, float m, float l2,
+                   float grad_clip, float sparsity_target, float sparsity_cost, int device,
+                   void* stream) {
   static int nsm[64] = {0};
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   cudaError_t err_ = cudaSetDevice(device);
@@ -512,22 +564,38 @@ int cd_update_step(const float* sums, float* W, float* b, float* c, float* vW, f
       (err_ = cudaDeviceGetAttribute(&nsm[device], cudaDevAttrMultiProcessorCount, device)) !=
           cudaSuccess)
     return err_;
+  const bool lv = flags & kLearnVar, enh = flags & kEnhanced;
   UpdateArgs a;
-  a.sums = sums; a.W = W; a.b = b; a.c = c; a.vW = vW; a.vb = vb; a.vc = vc; a.err = err;
+  a.sums = sums; a.W = W; a.b = b; a.c = c; a.z = z;
+  a.vW = vW; a.vb = vb; a.vc = vc; a.vz = vz; a.err = err; a.bias_e = bias_e;
   a.nW = static_cast<long long>(V) * H;
+  a.n_flat = a.nW + V + H + (lv ? V : 0) + (enh ? V + 2 * H : 0) + 1;
   a.V = V; a.H = H; a.flags = flags;
-  a.scale = scale; a.lr = lr; a.m = m; a.l2 = l2; a.grad_clip = grad_clip;
-  const long long n = a.nW + V + H;
+  a.scale = scale; a.lr = lr; a.lr_z = lr_z; a.m = m; a.l2 = l2; a.grad_clip = grad_clip;
+  a.sparsity_target = sparsity_target; a.sparsity_cost = sparsity_cost;
+  cudaStream_t st_ = static_cast<cudaStream_t>(stream);
+  if (enh) {
+    const int blocks = (V + kWarps - 1) / kWarps + (H + 31) / 32;
+    if (flags & kBf16)
+      cd_enhance_kernel<true><<<blocks, kThreads, 0, st_>>>(a);
+    else
+      cd_enhance_kernel<false><<<blocks, kThreads, 0, st_>>>(a);
+    if ((err_ = cudaGetLastError()) != cudaSuccess) return err_;
+  }
+  const long long n = a.nW + V + H + (lv ? V : 0);
   const long long blocks = (n + kThreads - 1) / kThreads;
   const int grid = static_cast<int>(blocks < 8LL * nsm[device] ? blocks : 8LL * nsm[device]);
-  cd_update_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if (lv || enh)
+    cd_update_kernel<true><<<grid, kThreads, 0, st_>>>(a);
+  else
+    cd_update_kernel<false><<<grid, kThreads, 0, st_>>>(a);
   return cudaGetLastError();
 }
 
 // Scratch floats the wrapper allocates for one step.
-long long cd_grads_scratch_floats(int V, int H, int B) {
+long long cd_grads_scratch_floats(int V, int H, int B, int M, int flags) {
   Args a;
-  return carve_scratch(a, nullptr, V, H, B);
+  return carve_scratch(a, nullptr, V, H, B, M, flags);
 }
 
 const char* cd_grads_error_string(int err) {

@@ -1,122 +1,251 @@
 """One CD-k / PCD step's statistics, with no update: CUDA kernel and plain version.
 
 Port of ``mdbn_tpu/ops/cd_epoch_pallas.py::make_pallas_grads_fn`` and the
-kernel it builds, ``_cd_grads_kernel``: the per-shard step of the
-data-parallel path (``parallel.dp``), which all-reduces the statistics
-outside the kernel and then applies the update. ``cd_grads_step`` wraps the
-hand-written kernel ``csrc/cd_grads.cu`` (one cooperative launch per step);
-``cd_grads_step_plain`` is the same function in plain PyTorch, the core's
-masked ``cd_step_stats``. Both take
+kernel it builds, ``_cd_grads_kernel``, and of the step of the TPU's DP
+mega-kernel in every estimator mode (parallel tempering, learned variance,
+the enhanced gradient, the pseudo-likelihood monitor) and at both storage
+dtypes: the per-shard step of the data-parallel path (``parallel.dp``),
+which all-reduces the statistics outside the kernel and then applies the
+update. ``cd_grads_step`` wraps the hand-written kernel ``csrc/cd_grads.cu``
+(one cooperative launch per step); ``cd_grads_step_plain`` is the same
+function in plain PyTorch, the core's masked ``cd_step_stats`` /
+``pt_step_stats`` in their ``split`` form. Both take
 
 - ``cfg``: the shard's config (``batch_size`` = the rows of ``v0``);
-- ``params`` (``RBMParams``, float32), ``v0`` [B, V] and the PCD ``chain``
-  [B, H], all float32;
+- ``params`` (``RBMParams``, with ``z`` under learned variance), ``v0`` [B, V]
+  and the chain [B, H] (tempering: [M*B, H], rung-major), all at the config's
+  ``param_dtype``;
 - ``seed``: the step's sampling seed when ``uniforms`` is None (the kernel
   keys Philox with it, the plain version a ``torch.Generator``, so the two
   draw different numbers from one seed);
 - ``uniforms``: the step's draws in the ``ops.cd_step.draw_uniforms`` layout
-  (h0 [B, H], h [k, B, H], v or noise [k, B, V] when visibles are sampled);
+  (``draw_pt_uniforms`` under tempering);
 - ``mask`` ([B, 1] of 0/1) and ``norm``: pad rows enter no statistic and sums
-  divide by ``norm`` instead of B,
+  divide by ``norm`` instead of B;
+- ``pseudo_bit``: the visible unit the pseudo-likelihood monitor flips
+  (required under ``error_metric="pseudo"``),
 
 and return ``(RBMParams grads, new_chain, err)``. The chain changes only in
-PCD mode, as in the TPU kernel. With ``out`` (a float32 buffer of
+PCD mode, as in the TPU kernel. The statistics are those a data-parallel
+exchange can sum (``core.rbm_math.split_grads``): under learned variance
+``grads.z`` is the raw z statistic, and under the enhanced gradient the
+grads are the plain ones and the sums behind mu, lambda and the data-phase h
+mean lie in the flat buffer. With ``out`` (a float32 buffer of
 ``flat_size`` elements) the statistics are written into it, in the layout the
-data-parallel path all-reduces, and the returned tensors are views of it.
+data-parallel path all-reduces (``flat_views``), and the returned tensors
+are views of it.
 
 The update after that all-reduce is the file's second kernel:
-``cd_update`` wraps ``csrc/cd_grads.cu``'s ``cd_update_kernel``, and
-``cd_update_plain`` is the same function on the core's ``apply_update``.
+``cd_update`` wraps ``csrc/cd_grads.cu``'s ``cd_update_kernel`` (after
+``cd_enhance_kernel`` under the enhanced gradient), and ``cd_update_plain``
+is the same function on the core's ``finish_grads`` and ``apply_update``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..config import RBMConfig
-from ..core.rbm_math import RBMParams, apply_update, cd_step_stats, resolve_momentum
-from .cd_epoch_cuda import _F_CLIP, _F_INJECT, _on_device, kernel_flags, ptr
-from .cd_step import draw_uniforms
+from ..core.rbm_math import (EnhancedSums, RBMParams, apply_update, cd_step_stats,
+                             finish_grads, pseudo_likelihood, pt_betas, pt_step_stats,
+                             resolve_momentum, torch_dtype)
+from .cd_epoch_cuda import _F_INJECT, _on_device, kernel_flags, ptr
+# The DP kernels take what the train kernel takes: every mode, k <= 255.
+from .cd_epoch_cuda import check_kernel_supports as check_grads_supports
+from .cd_epoch_cuda import kernel_unsupported as grads_unsupported
+from .cd_step import draw_pt_uniforms, draw_uniforms
 
 # Launches of each CUDA kernel in this process (incremented only where the
-# kernel is launched).
+# kernel is launched; an update under the enhanced gradient launches its
+# matvec pass and the update, and counts once).
 cd_grads_launches = 0
 cd_update_launches = 0
 
 _F_MASK = 8192  # a row mask is given (csrc/cd_grads.cu's kMasked)
 
 
-def grads_unsupported(cfg: RBMConfig) -> Optional[str]:
-    """Why the per-step kernel does not take ``cfg`` (None when it does): it
-    returns plain CD/PCD statistics of fixed-variance f32 state for an
-    all-reduce outside the kernel, as the TPU kernel does."""
-    if cfg.gradient == "enhanced":
-        return ("gradient='enhanced' is not computed by the per-step grads kernel: the "
-                "recombination is nonlinear in the batch means, so the mean of per-shard "
-                "enhanced gradients is not the global-batch one")
-    if cfg.pt_temps > 1:
-        return "pt_temps > 1 is not computed by the per-step grads kernel (no tempering ladder)"
-    if cfg.learn_variance:
-        return ("learn_variance=True is not computed by the per-step grads kernel "
-                "(fixed-variance state)")
-    if cfg.param_dtype != "float32":
-        return "the per-step grads kernel takes param_dtype='float32' only (its state is f32)"
-    if cfg.error_metric not in ("mse", "xent"):
-        return f"the per-step grads kernel monitors mse or xent, not {cfg.error_metric!r}"
-    if cfg.k > 255:
-        return "k > 255 does not fit the kernel's Philox counter layout"
-    return None
-
-
-def check_grads_supports(cfg: RBMConfig) -> None:
-    reason = grads_unsupported(cfg)
-    if reason is not None:
-        raise ValueError(reason)
-
-
 def flat_size(cfg: RBMConfig) -> int:
-    """Elements of the flat statistics buffer: gW, gb, gc (gz under learned
-    variance), err."""
+    """Elements of the flat statistics buffer: gW, gb, gc, then gz under
+    learned variance or mu [V], lam [H], h0 [H] under the enhanced gradient,
+    then err."""
     V, H = cfg.n_visible, cfg.n_hidden
-    return V * H + V + H + (V if cfg.learn_variance else 0) + 1
+    extra = V if cfg.learn_variance else V + 2 * H if cfg.gradient == "enhanced" else 0
+    return V * H + V + H + extra + 1
 
 
-def flat_views(cfg: RBMConfig, flat: torch.Tensor) -> Tuple[RBMParams, torch.Tensor]:
-    """(grads, err) as views of a flat buffer of ``flat_size(cfg)`` elements."""
+def flat_views(cfg: RBMConfig, flat: torch.Tensor
+               ) -> Tuple[RBMParams, Optional[EnhancedSums], torch.Tensor]:
+    """(grads, enhanced sums or None, err) as views of a flat buffer of
+    ``flat_size(cfg)`` elements."""
     V, H = cfg.n_visible, cfg.n_hidden
-    nW = V * H
-    z = flat[nW + V + H:nW + 2 * V + H] if cfg.learn_variance else None
-    return (RBMParams(W=flat[:nW].view(V, H), b=flat[nW:nW + V], c=flat[nW + V:nW + V + H], z=z),
-            flat[-1])
+    x = V * H + V + H
+    z = flat[x:x + V] if cfg.learn_variance else None
+    sums = None
+    if cfg.gradient == "enhanced":
+        sums = EnhancedSums(mu=flat[x:x + V], lam=flat[x + V:x + V + H],
+                            h0=flat[x + V + H:x + V + 2 * H])
+    grads = RBMParams(W=flat[:V * H].view(V, H), b=flat[V * H:V * H + V],
+                      c=flat[V * H + V:x], z=z)
+    return grads, sums, flat[-1]
 
 
-def pack(grads: RBMParams, err: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """Writes (grads, err) into the flat buffer ``out``; returns it."""
-    parts = [t.reshape(-1) for t in (grads.W, grads.b, grads.c, grads.z) if t is not None]
-    return torch.cat(parts + [err.reshape(1)], out=out)
+def pack(grads: RBMParams, sums: Optional[EnhancedSums], err: torch.Tensor,
+         out: torch.Tensor) -> torch.Tensor:
+    """Writes (grads, sums, err) into the flat buffer ``out``; returns it."""
+    parts = [t for t in (grads.W, grads.b, grads.c, grads.z) if t is not None]
+    if sums is not None:
+        parts += [sums.mu, sums.lam, sums.h0]
+    return torch.cat([t.reshape(-1).float() for t in parts] + [err.reshape(1).float()],
+                     out=out)
+
+
+def harden_step(cfg: RBMConfig, params: RBMParams, chain: torch.Tensor, v0: torch.Tensor,
+                uniforms: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One step's draws (the ``draw_uniforms`` / ``draw_pt_uniforms`` layout)
+    moved off their thresholds against the plain version's probabilities
+    (``ops.cd_epoch_cuda.harden_uniform_blocks`` of a one-update run), so the
+    kernel and its plain version, whose fp32 sums run in other orders, draw
+    the same samples; a test and measurement aid."""
+    from ..core.rbm_math import zero_velocity
+    from .cd_epoch_cuda import harden_uniform_blocks
+
+    CR = chain.shape[0]
+    block = {k: (x if k == "h0" else x.reshape(2, -1) if k == "swap"
+                 else x.reshape(cfg.k, CR, -1))[None, None] for k, x in uniforms.items()}
+    hard = harden_uniform_blocks(cfg, params, zero_velocity(params), chain, v0, block, 1)
+    return {k: hard[k][0, 0].reshape(x.shape) for k, x in uniforms.items()}
+
+
+def _check_pseudo(cfg: RBMConfig, pseudo_bit: Optional[int]) -> None:
+    if cfg.error_metric == "pseudo" and pseudo_bit is None:
+        raise ValueError("error_metric='pseudo' needs the step's pseudo_bit")
 
 
 def cd_grads_step_plain(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor,
                         chain: torch.Tensor, *, seed: Optional[int] = None,
                         uniforms: Optional[Dict[str, torch.Tensor]] = None,
                         mask: Optional[torch.Tensor] = None, norm: Optional[float] = None,
-                        out: Optional[torch.Tensor] = None,
+                        out: Optional[torch.Tensor] = None, pseudo_bit: Optional[int] = None,
                         ) -> Tuple[RBMParams, torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of the step (see module doc)."""
+    """The plain PyTorch version of the step (see module doc). Data and
+    chain widen to f32 as they are read, as in the kernel; the chain written
+    back rounds into its storage dtype."""
     check_grads_supports(cfg)
+    _check_pseudo(cfg, pseudo_bit)
+    B, M = v0.shape[0], cfg.pt_temps
     if uniforms is None:
         if seed is None:
             raise ValueError("a step without injected uniforms needs a seed")
         gen = torch.Generator(device=v0.device).manual_seed(seed)
-        uniforms = draw_uniforms(cfg, v0.shape[0], gen)
-    grads, h, err = cd_step_stats(params, v0, chain if cfg.persistent else None, uniforms,
-                                  cfg, row_mask=mask, norm=norm)
-    new_chain = h if cfg.persistent else chain
+        uniforms = (draw_pt_uniforms if M > 1 else draw_uniforms)(cfg, B, gen)
+    x, h = v0.float(), chain.float()
+    if M > 1:
+        grads, sums, h, err = pt_step_stats(params, x, h.reshape(M, B, -1), uniforms, cfg,
+                                            row_mask=mask, norm=norm, split=True)
+        h = h.reshape(M * B, -1)
+    else:
+        grads, sums, h, err = cd_step_stats(params, x, h if cfg.persistent else None,
+                                            uniforms, cfg, row_mask=mask, norm=norm, split=True)
+    if cfg.error_metric == "pseudo":
+        err = pseudo_likelihood(params, x, pseudo_bit, cfg, row_mask=mask, norm=norm)
+    new_chain = h.to(chain.dtype) if cfg.persistent else chain
     if out is not None:
-        grads, err = flat_views(cfg, pack(grads, err, out))
+        grads, _, err = flat_views(cfg, pack(grads, sums, err, out))
     return grads, new_chain, err
+
+
+def _draw(uniforms: Dict[str, torch.Tensor], name: str, shape, device) -> torch.Tensor:
+    """An injected draw as the kernel reads it, flattened to ``shape``."""
+    u = uniforms[name]
+    n = 1
+    for d in shape:
+        n *= d
+    if u.numel() != n:
+        raise ValueError(f"uniforms['{name}'] has shape {tuple(u.shape)}, expected {n} "
+                         f"elements ({tuple(shape)})")
+    return _on_device(u.reshape(shape), f"uniforms['{name}']", shape, device, torch.float32)
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def step_launcher(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor, chain: torch.Tensor,
+                  *, seed: Optional[int] = None,
+                  uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                  mask: Optional[torch.Tensor] = None, norm: Optional[float] = None,
+                  out: Optional[torch.Tensor] = None, grid: int = 0,
+                  pseudo_bit: Optional[int] = None,
+                  ) -> Tuple[Callable[[], None], RBMParams, torch.Tensor, torch.Tensor]:
+    """Checks a step's CUDA inputs and allocates its outputs: returns
+    (launch, grads, new_chain, err), where ``launch()`` launches the kernel
+    once into those outputs on the current stream, raises RuntimeError when
+    the launch fails, and counts nothing (``cd_grads_step`` counts;
+    chip_smoke.py times ``launch`` alone). Raises ValueError for a config or
+    input the kernel does not take."""
+    check_grads_supports(cfg)
+    _check_pseudo(cfg, pseudo_bit)
+    device, f32, sdt = v0.device, torch.float32, torch_dtype(cfg.param_dtype)
+    B, V, H, k, M = cfg.batch_size, cfg.n_visible, cfg.n_hidden, cfg.k, cfg.pt_temps
+    CR = B * M
+    v0 = _on_device(v0, "v0", (B, V), device, sdt)
+    W = _on_device(params.W, "W", (V, H), device, sdt)
+    b = _on_device(params.b, "b", (V,), device, sdt)
+    c = _on_device(params.c, "c", (H,), device, sdt)
+    z = None
+    if cfg.learn_variance:
+        if params.z is None:
+            raise ValueError("learn_variance=True needs z in params")
+        z = _on_device(params.z, "z", (V,), device, sdt)
+    chain = _on_device(chain, "chain", (CR, H), device, sdt)
+    flags = kernel_flags(cfg)
+    u_h0 = u_h = u_v = u_swap = None
+    if uniforms is not None:
+        flags |= _F_INJECT
+        u_h0 = _draw(uniforms, "h0", (B, H), device)
+        u_h = _draw(uniforms, "h", (k, CR, H), device)
+        if cfg.resolved_sample_visible:
+            u_v = _draw(uniforms, "v" if cfg.visible == "bernoulli" else "noise",
+                        (k, CR, V), device)
+        if M > 1:
+            u_swap = _draw(uniforms, "swap", (2, (M - 1) * B), device)
+    elif seed is None:
+        raise ValueError("a step without injected uniforms needs a seed")
+    if mask is not None:
+        flags |= _F_MASK
+        mask = _on_device(mask, "mask", (B, 1), device, f32)
+    betas = pt_betas(cfg, device) if M > 1 else None
+
+    from .._build import load_library  # builds the kernels at first use
+
+    lib = load_library("cd_grads", cfg.param_dtype).lib
+    if out is None:
+        out = torch.empty(flat_size(cfg), dtype=f32, device=device)
+    elif not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    out = _on_device(out, "out", (flat_size(cfg),), device, f32)
+    new_chain = torch.empty((CR, H), dtype=sdt, device=device)
+    scratch = torch.empty(int(lib.cd_grads_scratch_floats(V, H, B, M, flags)), dtype=f32,
+                          device=device)
+    args = (ptr(v0), ptr(mask), ptr(u_h0), ptr(u_h), ptr(u_v), ptr(u_swap), ptr(betas), ptr(W),
+            ptr(b), ptr(c), ptr(z), ptr(chain), ptr(out), ptr(new_chain), ptr(scratch), V, H, B,
+            M, k, flags, pseudo_bit if pseudo_bit is not None else -1,
+            1.0 / float(norm if norm is not None else B),
+            cfg.sparsity_target if cfg.sparsity_target is not None else 0.0,
+            cfg.sparsity_cost, (seed or 0) % 2 ** 64, _device_index(device), grid,
+            torch.cuda.current_stream(device).cuda_stream)
+    keep = (v0, W, b, c, z, chain, mask, u_h0, u_h, u_v, u_swap, betas, out, new_chain, scratch)
+
+    def launch(keep=keep) -> None:  # keep: the buffers the pointers point into
+        rc = lib.cd_grads_step(*args)
+        if rc != 0:
+            raise RuntimeError(f"cd_grads kernel launch failed: cudaError {rc} "
+                               f"({lib.cd_grads_error_string(rc).decode()})")
+
+    grads, _, err = flat_views(cfg, out)
+    return launch, grads, new_chain, err
 
 
 def cd_grads_step(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor, chain: torch.Tensor,
@@ -124,6 +253,7 @@ def cd_grads_step(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor, chain: to
                   uniforms: Optional[Dict[str, torch.Tensor]] = None,
                   mask: Optional[torch.Tensor] = None, norm: Optional[float] = None,
                   out: Optional[torch.Tensor] = None, grid: int = 0,
+                  pseudo_bit: Optional[int] = None,
                   ) -> Tuple[RBMParams, torch.Tensor, torch.Tensor]:
     """The step on the CUDA kernel (see module doc); one launch on the current
     stream. CPU tensors take ``cd_grads_step_plain``. ``grid`` is the
@@ -133,54 +263,13 @@ def cd_grads_step(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor, chain: to
     global cd_grads_launches
     if v0.device.type == "cpu":
         return cd_grads_step_plain(cfg, params, v0, chain, seed=seed, uniforms=uniforms,
-                                   mask=mask, norm=norm, out=out)
+                                   mask=mask, norm=norm, out=out, pseudo_bit=pseudo_bit)
     if v0.device.type != "cuda":
         raise ValueError(f"cd_grads_step takes CPU or CUDA tensors, got {v0.device}")
-    check_grads_supports(cfg)
-    device, f32 = v0.device, torch.float32
-    B, V, H, k = cfg.batch_size, cfg.n_visible, cfg.n_hidden, cfg.k
-    v0 = _on_device(v0, "v0", (B, V), device, f32)
-    W = _on_device(params.W, "W", (V, H), device, f32)
-    b = _on_device(params.b, "b", (V,), device, f32)
-    c = _on_device(params.c, "c", (H,), device, f32)
-    chain = _on_device(chain, "chain", (B, H), device, f32)
-    flags = kernel_flags(cfg)
-    u_h0 = u_h = u_v = None
-    if uniforms is not None:
-        flags |= _F_INJECT
-        u_h0 = _on_device(uniforms["h0"], "uniforms['h0']", (B, H), device, f32)
-        u_h = _on_device(uniforms["h"], "uniforms['h']", (k, B, H), device, f32)
-        if cfg.resolved_sample_visible:
-            kv = "v" if cfg.visible == "bernoulli" else "noise"
-            u_v = _on_device(uniforms[kv], f"uniforms['{kv}']", (k, B, V), device, f32)
-    elif seed is None:
-        raise ValueError("a step without injected uniforms needs a seed")
-    if mask is not None:
-        flags |= _F_MASK
-        mask = _on_device(mask, "mask", (B, 1), device, f32)
-
-    from .._build import load_library  # builds the kernels at first use
-
-    lib = load_library("cd_grads", "float32").lib
-    if out is None:
-        out = torch.empty(flat_size(cfg), dtype=f32, device=device)
-    elif not out.is_contiguous():
-        raise ValueError("out must be contiguous")
-    grads, err = flat_views(cfg, _on_device(out, "out", (flat_size(cfg),), device, f32))
-    new_chain = torch.empty((B, H), dtype=f32, device=device)
-    scratch = torch.empty(int(lib.cd_grads_scratch_floats(V, H, B)), dtype=f32, device=device)
-    rc = lib.cd_grads_step(
-        ptr(v0), ptr(mask), ptr(u_h0), ptr(u_h), ptr(u_v), ptr(W), ptr(b), ptr(c), ptr(chain),
-        ptr(grads.W), ptr(grads.b), ptr(grads.c), ptr(new_chain), ptr(err), ptr(scratch), V, H,
-        B, k, flags,
-        1.0 / float(norm if norm is not None else B),
-        cfg.sparsity_target if cfg.sparsity_target is not None else 0.0, cfg.sparsity_cost,
-        (seed or 0) % 2 ** 64,
-        device.index if device.index is not None else torch.cuda.current_device(), grid,
-        torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"cd_grads kernel launch failed: cudaError {rc} "
-                           f"({lib.cd_grads_error_string(rc).decode()})")
+    launch, grads, new_chain, err = step_launcher(
+        cfg, params, v0, chain, seed=seed, uniforms=uniforms, mask=mask, norm=norm, out=out,
+        grid=grid, pseudo_bit=pseudo_bit)
+    launch()
     cd_grads_launches += 1
     return grads, new_chain, err
 
@@ -190,19 +279,69 @@ def cd_update_plain(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
                     ) -> Tuple[RBMParams, RBMParams, torch.Tensor]:
     """The plain version of the update after the all-reduce: the statistics
     are ``sums * scale`` (``scale`` = 1 / ranks; ``sums`` in the
-    ``flat_views`` layout), then the core's ``apply_update`` at ``epoch``'s
-    momentum. Returns new (params, velocity, err)."""
-    grads, err = flat_views(cfg, sums * scale)
+    ``flat_views`` layout), finished by the core's ``finish_grads``, then
+    its ``apply_update`` at ``epoch``'s momentum. Returns new (params,
+    velocity, err)."""
+    grads, esums, err = flat_views(cfg, sums * scale)
+    grads = finish_grads(params, grads, esums, cfg)
     params, velocity = apply_update(params, velocity, grads, cfg, epoch=epoch)
     return params, velocity, err
 
 
+def update_launcher(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
+                    sums: torch.Tensor, scale: float, epoch: int
+                    ) -> Tuple[Callable[[], None], torch.Tensor]:
+    """Checks an update's CUDA inputs: returns (launch, err), where
+    ``launch()`` runs the update once on the current stream (W, b, c, z and
+    their velocities in place; under the enhanced gradient after its matvec
+    pass), raises RuntimeError when a launch fails, and counts nothing.
+    Raises ValueError for a config or input the kernel does not take."""
+    check_grads_supports(cfg)
+    device, f32, sdt = sums.device, torch.float32, torch_dtype(cfg.param_dtype)
+    V, H = cfg.n_visible, cfg.n_hidden
+    names = (("W", (V, H)), ("b", (V,)), ("c", (H,))) + ((("z", (V,)),) if cfg.learn_variance
+                                                          else ())
+    state = {}
+    for part, p in (("params", params), ("velocity", velocity)):
+        for name, shape in names:
+            t = getattr(p, name)
+            if t is None:
+                raise ValueError(f"learn_variance=True needs {part}.z")
+            if not t.is_contiguous():
+                raise ValueError(f"{part}.{name} must be contiguous (updated in place)")
+            state[part, name] = _on_device(t, f"{part}.{name}", shape, device, sdt)
+    sums = _on_device(sums, "sums", (flat_size(cfg),), device, f32)
+
+    from .._build import load_library  # builds the kernels at first use
+
+    lib = load_library("cd_grads", cfg.param_dtype).lib
+    err = torch.empty(1, dtype=f32, device=device)
+    bias_e = torch.empty(V + H, dtype=f32, device=device) if cfg.gradient == "enhanced" else None
+    args = (ptr(sums), *[ptr(state.get((part, n))) for part in ("params", "velocity")
+                         for n in ("W", "b", "c", "z")],
+            ptr(err), ptr(bias_e), V, H, kernel_flags(cfg), scale, cfg.lr,
+            cfg.lr if cfg.lr_variance is None else cfg.lr_variance,
+            resolve_momentum(cfg, epoch), cfg.l2,
+            cfg.grad_clip if cfg.grad_clip is not None else 0.0,
+            cfg.sparsity_target if cfg.sparsity_target is not None else 0.0, cfg.sparsity_cost,
+            _device_index(device), torch.cuda.current_stream(device).cuda_stream)
+
+    def launch(keep=(sums, bias_e, err, state)) -> None:  # keep: what the pointers point into
+        rc = lib.cd_update_step(*args)
+        if rc != 0:
+            raise RuntimeError(f"cd_update kernel launch failed: cudaError {rc} "
+                               f"({lib.cd_grads_error_string(rc).decode()})")
+
+    return launch, err[0]
+
+
 def cd_update(cfg: RBMConfig, params: RBMParams, velocity: RBMParams, sums: torch.Tensor,
               scale: float, epoch: int) -> Tuple[RBMParams, RBMParams, torch.Tensor]:
-    """The update on the CUDA kernel, one launch on the current stream: W, b,
-    c and their velocities change IN PLACE (the data-parallel path holds its
-    own copies) and are returned with the step's error. The same bits as
-    ``cd_update_plain``, which CPU tensors take. Raises ValueError for a
+    """The update on the CUDA kernels, launched on the current stream: W, b,
+    c (and z) and their velocities change IN PLACE (the data-parallel path
+    holds its own copies) and are returned with the step's error. The same
+    bits as ``cd_update_plain``, which CPU tensors take, except where the
+    enhanced gradient's matvecs sum in another order. Raises ValueError for a
     config or input the kernel does not take and RuntimeError when the launch
     fails."""
     global cd_update_launches
@@ -210,30 +349,7 @@ def cd_update(cfg: RBMConfig, params: RBMParams, velocity: RBMParams, sums: torc
         return cd_update_plain(cfg, params, velocity, sums, scale, epoch)
     if sums.device.type != "cuda":
         raise ValueError(f"cd_update takes CPU or CUDA tensors, got {sums.device}")
-    check_grads_supports(cfg)
-    device, f32 = sums.device, torch.float32
-    V, H = cfg.n_visible, cfg.n_hidden
-    state = []
-    for part, p in (("params", params), ("velocity", velocity)):
-        for name, shape in (("W", (V, H)), ("b", (V,)), ("c", (H,))):
-            t = getattr(p, name)
-            if not t.is_contiguous():
-                raise ValueError(f"{part}.{name} must be contiguous (updated in place)")
-            state.append(_on_device(t, f"{part}.{name}", shape, device, f32))
-    sums = _on_device(sums, "sums", (flat_size(cfg),), device, f32)
-
-    from .._build import load_library  # builds the kernels at first use
-
-    lib = load_library("cd_grads", "float32").lib
-    err = torch.empty(1, dtype=f32, device=device)
-    rc = lib.cd_update_step(
-        ptr(sums), *[ptr(t) for t in state], ptr(err), V, H, kernel_flags(cfg) & _F_CLIP,
-        scale, cfg.lr, resolve_momentum(cfg, epoch), cfg.l2,
-        cfg.grad_clip if cfg.grad_clip is not None else 0.0,
-        device.index if device.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"cd_update kernel launch failed: cudaError {rc} "
-                           f"({lib.cd_grads_error_string(rc).decode()})")
+    launch, err = update_launcher(cfg, params, velocity, sums, scale, epoch)
+    launch()
     cd_update_launches += 1
-    return params, velocity, err[0]
+    return params, velocity, err

@@ -1,22 +1,29 @@
 """Data-parallel CD training over torch.distributed: one process per rank.
 
-Port of ``mdbn_tpu/parallel/dp.py::train_rbm_shard_map``. Every rank holds
-the replicated parameters, velocities and generator and the whole dataset;
-the global minibatch (``cfg.batch_size`` rows) is split across the ranks,
-rank r taking rows ``[r * local_b, (r + 1) * local_b)``, ``local_b =
-ceil(B / ndev)``, with zero pad rows on the tail ranks when B does not
-divide. Per step each rank computes its shard's statistics into one flat
-buffer, (gW, gb, gc[, gz], err), by the kernel
-(``ops.cd_grads_cuda.cd_grads_step``, ``pallas_step=True``) or by the core
-(CD/PCD, or PT on the rank's ladders); the statistics are masked sums
-scaled by ``ndev / B``, so one all-reduce (SUM) of the buffer, scaled by 1 /
-the world size, gives every rank the global-batch mean, even when B does
-not divide. Every rank then applies the same update to the same sums: the
-update kernel (``ops.cd_grads_cuda.cd_update``) under ``pallas_step``, the
-core's ``apply_update`` otherwise. Collectives run between the launches
-(``torch.distributed``), as the TPU's in-kernel remote copies map to NCCL
-on Hopper: grads kernel, all-reduce, update kernel are the port of the
-TPU's DP mega-kernel, one update at a time.
+Port of ``mdbn_tpu/parallel/dp.py::train_rbm_shard_map`` and of the TPU's DP
+mega-kernel (``mdbn_tpu/ops/cd_epoch_pallas.py``, ``ndev > 1``) in every
+estimator mode and at both storage dtypes. Every rank holds the replicated
+parameters, velocities and generator and the whole dataset; the global
+minibatch (``cfg.batch_size`` rows) is split across the ranks, rank r taking
+rows ``[r * local_b, (r + 1) * local_b)``, ``local_b = ceil(B / ndev)``, with
+zero pad rows on the tail ranks when B does not divide. Per step each rank
+computes its shard's statistics into one flat buffer
+(``ops.cd_grads_cuda.flat_size``: gW, gb, gc, learned variance's raw z
+statistic or the enhanced gradient's mean sums, err), by the kernel
+(``ops.cd_grads_cuda.cd_grads_step``, ``pallas_step=True``) or by its plain
+version (``cd_grads_step_plain``); every entry is a masked sum scaled by
+``ndev / B``, so one all-reduce (SUM) of the buffer, scaled by 1 / the world
+size, gives every rank the global-batch statistics, even when B does not
+divide. Every rank then finishes and applies the same update to the same
+sums: the update kernel (``ops.cd_grads_cuda.cd_update``) under
+``pallas_step``, its plain version (``cd_update_plain``: the core's
+``finish_grads`` and ``apply_update``) otherwise. Under tempering each rank
+carries its rows' whole ladders, so the sweeps and the swap rounds stay on
+the rank and only rung 0's statistics cross; the pseudo-likelihood monitor
+is a masked per-shard sum on the single-device bit schedule. Collectives run
+between the launches (``torch.distributed``), as the TPU's in-kernel remote
+copies map to NCCL on Hopper: step kernel, all-reduce, update kernel are the
+port of the TPU's DP mega-kernel, one update at a time.
 """
 
 from __future__ import annotations
@@ -27,12 +34,10 @@ import torch
 import torch.distributed as dist
 
 from ..config import RBMConfig
-from ..core.rbm_math import cd_step_stats, pt_step_stats
 from ..core.state import TrainState
 from ..ops.cd_epoch_cuda import batch_order
-from ..ops.cd_grads_cuda import (cd_grads_step, cd_update, cd_update_plain, check_grads_supports,
-                                 flat_size, pack)
-from ..ops.cd_step import draw_pt_uniforms, draw_uniforms
+from ..ops.cd_grads_cuda import (cd_grads_step, cd_grads_step_plain, cd_update,
+                                 cd_update_plain, check_grads_supports, flat_size)
 from .mesh import Mesh
 
 _M64 = (1 << 64) - 1
@@ -45,21 +50,6 @@ def fold_in(seed: int, rank: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
     return z ^ (z >> 31)
-
-
-def check_dp_supports(cfg: RBMConfig, pallas_step: bool) -> None:
-    """The guards of the reference's shard path (``mdbn_tpu/parallel/dp.py:43-70``)."""
-    if cfg.error_metric == "pseudo":
-        raise ValueError("error_metric='pseudo' is not computed on the data-parallel path "
-                         "(its monitors are mse/xent); use error_metric='mse' or 'xent', or "
-                         "train without a mesh")
-    if cfg.gradient == "enhanced":
-        raise ValueError("gradient='enhanced' is not supported on the data-parallel path: "
-                         "the recombination is nonlinear in the batch means, so the mean of "
-                         "per-rank enhanced gradients is not the global-batch one (the "
-                         "reference runs it under GSPMD, which has no counterpart here)")
-    if pallas_step:
-        check_grads_supports(cfg)
 
 
 def local_batch(cfg: RBMConfig, ndev: int) -> Tuple[int, float, bool]:
@@ -86,7 +76,7 @@ def _gather_chain(cfg: RBMConfig, local: torch.Tensor, mesh: Mesh,
     dropped; a tempering ladder comes back rung-major [M * B, H]. Gloo has no
     all_gather of CUDA tensors, so under gloo the rows go through the CPU."""
     B, M, H = cfg.batch_size, max(cfg.pt_temps, 1), local.shape[1]
-    src = local.cpu() if mesh.backend == "gloo" else local
+    src = (local.cpu() if mesh.backend == "gloo" else local).float()  # 0/1: exact in f32
     parts = [torch.empty_like(src) for _ in range(mesh.size)]
     dist.all_gather(parts, src)
     ch = torch.stack([p.reshape(M, local_b, H) for p in parts], dim=1)  # [M, ndev, lb, H]
@@ -103,20 +93,23 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
                         n_epochs: int, pallas_step: bool = False,
                         uniforms: Optional[Dict[str, torch.Tensor]] = None,
                         ) -> Tuple[TrainState, torch.Tensor]:
-    """Run ``n_epochs`` epochs of CD-k/PCD (or PT-PCD without ``pallas_step``)
-    data-parallel over ``mesh``; every rank calls it with the same state and
-    data. Returns (state, per-epoch errors [n_epochs]), the same on every rank;
-    the state's chain is the global one, gathered in rank order.
+    """Run ``n_epochs`` epochs of CD-k/PCD (or PT-PCD) data-parallel over
+    ``mesh``; every rank calls it with the same state and data. Returns
+    (state, per-epoch errors [n_epochs]), the same on every rank; the state's
+    chain is the global one, gathered in rank order. Data, chain and
+    parameters stay at the config's storage dtype.
 
     The replicated generator in ``state`` gives every rank the same batch
     order and step seeds (drawn up front for the whole call: the order as
     ``ops.cd_epoch_cuda.batch_order`` draws it, then one seed per step when
     ``uniforms`` is None), and each rank samples from its own stream,
-    ``fold_in(step seed, rank)``. ``uniforms``: per-step, per-rank draws
-    {name: [n_epochs, nb, ndev, ...]}, each step's [...] in the layout of
-    ``ops.cd_step.draw_uniforms`` (``draw_pt_uniforms`` under tempering) at
-    ``local_b`` rows, for exact tests."""
-    check_dp_supports(cfg, pallas_step)
+    ``fold_in(step seed, rank)``. The pseudo-likelihood monitor flips bit
+    ``(epoch * nb + step) % V``, as the single-device run does. ``uniforms``:
+    per-step, per-rank draws {name: [n_epochs, nb, ndev, ...]}, each step's
+    [...] in the layout of ``ops.cd_step.draw_uniforms`` (``draw_pt_uniforms``
+    under tempering) at ``local_b`` rows, for exact tests."""
+    if pallas_step:
+        check_grads_supports(cfg)
     B, V = cfg.batch_size, cfg.n_visible
     nb = data.shape[0] // B
     if nb == 0:
@@ -126,60 +119,45 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
     local_b, norm, uneven = local_batch(cfg, ndev)
     local_cfg = cfg.replace(batch_size=local_b)
     pad = local_b * ndev - B
-    data = torch.as_tensor(data).to(dev)
+    data = torch.as_tensor(data).to(device=dev, dtype=state.params.W.dtype)
     batches = torch.nn.functional.pad(data[: nb * B].reshape(nb, B, V), (0, 0, 0, pad))
-    my = batches[:, rank * local_b:(rank + 1) * local_b].float().contiguous()  # [nb, lb, V]
+    my = batches[:, rank * local_b:(rank + 1) * local_b].contiguous()  # [nb, lb, V]
     mask = None
     if uneven:  # valid rows: rank * local_b + i < B (pad rows sit on the tail ranks)
         mask = ((rank * local_b + torch.arange(local_b, device=dev)) < B).float()[:, None]
-    persistent = cfg.persistent or cfg.pt_temps > 1
-    chain = _shard_chain(cfg, state.chain_h.float(), rank, ndev, local_b) if persistent else None
-    # the kernel's chain argument under CD (it passes through unread)
-    cd_chain = None if persistent or not pallas_step else torch.zeros(
-        (local_b, cfg.n_hidden), device=dev)
+    persistent = cfg.persistent  # tempering requires it
+    # the rank's chain rows; under CD the kernel's chain argument (it passes through)
+    chain = (_shard_chain(cfg, state.chain_h, rank, ndev, local_b) if persistent
+             else torch.zeros((local_b, cfg.n_hidden), device=dev, dtype=state.chain_h.dtype))
     order = batch_order(cfg, nb, n_epochs, state.generator).tolist()
     seeds = (None if uniforms is not None else
              torch.randint(0, 2 ** 62, (n_epochs, nb), generator=state.generator).tolist())
     if uniforms is not None:
         uniforms = {name: torch.as_tensor(u)[:, :, rank].to(device=dev, dtype=torch.float32)
                     for name, u in uniforms.items()}
-    draw = draw_pt_uniforms if cfg.pt_temps > 1 else draw_uniforms
     # this call's own parameters and velocities: the update kernel writes in place
     params, velocity = state.params.map(torch.clone), state.velocity.map(torch.clone)
     flat = torch.empty(flat_size(cfg), dtype=torch.float32, device=dev)
     scale = world_scale(ndev)
+    step = cd_grads_step if pallas_step else cd_grads_step_plain
     update = cd_update if pallas_step else cd_update_plain
+    pseudo = cfg.error_metric == "pseudo"
     errs: List[torch.Tensor] = []
     for e in range(n_epochs):
         epoch = state.epoch + e
         step_errs = []
         for i, j in enumerate(order[e]):
-            v0 = my[j]
             u = None if uniforms is None else {name: x[e, i] for name, x in uniforms.items()}
             seed = None if seeds is None else fold_in(seeds[e][i], rank)
-            if pallas_step:  # the kernel writes the statistics into flat
-                _, new_chain, _ = cd_grads_step(local_cfg, params, v0,
-                                                chain if persistent else cd_chain, seed=seed,
-                                                uniforms=u, mask=mask, norm=norm, out=flat)
-            else:
-                if u is None:
-                    u = draw(local_cfg, local_b, torch.Generator(device=dev).manual_seed(seed))
-                if cfg.pt_temps > 1:
-                    grads, new_chain, err = pt_step_stats(
-                        params, v0, chain.reshape(cfg.pt_temps, local_b, -1), u, local_cfg,
-                        row_mask=mask, norm=norm)
-                    new_chain = new_chain.reshape(chain.shape)
-                else:
-                    grads, new_chain, err = cd_step_stats(params, v0, chain, u, local_cfg,
-                                                          row_mask=mask, norm=norm)
-                pack(grads, err, flat)
+            _, new_chain, _ = step(local_cfg, params, my[j], chain, seed=seed, uniforms=u,
+                                   mask=mask, norm=norm, out=flat,
+                                   pseudo_bit=(epoch * nb + i) % V if pseudo else None)
             dist.all_reduce(flat, op=dist.ReduceOp.SUM)
             params, velocity, err = update(cfg, params, velocity, flat, scale, epoch)
-            if persistent:
-                chain = new_chain
+            chain = new_chain
             step_errs.append(err)
         errs.append(torch.stack(step_errs).mean())
-    new_chain = (state.chain_h if chain is None else
-                 _gather_chain(cfg, chain, mesh, local_b).to(state.chain_h.dtype))
+    new_chain = (_gather_chain(cfg, chain, mesh, local_b).to(state.chain_h.dtype)
+                 if persistent else state.chain_h)
     return (TrainState(params, velocity, new_chain, state.generator, state.epoch + n_epochs),
             torch.stack(errs))

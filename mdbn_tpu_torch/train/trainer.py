@@ -23,8 +23,9 @@ Under a data-parallel ``mesh`` of more than one rank
 (``parallel.mesh.make_mesh``) the run goes through
 ``parallel.dp.train_rbm_shard_map``: ``"cuda_dp"`` runs each rank's step on
 the kernels of ``csrc/cd_grads.cu`` (``engine="pallas"`` or ``"auto"`` on
-CUDA; a config they do not take raises), ``"eager_dp"`` on the core
-(``"xla"``, or the CPU). A mesh of one rank takes the single-device path.
+CUDA, in every estimator mode and at both storage dtypes; a config they do
+not take raises), ``"eager_dp"`` on their plain versions (``"xla"``, or the
+CPU). A mesh of one rank takes the single-device path.
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ from ..config import RBMConfig, TrainRuntimeConfig
 from ..core.rbm_math import torch_dtype
 from ..core.state import TrainState, init_train_state
 from ..ops import cd_epoch_cuda
-from ..ops.cd_grads_cuda import grads_unsupported
-from ..parallel.dp import check_dp_supports, train_rbm_shard_map
+from ..ops.cd_grads_cuda import check_grads_supports
+from ..parallel.dp import train_rbm_shard_map
 
 
 def resolve_engine(cfg: RBMConfig, device: torch.device) -> str:
@@ -62,20 +63,14 @@ def resolve_dp_engine(cfg: RBMConfig, device: torch.device) -> str:
     """The engine a run of ``cfg`` on ``device`` under a mesh of more than one
     rank uses: "cuda_dp" or "eager_dp". On CUDA, ``"pallas"`` and ``"auto"``
     run the DP kernels (``csrc/cd_grads.cu``: the step's statistics, then the
-    update after the all-reduce) and raise for a config they do not take;
-    "eager_dp" is ``"xla"``, or the CPU. Raises for what neither takes."""
+    update after the all-reduce) and raise for a config they do not take
+    (``k > 255``); "eager_dp" is ``"xla"``, or the CPU."""
     if cfg.engine != "xla" and device.type == "cuda":
-        reason = grads_unsupported(cfg)
-        if reason is not None:
-            raise ValueError(
-                f"{reason}. Under a mesh on CUDA engine={cfg.engine!r} runs the DP kernels "
-                "(cd_grads.cu); the TPU's DP mega-kernel (K6, ROADMAP.md Queue 2) fuses this "
-                "mode, and that part of it is not ported yet: use engine='xla'")
+        check_grads_supports(cfg)
         return "cuda_dp"
     if cfg.engine == "pallas":
         raise ValueError(f"engine='pallas' under a mesh runs the CUDA kernels of cd_grads.cu, "
                          f"and the model lies on {device}; use engine='xla' there")
-    check_dp_supports(cfg, pallas_step=False)
     return "eager_dp"
 
 

@@ -366,7 +366,7 @@ def test_grads_kernel_refuses(cuda):
     cfg, norm = GRADS_CASES["c1-rank2-of-3"]
     p, v0, chain, mask, _ = _grads_inputs(cfg, norm, cuda)
     before = G.cd_grads_launches
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="bfloat16"):  # f32 state for a bf16-storage config
         G.cd_grads_step(cfg.replace(param_dtype="bfloat16"), p, v0, chain, seed=1)
     with pytest.raises(ValueError, match="Philox"):
         G.cd_grads_step(cfg.replace(k=256), p, v0, chain, seed=1)
@@ -374,9 +374,88 @@ def test_grads_kernel_refuses(cuda):
         G.cd_grads_step(cfg, p, v0[:-1], chain, seed=1)
     with pytest.raises(ValueError, match="float32"):
         G.cd_grads_step(cfg, p, v0.double(), chain, seed=1)
+    with pytest.raises(ValueError, match="pseudo_bit"):
+        G.cd_grads_step(cfg.replace(error_metric="pseudo"), p, v0, chain, seed=1)
     with pytest.raises(RuntimeError, match="cudaError"):
         G.cd_grads_step(cfg, p, v0, chain, seed=1, grid=1 << 20)
     assert G.cd_grads_launches == before
+
+
+# the data-parallel step and update in every estimator mode and at bf16
+# storage, on 7-row shards whose last row is padding (norm 20/3)
+SHARD = dict(n_visible=40, n_hidden=24, batch_size=7)
+GRADS_MODES = {
+    "pt3": RBMConfig(**SHARD, lr=0.1, k=2, persistent=True, pt_temps=3, pt_beta_min=0.3),
+    "lv-sampled": RBMConfig(**SHARD, visible="gaussian", lr=0.005, learn_variance=True),
+    "lv-meanfield-pcd": RBMConfig(**SHARD, visible="gaussian", lr=0.005, learn_variance=True,
+                                  sample_visible=False, persistent=True, lr_variance=0.002),
+    "pt3-lv": RBMConfig(**SHARD, visible="gaussian", lr=0.005, learn_variance=True,
+                        persistent=True, pt_temps=3, pt_beta_min=0.4, sample_visible=True,
+                        momentum=0.5),
+    "enhanced-sparsity": RBMConfig(**SHARD, lr=0.1, gradient="enhanced", k=2, momentum=0.5,
+                                   sparsity_target=0.1, sparsity_cost=0.5),
+    "pseudo-pcd": RBMConfig(**SHARD, lr=0.1, error_metric="pseudo", persistent=True),
+    "bf16-pcd-momentum": RBMConfig(**SHARD, lr=0.1, k=2, persistent=True, momentum=0.5, **BF16),
+    "bf16-storage-gaussian": RBMConfig(**SHARD, visible="gaussian", lr=0.01, momentum=0.5,
+                                       param_dtype="bfloat16"),
+}
+
+
+def _mode_inputs(cfg, device, seed=0):
+    """A shard's state at the storage dtype (learned variance: z ~ 0.2 N(0, 1)),
+    its 7 rows with the last one padding, a 0/1 chain of all its rows, and
+    one step's draws hardened against the plain version."""
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops.cd_step import draw_pt_uniforms, draw_uniforms
+
+    B, V, H, M = cfg.batch_size, cfg.n_visible, cfg.n_hidden, cfg.pt_temps
+    sdt = torch_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    st = init_train_state(cfg, device=device)
+    p = RBMParams(W=st.params.W, b=(0.1 * rand(V)).to(sdt), c=(0.1 * rand(H)).to(sdt),
+                  z=(0.2 * rand(V)).to(sdt) if cfg.learn_variance else None)
+    v0 = ((torch.rand((B, V), generator=gen, device=device) < 0.3).float()
+          if cfg.visible == "bernoulli" else rand(B, V))
+    v0[-1] = 0.0
+    v0 = v0.to(sdt)
+    mask = torch.ones((B, 1), device=device)
+    mask[-1] = 0.0
+    chain = (torch.rand((B * M, H), generator=gen, device=device) < 0.5).to(sdt)
+    u = (draw_pt_uniforms if M > 1 else draw_uniforms)(cfg, B, gen)
+    return p, v0, chain, mask, G.harden_step(cfg, p, chain, v0, u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GRADS_MODES))
+def test_grads_kernel_modes_match_plain(cuda, name):
+    """The step's whole flat buffer (the statistics the exchange sums, the
+    enhanced sums and the raw z statistic included) and its chain, kernel
+    against plain; the same bits on grids of 1, 7 and 132 blocks."""
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+
+    cfg = GRADS_MODES[name]
+    p, v0, chain, mask, u = _mode_inputs(cfg, cuda)
+    bit = 5 if cfg.error_metric == "pseudo" else None
+    kw = dict(mask=mask, norm=20 / 3, pseudo_bit=bit)
+    got, want = (torch.full((G.flat_size(cfg),), float("nan"), device=cuda) for _ in range(2))
+    before = G.cd_grads_launches
+    _, c_got, _ = G.cd_grads_step(cfg, p, v0, chain, uniforms=u, out=got, **kw)
+    torch.cuda.synchronize()
+    assert G.cd_grads_launches == before + 1
+    _, c_want, _ = G.cd_grads_step_plain(cfg, p, v0, chain, uniforms=u, out=want, **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, **REPLAY_TOL)
+    assert c_got.dtype == chain.dtype
+    torch.testing.assert_close(c_got, c_want, rtol=0, atol=0)
+    runs = []
+    for g in (0, 1, 7, 132):
+        flat = torch.empty(G.flat_size(cfg), device=cuda)
+        _, ch, _ = G.cd_grads_step(cfg, p, v0, chain, seed=3, out=flat, grid=g, **kw)
+        runs.append((flat, ch))
+    for flat, ch in runs[1:]:
+        assert torch.equal(flat, runs[0][0]) and torch.equal(ch, runs[0][1])
 
 
 # the update after the all-reduce, csrc/cd_grads.cu's second kernel: each
@@ -420,6 +499,46 @@ def test_update_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lv-meanfield-pcd", "pt3-lv", "enhanced-sparsity",
+                                  "bf16-pcd-momentum", "bf16-storage-gaussian"])
+def test_update_kernel_modes_match_plain(cuda, name):
+    """The update on 3 ranks' summed statistics: learned variance's z and
+    vz, bf16 storage and the enhanced gradient. Every elementwise result has
+    the plain version's bits; the enhanced gradient's b and c, whose matvecs
+    cuBLAS sums in another order, and z, whose precision e^{-z} may round
+    another way, are held at REPLAY_TOL."""
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.parallel.dp import world_scale
+
+    cfg = GRADS_MODES[name]
+    sdt = torch_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    rand = lambda *shape: (0.1 * torch.randn(shape, generator=gen, device=cuda)).to(sdt)
+    V, H = cfg.n_visible, cfg.n_hidden
+    z = cfg.learn_variance
+    p = RBMParams(W=rand(V, H), b=rand(V), c=rand(H), z=rand(V) if z else None)
+    vel = RBMParams(W=rand(V, H), b=rand(V), c=rand(H), z=rand(V) if z else None)
+    sums = 3 * 0.1 * torch.randn(G.flat_size(cfg), generator=gen, device=cuda)
+    want = G.cd_update_plain(cfg, p, vel, sums, world_scale(3), 0)
+    before = G.cd_update_launches
+    got = G.cd_update(cfg, p.map(torch.clone), vel.map(torch.clone), sums, world_scale(3), 0)
+    torch.cuda.synchronize()
+    assert G.cd_update_launches == before + 1
+    loose = {"b", "c"} if cfg.gradient == "enhanced" else set()
+    loose |= {"z"} if z else set()
+    for i in (0, 1):
+        for n, a in got[i].as_dict().items():
+            b = getattr(want[i], n)
+            assert a.dtype == sdt
+            if n in loose:
+                torch.testing.assert_close(a.float(), b.float(), **REPLAY_TOL)
+            else:
+                assert torch.equal(a, b), (i, n)
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.cuda
 def test_update_kernel_refuses(cuda):
     from mdbn_tpu_torch.ops import cd_grads_cuda as G
 
@@ -427,13 +546,17 @@ def test_update_kernel_refuses(cuda):
     st = init_train_state(cfg, device=cuda)
     sums = torch.zeros(G.flat_size(cfg), device=cuda)
     before = G.cd_update_launches
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="bfloat16"):  # f32 state for a bf16-storage config
         G.cd_update(cfg.replace(param_dtype="bfloat16"), st.params, st.velocity, sums, 1.0, 0)
     with pytest.raises(ValueError, match="contiguous"):
         G.cd_update(cfg, st.params.map(lambda t: t.t().contiguous().t()), st.velocity,
                     sums, 1.0, 0)
     with pytest.raises(ValueError, match="shape"):
         G.cd_update(cfg, st.params, st.velocity, sums[:-1], 1.0, 0)
+    lv = cfg.replace(visible="gaussian", learn_variance=True)
+    with pytest.raises(ValueError, match="z"):
+        G.cd_update(lv, st.params, st.velocity, torch.zeros(G.flat_size(lv), device=cuda),
+                    1.0, 0)
     assert G.cd_update_launches == before
 
 

@@ -242,61 +242,72 @@ def test_update_plain_matches_jax_apply_update(name):
             close(et, sums[-1] / 3, KERNEL_TOL)
 
 
-def test_grads_kernel_refusals():
+# every estimator mode and bf16 storage: the DP kernels take them all
+MODES = {"pt3": dict(persistent=True, pt_temps=3),
+         "learn_variance": dict(visible="gaussian", learn_variance=True),
+         "pt3-learn_variance": dict(visible="gaussian", learn_variance=True, persistent=True,
+                                    pt_temps=3),
+         "enhanced": dict(gradient="enhanced"),
+         "pseudo": dict(error_metric="pseudo"),
+         "bf16": dict(param_dtype="bfloat16", compute_dtype="bfloat16")}
+
+
+@pytest.mark.parametrize("mode", list(MODES) + ["Philox"])
+def test_grads_kernel_refusals(mode):
+    """The DP kernels take every mode (their plain version runs a step of
+    each here); only k > 255, which the Philox counter layout cannot hold,
+    is refused."""
     base = RBMConfig(**SMALL)
-    refused = {"enhanced": base.replace(gradient="enhanced"),
-               "pt_temps": base.replace(persistent=True, pt_temps=3),
-               "learn_variance": base.replace(visible="gaussian", learn_variance=True),
-               "float32": base.replace(param_dtype="bfloat16"),
-               "pseudo": base.replace(error_metric="pseudo"),
-               "Philox": base.replace(k=256)}
-    st = init_train_state(base, device="cpu")
-    v0 = torch.zeros((5, 32))
-    for match, cfg in refused.items():
-        assert match in grads_unsupported(cfg)
-        with pytest.raises(ValueError, match=match):
+    if mode == "Philox":
+        cfg = base.replace(k=256)
+        st = init_train_state(base, device="cpu")
+        assert "Philox" in grads_unsupported(cfg)
+        with pytest.raises(ValueError, match="Philox"):
             check_grads_supports(cfg)
-        with pytest.raises(ValueError, match=match):
+        with pytest.raises(ValueError, match="Philox"):
+            cd_grads_step_plain(cfg, st.params, torch.zeros((5, 32)), st.chain_h, seed=1)
+        with pytest.raises(ValueError, match="Philox"):
+            dp.train_rbm_shard_map(init_train_state(cfg, device="cpu"), torch.zeros((5, 32)),
+                                   cfg, Mesh(0, 2, CPU, "gloo"), 1, pallas_step=True)
+        with pytest.raises(ValueError, match="needs a seed"):
+            cd_grads_step_plain(base, st.params, torch.zeros((5, 32)), st.chain_h)
+        return
+    cfg = base.replace(**MODES[mode])
+    assert grads_unsupported(cfg) is None
+    check_grads_supports(cfg)
+    st = init_train_state(cfg, device="cpu")
+    v0 = torch.as_tensor(mnist_like(5, n_features=32, seed=0)).to(st.params.W.dtype)
+    bit = 3 if cfg.error_metric == "pseudo" else None
+    flat = torch.zeros(G.flat_size(cfg))
+    g, chain, err = cd_grads_step_plain(cfg, st.params, v0, st.chain_h, seed=1, out=flat,
+                                        pseudo_bit=bit)
+    assert chain.shape == st.chain_h.shape and chain.dtype == st.chain_h.dtype
+    assert bool(torch.isfinite(flat).all()) and float(err) == float(flat[-1])
+    assert (g.z is not None) == cfg.learn_variance
+    if cfg.error_metric == "pseudo":
+        with pytest.raises(ValueError, match="pseudo_bit"):
             cd_grads_step_plain(cfg, st.params, v0, st.chain_h, seed=1)
-        with pytest.raises(ValueError, match=match):
-            dp.train_rbm_shard_map(init_train_state(cfg, device="cpu"), v0, cfg,
-                                   Mesh(0, 2, CPU, "gloo"), 1, pallas_step=True)
-    assert grads_unsupported(base.replace(persistent=True, k=2, visible="gaussian",
-                                          sparsity_target=0.1, sparsity_cost=0.5,
-                                          error_metric="xent")) is None
-    with pytest.raises(ValueError, match="needs a seed"):
-        cd_grads_step_plain(base, st.params, v0, st.chain_h)
 
 
-def test_dp_engine_selection_and_refusals():
-    base = RBMConfig(**SMALL)
+@pytest.mark.parametrize("mode", ["plain"] + list(MODES))
+def test_dp_engine_selection_and_refusals(mode):
+    """Under a mesh on CUDA, auto and pallas run the DP kernels in every
+    mode; xla (and the CPU) the eager path, which takes every mode too;
+    pallas on the CPU, and k > 255 on CUDA, raise."""
+    base = RBMConfig(**SMALL).replace(**MODES.get(mode, {}))
     assert resolve_dp_engine(base, CPU) == "eager_dp"
-    assert resolve_dp_engine(base, CUDA) == "cuda_dp"
+    for engine in ("auto", "pallas"):
+        assert resolve_dp_engine(base.replace(engine=engine), CUDA) == "cuda_dp"
+        with pytest.raises(ValueError, match="Philox"):
+            resolve_dp_engine(base.replace(engine=engine, k=256), CUDA)
     assert resolve_dp_engine(base.replace(engine="xla"), CUDA) == "eager_dp"
-    assert resolve_dp_engine(base.replace(engine="pallas"), CUDA) == "cuda_dp"
-    # on CUDA, auto runs the DP kernels as pallas does: a config they refuse
-    # raises, naming K6; the eager path takes it under engine='xla'
-    for cfg in (base.replace(persistent=True, pt_temps=3),
-                base.replace(visible="gaussian", learn_variance=True),
-                base.replace(param_dtype="bfloat16"),
-                base.replace(gradient="enhanced"),
-                base.replace(error_metric="pseudo")):
-        for engine in ("auto", "pallas"):
-            with pytest.raises(ValueError, match="K6"):
-                resolve_dp_engine(cfg.replace(engine=engine), CUDA)
-        if cfg.gradient != "enhanced" and cfg.error_metric != "pseudo":
-            assert resolve_dp_engine(cfg.replace(engine="xla"), CUDA) == "eager_dp"
-            assert resolve_dp_engine(cfg, CPU) == "eager_dp"
+    assert resolve_dp_engine(base.replace(engine="xla", k=256), CUDA) == "eager_dp"
     with pytest.raises(ValueError, match="engine='pallas'"):
         resolve_dp_engine(base.replace(engine="pallas"), CPU)
-    for cfg, match in ((base.replace(gradient="enhanced"), "enhanced"),
-                       (base.replace(error_metric="pseudo"), "pseudo")):
-        for engine in ("auto", "xla"):
-            with pytest.raises(ValueError, match=match):
-                resolve_dp_engine(cfg.replace(engine=engine), CPU)
-    with pytest.raises(ValueError, match="engine='pallas'"):
-        RBM(base.replace(engine="pallas", epochs=1), device="cpu").train(
-            mnist_like(10, n_features=32, seed=0), mesh=Mesh(0, 2, CPU, "gloo"))
+    if mode == "plain":
+        with pytest.raises(ValueError, match="engine='pallas'"):
+            RBM(base.replace(engine="pallas", epochs=1), device="cpu").train(
+                mnist_like(10, n_features=32, seed=0), mesh=Mesh(0, 2, CPU, "gloo"))
 
 
 def test_mesh_needs_a_process_per_rank(monkeypatch):
@@ -406,14 +417,15 @@ def jax_replay(kw, data, uniforms, ndev, n_epochs):
 
 
 def spawn_ranks(tmp_path, ndev, tc, data, uniforms, n_epochs, pallas_steps, api=False,
-                limit_s=120.0):
+                limit_s=120.0, each_epoch=False):
     """Runs the ranks, one process each; fails (and stops them) past limit_s."""
     from torch_dp_ranks import run_rank
 
     from mdbn_tpu_torch.parallel.mesh import _free_port
 
     ctx = mp.spawn(run_rank, args=(ndev, _free_port(), str(tmp_path), tc, data, uniforms,
-                                   n_epochs, pallas_steps, api), nprocs=ndev, join=False)
+                                   n_epochs, pallas_steps, api, each_epoch), nprocs=ndev,
+                   join=False)
     deadline = time.monotonic() + limit_s
     while not ctx.join(timeout=1.0):
         if time.monotonic() > deadline:

@@ -13,10 +13,12 @@ import torch.distributed as dist
 
 
 def run_rank(rank: int, world: int, port: int, out: str, cfg, data, uniforms,
-             n_epochs: int, pallas_steps, api: bool) -> None:
+             n_epochs: int, pallas_steps, api: bool, each_epoch: bool = False) -> None:
     """Trains ``cfg`` on ``data`` over the group, once per flag of
     ``pallas_steps`` (``train_rbm_shard_map``, the injected per-rank
-    ``uniforms``); with ``api``, also ``RBM.train`` with a mesh, per epoch
+    ``uniforms``); with ``each_epoch``, one call per epoch, keeping the state
+    after each (for a comparison one update at a time: one minibatch per
+    epoch); with ``api``, also ``RBM.train`` with a mesh, per epoch
     (checkpoints every epoch, a callback), with a metrics file: rank 0 alone
     writes the files."""
     from mdbn_tpu_torch import RBM
@@ -31,12 +33,18 @@ def run_rank(rank: int, world: int, port: int, out: str, cfg, data, uniforms,
         mesh = make_mesh(world, backend="gloo")
         res = {"mesh": (mesh.rank, mesh.size, str(mesh.device), mesh.backend)}
         for pallas_step in pallas_steps:
-            st, errs = train_rbm_shard_map(init_train_state(cfg, device="cpu"),
-                                           torch.as_tensor(data), cfg, mesh, n_epochs,
-                                           pallas_step=pallas_step, uniforms=uniforms)
-            res[pallas_step] = {"params": st.params.as_dict(),
-                                "velocity": st.velocity.as_dict(), "chain": st.chain_h,
-                                "errs": errs, "epoch": st.epoch}
+            st, states = init_train_state(cfg, device="cpu"), []
+            calls = [(e, e + 1) for e in range(n_epochs)] if each_epoch else [(0, n_epochs)]
+            errs = []
+            for lo, hi in calls:
+                st, err = train_rbm_shard_map(
+                    st, torch.as_tensor(data), cfg, mesh, hi - lo, pallas_step=pallas_step,
+                    uniforms={k: u[lo:hi] for k, u in uniforms.items()})
+                errs.append(err)
+                states.append({"params": st.params.as_dict(), "velocity": st.velocity.as_dict(),
+                               "chain": st.chain_h})
+            res[pallas_step] = {**states[-1], "errs": torch.cat(errs), "epoch": st.epoch,
+                                "states": states}
         if api:
             rt = TrainRuntimeConfig(metrics_path=os.path.join(out, f"metrics{rank}.jsonl"),
                                     checkpoint_dir=os.path.join(out, f"ck{rank}"),
