@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from mdbn_tpu_torch/csrc (nvcc, sm_90a: cd_train.cu,
-cd_train_wide.cu and cd_grads.cu, each at float32 and bfloat16 storage, in
-parallel) and runs nineteen phases, one line each:
+cd_train_wide.cu, cd_grads.cu and cd_grads_wide.cu, each at float32 and
+bfloat16 storage, in parallel) and runs twenty-two phases, one line each:
 
 1. device: torch and CUDA versions, the card's name and power limit, build time;
 2. the kernel against its plain PyTorch version on the card, inject mode with
@@ -84,14 +84,32 @@ parallel) and runs nineteen phases, one line each:
     result bit for bit, the enhanced gradient's b and c and learned
     variance's z at the replay tolerance; the times;
 18. dp_world1_modes: each mode for 10 epochs through
-    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh: both
-    kernels launched once a step, the final error in the mode's PARITY.md
-    band (pt3_lv, pseudo and bf16: the monitor falls); five epochs timed one
-    by one;
-19. dp_ranks_modes: each mode over 3 gloo ranks through RBM.train(mesh=...)
-    for 2 epochs: engine cuda_dp, bit-identical parameters across ranks;
-    then an injected run held against a replay in this process (float32:
-    2 epochs at rtol 2e-4 / atol 2e-6; bf16: one update at a time, one ulp).
+    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh: the two
+    kernels of the route select_dp_kernel gives launched once a step and
+    the other route's never (w20k_mom_bf16 takes cd_grads_wide.cu), the
+    final error in the mode's PARITY.md band (pt3_lv, pseudo and bf16: the
+    monitor falls); five epochs timed one by one;
+19. dp_ranks_modes: each mode but w20k_mom_bf16 (phase 22) over 3 gloo ranks
+    through RBM.train(mesh=...) for 2 epochs: engine cuda_dp, the route's
+    kernels launched, bit-identical parameters across ranks; then an
+    injected run held against a replay in this process (float32: 2 epochs
+    at rtol 2e-4 / atol 2e-6; bf16: one update at a time, one ulp);
+20. kernel_vs_plain_wide_dp: the W-blocked kernel's data-parallel mode
+    (cd_grads_wide.cu) at w20k, w20k_mom_bf16, w28k and w40k_bf16: the step
+    against its plain version on the whole batch and on a 7-row shard with a
+    pad row, the update on 3 ranks' gathered slots, identical bits on grids
+    1, 7 and 132; device time per launch of both kernels (and of the step on
+    a shard of B / 4 rows), their plain versions' and bounds; cd_grads.cu's
+    step and update at the same shapes; the bytes a rank sends on each route;
+21. dp_world1_wide: the same rows for 10 epochs through
+    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh: the
+    cd_grads_wide kernels once a step, cd_grads never, the monitor falls;
+    then three updates one at a time against cd_train_wide.cu on the same
+    injected draws (whether the bits match);
+22. dp_ranks_wide: w20k_mom_bf16 over 3 gloo ranks through
+    RBM.train(mesh=...): the cd_grads_wide kernels launched, bit-identical
+    parameters across ranks, an injected run against the W-blocked route's
+    plain replay one update at a time to one bf16 ulp.
 
 Then a JSON line describing the kernels, and last
 {"ok": true, "device": ...}. Exits non-zero, printing no result, when there
@@ -388,34 +406,76 @@ def time_runs(fn, reps: int) -> float:
     return start.elapsed_time(end) / 1e3 / reps
 
 
+# device_us calls in which torch.profiler saw no kernel of the names asked
+# for, with the time queued_device_us took instead and whether the card ran
+# the calls back to back; printed as the "device_timing" phase before the
+# kernels line
+PROFILER_MISSES: list = []
+PROFILER_TRIES = 3
+
+
 def device_us(fn, reps: int, names=None) -> float:
     """Device time per call of ``fn`` in us: torch.profiler's CUDA activity
     over ``reps`` calls after one warm-up call, summed over the kernels whose
     name contains one of ``names`` (None: every kernel). A loop of launches
     timed with CUDA events measures the host's launch rate instead whenever
-    the host takes longer per launch than the kernel runs."""
+    the host takes longer per launch than the kernel runs. The profiler now
+    and then reports no CUDA activity for a session; such a session is
+    profiled again, and after PROFILER_TRIES empty sessions the calls are
+    timed by ``queued_device_us`` (recorded in PROFILER_MISSES)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, seen = 0.0, 0
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            if names is None:  # the kernels: device time and no CPU time of their own
+                take = us > 0 and ev.self_cpu_time_total == 0
+            else:
+                take = any(n in ev.key for n in names)
+            if take and ev.count:
+                total += us
+                seen += ev.count
+        if seen:
+            return total / reps
+    us, queued = queued_device_us(fn, reps)
+    PROFILER_MISSES.append({"names": list(names or ["any"]), "sessions": PROFILER_TRIES,
+                            "events_us": us, "back_to_back": queued})
+    return us
+
+
+def queued_device_us(fn, reps: int) -> tuple:
+    """(device time per call of ``fn`` in us, whether the card ran the calls
+    back to back), by CUDA events around ``reps`` calls that the host queues
+    while the card runs a sleep kernel, so the card runs them back to back
+    whatever the host's launch rate. The sleep is lengthened until the card
+    is still in it when the last call is queued; if it never is, the last
+    try's time, which then holds the host's gaps too. Counts every kernel
+    ``fn`` launches."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = 50_000_000  # about 25 ms at the H100's clock
+    for _ in range(5):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        queued = not start.query()  # the card has not reached the first call yet
         torch.cuda.synchronize()
-    total, seen = 0.0, 0
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if names is None:  # the kernels: device time and no CPU time of their own
-            take = us > 0 and ev.self_cpu_time_total == 0
-        else:
-            take = any(n in ev.key for n in names)
-        if take and ev.count:
-            total += us
-            seen += ev.count
-    if seen == 0:
-        raise AssertionError(f"the profiler saw no kernel of {names or 'any name'}")
-    return total / reps
+        if queued:
+            break
+        cycles *= 4
+    return start.elapsed_time(end) * 1e3 / reps, queued
 
 
 def run_modes(dev, smi, c1, c1_data, ge) -> list:
@@ -910,6 +970,38 @@ def run_update(dev, smi, c1):
     return max_err, timing
 
 
+def zero_dp_launches() -> None:
+    """Sets the launch counts of the data-parallel kernels of both routes to 0."""
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as GW
+
+    G.cd_grads_launches = G.cd_update_launches = 0
+    GW.cd_wide_step_launches = GW.cd_wide_update_launches = 0
+
+
+def dp_launches() -> dict:
+    """{kernel: launches} of the data-parallel kernels of both routes since
+    their counts were set to 0."""
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as GW
+
+    return {"cd_grads": G.cd_grads_launches, "cd_dp_update": G.cd_update_launches,
+            "cd_grads_wide_step": GW.cd_wide_step_launches,
+            "cd_grads_wide_update": GW.cd_wide_update_launches}
+
+
+def expected_dp_launches(cfg, steps: int) -> dict:
+    """The counts a data-parallel run of ``steps`` steps of ``cfg`` shows:
+    each kernel of the route select_dp_kernel gives once a step, the other
+    route's kernels never."""
+    from mdbn_tpu_torch.ops.cd_epoch_cuda import select_dp_kernel
+
+    wide = select_dp_kernel(cfg) == "cd_grads_wide"
+    return {"cd_grads": 0 if wide else steps, "cd_dp_update": 0 if wide else steps,
+            "cd_grads_wide_step": steps if wide else 0,
+            "cd_grads_wide_update": steps if wide else 0}
+
+
 def _dp_rank(rank, world, port, out_dir, cfg, data, uniforms, inject_epochs):
     """One rank of phase 15, in a process of its own on the one card."""
     import torch
@@ -971,18 +1063,31 @@ def _shard(batch, d, lb):
 
 
 def dp_step_plain(cfg, params, vel, chains, batch, us, ndev, epoch, step, nb):
-    """One data-parallel update on the plain versions, in this process: each
-    shard's step (masked, norm B / ndev) into a flat buffer, their sum, the
-    update (cd_update_plain). ``chains``: each shard's chain rows, replaced
-    in place. Returns (params, velocity, err)."""
+    """One data-parallel update on the plain versions of the route the config
+    takes, in this process: each shard's step (masked, norm B / ndev) into a
+    flat buffer, their sum, the update (cd_update_plain); or, on the
+    W-blocked route, each shard's step into its slot of a gather buffer and
+    the update on the gathered slots (cd_wide_update_plain). ``chains``: each
+    shard's chain rows, replaced in place. Returns (params, velocity, err)."""
     import torch
 
     from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as GW
+    from mdbn_tpu_torch.ops.cd_epoch_cuda import select_dp_kernel
     from mdbn_tpu_torch.parallel.dp import world_scale
 
     B = cfg.batch_size
     lb = -(-B // ndev)
     local = cfg.replace(batch_size=lb)
+    if select_dp_kernel(cfg) == "cd_grads_wide":
+        n = GW.wide_factor_size(local)
+        gathered = torch.zeros(ndev * n, dtype=torch.uint8, device=batch.device)
+        for d in range(ndev):
+            _, chains[d] = GW.cd_wide_step_plain(
+                local, params, _shard(batch, d, lb)[0], chains[d], uniforms=us[d],
+                n_valid=min(lb, B - d * lb), norm=B / ndev, out=gathered[d * n:(d + 1) * n])
+        return GW.cd_wide_update_plain(cfg, params, vel, batch, gathered, ndev,
+                                       world_scale(ndev), epoch)
     bit = (epoch * nb + step) % cfg.n_visible if cfg.error_metric == "pseudo" else None
     total = torch.zeros(G.flat_size(cfg), device=batch.device)
     for d in range(ndev):
@@ -1004,11 +1109,13 @@ def dp_replay(cfg, data, ndev, n_epochs, dev, seed):
 
     from mdbn_tpu_torch.core.state import chain_rows, init_train_state
     from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops.cd_epoch_cuda import select_dp_kernel
     from mdbn_tpu_torch.ops.cd_step import draw_pt_uniforms, draw_uniforms
 
     B = cfg.batch_size
     lb = -(-B // ndev)
     local = cfg.replace(batch_size=lb)
+    wide = select_dp_kernel(cfg) == "cd_grads_wide"
     nb = data.shape[0] // B
     st = init_train_state(cfg, device=dev)
     params, vel = st.params, st.velocity
@@ -1022,7 +1129,7 @@ def dp_replay(cfg, data, ndev, n_epochs, dev, seed):
         for i in range(nb):
             batch = data[i * B:(i + 1) * B]
             us = [G.harden_step(local, params, chains[d], _shard(batch, d, lb)[0],
-                                draw(local, lb, gen)) for d in range(ndev)]
+                                draw(local, lb, gen), wide=wide) for d in range(ndev)]
             params, vel, err = dp_step_plain(cfg, params, vel, chains, batch, us, ndev, e, i, nb)
             step_errs.append(err)
             steps.append([{k: x.cpu() for k, x in u.items()} for u in us])
@@ -1368,47 +1475,46 @@ def run_update_modes(dev, smi, modes):
     return out
 
 
-def run_dp_world1_modes(dev, smi, modes):
-    """Phase 18: each mode for 10 epochs through
-    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh: both
-    kernels launched once a step, the final error in the mode's PARITY.md
-    band (or, without a band, below the first); then five epochs timed one
-    by one. Returns {mode: {kernel: launches}}."""
+def run_dp_world1_modes(dev, modes, names, phase_name):
+    """Phase 18 (and 21's runs): each mode of ``names`` for 10 epochs through
+    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh: the two
+    kernels of the route select_dp_kernel gives launched once a step and the
+    other route's never, the final error in the mode's PARITY.md band (or,
+    without a band, below the first); then five epochs timed one by one.
+    Returns ({mode: {kernel: launches}}, {mode: run})."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from mdbn_tpu_torch.core.state import init_train_state
-    from mdbn_tpu_torch.ops import cd_grads_cuda as G
     from mdbn_tpu_torch.parallel import dp
     from mdbn_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(1, backend="nccl")
     launches, runs = {}, {}
     try:
-        for name in DP_MODES:
+        for name in names:
             cfg, data = modes[name]
             cfg = cfg.replace(engine="pallas")
             nb = data.shape[0] // cfg.batch_size
-            G.cd_grads_launches = G.cd_update_launches = 0
+            zero_dp_launches()
             st, errs = dp.train_rbm_shard_map(init_train_state(cfg, device=dev), data, cfg, mesh,
                                               10, pallas_step=True)
             torch.cuda.synchronize()
-            launches[name] = {"cd_grads": G.cd_grads_launches,
-                              "cd_dp_update": G.cd_update_launches}
-            if launches[name] != {"cd_grads": 10 * nb, "cd_dp_update": 10 * nb}:
-                raise AssertionError(f"dp_world1 {name}: launches {launches[name]}, expected "
-                                     f"{10 * nb} of each")
+            launches[name] = dp_launches()
+            if launches[name] != expected_dp_launches(cfg, 10 * nb):
+                raise AssertionError(f"{phase_name} {name}: launches {launches[name]}, expected "
+                                     f"{expected_dp_launches(cfg, 10 * nb)}")
             hist = errs.tolist()
             finite = all(bool(torch.isfinite(t.float()).all())
                          for t in st.params.as_dict().values())
             if not finite or not all(np.isfinite(hist)):
-                raise AssertionError(f"dp_world1 {name}: not finite: {hist}")
-            band = DP_MODE_BANDS[name]
+                raise AssertionError(f"{phase_name} {name}: not finite: {hist}")
+            band = DP_MODE_BANDS.get(name)
             if band is None and not hist[-1] < hist[0]:
-                raise AssertionError(f"dp_world1 {name}: the monitor did not fall: {hist}")
+                raise AssertionError(f"{phase_name} {name}: the monitor did not fall: {hist}")
             if band is not None and abs(hist[-1] - band[0]) > band[1]:
-                raise AssertionError(f"dp_world1 {name}: final error {hist[-1]} not within "
+                raise AssertionError(f"{phase_name} {name}: final error {hist[-1]} not within "
                                      f"{band[1]} of {band[0]}")
             epoch_ms = []
             for _ in range(6):  # the first is a warm-up
@@ -1424,8 +1530,7 @@ def run_dp_world1_modes(dev, smi, modes):
                           "step_us_median": med * 1e3 / nb}
     finally:
         dist.destroy_process_group()
-    phase("dp_world1_modes", launches=launches, runs=runs, nvidia_smi=smi)
-    return launches
+    return launches, runs
 
 
 def _dp_modes_rank(rank, world, port, out_dir, runs):
@@ -1438,7 +1543,6 @@ def _dp_modes_rank(rank, world, port, out_dir, runs):
     sys.path.insert(0, HERE)
     from mdbn_tpu_torch import RBM
     from mdbn_tpu_torch.core.state import init_train_state
-    from mdbn_tpu_torch.ops import cd_grads_cuda as G
     from mdbn_tpu_torch.parallel.dp import train_rbm_shard_map
     from mdbn_tpu_torch.parallel.mesh import make_mesh
 
@@ -1450,15 +1554,14 @@ def _dp_modes_rank(rank, world, port, out_dir, runs):
         dev = torch.device("cuda", 0)
         res = {}
         for name, (cfg, data, inj, uniforms, each) in runs.items():
-            G.cd_grads_launches = G.cd_update_launches = 0
+            zero_dp_launches()
             t0 = time.perf_counter()
             rbm = RBM(cfg.replace(epochs=2), device=dev).train(data.to(dev), mesh=mesh)
             torch.cuda.synchronize()
-            r = {"engine": rbm.metrics.engine,
-                 "launches": [G.cd_grads_launches, G.cd_update_launches],
-                 "seconds": time.perf_counter() - t0, "history": rbm.history,
-                 "params": cpu(rbm.params)}
-            G.cd_grads_launches = G.cd_update_launches = 0
+            r = {"engine": rbm.metrics.engine, "kernel": rbm.metrics.kernel,
+                 "launches": dp_launches(), "seconds": time.perf_counter() - t0,
+                 "history": rbm.history, "params": cpu(rbm.params)}
+            zero_dp_launches()
             st, states, errs = init_train_state(cfg, device=dev), [], []
             for lo, hi in ([(0, 1), (1, 2)] if each else [(0, 2)]):
                 st, e = train_rbm_shard_map(st, inj.to(dev), cfg, mesh, hi - lo,
@@ -1467,22 +1570,23 @@ def _dp_modes_rank(rank, world, port, out_dir, runs):
                 errs.append(e.cpu())
                 states.append({"params": cpu(st.params), "velocity": cpu(st.velocity)})
             torch.cuda.synchronize()
-            r["inject"] = {"launches": [G.cd_grads_launches, G.cd_update_launches],
-                           "errs": torch.cat(errs), "states": states}
+            r["inject"] = {"launches": dp_launches(), "errs": torch.cat(errs), "states": states}
             res[name] = r
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def run_dp_ranks_modes(dev, smi, modes):
-    """Phase 19: each mode over 3 gloo ranks spawned on the one card,
-    through RBM.train(mesh=...) for 2 epochs on DP_RANK_ROWS rows: engine
-    cuda_dp on every rank, both kernels launched once a step, the parameters
-    bit-identical across ranks; then 2 epochs on injected per-rank draws held
-    against a replay in this process (dp_step_plain): float32 runs over two
-    minibatches an epoch at rtol 2e-4 / atol 2e-6, bf16 runs one update at a
-    time (one minibatch an epoch) to one bf16 ulp."""
+def run_dp_ranks_modes(dev, smi, modes, names, phase_name):
+    """Phase 19 (and 22): each mode of ``names`` over 3 gloo ranks spawned on
+    the one card, through RBM.train(mesh=...) for 2 epochs on DP_RANK_ROWS
+    rows: engine cuda_dp on every rank, the two kernels of the route
+    select_dp_kernel gives launched once a step and the other route's never,
+    the parameters bit-identical across ranks; then 2 epochs on injected
+    per-rank draws held against a replay in this process (dp_step_plain, on
+    the route's plain versions): float32 runs over two minibatches an epoch
+    at rtol 2e-4 / atol 2e-6, bf16 runs one update at a time (one minibatch
+    an epoch) to one bf16 ulp."""
     import numpy as np
     import torch
     import torch.multiprocessing as mp
@@ -1492,7 +1596,7 @@ def run_dp_ranks_modes(dev, smi, modes):
     from mdbn_tpu_torch.parallel.mesh import _free_port
 
     runs, replays = {}, {}
-    for n, name in enumerate(DP_MODES):
+    for n, name in enumerate(names):
         cfg, data = modes[name]
         cfg = cfg.replace(engine="pallas")
         each = cfg.param_dtype == "bfloat16"
@@ -1508,31 +1612,32 @@ def run_dp_ranks_modes(dev, smi, modes):
             if time.perf_counter() - t0 > DP_RANKS_LIMIT_S:
                 for proc in ranks.processes:
                     proc.kill()
-                raise AssertionError(f"dp_ranks_modes: the ranks did not finish in "
+                raise AssertionError(f"{phase_name}: the ranks did not finish in "
                                      f"{DP_RANKS_LIMIT_S} s")
         spawn_s = time.perf_counter() - t0
         got = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(DP_RANKS)]
     report = {}
-    for name in DP_MODES:
+    for name in names:
         cfg, data, inj, uniforms, each = runs[name]
         nb = data.shape[0] // cfg.batch_size
         r0 = got[0][name]
         for r, g in enumerate(x[name] for x in got):
-            if g["engine"] != "cuda_dp" or g["launches"] != [2 * nb] * 2:
-                raise AssertionError(f"dp_ranks_modes {name} rank {r}: engine {g['engine']}, "
+            if g["engine"] != "cuda_dp" or g["launches"] != expected_dp_launches(cfg, 2 * nb):
+                raise AssertionError(f"{phase_name} {name} rank {r}: engine {g['engine']}, "
                                      f"{g['launches']} launches")
-            if g["inject"]["launches"] != [2 * (inj.shape[0] // cfg.batch_size)] * 2:
-                raise AssertionError(f"dp_ranks_modes {name} rank {r}: "
+            if g["inject"]["launches"] != expected_dp_launches(
+                    cfg, 2 * (inj.shape[0] // cfg.batch_size)):
+                raise AssertionError(f"{phase_name} {name} rank {r}: "
                                      f"{g['inject']['launches']} launches in the injected run")
             same = all(torch.equal(x, r0["params"][k]) for k, x in g["params"].items())
             for s0, s in zip(r0["inject"]["states"], g["inject"]["states"]):
                 same = same and all(torch.equal(x, s0[part][k]) for part in ("params", "velocity")
                                     for k, x in s[part].items())
             if not same:
-                raise AssertionError(f"dp_ranks_modes {name}: rank {r}'s state differs from "
+                raise AssertionError(f"{phase_name} {name}: rank {r}'s state differs from "
                                      "rank 0's")
         if not all(np.isfinite(r0["history"])):
-            raise AssertionError(f"dp_ranks_modes {name}: errors {r0['history']}")
+            raise AssertionError(f"{phase_name} {name}: errors {r0['history']}")
         states = r0["inject"]["states"]
         if each:  # bf16: one update at a time from the ranks' own states
             worst = 0.0
@@ -1567,11 +1672,283 @@ def run_dp_ranks_modes(dev, smi, modes):
         report[name] = {"vs_replay": f"rtol {DP_RTOL}, atol {DP_ATOL}",
                         "max_abs_diff": max(diff.values())}
         report[name].update(first_err=r0["history"][0], final_err=r0["history"][-1])
-    phase("dp_ranks_modes", ranks=DP_RANKS, backend="gloo", rows=DP_RANK_ROWS,
-          launches={n: got[0][n]["launches"] for n in DP_MODES},
-          train_seconds={n: [round(g[n]["seconds"], 3) for g in got] for n in DP_MODES},
+    phase(phase_name, ranks=DP_RANKS, backend="gloo", rows=DP_RANK_ROWS,
+          kernel={n: got[0][n]["kernel"] for n in names},
+          launches={n: got[0][n]["launches"] for n in names},
+          injected_launches={n: got[0][n]["inject"]["launches"] for n in names},
+          train_seconds={n: [round(g[n]["seconds"], 3) for g in got] for n in names},
           spawn_seconds=round(spawn_s, 3), identical_bits_across_ranks=True,
           injected=report, nvidia_smi=smi)
+
+
+# The W-blocked kernel's data-parallel mode (phases 20-22,
+# csrc/cd_grads_wide.cu): the wide rows in its scope at full width. One card
+# times the kernels and counts the bytes a rank sends; the exchange's time
+# needs two or more cards.
+WIDE_DP_ROWS = ("w20k", "w20k_mom_bf16", "w28k", "w40k_bf16")
+WIDE_DP_RANK_ROWS = ("w20k_mom_bf16",)  # phase 22; phase 19 runs the other DP modes
+WIDE_DP_REPLAYED = 3  # updates held one at a time against cd_train_wide.cu (phase 21)
+WIDE_DP_SHARD_RANKS = 4  # the step is also timed on a shard of B / 4 rows
+
+
+def wide_step_bound(cfg):
+    """(ms, what bounds it) of one W-blocked DP step on a shard of
+    cfg.batch_size rows: operations 2*rows*V*H for the hidden phase from the
+    data, a visible and a hidden phase per Gibbs step and, under PCD, the
+    data chain's reconstruction, at the peak of the compute dtype; bytes: W,
+    b, c and v0 read (the chain read and written under PCD) at the storage
+    width, and the rank's slot written."""
+    from mdbn_tpu_torch.ops.cd_grads_wide_cuda import wide_factor_size
+
+    B, V, H, k = cfg.batch_size, cfg.n_visible, cfg.n_hidden, cfg.k
+    rows = B + 2 * k * B + (B if cfg.persistent else 0)
+    peak = PEAK_BF16_FLOPS if cfg.compute_dtype == "bfloat16" else PEAK_F32_FLOPS
+    ops_s = 2.0 * rows * V * H / peak
+    width = 2 if cfg.param_dtype == "bfloat16" else 4
+    moved = width * (V * H + V + H + B * V + (2 * B * H if cfg.persistent else 0))
+    bytes_s = (moved + wide_factor_size(cfg)) / PEAK_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def wide_update_bound(cfg, ndev):
+    """(ms, what bounds it) of one W-blocked DP update over ndev ranks' slots:
+    operations 4*B*V*H for gW's two products at the peak of the compute
+    dtype, and six per element of W, b and c for the update at the f32
+    peak; bytes: W, b and c read and written and their velocities written
+    (and read under momentum) at the storage width, v0 read, every rank's
+    slot read."""
+    from mdbn_tpu_torch.ops.cd_grads_wide_cuda import wide_factor_size
+
+    B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
+    n = V * H + V + H
+    peak = PEAK_BF16_FLOPS if cfg.compute_dtype == "bfloat16" else PEAK_F32_FLOPS
+    ops_s = 4.0 * B * V * H / peak + 6.0 * n / PEAK_F32_FLOPS
+    width = 2 if cfg.param_dtype == "bfloat16" else 4
+    vel_moves = 2 if cfg.momentum != 0 or cfg.initial_momentum is not None else 1
+    local = cfg.replace(batch_size=-(-B // ndev))
+    moved = width * ((2 + vel_moves) * n + B * V) + ndev * wide_factor_size(local)
+    bytes_s = moved / PEAK_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def _slot_close(cfg, got, want) -> float:
+    """Assert a W-blocked DP step's slot ``got`` agrees with ``want``; the
+    largest |diff|. float32: vs, the h-matrix and err at the replay
+    tolerance. bf16 compute: every product's operands round to bf16, so vs
+    (itself bf16) and the h-matrix are held to one bf16 ulp (2^-7 of each
+    value) plus 2^-8 absolute for the probabilities, err to 1e-3 of itself."""
+    import torch
+
+    from mdbn_tpu_torch.ops.cd_grads_wide_cuda import slot_views
+
+    worst = 0.0
+    for part, a, b in zip(("vs", "h-matrix", "err"), slot_views(cfg, got), slot_views(cfg, want)):
+        a, b = a.float(), b.float()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"the step's {part} is not finite")
+        if cfg.compute_dtype != "bfloat16":
+            torch.testing.assert_close(a, b, rtol=REPLAY_RTOL, atol=REPLAY_ATOL)
+        else:
+            atol = {"vs": REPLAY_ATOL, "h-matrix": 2.0 ** -8, "err": REPLAY_ATOL}[part]
+            rtol = 1e-3 if part == "err" else 2.0 ** -7
+            if bool(((a - b).abs() > rtol * torch.maximum(a.abs(), b.abs()) + atol).any()):
+                raise AssertionError(f"bf16-compute {part} differs beyond one operand ulp: "
+                                     f"{float((a - b).abs().max())}")
+        worst = max(worst, float((a - b).abs().max()))
+    return worst
+
+
+def _params_close(cfg, got, want) -> float:
+    """Assert an update's (params, velocity) ``got`` agree with ``want``
+    (float32 at the replay tolerance; bf16 a velocity to one ulp, a parameter
+    to its velocity's ulp and one of its own); the largest |diff|."""
+    import torch
+
+    worst = 0.0
+    for k in ("W", "b", "c"):
+        gp, gv, wp, wv = (getattr(x, k) for x in (got[0], got[1], want[0], want[1]))
+        if not bool(torch.isfinite(gp.float()).all()):
+            raise AssertionError(f"the update's {k} is not finite")
+        if gp.dtype == torch.bfloat16:
+            worst = max(worst, _within_ulp(gv, wv), _within_ulp(gp, wp, gv, wv))
+        else:
+            for a, b in ((gp, wp), (gv, wv)):
+                torch.testing.assert_close(a, b, rtol=REPLAY_RTOL, atol=REPLAY_ATOL)
+                worst = max(worst, float((a - b).abs().max()))
+    return worst
+
+
+def run_wide_dp_kernels(dev, smi, modes):
+    """Phase 20: both W-blocked DP kernels against their plain versions at
+    full width (WIDE_DP_ROWS): the step on the whole batch and on the third
+    shard of a 3-way split (7 rows, one pad row, norm 20/3), same bits on
+    grids 1, 7, 132; the update on 3 ranks' gathered slots, same bits on
+    those grids. Their device times per launch (torch.profiler), the plain
+    versions' and the bounds; the step also on a shard of B / 4 rows; the
+    old route's step and update (csrc/cd_grads.cu) at the same shapes for
+    comparison, and the bytes a rank sends on each route. Returns {row:
+    (step err, update err, timing)}."""
+    import torch
+
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as GW
+    from mdbn_tpu_torch.ops.cd_step import draw_uniforms
+    from mdbn_tpu_torch.parallel.dp import world_scale
+
+    scale = world_scale(DP_RANKS)
+    out, errs = {}, {}
+    for n, name in enumerate(WIDE_DP_ROWS):
+        cfg, data = modes[name]
+        B, sdt = cfg.batch_size, data.dtype
+        lb = -(-B // DP_RANKS)
+        gen = torch.Generator(device=dev).manual_seed(30 + n)
+        shard = _shard(data[:B], DP_RANKS - 1, lb)[0]
+        step_err = 0.0
+        for case, (c, v0, nv, norm) in (
+                ("whole", (cfg, data[:B], B, None)),
+                ("rank2_of_3", (cfg.replace(batch_size=lb), shard, B - (DP_RANKS - 1) * lb,
+                                B / DP_RANKS))):
+            p, chain = _mode_state(c, dev, n)
+            u = G.harden_step(c, p, chain, v0, draw_uniforms(c, c.batch_size, gen), wide=True)
+            got, c_got = GW.cd_wide_step(c, p, v0, chain, uniforms=u, n_valid=nv, norm=norm)
+            want, c_want = GW.cd_wide_step_plain(c, p, v0, chain, uniforms=u, n_valid=nv,
+                                                 norm=norm)
+            torch.cuda.synchronize()
+            errs[f"{name}@step_{case}"] = _slot_close(c, got, want)
+            torch.testing.assert_close(c_got, c_want, rtol=0, atol=0)  # the same samples
+            step_err = max(step_err, errs[f"{name}@step_{case}"])
+            if case == "rank2_of_3":  # the kernel's own draws on several grids
+                runs = [GW.cd_wide_step(c, p, v0, chain, seed=11, n_valid=nv, norm=norm, grid=g)
+                        for g in (0,) + GRADS_GRIDS]
+                for slot, ch in runs[1:]:
+                    if not (torch.equal(slot, runs[0][0]) and torch.equal(ch, runs[0][1])):
+                        raise AssertionError(f"{name}: the W-blocked DP step depends on the grid")
+        # the update on 3 ranks' slots of the first minibatch, from plain steps
+        local = cfg.replace(batch_size=lb)
+        p, chain = _mode_state(local, dev, n)
+        rand = lambda *shape: (1e-3 * torch.randn(shape, generator=gen, device=dev)).to(sdt)
+        vel = RBMParams(W=rand(*p.W.shape), b=rand(*p.b.shape), c=rand(*p.c.shape))
+        nbytes = GW.wide_factor_size(local)
+        gathered = torch.zeros(DP_RANKS * nbytes, dtype=torch.uint8, device=dev)
+        for d in range(DP_RANKS):
+            GW.cd_wide_step_plain(local, p, _shard(data[:B], d, lb)[0], chain,
+                                  uniforms=draw_uniforms(local, lb, gen),
+                                  n_valid=min(lb, B - d * lb), norm=B / DP_RANKS,
+                                  out=gathered[d * nbytes:(d + 1) * nbytes])
+        want = GW.cd_wide_update_plain(cfg, p, vel, data[:B], gathered, DP_RANKS, scale, 0)
+        runs = [GW.cd_wide_update(cfg, p.map(torch.clone), vel.map(torch.clone), data[:B],
+                                  gathered, DP_RANKS, scale, 0, grid=g)
+                for g in (0,) + GRADS_GRIDS]
+        torch.cuda.synchronize()
+        for r in runs[1:]:
+            if not all(torch.equal(x, y) for i in (0, 1) for x, y in
+                       zip(r[i].as_dict().values(), runs[0][i].as_dict().values())):
+                raise AssertionError(f"{name}: the W-blocked DP update depends on the grid")
+        if not torch.equal(runs[0][2], want[2]):
+            raise AssertionError(f"{name}: the update's monitor differs from the plain version's")
+        errs[f"{name}@update"] = update_err = _params_close(cfg, runs[0], want)
+
+        # timing: the launches alone on fixed buffers, the plain versions;
+        # plain, kernel, kernel, plain; then device time by torch.profiler
+        p, chain = _mode_state(cfg, dev, 0)
+        v0 = data[:B]
+        step = GW.step_launcher(cfg, p, v0, chain, seed=5)[0]
+        c4 = cfg.replace(batch_size=B // WIDE_DP_SHARD_RANKS)
+        step4 = GW.step_launcher(c4, p, data[:c4.batch_size], chain[:c4.batch_size], seed=5)[0]
+        pu, vu = p.map(torch.clone), vel.map(torch.clone)
+        update = GW.update_launcher(cfg, pu, vu, v0, gathered, DP_RANKS, scale, 0)[0]
+
+        def step_plain(cfg=cfg, p=p, v0=v0, chain=chain):
+            GW.cd_wide_step_plain(cfg, p, v0, chain, seed=5)
+
+        def update_plain(cfg=cfg, p=p, vel=vel, v0=v0, gathered=gathered):
+            GW.cd_wide_update_plain(cfg, p, vel, v0, gathered, DP_RANKS, scale, 0)
+
+        t = [time_runs(step_plain, 5), time_runs(step, 50), time_runs(step, 50),
+             time_runs(step_plain, 5), time_runs(update_plain, 5), time_runs(update, 50),
+             time_runs(update, 50), time_runs(update_plain, 5)]
+        flat = torch.empty(G.flat_size(cfg), device=dev)
+        old_step = G.step_launcher(cfg, p, v0, chain, seed=5, out=flat)[0]
+        old_update = G.update_launcher(cfg, p.map(torch.clone), vel.map(torch.clone), flat,
+                                       1.0, 0)[0]
+        s_ms, s_by = wide_step_bound(cfg)
+        s4_ms, s4_by = wide_step_bound(c4)
+        u_ms, u_by = wide_update_bound(cfg, DP_RANKS)
+        local4 = cfg.replace(batch_size=-(-B // WIDE_DP_SHARD_RANKS))
+        out[name] = (step_err, update_err, {
+            "step_device_us": device_us(step, 30, ("cd_wide_step_kernel",)),
+            "step_us_calls": [t[1] * 1e6, t[2] * 1e6],
+            "step_plain_us": min(t[0], t[3]) * 1e6, "step_bound_us": s_ms * 1e3,
+            "step_bound_by": s_by,
+            f"step_{WIDE_DP_SHARD_RANKS}_ranks_device_us": device_us(step4, 30,
+                                                                    ("cd_wide_step_kernel",)),
+            f"step_{WIDE_DP_SHARD_RANKS}_ranks_bound_us": s4_ms * 1e3,
+            "update_device_us": device_us(update, 30, ("cd_wide_update_kernel",)),
+            "update_us_calls": [t[5] * 1e6, t[6] * 1e6],
+            "update_plain_us": min(t[4], t[7]) * 1e6, "update_bound_us": u_ms * 1e3,
+            "update_bound_by": u_by,
+            "cd_grads_step_device_us": device_us(old_step, 30, ("cd_grads_kernel",)),
+            "cd_grads_update_device_us": device_us(old_update, 30, ("cd_update_kernel",)),
+            "bytes_sent_per_rank": {
+                "cd_grads_all_reduce": 4 * G.flat_size(cfg),
+                f"cd_grads_wide_gather_{DP_RANKS}_ranks": nbytes,
+                f"cd_grads_wide_gather_{WIDE_DP_SHARD_RANKS}_ranks":
+                    GW.wide_factor_size(local4)}})
+    phase("kernel_vs_plain_wide_dp", max_abs_diff=errs, rtol=REPLAY_RTOL, atol=REPLAY_ATOL,
+          chain="identical samples", identical_bits_on_grids=list(GRADS_GRIDS) + ["default"],
+          timing={k: v[2] for k, v in out.items()}, order="plain, kernel, kernel, plain",
+          nvidia_smi=smi)
+    return out
+
+
+def run_wide_dp_world1(dev, smi, modes):
+    """Phase 21: each row of WIDE_DP_ROWS for 10 epochs through
+    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh (the
+    cd_grads_wide kernels once a step, cd_grads never; the monitor falls;
+    five epochs timed), then WIDE_DP_REPLAYED updates one at a time against
+    the single-device W-blocked kernel (cd_train_wide.cu) on the same
+    injected draws: whether the bits match, and the largest difference.
+    Returns {row: {kernel: launches}}."""
+    import torch
+    import torch.distributed as dist
+
+    from mdbn_tpu_torch.core.state import TrainState, init_train_state
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.parallel import dp
+    from mdbn_tpu_torch.parallel.mesh import make_mesh
+
+    launches, runs = run_dp_world1_modes(dev, modes, WIDE_DP_ROWS, "dp_world1_wide")
+    one = torch.zeros((1, 1), dtype=torch.int32)
+    mesh = make_mesh(1, backend="nccl")
+    try:
+        for name in WIDE_DP_ROWS:
+            cfg, data = modes[name]
+            cfg = cfg.replace(engine="pallas")
+            B = cfg.batch_size
+            st = init_train_state(cfg, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(40)
+            same, worst = [], 0.0
+            for t in range(WIDE_DP_REPLAYED):
+                batch = data[t * B:(t + 1) * B]
+                u = K.draw_uniform_blocks(cfg, gen, 1, 1)
+                single = K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, batch, one, t,
+                                        u, wide=True)
+                st, errs = dp.train_rbm_shard_map(
+                    TrainState(st.params, st.velocity, st.chain_h, st.generator, t), batch, cfg,
+                    mesh, 1, pallas_step=True, uniforms={k: x[:, :, None] for k, x in u.items()})
+                torch.cuda.synchronize()
+                same.append(all(torch.equal(a, b) for part in (0, 1) for a, b in zip(
+                    single[part].as_dict().values(),
+                    (st.params, st.velocity)[part].as_dict().values())))
+                worst = max(worst, _params_close(cfg, (st.params, st.velocity), single))
+                torch.testing.assert_close(errs, single[3], rtol=REPLAY_RTOL, atol=REPLAY_ATOL)
+            runs[name]["vs_cd_train_wide"] = {"updates": WIDE_DP_REPLAYED, "identical_bits": same,
+                                              "max_abs_diff": worst}
+    finally:
+        dist.destroy_process_group()
+    phase("dp_world1_wide", launches=launches, runs=runs, nvidia_smi=smi)
+    return launches
 
 
 DP_MODE_REPLACES = {"pt5": 2760, "enhanced": 1535, "lv": 1542, "pt3_lv": 1542, "pseudo": 1604,
@@ -1580,15 +1957,28 @@ DP_UPDATE_REPLACES = {"lv": 1588, "enhanced": 1568, "c1_bf16": 1622, "w20k_mom_b
 
 
 def run_dp_modes(dev, smi, c1, c1_data, ge) -> list:
-    """Phases 16-19, the data-parallel path in every mode; returns their
-    entries of the kernel line."""
+    """Phases 16-22, the data-parallel path in every mode and the W-blocked
+    kernel's data-parallel mode; returns their entries of the kernel line.
+    Phases 16 and 17 call cd_grads.cu at w20k_mom_bf16 too (the old route of
+    that row, for comparison); from phase 18 on each row takes the route
+    select_dp_kernel gives, and the kernel line counts the launches there."""
+    from mdbn_tpu_torch.ops.cd_epoch_cuda import select_dp_kernel
+
     modes = dp_mode_configs(dev, c1, c1_data, ge)
     grads = run_grads_modes(dev, smi, modes)
     updates = run_update_modes(dev, smi, modes)
-    launches = run_dp_world1_modes(dev, smi, modes)
-    run_dp_ranks_modes(dev, smi, modes)
+    launches, runs = run_dp_world1_modes(dev, modes, DP_MODES, "dp_world1_modes")
+    phase("dp_world1_modes", launches=launches, runs=runs, nvidia_smi=smi)
+    run_dp_ranks_modes(dev, smi, modes, [n for n in DP_MODES if n not in WIDE_DP_RANK_ROWS],
+                       "dp_ranks_modes")
+    modes.update({name: wide_row(name, dev) for name in WIDE_DP_ROWS})
+    wide = run_wide_dp_kernels(dev, smi, modes)
+    wide_launches = run_wide_dp_world1(dev, smi, modes)
+    run_dp_ranks_modes(dev, smi, modes, WIDE_DP_RANK_ROWS, "dp_ranks_wide")
     entries = []
     for name in DP_MODES:
+        if select_dp_kernel(modes[name][0]) != "cd_grads":
+            continue  # its launches are the W-blocked DP kernels' (below)
         err, t = grads[name]
         entries.append({
             "name": f"cd_grads[{name}]", "route": "cuda",
@@ -1599,6 +1989,8 @@ def run_dp_modes(dev, smi, c1, c1_data, ge) -> list:
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"], "library_ms": None,
             "ms_per": f"one step of {name} on the whole batch"})
     for name in DP_UPDATE_MODES:
+        if select_dp_kernel(modes[name][0]) != "cd_grads":
+            continue
         err, t = updates[name]
         entries.append({
             "name": f"cd_dp_update[{name}]", "route": "cuda",
@@ -1608,6 +2000,20 @@ def run_dp_modes(dev, smi, c1, c1_data, ge) -> list:
             "ms": t["kernel_device_us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"], "library_ms": None,
             "ms_per": f"one update of {name} after the all-reduce"})
+    for name in WIDE_DP_ROWS:
+        step_err, update_err, t = wide[name]
+        for kernel, err, what in (
+                ("step", step_err, f"one step of {name} on the whole batch (one rank)"),
+                ("update", update_err, f"one update of {name} over {DP_RANKS} ranks' slots")):
+            entries.append({
+                "name": f"cd_grads_wide_{kernel}[{name}]", "route": "cuda",
+                "source": "mdbn_tpu_torch/csrc/cd_grads_wide.cu",
+                "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:1981",
+                "launches": wide_launches[name][f"cd_grads_wide_{kernel}"],
+                "max_abs_err": err, "ms": t[f"{kernel}_device_us"] / 1e3,
+                "plain_ms": t[f"{kernel}_plain_us"] / 1e3,
+                "bound_ms": t[f"{kernel}_bound_us"] / 1e3, "bound_by": t[f"{kernel}_bound_by"],
+                "library_ms": None, "ms_per": what})
     return entries
 
 
@@ -1764,6 +2170,8 @@ def run() -> int:
         "ms_per": "one update after the all-reduce at c1's shape (784x500, the DP "
                   "mega-kernel's update, its exchange an NCCL all-reduce between launches)"})
     entries += dp_mode_entries
+    phase("device_timing", method="torch.profiler", profiler_tries=PROFILER_TRIES,
+          timed_by_queued_events=PROFILER_MISSES)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # kernel -> the storage types it is built at
 KERNELS = {"cd_train": ("float32", "bfloat16"), "cd_train_wide": ("float32", "bfloat16"),
-           "cd_grads": ("float32", "bfloat16")}
+           "cd_grads": ("float32", "bfloat16"), "cd_grads_wide": ("float32", "bfloat16")}
 
 
 @dataclass
@@ -174,5 +174,24 @@ def _declare_cd_grads(lib: ctypes.CDLL) -> None:
     _declare_error_string(lib, "cd_grads_error_string")
 
 
+def _declare_cd_grads_wide(lib: ctypes.CDLL) -> None:
+    lib.cd_wide_step.argtypes = (
+        [_P] * 10  # v0, u_h0, u_h, W, b, c, chain_in, chain_out, slot, scratch
+        + [_I] * 6  # V, H, B, k, flags, nvalid
+        + [_F]  # inv_norm
+        + _TAIL)
+    lib.cd_wide_step.restype = _I
+    lib.cd_wide_update.argtypes = (
+        [_P] * 9  # v0, gathered, W, b, c, vW, vb, vc, err
+        + [_I] * 6  # V, H, R, lb, ndev, flags
+        + [_F] * 7  # scale, lr, momentum, l2, grad_clip, sparsity_target/cost
+        + [_I, _I, _P])  # device, grid, stream
+    lib.cd_wide_update.restype = _I
+    for name in ("cd_wide_slot_bytes", "cd_wide_scratch_floats"):
+        getattr(lib, name).argtypes = [_I] * 3  # V, H, B
+        getattr(lib, name).restype = ctypes.c_longlong
+    _declare_error_string(lib, "cd_grads_wide_error_string")
+
+
 _DECLARE = {"cd_train": _declare_cd_train, "cd_train_wide": _declare_cd_train_wide,
-            "cd_grads": _declare_cd_grads}
+            "cd_grads": _declare_cd_grads, "cd_grads_wide": _declare_cd_grads_wide}

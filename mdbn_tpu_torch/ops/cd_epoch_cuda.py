@@ -104,6 +104,25 @@ def select_kernel(cfg: RBMConfig) -> str:
     return "cd_train_wide" if wide else "cd_train"
 
 
+# The visible width from which a data-parallel run inside the W-blocked
+# kernel's scope takes the W-blocked DP kernels (csrc/cd_grads_wide.cu: a step
+# whose x W products split over strips of V, an all-gather of the factors, an
+# update that forms gW from them) instead of csrc/cd_grads.cu (a step whose
+# products walk all of V in one unit, an all-reduce of the whole gradient, an
+# elementwise update). Measured by step plus update on one NCCL rank
+# (scripts/torch_wide_crossover.py --dp).
+WIDE_DP_MIN_VISIBLE = 4096
+
+
+def select_dp_kernel(cfg: RBMConfig) -> str:
+    """The kernels a data-parallel run of ``cfg`` takes: "cd_grads_wide" when
+    the config lies in the W-blocked kernel's scope and is at least
+    ``WIDE_DP_MIN_VISIBLE`` wide, else "cd_grads". Decided from the config
+    alone."""
+    wide = wide_unsupported(cfg) is None and cfg.n_visible >= WIDE_DP_MIN_VISIBLE
+    return "cd_grads_wide" if wide else "cd_grads"
+
+
 def trace_phases(cfg: RBMConfig) -> List[str]:
     """The kernel's phases of one update, in the order a trace stamps their
     starts: the hidden phase from the data, a visible and a hidden phase per

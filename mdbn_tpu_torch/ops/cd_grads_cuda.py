@@ -102,19 +102,22 @@ def pack(grads: RBMParams, sums: Optional[EnhancedSums], err: torch.Tensor,
 
 
 def harden_step(cfg: RBMConfig, params: RBMParams, chain: torch.Tensor, v0: torch.Tensor,
-                uniforms: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                uniforms: Dict[str, torch.Tensor], wide: bool = False
+                ) -> Dict[str, torch.Tensor]:
     """One step's draws (the ``draw_uniforms`` / ``draw_pt_uniforms`` layout)
     moved off their thresholds against the plain version's probabilities
-    (``ops.cd_epoch_cuda.harden_uniform_blocks`` of a one-update run), so the
-    kernel and its plain version, whose fp32 sums run in other orders, draw
-    the same samples; a test and measurement aid."""
+    (``ops.cd_epoch_cuda.harden_uniform_blocks`` of a one-update run; with
+    ``wide``, the W-blocked kernels' factor rounding), so a kernel and its
+    plain version, whose fp32 sums run in other orders, draw the same
+    samples; a test and measurement aid."""
     from ..core.rbm_math import zero_velocity
     from .cd_epoch_cuda import harden_uniform_blocks
 
     CR = chain.shape[0]
     block = {k: (x if k == "h0" else x.reshape(2, -1) if k == "swap"
                  else x.reshape(cfg.k, CR, -1))[None, None] for k, x in uniforms.items()}
-    hard = harden_uniform_blocks(cfg, params, zero_velocity(params), chain, v0, block, 1)
+    hard = harden_uniform_blocks(cfg, params, zero_velocity(params), chain, v0, block, 1,
+                                 wide=wide)
     return {k: hard[k][0, 0].reshape(x.shape) for k, x in uniforms.items()}
 
 

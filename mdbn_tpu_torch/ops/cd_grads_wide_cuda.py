@@ -1,0 +1,338 @@
+"""The W-blocked kernel's data-parallel mode: CUDA kernels and plain versions.
+
+Port of ``mdbn_tpu/ops/cd_epoch_pallas.py::_cd_train_kernel_wb`` with
+``ndev > 1``, the kernel the TPU's data-parallel path trains its widest
+models through: each shard computes its factors, the factors are gathered
+around a ring, and every shard forms the global gradient from the gathered
+factors in source order. Here that is two launches per update with an
+all-gather between them (``parallel.dp``):
+
+- the step, ``cd_wide_step`` (``csrc/cd_grads_wide.cu``'s
+  ``cd_wide_step_kernel``, one cooperative launch; every x W product is a sum
+  over fixed strips of W's rows, as in ``csrc/cd_train_wide.cu``), or its
+  plain version ``cd_wide_step_plain``: one rank's shard of ``B`` rows, the
+  first ``n_valid`` real and the rest pad rows, into the rank's slot of the
+  gather buffer (``slot_layout``): the negative-phase visibles ``vs`` [B, V]
+  rounded through the storage dtype, the h-matrix [2, B, H] float32 =
+  [h0p ; -hmean] on the real rows (0 on pad rows), and the monitor's masked
+  sum over ``norm`` (mse: also over V; xent: negated);
+- the update, ``cd_wide_update`` (``cd_wide_update_kernel``) or its plain
+  version ``cd_wide_update_plain``: on every rank, the same gathered slots in
+  rank order and the global minibatch's v0 (every rank holds the data, so v0
+  does not cross the wire) give gW = (v0^T h0p - vs^T hmean) / B, gb, gc with
+  its sparsity term, then clip, L2 and momentum (``core.rbm_math.apply_update``'s
+  rule), rounded once into the storage dtype; the monitor is the mean of the
+  slots'.
+
+Scope: that of ``ops.cd_epoch_wide_cuda`` (``ops.cd_epoch_cuda.wide_unsupported``:
+mean-field negative phase, mse or xent monitor, plain gradient, no tempering,
+no learned variance). The slot layout is bytes, so the step's factors cross
+the wire at their own widths: at 20000x400 bf16 over 4 ranks (5 rows each)
+a slot is 216,016 bytes, where ``csrc/cd_grads.cu``'s route all-reduces
+32 MB of f32 statistics.
+
+The kernel wrappers take CUDA tensors only and never fall back to the plain
+versions; ``parallel.dp`` picks the kernels or the plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import RBMConfig
+from ..core.rbm_math import (RBMParams, apply_update, hidden_mean, recon_error,
+                             resolve_momentum, split_grads, torch_dtype, visible_mean)
+from .cd_epoch_cuda import _F_INJECT, _on_device, kernel_flags, ptr
+from .cd_epoch_wide_cuda import check_wide_supports
+from .cd_step import draw_uniforms
+
+# Launches of each CUDA kernel in this process (incremented only where the
+# kernel is launched).
+cd_wide_step_launches = 0
+cd_wide_update_launches = 0
+
+
+class SlotLayout(NamedTuple):
+    """Byte offsets of one rank's slot: vs [B, V] at the storage dtype, the
+    h-matrix [2, B, H] float32, err float32; each part 16-byte aligned."""
+
+    vs: int
+    h: int
+    err: int
+    size: int
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def slot_layout(cfg: RBMConfig) -> SlotLayout:
+    """The slot of a shard of ``cfg.batch_size`` rows (csrc/cd_grads_wide.cu's
+    slot_layout)."""
+    B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
+    width = torch_dtype(cfg.param_dtype).itemsize
+    h = _align16(B * V * width)
+    err = h + _align16(2 * B * H * 4)
+    return SlotLayout(vs=0, h=h, err=err, size=err + 16)
+
+
+def wide_factor_size(cfg: RBMConfig) -> int:
+    """Bytes of one rank's slot of the gather buffer, for the shard's config
+    (``batch_size`` = the rank's rows): what each rank sends per update."""
+    return slot_layout(cfg).size
+
+
+def slot_views(cfg: RBMConfig, slot: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(vs [B, V] at the storage dtype, h-matrix [2, B, H] float32, err [1]
+    float32) as views of a uint8 slot of ``wide_factor_size(cfg)`` bytes."""
+    B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
+    lay = slot_layout(cfg)
+    sdt = torch_dtype(cfg.param_dtype)
+    vs = slot[lay.vs:lay.vs + B * V * sdt.itemsize].view(sdt).view(B, V)
+    hmat = slot[lay.h:lay.h + 2 * B * H * 4].view(torch.float32).view(2, B, H)
+    return vs, hmat, slot[lay.err:lay.err + 4].view(torch.float32)
+
+
+def gathered_views(cfg: RBMConfig, gathered: torch.Tensor, ndev: int
+                   ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """``slot_views`` of each rank's slot of the gather buffer, in rank
+    order; ``cfg`` is the shard's config."""
+    n = wide_factor_size(cfg)
+    return [slot_views(cfg, gathered[d * n:(d + 1) * n]) for d in range(ndev)]
+
+
+def _valid(B: int, n_valid: Optional[int]) -> int:
+    nv = B if n_valid is None else int(n_valid)
+    if not 0 <= nv <= B:
+        raise ValueError(f"n_valid must lie in [0, {B}], got {n_valid}")
+    return nv
+
+
+def _slot_out(cfg: RBMConfig, out: Optional[torch.Tensor], device) -> torch.Tensor:
+    n = wide_factor_size(cfg)
+    if out is None:  # zeros: the parts' alignment padding is never written
+        return torch.zeros(n, dtype=torch.uint8, device=device)
+    if out.dtype != torch.uint8 or tuple(out.shape) != (n,) or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous uint8 tensor of {n} bytes "
+                         "(wide_factor_size)")
+    if out.device != device:
+        raise ValueError(f"out is on {out.device}, expected {device}")
+    return out
+
+
+def cd_wide_step_plain(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor,
+                       chain: torch.Tensor, *, seed: Optional[int] = None,
+                       uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                       n_valid: Optional[int] = None, norm: Optional[float] = None,
+                       out: Optional[torch.Tensor] = None,
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the step (see module doc): ``cfg`` is the
+    shard's config, ``v0`` and ``chain`` [B, ·] at its storage dtype, ``norm``
+    the divisor of the monitor's sum (default B). Returns (slot, new_chain);
+    the chain changes only under PCD."""
+    check_wide_supports(cfg)
+    B, sdt = v0.shape[0], torch_dtype(cfg.param_dtype)
+    nv = _valid(B, n_valid)
+    if uniforms is None:
+        if seed is None:
+            raise ValueError("a step without injected uniforms needs a seed")
+        uniforms = draw_uniforms(cfg, B, torch.Generator(device=v0.device).manual_seed(seed))
+    out = _slot_out(cfg, out, v0.device)
+    valid = (torch.arange(B, device=v0.device) < nv)[:, None]
+    x = v0.float()
+    h0p = hidden_mean(params, x, cfg)
+    h0s = (uniforms["h0"] < h0p).float()
+    h = chain.float() if cfg.persistent else h0s
+    for t in range(cfg.k):
+        vm = visible_mean(params, h, cfg)
+        if t == 0:
+            v1mean = vm
+        vs = vm.to(sdt)
+        hmean = hidden_mean(params, vs.float(), cfg)
+        h = (uniforms["h"][t] < hmean).float()
+    if cfg.persistent:  # the monitor reconstructs the data chain
+        v1mean = visible_mean(params, h0s, cfg)
+    err = recon_error(x, v1mean, cfg.error_metric, valid.float(),
+                      float(norm if norm is not None else B))
+    vs_out, hmat, err_out = slot_views(cfg, out)
+    vs_out.copy_(vs)
+    hmat.copy_(torch.where(valid, torch.stack([h0p, -hmean]), 0.0))
+    err_out.copy_(err.reshape(1))
+    return out, (h.to(chain.dtype) if cfg.persistent else chain)
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def _library(cfg: RBMConfig):
+    from .._build import load_library  # builds the kernels at first use
+
+    return load_library("cd_grads_wide", cfg.param_dtype).lib
+
+
+def step_launcher(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor, chain: torch.Tensor,
+                  *, seed: Optional[int] = None,
+                  uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                  n_valid: Optional[int] = None, norm: Optional[float] = None,
+                  out: Optional[torch.Tensor] = None, grid: int = 0,
+                  ) -> Tuple[Callable[[], None], torch.Tensor, torch.Tensor]:
+    """Checks a step's CUDA inputs and allocates its outputs: returns
+    (launch, slot, new_chain), where ``launch()`` launches the kernel once
+    into those outputs on the current stream, raises RuntimeError when the
+    launch fails, and counts nothing. Raises ValueError for a config or input
+    the kernel does not take."""
+    check_wide_supports(cfg)
+    device, sdt = v0.device, torch_dtype(cfg.param_dtype)
+    B, V, H, k = cfg.batch_size, cfg.n_visible, cfg.n_hidden, cfg.k
+    nv = _valid(B, n_valid)
+    v0 = _on_device(v0, "v0", (B, V), device, sdt)
+    W = _on_device(params.W, "W", (V, H), device, sdt)
+    b = _on_device(params.b, "b", (V,), device, sdt)
+    c = _on_device(params.c, "c", (H,), device, sdt)
+    chain = _on_device(chain, "chain", (B, H), device, sdt)
+    flags = kernel_flags(cfg)
+    u_h0 = u_h = None
+    if uniforms is not None:
+        flags |= _F_INJECT
+        f32 = torch.float32
+        u_h0 = _on_device(uniforms["h0"].reshape(B, H), "uniforms['h0']", (B, H), device, f32)
+        u_h = _on_device(uniforms["h"].reshape(k, B, H), "uniforms['h']", (k, B, H), device, f32)
+    elif seed is None:
+        raise ValueError("a step without injected uniforms needs a seed")
+    out = _slot_out(cfg, out, device)
+    lib = _library(cfg)
+    if int(lib.cd_wide_slot_bytes(V, H, B)) != out.numel():
+        raise RuntimeError("csrc/cd_grads_wide.cu's slot layout differs from slot_layout")
+    new_chain = torch.empty((B, H), dtype=sdt, device=device) if cfg.persistent else chain
+    scratch = torch.empty(int(lib.cd_wide_scratch_floats(V, H, B)), dtype=torch.float32,
+                          device=device)
+    args = (ptr(v0), ptr(u_h0), ptr(u_h), ptr(W), ptr(b), ptr(c), ptr(chain), ptr(new_chain),
+            ptr(out), ptr(scratch), V, H, B, k, flags, nv,
+            1.0 / float(norm if norm is not None else B), (seed or 0) % 2 ** 64,
+            _device_index(device), grid, torch.cuda.current_stream(device).cuda_stream)
+    keep = (v0, W, b, c, chain, u_h0, u_h, out, new_chain, scratch)
+
+    def launch(keep=keep) -> None:  # keep: the buffers the pointers point into
+        rc = lib.cd_wide_step(*args)
+        if rc != 0:
+            raise RuntimeError(f"cd_wide_step kernel launch failed: cudaError {rc} "
+                               f"({lib.cd_grads_wide_error_string(rc).decode()})")
+
+    return launch, out, new_chain
+
+
+def cd_wide_step(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor, chain: torch.Tensor,
+                 *, seed: Optional[int] = None,
+                 uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                 n_valid: Optional[int] = None, norm: Optional[float] = None,
+                 out: Optional[torch.Tensor] = None, grid: int = 0,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step on the CUDA kernel (see module doc); one launch on the
+    current stream. Takes CUDA tensors only (``cd_wide_step_plain`` is its
+    plain version). ``grid`` is the cooperative grid (0: two blocks per SM);
+    the result does not depend on it. Returns (slot, new_chain). Raises
+    ValueError for a config or input the kernel does not take and
+    RuntimeError when the launch fails."""
+    global cd_wide_step_launches
+    if v0.device.type != "cuda":
+        raise ValueError(f"cd_wide_step takes CUDA tensors, got {v0.device}; "
+                         "cd_wide_step_plain is its plain version")
+    launch, out, new_chain = step_launcher(cfg, params, v0, chain, seed=seed, uniforms=uniforms,
+                                           n_valid=n_valid, norm=norm, out=out, grid=grid)
+    launch()
+    cd_wide_step_launches += 1
+    return out, new_chain
+
+
+def _shard_cfg(cfg: RBMConfig, ndev: int) -> RBMConfig:
+    return cfg.replace(batch_size=-(-cfg.batch_size // ndev))
+
+
+def cd_wide_update_plain(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
+                         v0: torch.Tensor, gathered: torch.Tensor, ndev: int, scale: float,
+                         epoch: int) -> Tuple[RBMParams, RBMParams, torch.Tensor]:
+    """The plain version of the update (see module doc): ``cfg`` is the global
+    config, ``v0`` the global minibatch [B, V], ``gathered`` the ndev slots
+    of shards of ceil(B / ndev) rows in rank order, ``scale`` = 1 / ndev.
+    Returns new (params, velocity, err); the inputs are unchanged."""
+    check_wide_supports(cfg)
+    B = cfg.batch_size
+    views = gathered_views(_shard_cfg(cfg, ndev), gathered, ndev)
+    vs = torch.cat([v[0] for v in views])[:B].float()
+    hp = torch.cat([v[1][0] for v in views])[:B]
+    hm = -torch.cat([v[1][1] for v in views])[:B]
+    grads, _ = split_grads(params, v0[:B].float(), hp, vs, hm, cfg)
+    params, velocity = apply_update(params, velocity, grads, cfg, epoch=epoch)
+    err = views[0][2]
+    for v in views[1:]:
+        err = err + v[2]
+    return params, velocity, (err * scale)[0]
+
+
+def update_launcher(cfg: RBMConfig, params: RBMParams, velocity: RBMParams, v0: torch.Tensor,
+                    gathered: torch.Tensor, ndev: int, scale: float, epoch: int, grid: int = 0,
+                    ) -> Tuple[Callable[[], None], torch.Tensor]:
+    """Checks an update's CUDA inputs: returns (launch, err), where
+    ``launch()`` runs the update once on the current stream (W, b, c and
+    their velocities in place), raises RuntimeError when the launch fails,
+    and counts nothing. Raises ValueError for a config or input the kernel
+    does not take."""
+    check_wide_supports(cfg)
+    device, sdt = gathered.device, torch_dtype(cfg.param_dtype)
+    B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
+    local = _shard_cfg(cfg, ndev)
+    n = wide_factor_size(local)
+    state = {}
+    for part, p in (("params", params), ("velocity", velocity)):
+        for name, shape in (("W", (V, H)), ("b", (V,)), ("c", (H,))):
+            t = getattr(p, name)
+            if not t.is_contiguous():
+                raise ValueError(f"{part}.{name} must be contiguous (updated in place)")
+            state[part, name] = _on_device(t, f"{part}.{name}", shape, device, sdt)
+    if v0.dim() != 2 or v0.shape[0] < B:
+        raise ValueError(f"v0 must be the global minibatch [{B}, {V}], got {tuple(v0.shape)}")
+    v0 = _on_device(v0[:B], "v0", (B, V), device, sdt)
+    gathered = _on_device(gathered, "gathered", (ndev * n,), device, torch.uint8)
+    lib = _library(cfg)
+    if int(lib.cd_wide_slot_bytes(V, H, local.batch_size)) != n:
+        raise RuntimeError("csrc/cd_grads_wide.cu's slot layout differs from slot_layout")
+    err = torch.empty(1, dtype=torch.float32, device=device)
+    p, vel = (lambda k: state["params", k]), (lambda k: state["velocity", k])
+    args = (ptr(v0), ptr(gathered), ptr(p("W")), ptr(p("b")), ptr(p("c")), ptr(vel("W")),
+            ptr(vel("b")), ptr(vel("c")), ptr(err), V, H, B, local.batch_size, ndev,
+            kernel_flags(cfg), scale, cfg.lr, resolve_momentum(cfg, epoch), cfg.l2,
+            cfg.grad_clip if cfg.grad_clip is not None else 0.0,
+            cfg.sparsity_target if cfg.sparsity_target is not None else 0.0, cfg.sparsity_cost,
+            _device_index(device), grid, torch.cuda.current_stream(device).cuda_stream)
+
+    def launch(keep=(v0, gathered, err, state)) -> None:  # keep: what the pointers point into
+        rc = lib.cd_wide_update(*args)
+        if rc != 0:
+            raise RuntimeError(f"cd_wide_update kernel launch failed: cudaError {rc} "
+                               f"({lib.cd_grads_wide_error_string(rc).decode()})")
+
+    return launch, err[0]
+
+
+def cd_wide_update(cfg: RBMConfig, params: RBMParams, velocity: RBMParams, v0: torch.Tensor,
+                   gathered: torch.Tensor, ndev: int, scale: float, epoch: int, grid: int = 0,
+                   ) -> Tuple[RBMParams, RBMParams, torch.Tensor]:
+    """The update on the CUDA kernel, launched on the current stream: W, b, c
+    and their velocities change IN PLACE (the data-parallel path holds its
+    own copies) and are returned with the update's error. Takes CUDA tensors
+    only (``cd_wide_update_plain`` is its plain version); ``grid`` (0: two
+    blocks per SM) does not change the result. Raises ValueError for a config
+    or input the kernel does not take and RuntimeError when the launch
+    fails."""
+    global cd_wide_update_launches
+    if gathered.device.type != "cuda":
+        raise ValueError(f"cd_wide_update takes CUDA tensors, got {gathered.device}; "
+                         "cd_wide_update_plain is its plain version")
+    launch, err = update_launcher(cfg, params, velocity, v0, gathered, ndev, scale, epoch, grid)
+    launch()
+    cd_wide_update_launches += 1
+    return params, velocity, err

@@ -24,6 +24,19 @@ is a masked per-shard sum on the single-device bit schedule. Collectives run
 between the launches (``torch.distributed``), as the TPU's in-kernel remote
 copies map to NCCL on Hopper: step kernel, all-reduce, update kernel are the
 port of the TPU's DP mega-kernel, one update at a time.
+
+A run inside the W-blocked kernel's scope that is at least
+``ops.cd_epoch_cuda.WIDE_DP_MIN_VISIBLE`` wide takes the other route
+(``ops.cd_epoch_cuda.select_dp_kernel``, from the config alone), the port of
+the W-blocked kernel's DP mode: each rank's step
+(``ops.cd_grads_wide_cuda.cd_wide_step``, or ``cd_wide_step_plain``) writes
+its factors (the negative-phase visibles at storage dtype, the masked
+h-matrix, the monitor) into its slot of a gather buffer, one all-gather
+fills every slot (through the host under gloo), and every rank runs the
+update (``cd_wide_update``, or ``cd_wide_update_plain``) on the same bytes,
+reading v0 from the global minibatch it holds. ``pallas_step`` chooses only
+between the kernels and their plain versions, so the CPU runs the same
+exchange on the plain versions.
 """
 
 from __future__ import annotations
@@ -35,9 +48,11 @@ import torch.distributed as dist
 
 from ..config import RBMConfig
 from ..core.state import TrainState
-from ..ops.cd_epoch_cuda import batch_order
+from ..ops.cd_epoch_cuda import batch_order, select_dp_kernel
 from ..ops.cd_grads_cuda import (cd_grads_step, cd_grads_step_plain, cd_update,
                                  cd_update_plain, check_grads_supports, flat_size)
+from ..ops.cd_grads_wide_cuda import (cd_wide_step, cd_wide_step_plain, cd_wide_update,
+                                      cd_wide_update_plain, wide_factor_size)
 from .mesh import Mesh
 
 _M64 = (1 << 64) - 1
@@ -82,6 +97,18 @@ def _gather_chain(cfg: RBMConfig, local: torch.Tensor, mesh: Mesh,
     ch = torch.stack([p.reshape(M, local_b, H) for p in parts], dim=1)  # [M, ndev, lb, H]
     ch = ch.reshape(M, mesh.size * local_b, H)[:, :B]
     return ch.reshape(M * B, H).to(local.device)
+
+
+def gather_factors(gathered: torch.Tensor, mine: torch.Tensor, mesh: Mesh) -> None:
+    """Fills the gather buffer (uint8, every rank's slot in rank order) from
+    each rank's slot ``mine``, which is this rank's part of it. Gloo has no
+    all-gather of CUDA tensors, so under gloo the bytes go through the CPU."""
+    if mesh.backend != "gloo":
+        dist.all_gather_into_tensor(gathered, mine)
+        return
+    host = torch.empty(gathered.shape, dtype=gathered.dtype)
+    dist.all_gather(list(host.chunk(mesh.size)), mine.to("cpu", copy=True))
+    gathered.copy_(host)
 
 
 def world_scale(ndev: int) -> float:
@@ -135,13 +162,35 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
     if uniforms is not None:
         uniforms = {name: torch.as_tensor(u)[:, :, rank].to(device=dev, dtype=torch.float32)
                     for name, u in uniforms.items()}
-    # this call's own parameters and velocities: the update kernel writes in place
+    # this call's own parameters and velocities: the update kernels write in place
     params, velocity = state.params.map(torch.clone), state.velocity.map(torch.clone)
-    flat = torch.empty(flat_size(cfg), dtype=torch.float32, device=dev)
     scale = world_scale(ndev)
-    step = cd_grads_step if pallas_step else cd_grads_step_plain
-    update = cd_update if pallas_step else cd_update_plain
-    pseudo = cfg.error_metric == "pseudo"
+    if select_dp_kernel(cfg) == "cd_grads_wide":  # the W-blocked kernel's DP mode
+        slot_bytes = wide_factor_size(local_cfg)
+        gathered = torch.zeros(ndev * slot_bytes, dtype=torch.uint8, device=dev)
+        mine = gathered[rank * slot_bytes:(rank + 1) * slot_bytes]
+        n_valid = min(local_b, max(0, B - rank * local_b))
+        wide_step = cd_wide_step if pallas_step else cd_wide_step_plain
+        wide_update = cd_wide_update if pallas_step else cd_wide_update_plain
+
+        def exchange(params, velocity, chain, j, u, seed, epoch, i):
+            _, new_chain = wide_step(local_cfg, params, my[j], chain, seed=seed, uniforms=u,
+                                     n_valid=n_valid, norm=norm, out=mine)
+            gather_factors(gathered, mine, mesh)
+            return (*wide_update(cfg, params, velocity, batches[j, :B], gathered, ndev, scale,
+                                 epoch), new_chain)
+    else:
+        flat = torch.empty(flat_size(cfg), dtype=torch.float32, device=dev)
+        step = cd_grads_step if pallas_step else cd_grads_step_plain
+        update = cd_update if pallas_step else cd_update_plain
+        pseudo = cfg.error_metric == "pseudo"
+
+        def exchange(params, velocity, chain, j, u, seed, epoch, i):
+            _, new_chain, _ = step(local_cfg, params, my[j], chain, seed=seed, uniforms=u,
+                                   mask=mask, norm=norm, out=flat,
+                                   pseudo_bit=(epoch * nb + i) % V if pseudo else None)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            return (*update(cfg, params, velocity, flat, scale, epoch), new_chain)
     errs: List[torch.Tensor] = []
     for e in range(n_epochs):
         epoch = state.epoch + e
@@ -149,12 +198,7 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
         for i, j in enumerate(order[e]):
             u = None if uniforms is None else {name: x[e, i] for name, x in uniforms.items()}
             seed = None if seeds is None else fold_in(seeds[e][i], rank)
-            _, new_chain, _ = step(local_cfg, params, my[j], chain, seed=seed, uniforms=u,
-                                   mask=mask, norm=norm, out=flat,
-                                   pseudo_bit=(epoch * nb + i) % V if pseudo else None)
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-            params, velocity, err = update(cfg, params, velocity, flat, scale, epoch)
-            chain = new_chain
+            params, velocity, err, chain = exchange(params, velocity, chain, j, u, seed, epoch, i)
             step_errs.append(err)
         errs.append(torch.stack(step_errs).mean())
     new_chain = (_gather_chain(cfg, chain, mesh, local_b).to(state.chain_h.dtype)

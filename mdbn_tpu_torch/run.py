@@ -167,15 +167,16 @@ def main(argv=None):
             for ep, (err, ups) in enumerate(zip(model.metrics.errors,
                                                 model.metrics.updates_per_sec)):
                 mw.write({"kind": "epoch", "epoch": ep, "recon_error": err,
-                          "updates_per_sec": ups, "engine": model.metrics.engine})
-            log.info("RBM trained (%s engine): err %.5f -> %.5f",
-                     model.metrics.engine, model.history[0], model.history[-1])
+                          "updates_per_sec": ups, "engine": model.metrics.engine,
+                          "kernel": model.metrics.kernel})
+            log.info("RBM trained (%s engine, %s): err %.5f -> %.5f", model.metrics.engine,
+                     model.metrics.kernel, model.history[0], model.history[-1])
         elif model_cls is DBN:
             model = DBN(override(model_cfg), device=device)
 
             def layer_cb(l, rbm):
                 mw.write({"kind": "layer", "layer": l, "errors": rbm.history,
-                          "engine": rbm.metrics.engine})
+                          "engine": rbm.metrics.engine, "kernel": rbm.metrics.kernel})
                 log.info("layer %d trained (%s): err %.5f -> %.5f", l,
                          rbm.metrics.engine, rbm.history[0], rbm.history[-1])
 

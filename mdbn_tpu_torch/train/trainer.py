@@ -22,10 +22,17 @@ Engines (``cfg.engine``):
 Under a data-parallel ``mesh`` of more than one rank
 (``parallel.mesh.make_mesh``) the run goes through
 ``parallel.dp.train_rbm_shard_map``: ``"cuda_dp"`` runs each rank's step on
-the kernels of ``csrc/cd_grads.cu`` (``engine="pallas"`` or ``"auto"`` on
-CUDA, in every estimator mode and at both storage dtypes; a config they do
-not take raises), ``"eager_dp"`` on their plain versions (``"xla"``, or the
-CPU). A mesh of one rank takes the single-device path.
+the DP kernels (``engine="pallas"`` or ``"auto"`` on CUDA, in every estimator
+mode and at both storage dtypes; a config they do not take raises),
+``"eager_dp"`` on their plain versions (``"xla"``, or the CPU). Which DP
+kernels, ``ops.cd_epoch_cuda.select_dp_kernel`` decides from the config:
+``csrc/cd_grads.cu`` (a step into a flat buffer, an all-reduce, an
+elementwise update), or for a run inside the W-blocked kernel's scope at
+least ``WIDE_DP_MIN_VISIBLE`` wide ``csrc/cd_grads_wide.cu`` (a step split
+over strips of W, an all-gather of the factors, an update that forms the
+gradient from them). A mesh of one rank takes the single-device path.
+``EpochMetrics.kernel`` names the kernel the route took (under an eager
+engine, the kernel whose plain version ran).
 """
 
 from __future__ import annotations
@@ -62,9 +69,12 @@ def resolve_engine(cfg: RBMConfig, device: torch.device) -> str:
 def resolve_dp_engine(cfg: RBMConfig, device: torch.device) -> str:
     """The engine a run of ``cfg`` on ``device`` under a mesh of more than one
     rank uses: "cuda_dp" or "eager_dp". On CUDA, ``"pallas"`` and ``"auto"``
-    run the DP kernels (``csrc/cd_grads.cu``: the step's statistics, then the
-    update after the all-reduce) and raise for a config they do not take
-    (``k > 255``); "eager_dp" is ``"xla"``, or the CPU."""
+    run the DP kernels and raise for a config they do not take (``k >
+    255``); "eager_dp" is ``"xla"``, or the CPU. Either engine takes the
+    route ``ops.cd_epoch_cuda.select_dp_kernel`` gives: ``csrc/cd_grads.cu``
+    (the step's statistics, an all-reduce, the update), or for a wide run in
+    the W-blocked kernel's scope ``csrc/cd_grads_wide.cu`` (the step's
+    factors, an all-gather, the update that forms the gradient from them)."""
     if cfg.engine != "xla" and device.type == "cuda":
         check_grads_supports(cfg)
         return "cuda_dp"
@@ -84,13 +94,18 @@ def _check_runtime(runtime: TrainRuntimeConfig) -> None:
 
 
 class EpochMetrics:
-    __slots__ = ("errors", "updates_per_sec", "wall_seconds", "engine")
+    """Per-epoch errors and rates of a run, its engine, and the kernel its
+    route took ("cd_train", "cd_train_wide", "cd_grads" or "cd_grads_wide";
+    under an eager engine, the kernel whose plain version ran)."""
 
-    def __init__(self, engine: str = "eager"):
+    __slots__ = ("errors", "updates_per_sec", "wall_seconds", "engine", "kernel")
+
+    def __init__(self, engine: str = "eager", kernel: Optional[str] = None):
         self.errors: List[float] = []
         self.updates_per_sec: List[float] = []
         self.wall_seconds: List[float] = []
         self.engine = engine
+        self.kernel = kernel
 
 
 def _slice_epochs(uniforms: Dict[str, torch.Tensor], lo: int, hi: int):
@@ -153,7 +168,9 @@ def train_rbm(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    metrics = EpochMetrics(engine)
+    kernel = (cd_epoch_cuda.select_dp_kernel(cfg) if dp
+              else cd_epoch_cuda.select_kernel(cfg) if engine == "cuda" else "cd_train")
+    metrics = EpochMetrics(engine, kernel)
     per_epoch = epoch_callback is not None or runtime.checkpoint_every_epochs > 0
     if per_epoch:
         ck_every = runtime.checkpoint_every_epochs
@@ -189,5 +206,6 @@ def train_rbm(
         with MetricsWriter(runtime.metrics_path) as mw:
             for ep, (err, ups) in enumerate(zip(metrics.errors, metrics.updates_per_sec)):
                 mw.write({"kind": "epoch", "epoch": ep, "recon_error": err,
-                          "updates_per_sec": ups, "engine": metrics.engine})
+                          "updates_per_sec": ups, "engine": metrics.engine,
+                          "kernel": metrics.kernel})
     return state, metrics

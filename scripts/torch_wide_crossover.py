@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Time both CUDA train kernels on the shapes both take, on one card.
+"""Time both CUDA train kernels on the shapes both take, on one card; with
+--dp, both data-parallel routes.
 
     python3 scripts/torch_wide_crossover.py [--reps 5]
+    python3 scripts/torch_wide_crossover.py --dp [--reps 3]
 
 ``ops.cd_epoch_cuda.select_kernel`` sends a run either to ``csrc/cd_train.cu``
 or to the W-blocked ``csrc/cd_train_wide.cu``. This script measures where the
@@ -16,6 +18,19 @@ events in the order cd_train, wide, wide, cd_train after a warm-up call each;
 the better of each side's two times counts. Prints one JSON line per shape
 with both kernels' µs per update and the weights' bytes, then a summary line
 with the card's name and power limit. Needs one CUDA device.
+
+With --dp the same shapes (H 400 and batch 20, plus w20k_mom_bf16, w28k and
+w40k_bf16) run through ``parallel.dp.train_rbm_shard_map(pallas_step=True)``
+on a one-rank NCCL mesh, once on each route that
+``ops.cd_epoch_cuda.select_dp_kernel`` chooses between (``WIDE_DP_MIN_VISIBLE``
+set in this process to force it): ``csrc/cd_grads.cu``'s step, the
+all-reduce of the flat statistics and its update, against
+``csrc/cd_grads_wide.cu``'s step, the all-gather of the factors and its
+update. Per shape and route, in the order cd_grads, wide, wide, cd_grads:
+one epoch's wall time (host clock around a synchronised call, after a
+warm-up epoch) and, from one torch.profiler trace of an epoch, the device
+time per step of the route's two kernels and of every kernel. The better of
+each route's two readings counts; "faster" compares the route's kernels.
 """
 
 from __future__ import annotations
@@ -46,6 +61,96 @@ SHAPES = {  # name -> (config fields on top of BASE, data rows)
 }
 
 
+DP_SHAPES = [name for name in SHAPES if name not in ("w20k_h512", "w20k_mom", "w20k_b64")]
+ROUTE_KERNELS = {"cd_grads": ("cd_grads_kernel", "cd_update_kernel"),
+                 "cd_grads_wide": ("cd_wide_step_kernel", "cd_wide_update_kernel")}
+
+
+def device_us(fn, names) -> tuple:
+    """(device us of the kernels whose name contains one of ``names``, device
+    us of every kernel) in one call of ``fn``, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    mine = every = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if us > 0 and ev.self_cpu_time_total == 0:  # a kernel: device time, no CPU time
+            every += us
+            if any(n in ev.key for n in names):
+                mine += us
+    return mine, every
+
+
+def dp_main(reps: int, smi: str) -> int:
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from mdbn_tpu_torch.config import RBMConfig
+    from mdbn_tpu_torch.core.rbm_math import torch_dtype
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.parallel import dp
+    from mdbn_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(1, backend="nccl")
+    threshold, faster = K.WIDE_DP_MIN_VISIBLE, {}
+    try:
+        for name in DP_SHAPES:
+            fields, n = SHAPES[name]
+            cfg = RBMConfig(**{**BASE, **fields, "engine": "pallas"})
+            gen = torch.Generator(device=dev).manual_seed(0)
+            data = torch.randn((n, cfg.n_visible), generator=gen,
+                               device=dev).to(torch_dtype(cfg.param_dtype))
+            st = init_train_state(cfg, device=dev)
+            nb = n // cfg.batch_size
+
+            def epoch():
+                dp.train_rbm_shard_map(st, data, cfg, mesh, 1, pallas_step=True)
+
+            rec = {route: {"wall_ms": [], "kernels_us_per_step": [], "all_us_per_step": []}
+                   for route in ROUTE_KERNELS}
+            for route in ("cd_grads", "cd_grads_wide", "cd_grads_wide", "cd_grads"):
+                K.WIDE_DP_MIN_VISIBLE = 1 if route == "cd_grads_wide" else 1 << 30
+                if K.select_dp_kernel(cfg) != route:
+                    raise AssertionError(f"{name}: could not force the route {route}")
+                epoch()  # warm-up
+                walls = []
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    epoch()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                mine, every = device_us(epoch, ROUTE_KERNELS[route])
+                rec[route]["wall_ms"].append(min(walls))
+                rec[route]["kernels_us_per_step"].append(mine / nb)
+                rec[route]["all_us_per_step"].append(every / nb)
+            K.WIDE_DP_MIN_VISIBLE = threshold
+            best = {r: min(v["kernels_us_per_step"]) for r, v in rec.items()}
+            faster[name] = min(best, key=best.get)
+            print(json.dumps({
+                "shape": name, "V": cfg.n_visible, "H": cfg.n_hidden, "B": cfg.batch_size,
+                "param_dtype": cfg.param_dtype, "steps_per_epoch": nb,
+                "cd_grads_us_per_step": best["cd_grads"],
+                "cd_grads_wide_us_per_step": best["cd_grads_wide"],
+                "routes": rec, "select_dp_kernel": K.select_dp_kernel(cfg),
+                "faster": faster[name]}), flush=True)
+    finally:
+        K.WIDE_DP_MIN_VISIBLE = threshold
+        dist.destroy_process_group()
+    print(json.dumps({"order": "cd_grads, wide, wide, cd_grads", "nvidia_smi": smi,
+                      "ranks": 1, "backend": "nccl", "faster": faster}))
+    return 0
+
+
 def time_runs(fn, reps: int) -> float:
     """Mean seconds per call of ``fn`` on the card, after one warm-up call."""
     import torch
@@ -64,6 +169,8 @@ def time_runs(fn, reps: int) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--dp", action="store_true",
+                    help="time the two data-parallel routes on one NCCL rank")
     args = ap.parse_args()
     import torch
 
@@ -81,6 +188,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     build_all()
+    if args.dp:
+        return dp_main(args.reps, smi)
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     faster = {}
     for name, (fields, n) in SHAPES.items():

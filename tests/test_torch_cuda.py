@@ -593,3 +593,213 @@ def test_dp_one_rank_nccl(cuda):
         torch.testing.assert_close(a.chain_h, b.chain_h, rtol=0, atol=0)
     finally:
         dist.destroy_process_group()
+
+
+# the W-blocked kernel's data-parallel mode, csrc/cd_grads_wide.cu: the step on
+# a whole batch and on shards whose last row is padding (n_valid rows of 7,
+# norm 20/3), and the update on 3 ranks' gathered slots
+WIDE_DP_STEPS = {  # name: (the shard's config, real rows, norm)
+    "gaussian-momentum": (RBMConfig(**SMALL, visible="gaussian", lr=0.01, momentum=0.5,
+                                    **MEANFIELD), 8, None),
+    "gaussian-shard-pad": (RBMConfig(**SHARD, visible="gaussian", lr=0.01, **MEANFIELD), 6,
+                           20 / 3),
+    "pcd-k2-xent-sparsity-shard-pad": (RBMConfig(**SHARD, lr=0.1, k=2, persistent=True,
+                                                 error_metric="xent", sparsity_target=0.1,
+                                                 sparsity_cost=0.5, **MEANFIELD), 6, 20 / 3),
+    "three-strips-batch-40": (RBMConfig(n_visible=1100, n_hidden=72, batch_size=40,
+                                        visible="gaussian", lr=0.005, **MEANFIELD), 40, None),
+    "bf16-pcd-momentum-shard-pad": (RBMConfig(**SHARD, lr=0.1, persistent=True, momentum=0.5,
+                                              **MEANFIELD, **BF16), 6, 20 / 3),
+}
+
+
+def _wide_dp_inputs(cfg, n_valid, device, seed=0):
+    """The shard's parameters (W at 10x its init scale, small biases) at the
+    storage dtype, its rows with the pad rows zero, a 0/1 chain, and one
+    step's draws hardened against the W-blocked plain version."""
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops.cd_step import draw_uniforms
+
+    B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
+    sdt = torch_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    st = init_train_state(cfg, device=device)
+    p = RBMParams(W=(st.params.W.float() * 10.0).to(sdt), b=(0.1 * rand(V)).to(sdt),
+                  c=(0.1 * rand(H)).to(sdt))
+    v0 = ((torch.rand((B, V), generator=gen, device=device) < 0.3).float()
+          if cfg.visible == "bernoulli" else rand(B, V))
+    v0[n_valid:] = 0.0
+    v0 = v0.to(sdt)
+    chain = (torch.rand((B, H), generator=gen, device=device) < 0.5).to(sdt)
+    u = G.harden_step(cfg, p, chain, v0, draw_uniforms(cfg, B, gen), wide=True)
+    return p, v0, chain, u
+
+
+def _close_bf16(a, b, atol=1e-6):
+    """bf16 values (or values rounded from bf16 operands) within one bf16 ulp."""
+    a, b = a.float(), b.float()
+    assert bool(((a - b).abs() <= 2.0 ** -7 * torch.maximum(a.abs(), b.abs()) + atol).all()), \
+        float((a - b).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WIDE_DP_STEPS))
+def test_wide_dp_step_matches_plain(cuda, name):
+    """The step's slot (vs, the h-matrix, err) and chain against the plain
+    version on hardened draws: float32 at REPLAY_TOL; under bf16 compute the
+    products' operands round to bf16, so vs and the h-matrix to one bf16 ulp
+    (and 2^-8 absolute for probabilities) and err to 1e-3."""
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+
+    cfg, nv, norm = WIDE_DP_STEPS[name]
+    p, v0, chain, u = _wide_dp_inputs(cfg, nv, cuda)
+    before = W.cd_wide_step_launches
+    got, c_got = W.cd_wide_step(cfg, p, v0, chain, uniforms=u, n_valid=nv, norm=norm)
+    torch.cuda.synchronize()
+    assert W.cd_wide_step_launches == before + 1
+    want, c_want = W.cd_wide_step_plain(cfg, p, v0, chain, uniforms=u, n_valid=nv, norm=norm)
+    (gv, gh, ge), (wv, wh, we) = W.slot_views(cfg, got), W.slot_views(cfg, want)
+    assert bool(torch.isfinite(gh).all()) and bool(torch.isfinite(gv.float()).all())
+    assert torch.equal(gh[:, nv:], torch.zeros_like(gh[:, nv:]))  # pad rows enter nothing
+    if cfg.compute_dtype == "bfloat16":
+        _close_bf16(gv, wv)
+        _close_bf16(gh, wh, atol=2.0 ** -8)
+        torch.testing.assert_close(ge, we, rtol=1e-3, atol=1e-6)
+    else:
+        for a, b in ((gv, wv), (gh, wh), (ge, we)):
+            torch.testing.assert_close(a, b, **REPLAY_TOL)
+    torch.testing.assert_close(c_got, c_want, rtol=0, atol=0)  # the same samples
+    if not cfg.persistent:
+        assert torch.equal(c_got, chain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gaussian-shard-pad", "three-strips-batch-40",
+                                  "bf16-pcd-momentum-shard-pad"])
+def test_wide_dp_step_is_grid_independent(cuda, name):
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+
+    cfg, nv, norm = WIDE_DP_STEPS[name]
+    p, v0, chain, _ = _wide_dp_inputs(cfg, nv, cuda)
+    runs = [W.cd_wide_step(cfg, p, v0, chain, seed=3, n_valid=nv, norm=norm, grid=g)
+            for g in (0, 1, 7, 132)]
+    for slot, ch in runs[1:]:
+        assert torch.equal(slot, runs[0][0]) and torch.equal(ch, runs[0][1])
+
+
+WIDE_DP_UPDATES = {  # the global config; 3 ranks of ceil(B / 3) rows
+    "momentum-schedule-l2-clip-sparsity": RBMConfig(
+        n_visible=40, n_hidden=24, batch_size=20, lr=0.1, momentum=0.9, initial_momentum=0.5,
+        sparsity_target=0.1, sparsity_cost=0.5, **MEANFIELD),
+    "three-strips-batch-40": RBMConfig(n_visible=1100, n_hidden=300, batch_size=40,
+                                       visible="gaussian", lr=0.005, momentum=0.5, **MEANFIELD),
+    "bf16-momentum": RBMConfig(n_visible=40, n_hidden=24, batch_size=20, visible="gaussian",
+                               lr=0.01, momentum=0.5, **MEANFIELD, **BF16),
+}
+
+
+def _wide_dp_gathered(cfg, ndev, device, seed=0):
+    """Parameters, velocities, the global minibatch and ndev ranks' gathered
+    slots of random factors (pad rows of the last rank zero in the h-matrix)."""
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+
+    B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
+    lb = -(-B // ndev)
+    local = cfg.replace(batch_size=lb)
+    sdt = torch_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *shape: 0.1 * torch.randn(shape, generator=gen, device=device)
+    state = lambda: RBMParams(W=rand(V, H).to(sdt), b=rand(V).to(sdt), c=rand(H).to(sdt))
+    n = W.wide_factor_size(local)
+    gathered = torch.zeros(ndev * n, dtype=torch.uint8, device=device)
+    for d, (vs, hmat, err) in enumerate(W.gathered_views(local, gathered, ndev)):
+        nv = min(lb, B - d * lb)
+        vs.copy_((10.0 * rand(lb, V)).to(sdt))
+        hmat[0, :nv] = torch.rand((nv, H), generator=gen, device=device)
+        hmat[1, :nv] = -torch.rand((nv, H), generator=gen, device=device)
+        err.copy_(rand(1).abs())
+    return state(), state(), (10.0 * rand(B, V)).to(sdt), gathered
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WIDE_DP_UPDATES))
+def test_wide_dp_update_matches_plain(cuda, name):
+    """The update on 3 ranks' gathered slots against the plain version, at
+    epochs 0 and 5 (either side of a momentum switch): float32 at REPLAY_TOL
+    (gW's sums run in another order than cuBLAS's), bf16 storage a velocity
+    to one ulp and a parameter to its velocity's ulp and one of its own;
+    the same bits on grids 1, 7 and 132."""
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+    from mdbn_tpu_torch.parallel.dp import world_scale
+
+    cfg = WIDE_DP_UPDATES[name]
+    p, vel, v0, gathered = _wide_dp_gathered(cfg, 3, cuda)
+    for epoch in (0, 5):
+        want = W.cd_wide_update_plain(cfg, p, vel, v0, gathered, 3, world_scale(3), epoch)
+        before = W.cd_wide_update_launches
+        runs = [W.cd_wide_update(cfg, p.map(torch.clone), vel.map(torch.clone), v0, gathered, 3,
+                                 world_scale(3), epoch, grid=g) for g in (0, 1, 7, 132)]
+        torch.cuda.synchronize()
+        assert W.cd_wide_update_launches == before + 4
+        for r in runs[1:]:
+            for i in (0, 1):
+                for a, b in zip(r[i].as_dict().values(), runs[0][i].as_dict().values()):
+                    assert torch.equal(a, b)
+        got = runs[0]
+        assert torch.equal(got[2], want[2])
+        for n in ("W", "b", "c"):
+            gp, gv = getattr(got[0], n), getattr(got[1], n)
+            wp, wv = getattr(want[0], n), getattr(want[1], n)
+            assert gp.dtype == wp.dtype
+            if gp.dtype == torch.bfloat16:
+                _close_bf16(gv, wv)
+                a, b = gp.float(), wp.float()
+                big = torch.maximum(a.abs(), b.abs()) + torch.maximum(gv.float().abs(),
+                                                                      wv.float().abs())
+                assert bool(((a - b).abs() <= 2.0 ** -7 * big + 1e-6).all())
+            else:
+                torch.testing.assert_close(gv, wv, **REPLAY_TOL)
+                torch.testing.assert_close(gp, wp, **REPLAY_TOL)
+
+
+@pytest.mark.cuda
+def test_wide_dp_one_rank_nccl(cuda, monkeypatch):
+    """A mesh of one NCCL rank with the W-blocked DP route forced at this
+    width: train_rbm_shard_map on the kernels launches cd_grads_wide's step
+    and update once a step and no cd_grads kernel, matches its plain
+    versions on the same hardened draws, and matches the single-device
+    W-blocked kernel's run."""
+    import torch.distributed as dist
+
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+    from mdbn_tpu_torch.parallel.dp import train_rbm_shard_map
+    from mdbn_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(K, "WIDE_DP_MIN_VISIBLE", 32)
+    cfg = WIDE_CASES["bernoulli-pcd-k2"]
+    assert K.select_dp_kernel(cfg) == "cd_grads_wide"
+    st, data, order, u = _inputs(cfg, cuda, E=2, nb=6, wide=True)
+    mesh = make_mesh(1, backend="nccl")
+    try:
+        du = {k: x[:, :, None] for k, x in u.items()}
+        before = (W.cd_wide_step_launches, W.cd_wide_update_launches, G.cd_grads_launches,
+                  G.cd_update_launches)
+        a, ea = train_rbm_shard_map(st, data, cfg, mesh, 2, pallas_step=True, uniforms=du)
+        torch.cuda.synchronize()
+        assert (W.cd_wide_step_launches, W.cd_wide_update_launches, G.cd_grads_launches,
+                G.cd_update_launches) == (before[0] + 12, before[1] + 12, *before[2:])
+        b, eb = train_rbm_shard_map(st, data, cfg, mesh, 2, pallas_step=False, uniforms=du)
+        p, v, chain, es = KW.cd_train_wide_run(cfg, st.params, st.velocity, st.chain_h, data,
+                                               order, 0, u)
+        for x, y, z in ((a.params.W, b.params.W, p.W), (a.params.c, b.params.c, p.c),
+                        (a.velocity.W, b.velocity.W, v.W), (ea, eb, es)):
+            torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-6)
+            torch.testing.assert_close(x, z, rtol=2e-4, atol=2e-6)
+        torch.testing.assert_close(a.chain_h, b.chain_h, rtol=0, atol=0)
+        torch.testing.assert_close(a.chain_h, chain, rtol=0, atol=0)
+    finally:
+        dist.destroy_process_group()

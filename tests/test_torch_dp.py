@@ -417,15 +417,15 @@ def jax_replay(kw, data, uniforms, ndev, n_epochs):
 
 
 def spawn_ranks(tmp_path, ndev, tc, data, uniforms, n_epochs, pallas_steps, api=False,
-                limit_s=120.0, each_epoch=False):
+                limit_s=120.0, each_epoch=False, wide_dp_min_visible=None):
     """Runs the ranks, one process each; fails (and stops them) past limit_s."""
     from torch_dp_ranks import run_rank
 
     from mdbn_tpu_torch.parallel.mesh import _free_port
 
     ctx = mp.spawn(run_rank, args=(ndev, _free_port(), str(tmp_path), tc, data, uniforms,
-                                   n_epochs, pallas_steps, api, each_epoch), nprocs=ndev,
-                   join=False)
+                                   n_epochs, pallas_steps, api, each_epoch,
+                                   wide_dp_min_visible), nprocs=ndev, join=False)
     deadline = time.monotonic() + limit_s
     while not ctx.join(timeout=1.0):
         if time.monotonic() > deadline:
