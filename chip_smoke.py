@@ -4,22 +4,26 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from mdbn_tpu_torch/csrc (nvcc, sm_90a: cd_train.cu,
-cd_train_wide.cu, cd_grads.cu and cd_grads_wide.cu, each at float32 and
-bfloat16 storage, in parallel) and runs twenty-two phases, one line each:
+cd_train_wide.cu, cd_train_resident.cu, cd_grads.cu and cd_grads_wide.cu,
+each at float32 and bfloat16 storage, in parallel) and runs twenty-four
+phases, one line each (23 and 24 run after 5):
 
 1. device: torch and CUDA versions, the card's name and power limit, build time;
-2. the kernel against its plain PyTorch version on the card, inject mode with
+2. cd_train.cu against its plain PyTorch version on the card, inject mode with
    hardened uniforms: the whole run at c1's width (784x500, B 20, CD-1,
    2 epochs), and every update of a run at c5's tower recipe on c2's width
    (Gaussian 2000x400, k=2, PCD, momentum 0.5, L2 1e-4, mean-field visibles,
    2 epochs) replayed one at a time;
 3. c1 through RBM.train (configs/c1_bernoulli_rbm_mnist.json, 10 epochs,
-   engine "pallas"): the kernel ran, and the final error is within 0.001 of
-   0.0744 (GRADED_RUNS.md);
+   engine "pallas"): the kernel select_kernel names (the resident kernel,
+   csrc/cd_train_resident.cu) ran and no other, and the final error is
+   within 0.001 of 0.0744 (GRADED_RUNS.md);
 4. c4 through MDBN.train (configs/c4_mdbn_3modality.json): every layer on the
-   kernel, finite [400, 100] codes, each layer's error falls;
-5. kernel and plain updates/s at c1's shape, and the kernel's median time per
-   phase of an update (its own clock stamps, each phase with its barrier);
+   kernel select_kernel names for it (the resident kernel), finite [400, 100]
+   codes, each layer's error falls;
+5. cd_train.cu, called directly, and plain updates/s at c1's shape, and the
+   kernel's median time per phase of an update (its own clock stamps, each
+   phase with its barrier);
 6. the estimator modes, kernel against plain at full width for 2 epochs with
    hardened draws: tempering (pt5: 784x500, 5 rungs) and learned variance
    (lv: Gaussian 2000x200 on scale-corrupted GE) replayed one update at a
@@ -109,7 +113,19 @@ bfloat16 storage, in parallel) and runs twenty-two phases, one line each:
 22. dp_ranks_wide: w20k_mom_bf16 over 3 gloo ranks through
     RBM.train(mesh=...): the cd_grads_wide kernels launched, bit-identical
     parameters across ranks, an injected run against the W-blocked route's
-    plain replay one update at a time to one bf16 ulp.
+    plain replay one update at a time to one bf16 ulp;
+23. kernel_vs_plain_resident: the resident kernel against its plain version
+    (cd_train_run_plain) at c1, c2, c4's GE tower's second layer (400x100),
+    c5's tower recipe at c2's width (PCD, k=2, momentum 0.5, L2 1e-4) and c1
+    at bf16 storage and compute, 2 epochs on hardened draws (the last two one
+    update at a time, bf16 to one ulp), the counters showing that it alone
+    ran; the same bits on the default cluster count and the smallest that
+    holds the tiles (where only one count holds them, as at c2's width, on
+    two counts of the same config at batch 4);
+24. timing_resident: one epoch per call of each of those shapes, in the
+    order plain, resident, cd_train.cu, cd_train.cu, resident, plain; the
+    resident kernel's median time per step of an update from its trace (k +
+    1 tile barriers an update), and the bound.
 
 Then a JSON line describing the kernels, and last
 {"ok": true, "device": ...}. Exits non-zero, printing no result, when there
@@ -327,34 +343,40 @@ def _max_diff(got, want, rtol, atol, off=None) -> float:
     return max(err, float((got[3] - want[3]).abs().max()))
 
 
-def _runners(wide):
-    """(kernel, plain) of a comparison: the W-blocked pair when ``wide``."""
+def _runners(wide, clusters=None):
+    """(kernel, plain) of a comparison: the W-blocked pair when ``wide``; the
+    resident kernel on ``clusters`` clusters (0: its default) when that is
+    not None."""
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
     from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
 
     def kernel(*args):
+        if clusters is not None:
+            return R.cd_train_resident_run(*args, grid=clusters)
         return K.cd_train_run(*args, wide=wide)
 
     return kernel, KW.cd_train_wide_run_plain if wide else K.cd_train_run_plain
 
 
-def compare_run(cfg, data, n_epochs, device, seed, wide=False) -> float:
+def compare_run(cfg, data, n_epochs, device, seed, wide=False, clusters=None) -> float:
     """The whole n_epochs run on the kernel and on the plain version, from the
-    same state with the same hardened draws."""
+    same state with the same hardened draws (``clusters``: see _runners)."""
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
 
     import torch
 
     st, u, nb = _inputs(cfg, data, n_epochs, device, seed, wide=wide)
     order = K.batch_order(cfg, nb, n_epochs, None)
-    kernel, plain = _runners(wide)
+    kernel, plain = _runners(wide, clusters)
     got = kernel(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
     want = plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
     torch.cuda.synchronize()
     return _max_diff(got, want, RTOL, ATOL)
 
 
-def compare_replay(cfg, data, n_epochs, device, seed, wide=False, off=None) -> float:
+def compare_replay(cfg, data, n_epochs, device, seed, wide=False, off=None,
+                   clusters=None) -> float:
     """Every update of the kernel's own n_epochs trajectory, replayed by the
     plain version from the same state. PCD with momentum amplifies fp32
     rounding differences from update to update (the plain version on the CPU
@@ -371,7 +393,7 @@ def compare_replay(cfg, data, n_epochs, device, seed, wide=False, off=None) -> f
     B = cfg.batch_size
     one = torch.zeros((1, 1), dtype=torch.int32)
     p, v, chain = st.params, st.velocity, st.chain_h
-    kernel, plain = _runners(wide)
+    kernel, plain = _runners(wide, clusters)
     err, errs_k, errs_p = 0.0, [], []
     for e in range(n_epochs):
         for i in range(nb):
@@ -595,14 +617,9 @@ def run_wide(dev, smi) -> list:
     rows = wide_rows(dev)
 
     def only(kernel, name):
-        """Assert that ``kernel`` alone was launched since the counts were
-        set to 0; how often."""
-        n = {"cd_train": K.cd_train_launches, "cd_train_wide": KW.cd_train_wide_launches}
-        if n.pop(kernel) < 1 or any(n.values()):
-            raise AssertionError(f"{name}: expected launches of {kernel} alone, got cd_train "
-                                 f"{K.cd_train_launches}, cd_train_wide "
-                                 f"{KW.cd_train_wide_launches}")
-        return K.cd_train_launches + KW.cd_train_wide_launches
+        """Assert that ``kernel`` alone of the train kernels was launched
+        since the counts were set to 0; how often."""
+        return check_counts(name, {kernel: train_counts()[kernel]})[kernel]
 
     # kernel against plain at full width, 2 epochs, hardened draws, on the
     # row's kernel and, where the admission rule picks the other one, on that
@@ -615,7 +632,7 @@ def run_wide(dev, smi) -> list:
         for kern in dict.fromkeys((kernel, admitted)):
             key = name if kern == kernel else f"{name}@{kern}"
             wide = kern == "cd_train_wide"
-            K.cd_train_launches = KW.cd_train_wide_launches = 0
+            zero_train_counts()
             if replayed:
                 n_off = [0, 0]
                 errs[key] = compare_replay(cfg, data, 2, dev, seed=3, wide=wide, off=n_off)
@@ -663,7 +680,7 @@ def run_wide(dev, smi) -> list:
     for name in WIDE_TRAINED:
         cfg, data = rows[name][:2]
         kernel = "cd_train_wide" if name in WIDE_ADMITTED else "cd_train"
-        K.cd_train_launches = KW.cd_train_wide_launches = 0
+        zero_train_counts()
         t0 = time.perf_counter()
         rbm = RBM(cfg.replace(epochs=10, engine="pallas"), device=dev).train(data)
         seconds = time.perf_counter() - t0
@@ -744,6 +761,181 @@ def run_wide(dev, smi) -> list:
             entry("cd_train_wide[w20k_mom_bf16]", "w20k_mom_bf16", 1981,
                   "the W-blocked kernel under momentum at bf16",
                   key="w20k_mom_bf16@cd_train_wide")]
+
+
+def train_counts() -> dict:
+    """The single-device train kernels' launch counters."""
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
+    from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
+
+    return {"cd_train": K.cd_train_launches, "cd_train_wide": KW.cd_train_wide_launches,
+            "cd_train_resident": R.cd_train_resident_launches}
+
+
+def zero_train_counts() -> None:
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
+    from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
+
+    K.cd_train_launches = KW.cd_train_wide_launches = R.cd_train_resident_launches = 0
+
+
+def check_counts(name, expected: dict) -> dict:
+    """Assert that the train kernels launched as often as ``expected`` says
+    ({kernel: launches}, every other kernel never) since the counts were set
+    to 0; the counts."""
+    got = train_counts()
+    want = {k: expected.get(k, 0) for k in got}
+    if got != want or not any(want.values()):
+        raise AssertionError(f"{name}: expected the launches {want}, got {got}")
+    return got
+
+
+def resident_shapes(dev, c1, c1_data, ge):
+    """name -> (config, data, replayed) of the resident kernel's phases: c1;
+    c2 (Gaussian 2000x400, mean-field visibles); c4's GE tower's second layer
+    (400x100, on seeded probabilities); c5's tower recipe at c2's width (PCD,
+    k=2, momentum 0.5, L2 1e-4) and c1 at bf16 storage and compute, both one
+    update at a time (compare_replay; bf16 to one ulp)."""
+    import torch
+
+    from mdbn_tpu_torch.config import load_config
+
+    c2 = load_config(C2)["model"]
+    ge_tower = load_config(C4)["model"].towers["ge"]
+    c4_ge1 = ge_tower.rbm_config(1, ge_tower.layer_sizes[0])
+    gen = torch.Generator(device=dev).manual_seed(4)
+    probs = torch.rand((400, c4_ge1.n_visible), generator=gen, device=dev)
+    return {"c1": (c1, c1_data, False), "c2": (c2, ge, False),
+            "c4_ge1": (c4_ge1, probs, False),
+            "c5_tower": (c2.replace(k=2, persistent=True, momentum=0.5, l2=1e-4), ge, True),
+            "c1_bf16": (c1.replace(**BF16), c1_data.to(torch.bfloat16), True)}
+
+
+def resident_cluster_counts(cfg, dev) -> list:
+    """The default cluster count of ``cfg`` and the smallest that still
+    holds its tiles (most strips a block), when there is one."""
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
+
+    smem, maxc = R.device_limits(cfg, dev)
+    first = R.resident_tiles(cfg, smem, maxc).clusters
+    for g in range(1, first):
+        try:
+            R.resident_tiles(cfg, smem, maxc, clusters=g)
+        except ValueError:
+            continue
+        return [first, g]
+    return [first]
+
+
+def run_resident(dev, smi, c1, c1_data, ge, main_launches: int) -> list:
+    """Phases 23-24, the resident kernel; returns its entries of the kernel
+    line (``main_launches``: its launches on the main path, phases 3-4)."""
+    import torch
+
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
+
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    shapes = resident_shapes(dev, c1, c1_data, ge)
+
+    # 23. against the plain version on hardened draws (2 epochs); the same
+    # bits on two cluster counts (one epoch, the kernel's own draws)
+    errs, counts, same, off = {}, {}, {}, {}
+    for name, (cfg, data, replayed) in shapes.items():
+        if K.select_kernel(cfg, R.device_limits(cfg, dev)) != "cd_train_resident":
+            raise AssertionError(f"{name}: select_kernel does not give the resident kernel")
+        zero_train_counts()
+        if replayed:
+            n_off = [0, 0]
+            errs[name] = compare_replay(cfg, data, 2, dev, seed=5, off=n_off, clusters=0)
+            if n_off[1]:
+                off[name] = {"differ": n_off[0], "of": n_off[1]}
+        else:
+            errs[name] = compare_run(cfg, data, 2, dev, seed=5, clusters=0)
+        check_counts(name, {"cd_train_resident": train_counts()["cd_train_resident"]})
+        counts[name] = resident_cluster_counts(cfg, dev)
+        checks = [(name, cfg)]
+        if len(counts[name]) == 1:  # two strips fit one block at batch 4: two counts there
+            checks.append((f"{name}@B4", cfg.replace(batch_size=4)))
+            counts[checks[1][0]] = resident_cluster_counts(checks[1][1], dev)
+        for key, c in checks:
+            st = init_train_state(c, device=dev)
+            order = K.batch_order(c, data.shape[0] // c.batch_size, 1, None)
+            runs = [R.cd_train_resident_run(c, st.params, st.velocity, st.chain_h, data,
+                                            order, 0, None, torch.Generator().manual_seed(9),
+                                            grid=g)
+                    for g in counts[key]]
+            same[key] = None if len(runs) < 2 else all(torch.equal(x, y) for x, y in zip(
+                [*runs[1][0].as_dict().values(), *runs[1][1].as_dict().values(), runs[1][2],
+                 runs[1][3]],
+                [*runs[0][0].as_dict().values(), *runs[0][1].as_dict().values(), runs[0][2],
+                 runs[0][3]]))
+            if same[key] is False:
+                raise AssertionError(f"{key}: the bits depend on the cluster count "
+                                     f"({counts[key]})")
+        if not any(same[key] for key, _ in checks):
+            raise AssertionError(f"{name}: no two cluster counts hold the tiles ({counts})")
+    phase("kernel_vs_plain_resident", max_abs_err=errs, bf16_elements_one_ulp_apart=off,
+          replayed=[n for n, x in shapes.items() if x[2]], run_rtol=RTOL, run_atol=ATOL,
+          replay_rtol=REPLAY_RTOL, replay_atol=REPLAY_ATOL, cluster_counts=counts,
+          identical_bits_across_cluster_counts=same,
+          tiles={n: dataclasses.asdict(R.resident_tiles(c, *R.device_limits(c, dev)))
+                 for n, (c, _, _) in shapes.items()})
+
+    # 24. one epoch per call: plain, resident, cd_train.cu, cd_train.cu,
+    # resident, plain; the resident kernel's steps from its trace
+    timing, entries = {}, []
+    for name, (cfg, data, _) in shapes.items():
+        st = init_train_state(cfg, device=dev)
+        nb = data.shape[0] // cfg.batch_size
+        order = K.batch_order(cfg, nb, 1, None)
+        gen = torch.Generator().manual_seed(0)
+        args = (cfg, st.params, st.velocity, st.chain_h, data, order, 0, None, gen)
+
+        def resident(trace=None):
+            R.cd_train_resident_run(*args, trace=trace)
+
+        def cd_train():
+            K.cd_train_run(*args, wide=False)
+
+        def plain():
+            K.cd_train_run_plain(*args)
+
+        t = {}
+        for key, fn, reps in (("plain1", plain, 2), ("resident1", resident, 20),
+                              ("cd_train1", cd_train, 20), ("cd_train2", cd_train, 20),
+                              ("resident2", resident, 20), ("plain2", plain, 2)):
+            t[key] = time_runs(fn, reps) * 1e3
+        t_res, t_old = min(t["resident1"], t["resident2"]), min(t["cd_train1"], t["cd_train2"])
+        t_plain = min(t["plain1"], t["plain2"])
+        phases = R.resident_trace_phases(cfg)
+        trace = torch.zeros((1, nb, len(phases) + 1), dtype=torch.int64, device=dev)
+        resident(trace)
+        torch.cuda.synchronize()
+        spans = (trace[0, :, 1:] - trace[0, :, :-1]).double().median(0).values / 1e3
+        bound_ms, bound_by = bound(cfg, nb, l2)
+        timing[name] = {
+            "updates_per_run": nb, "resident_ms": t_res, "cd_train_ms": t_old,
+            "plain_ms": t_plain, "calls_ms": t,
+            "resident_us_per_update": t_res * 1e3 / nb,
+            "cd_train_us_per_update": t_old * 1e3 / nb, "bound_ms": bound_ms,
+            "bound_by": bound_by, "tile_barriers_per_update": sum(
+                p.endswith(":tile_barrier") for p in phases),
+            "resident_phase_us_median": dict(zip(phases, spans.tolist()))}
+        entries.append({
+            "name": f"cd_train_resident[{name}]", "route": "cuda",
+            "source": "mdbn_tpu_torch/csrc/cd_train_resident.cu",
+            "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:692", "launches": main_launches,
+            "max_abs_err": errs[name], "ms": t_res, "plain_ms": t_plain,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "ms_per": f"one epoch of {name} ({nb} updates); launches: the kernel's on the "
+                      "main path (c1 and c4 through the API)"})
+    phase("timing_resident", order="plain, resident, cd_train, cd_train, resident, plain",
+          nvidia_smi=smi, l2_bytes=l2, shapes=timing)
+    return entries
 
 
 def grads_bound(cfg):
@@ -2033,6 +2225,7 @@ def run() -> int:
     from mdbn_tpu_torch.config import load_config
     from mdbn_tpu_torch.data.synthetic import mnist_like, tcga_like
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
     from mdbn_tpu_torch.core.state import init_train_state
     from mdbn_tpu_torch.run import build_data
 
@@ -2063,24 +2256,27 @@ def run() -> int:
     phase("kernel_vs_plain", c1_run_max_abs_err=err_c1, c1_rtol=RTOL, c1_atol=ATOL,
           c5_tower_replay_max_abs_err=err_c5, c5_rtol=REPLAY_RTOL, c5_atol=REPLAY_ATOL)
 
-    # 3 + 4. the main path through the normal entry points; count launches
-    K.cd_train_launches = 0
+    # 3 + 4. the main path through the normal entry points; count the launches
+    # of the kernel select_kernel names for each layer (the resident kernel)
     c1_cfg = c1.replace(epochs=10, engine="pallas")
+    c1_kernel = K.select_kernel(c1_cfg, R.device_limits(c1_cfg, dev))
     c1_train, _ = build_data(load_config(C1)["data"])
+    zero_train_counts()
     t0 = time.perf_counter()
     rbm = RBM(c1_cfg, device=dev).train(c1_train)
     c1_s = time.perf_counter() - t0
-    c1_launches = K.cd_train_launches
+    c1_counts = check_counts("c1", {c1_kernel: 1})
+    c1_launches = c1_counts[c1_kernel]
     final = rbm.history[-1]
     codes = rbm.transform(c1_train)
-    if rbm.metrics.engine != "cuda" or c1_launches < 1:
-        raise AssertionError(f"c1 did not run on the kernel: engine {rbm.metrics.engine}, "
-                             f"{c1_launches} launches")
+    if rbm.metrics.engine != "cuda" or rbm.metrics.kernel != c1_kernel:
+        raise AssertionError(f"c1 did not run on {c1_kernel}: engine {rbm.metrics.engine}, "
+                             f"kernel {rbm.metrics.kernel}")
     if abs(final - C1_FINAL_ERR) > C1_ERR_TOL:
         raise AssertionError(f"c1 final error {final} not within {C1_ERR_TOL} of {C1_FINAL_ERR}")
     if codes.shape != (2000, 500) or not bool(torch.isfinite(codes).all()):
         raise AssertionError("c1 codes are not finite [2000, 500]")
-    phase("c1_rbm_train", engine=rbm.metrics.engine, launches=c1_launches,
+    phase("c1_rbm_train", engine=rbm.metrics.engine, kernel=c1_kernel, launches=c1_counts,
           first_err=rbm.history[0], final_err=final, seconds=round(c1_s, 3))
 
     exp4 = load_config(C4)
@@ -2089,25 +2285,30 @@ def run() -> int:
                                          for k, t in m4.towers.items()},
                              joint=m4.joint.replace(engine="pallas"))
     mods, _ = build_data(exp4["data"])
-    K.cd_train_launches = 0
+    zero_train_counts()
     t0 = time.perf_counter()
     mdbn = MDBN(m4, device=dev).train(mods)
     c4_s = time.perf_counter() - t0
-    c4_launches = K.cd_train_launches
     n_layers = sum(len(t.layer_sizes) for t in m4.towers.values()) + 1
     layers = [r for t in mdbn.towers.values() for r in t.layers] + [mdbn.joint]
-    if c4_launches != n_layers or any(r.metrics.engine != "cuda" for r in layers):
-        raise AssertionError(f"c4: {c4_launches} kernel launches for {n_layers} layers")
+    c4_kernels = [K.select_kernel(r.cfg, R.device_limits(r.cfg, dev)) for r in layers]
+    c4_counts = check_counts("c4", {k: c4_kernels.count(k) for k in set(c4_kernels)})
+    c4_launches = c4_counts["cd_train_resident"]
+    if (len(layers) != n_layers or any(r.metrics.engine != "cuda" for r in layers)
+            or [r.metrics.kernel for r in layers] != c4_kernels):
+        raise AssertionError(f"c4: layers ran on {[r.metrics.kernel for r in layers]}, "
+                             f"select_kernel gives {c4_kernels}")
     z = mdbn.transform(mods)
     if z.shape != (400, 100) or not bool(torch.isfinite(z).all()):
         raise AssertionError(f"c4 codes: shape {tuple(z.shape)} or not finite")
     for r in layers:
         if not r.history[-1] < r.history[0]:
             raise AssertionError(f"c4 layer error did not fall: {r.history}")
-    phase("c4_mdbn_train", launches=c4_launches, layers=n_layers, seconds=round(c4_s, 3),
+    phase("c4_mdbn_train", kernels=c4_kernels, launches=c4_counts, layers=n_layers,
+          seconds=round(c4_s, 3),
           errors={name: [[h[0], h[-1]] for h in hist] if name != "joint" else [hist[0], hist[-1]]
                   for name, hist in mdbn.history.items()})
-    launches = c1_launches + c4_launches
+    resident_main = c1_counts["cd_train_resident"] + c4_counts["cd_train_resident"]
 
     # 5. timing at c1's shape: one epoch (100 updates) per call
     st = init_train_state(c1, device=dev)
@@ -2115,8 +2316,9 @@ def run() -> int:
     order = K.batch_order(c1, nb, 1, None)
     gen = torch.Generator().manual_seed(0)
 
-    def kernel():
-        K.cd_train_run(c1, st.params, st.velocity, st.chain_h, c1_data, order, 0, None, gen)
+    def kernel():  # cd_train.cu, called directly
+        K.cd_train_run(c1, st.params, st.velocity, st.chain_h, c1_data, order, 0, None, gen,
+                       wide=False)
 
     def plain():
         K.cd_train_run_plain(c1, st.params, st.velocity, st.chain_h, c1_data, order, 0,
@@ -2130,7 +2332,7 @@ def run() -> int:
     # where one update's time goes: the kernel's own per-phase clock stamps
     trace = torch.zeros((1, nb, 3 + 2 * c1.k), dtype=torch.int64, device=dev)
     K.cd_train_run(c1, st.params, st.velocity, st.chain_h, c1_data, order, 0, None, gen,
-                   trace=trace)
+                   trace=trace, wide=False)
     torch.cuda.synchronize()
     spans = (trace[0, :, 1:] - trace[0, :, :-1]).double().median(0).values / 1e3
     phase("timing_c1", updates_per_run=nb, kernel_ms=t_kernel * 1e3, plain_ms=t_plain * 1e3,
@@ -2140,14 +2342,21 @@ def run() -> int:
                                            "update_and_monitor"], spans.tolist())))
 
     bound_ms, bound_by = bound(c1, nb, torch.cuda.get_device_properties(dev).L2_cache_size)
+    resident_entries = run_resident(dev, smi, c1, c1_data, ge, resident_main)
+    mode_entries = run_modes(dev, smi, c1, c1_data, ge)
+    wide_entries = run_wide(dev, smi)
+    # cd_train.cu's launches on the main path: the estimator modes' runs
+    # through RBM.train (phases 7 and 10); c1 and c4 take the resident kernel
+    modes_main = sum(e["launches"] for e in mode_entries + wide_entries
+                     if e["source"].endswith("/cd_train.cu"))
     entries = [{
         "name": "cd_train", "route": "cuda", "source": "mdbn_tpu_torch/csrc/cd_train.cu",
-        "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:692", "launches": launches,
+        "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:692", "launches": modes_main,
         "max_abs_err": max_err, "ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "ms_per": f"one epoch at c1's shape ({nb} updates)"}]
-    entries += run_modes(dev, smi, c1, c1_data, ge)
-    entries += run_wide(dev, smi)
+        "ms_per": f"one epoch at c1's shape ({nb} updates), called directly; launches: "
+                  "the estimator modes' runs through the API"}]
+    entries += resident_entries + mode_entries + wide_entries
     grads_err, grads_t = run_grads(dev, smi, c1, c1_data, ge)
     update_err, update_t = run_update(dev, smi, c1)
     dp_launches = run_dp(dev, smi, c1, t_kernel * 1e3)

@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # kernel -> the storage types it is built at
 KERNELS = {"cd_train": ("float32", "bfloat16"), "cd_train_wide": ("float32", "bfloat16"),
+           "cd_train_resident": ("float32", "bfloat16"),
            "cd_grads": ("float32", "bfloat16"), "cd_grads_wide": ("float32", "bfloat16")}
 
 
@@ -155,6 +156,25 @@ def _declare_cd_train_wide(lib: ctypes.CDLL) -> None:
     _declare_error_string(lib, "cd_train_wide_error_string")
 
 
+def _declare_cd_train_resident(lib: ctypes.CDLL) -> None:
+    lib.cd_train_resident_run.argtypes = (
+        [_P] * 15  # data, order, u_h0, u_h, u_v, W, b, c, vW, vb, vc, chain, errs, scratch,
+                   # trace
+        + [_I] * 9  # V, H, B, nb, E, k, start_epoch, switch_epoch, flags
+        + [_F] * 7  # lr, momentum, initial_momentum, l2, grad_clip, sparsity_target/cost
+        + _TAIL)  # seed, device, clusters, stream
+    lib.cd_train_resident_run.restype = _I
+    lib.cd_train_resident_tiling.argtypes = [_I, _I, _P]  # V, H, out[4]
+    lib.cd_train_resident_tiling.restype = None
+    lib.cd_train_resident_smem_bytes.argtypes = [_I] * 5  # V, H, B, flags, strips a block
+    lib.cd_train_resident_smem_bytes.restype = _I
+    lib.cd_train_resident_limits.argtypes = [_I, _I, _I, _P]  # V, H, device, out[2]
+    lib.cd_train_resident_limits.restype = _I
+    lib.cd_train_resident_scratch_floats.argtypes = [_I] * 3  # V, H, B
+    lib.cd_train_resident_scratch_floats.restype = ctypes.c_longlong
+    _declare_error_string(lib, "cd_train_resident_error_string")
+
+
 def _declare_cd_grads(lib: ctypes.CDLL) -> None:
     lib.cd_grads_step.argtypes = (
         [_P] * 15  # v0, mask, u_h0, u_h, u_v, u_swap, betas, W, b, c, z, chain_in, out,
@@ -194,4 +214,5 @@ def _declare_cd_grads_wide(lib: ctypes.CDLL) -> None:
 
 
 _DECLARE = {"cd_train": _declare_cd_train, "cd_train_wide": _declare_cd_train_wide,
+            "cd_train_resident": _declare_cd_train_resident,
             "cd_grads": _declare_cd_grads, "cd_grads_wide": _declare_cd_grads_wide}

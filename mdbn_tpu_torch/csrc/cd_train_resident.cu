@@ -1,0 +1,1002 @@
+// Fused multi-epoch CD-k / PCD training run of one RBM in ONE launch, with W
+// and its velocity resident in shared memory for the whole run.
+//
+// Replaces: mdbn_tpu/ops/cd_epoch_pallas.py::_cd_train_kernel (:692) in its
+// single-device mode without the estimator modes, the kernel every layer of
+// the graded configs trains through on the TPU. It computes what
+// csrc/cd_train.cu's plain variant (kModes = false) computes: per update
+//   v0 = data rows [order[e,i]*B, +B); h0p = sigmoid(v0 W + c), h0s = (u < h0p)
+//   k Gibbs steps from the chain (PCD) or h0s (CD): vmean = sigmoid(h W^T + b)
+//   (Bernoulli) or h W^T + b (Gaussian), vs sampled or mean-field, hmean =
+//   sigmoid(vs W + c), h = (u < hmean)
+//   gW = (v0^T h0p - vs^T hmean)/B, gb, gc (+ sparsity), clip, L2 on W,
+//   vel = m vel + lr g, param += vel; the mse or xent monitor against the t=0
+//   visible mean (PCD: against the reconstruction from h0s)
+// with f32 or bf16 storage (Store, cd_common.cuh), f32 or bf16 compute, the
+// momentum schedule, inject mode and the optional trace. The estimator modes
+// (tempering, enhanced, learned variance, pseudo) stay on cd_train.cu.
+//
+// What bounds it on an H100: at c1 (784x500, batch 20) an update is four
+// products of 7.84 M FMA, about 1 us of FP32 FMA over 132 SMs, and nothing
+// needs to leave the chip between updates. cd_train.cu streams W from L2 in
+// every phase and ends each of its 2 + 2k phases in a grid barrier; half of
+// its c1 update is barrier and fixed latency. So this kernel is built around
+// the number of device-wide synchronisations and keeps the state on chip.
+//
+// Design: one persistent cooperative launch of G clusters x C blocks (thread
+// block clusters: cudaLaunchKernelEx with a cluster dimension and the
+// cooperative attribute), one block of 512 threads per SM. The tiling depends
+// on (V, H) alone (tiling()): W is cut into S <= 15 strips of tv rows (an
+// H100 holds 15 clusters of 7 or 8 blocks at once) and C <= 8 column tiles
+// of th columns (th a multiple of 32). Block j of cluster g owns column tile
+// j of strips g, g + G, ...: it keeps those tiles of W and vW, their b and vb,
+// and c and vc of tile j in shared memory from the first update to the last,
+// reading each from device memory once at the start and writing it once at
+// the end. c is kept, identically, in every cluster.
+// - Hidden phase (x W + c): each block forms its strips' partial products
+//   x[:, strip] W[strip, tile] and writes them to a device buffer
+//   (double-buffered by the phase's parity); the G blocks that share column
+//   tile j meet at a release/acquire flag barrier; each sums the strips'
+//   partials in strip order 0..S-1, applies the sigmoid and draws, so every
+//   cluster ends with the same h[:, tile j]. That barrier is the only
+//   device-wide synchronisation: k + 1 per CD-k update (cd_train.cu: 2 + 2k
+//   grid barriers).
+// - Visible phase (h W^T + b): each block forms its partial h[:, tile j]
+//   W[strip, tile j]^T in its own shared memory (double-buffered by parity);
+//   after cluster.sync() every block of the cluster sums the C partials in
+//   rank order over distributed shared memory, adds b and draws, so each
+//   holds the same vs[:, strip]. No device-wide barrier.
+// - Update: gW[strip, tile] = (v0^T h0p - vs^T hmean)/B needs only what the
+//   block holds; clipping is elementwise and the sparsity term per column.
+//   b and c are updated redundantly, identically, in every block that holds
+//   them. The monitor's strip sums go to a device buffer (by update parity)
+//   that block (0, 0) adds up in strip order after the next barrier.
+// - Overlap: the next minibatch's rows (order is known up front) are copied
+//   into shared memory with cp.async while the current update runs.
+// - The products: a thread holds 4 batch rows and reads 4 consecutive
+//   elements of W or of the rows at once (16-byte shared loads; a W row is
+//   padded by 4 elements so that a column of 8 lanes' rows falls in distinct
+//   banks). Where one pass leaves SM lanes idle, the summed dimension is cut
+//   into a few fixed chunks whose sums are added in chunk order.
+// Every sum runs in an order the tiling fixes, with no atomics (the barrier
+// counters are the only atomics); draws are Philox keyed by (update, kind,
+// row, column) as in cd_common.cuh. So the bits do not depend on G, the
+// number of clusters, and one seed draws what cd_train.cu draws. A cluster
+// count whose strips do not fit a block's shared memory is refused before
+// launch.
+//
+// Arithmetic: with f32 compute every product is an fp32 FMA with fp32
+// accumulation (no TF32, which keeps 10 mantissa bits): at about 1 us of FMA
+// per c1 update the tensor cores are not what bounds this kernel. With bf16
+// compute the operands are rounded with __float2bfloat16 and accumulated in
+// fp32, as in cd_train.cu. The update of an element repeats cd_train.cu's
+// arithmetic (rows summed in order, apply_loaded).
+//
+// The optional trace stamps, on block (0, 0)'s clock, the start of each
+// step of an update: per hidden phase its products, its tile barrier and its
+// sums; per visible phase its products, its cluster barrier and its sums;
+// the update; and the end (resident_trace_phases in the wrapper).
+
+#include "cd_common.cuh"
+
+namespace {
+
+constexpr int kRThreads = 512;
+constexpr int kRWarps = kRThreads / 32;
+constexpr int kRT = 4;           // batch rows per thread in the products
+constexpr int kMaxStrips = 15;   // V is cut into at most this many strips
+constexpr int kMaxRanks = 8;     // H into at most this many column tiles (portable clusters)
+constexpr int kInFlight = 8;     // strips' partials loaded at once in a hidden phase's sums
+constexpr int kMaxSplit = 4;     // chunks of the hidden products' summed dimension
+constexpr int kMaxVSplit = 2;    // of the visible products' (their sums take shared memory)
+constexpr int kMinSmem = 120 * 1024;  // asked for at least: one block per SM
+constexpr unsigned long long kWatchdogNs = 10000000000ULL;  // a barrier wait this long traps
+
+struct Tiling {
+  int tv, th, nstrip, ranks;
+};
+
+__host__ __device__ inline Tiling tiling(int V, int H) {
+  Tiling t;
+  t.tv = ((V + kMaxStrips - 1) / kMaxStrips + 3) / 4 * 4;
+  t.th = ((H + kMaxRanks - 1) / kMaxRanks + 31) / 32 * 32;
+  t.nstrip = (V + t.tv - 1) / t.tv;
+  t.ranks = (H + t.th - 1) / t.th;
+  return t;
+}
+
+__host__ __device__ inline int align16(int x) { return (x + 15) / 16 * 16; }
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Chunks of a product's summed dimension (`quads` groups of 4) for `units`
+// work units over `slots` workers: the fewest chunks, at most `most`, that
+// make the longest worker's walk shortest.
+__host__ __device__ inline int split_for(int units, int slots, int quads, int most) {
+  int best = 1, cost = cdiv(units, slots) * quads;
+  for (int s = 2; s <= most; ++s) {
+    const int c = cdiv(units * s, slots) * cdiv(quads, s);
+    if (c < cost) {
+      best = s;
+      cost = c;
+    }
+  }
+  return best;
+}
+
+// Byte offsets of a block's shared memory: ns strips of `strip` bytes each,
+// then the block's own arrays.
+struct Layout {
+  int ldw;               // row stride of a W tile (elements): th + 4
+  int hsplit, vsplit;    // chunks of the hidden (over tv) and visible (over th) products
+  int w, vw, b, vb, v0, v0_buf, vs, q, q_par;  // offsets inside a strip; buffer strides
+  int strip;             // bytes of one strip
+  int c, vc, h0p, hmean, h0s, hcur, ud, part, red;  // offsets after the strips
+  int total;
+};
+
+__host__ __device__ inline Layout layout(const Tiling& t, int B, int nseg, int ns, int sz) {
+  Layout L;
+  const int nrt = cdiv(B, kRT);
+  L.ldw = t.th + 4;
+  L.hsplit = split_for(cdiv(t.th, 64) * nrt, kRWarps, t.tv / 4, kMaxSplit);
+  L.vsplit = split_for(cdiv(t.tv, 64) * nrt, kRWarps, t.th / 4, kMaxVSplit);
+  int o = 0;
+  L.w = o;   o += align16(t.tv * L.ldw * sz);
+  L.vw = o;  o += align16(t.tv * L.ldw * sz);
+  L.b = o;   o += align16(t.tv * sz);
+  L.vb = o;  o += align16(t.tv * sz);
+  L.v0_buf = align16(B * t.tv * sz);
+  L.v0 = o;  o += 2 * L.v0_buf;  // this update's rows and the next's
+  L.vs = o;  o += align16(B * t.tv * 4);
+  L.q_par = nseg * B * t.tv * 4;
+  L.q = o;   o += 2 * L.q_par;  // the visible partials, by parity
+  L.strip = o;
+  o *= ns;
+  L.c = o;     o += align16(t.th * sz);
+  L.vc = o;    o += align16(t.th * sz);
+  L.h0p = o;   o += align16(B * t.th * 4);
+  L.hmean = o; o += align16(B * t.th * 4);
+  L.h0s = o;   o += align16(B * t.th * 4);
+  L.hcur = o;  o += align16(B * t.th * 4);
+  L.ud = o;    o += align16(B * t.th * 4);  // a hidden phase's draws
+  const int hp = L.hsplit * B * t.th, vp = L.vsplit * nseg * B * t.tv;
+  L.part = o;  o += align16((hp > vp ? hp : vp) * 4);  // the chunks' sums
+  L.red = o;   o += align16(kRWarps * 4);
+  L.total = o;
+  return L;
+}
+
+struct Args {
+  const Store* data;    // [n_rows, V]
+  const int* order;     // [E, nb]
+  const float* u_h0;    // inject: [E, nb, B, H]
+  const float* u_h;     // inject: [E, nb, k, B, H]
+  const float* u_v;     // inject: [E, nb, k, B, V] uniforms or normals
+  Store* W;
+  Store* b;
+  Store* c;
+  Store* vW;
+  Store* vb;
+  Store* vc;
+  Store* chain;         // [B, H]
+  float* errs;          // [E]
+  float* part;          // [2, S, B, Hp] hidden partials by phase parity, Hp = ranks * th
+  float* mon;           // [2, S] monitor strip sums by update parity
+  unsigned* bar;        // [ranks] arrival counters of the column-tile barriers (zero)
+  unsigned long long* trace;  // optional [E, nb, 6k + 5]
+  int V, H, B, nb, E, k, start_epoch, switch_epoch, flags;
+  float lr, momentum, initial_momentum, l2, grad_clip, sparsity_target, sparsity_cost;
+  unsigned long long seed;
+  Tiling t;
+  Layout L;
+  int clusters;
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_add(unsigned* p) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(p) : "memory");
+}
+
+// Four consecutive elements, widened to f32 (16 bytes f32, 8 bytes bf16; the
+// address is aligned to that).
+__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+  o[0] = __low2float(lo); o[1] = __high2float(lo);
+  o[2] = __low2float(hi); o[3] = __high2float(hi);
+}
+
+// The G blocks of one column tile meet in two halves, with work that needs
+// nobody else's results between them. Arrive: thread 0 adds one to the count
+// (release: what the block wrote before the __syncthreads is visible to
+// whoever acquires the count). Wait: thread 0 waits until the count reaches
+// `target` (acquire), then the block goes on. Others' writes are read with
+// ld.global.cg. All threads call both.
+__device__ __forceinline__ void tile_arrive(unsigned* ctr) {
+  __syncthreads();
+  if (threadIdx.x == 0) red_release_add(ctr);
+}
+
+__device__ __forceinline__ void tile_wait(const unsigned* ctr, unsigned target) {
+  if (threadIdx.x == 0) {
+    const unsigned long long t0 = globaltimer_ns();
+    unsigned spins = 0;
+    while (static_cast<int>(ld_acquire(ctr) - target) < 0) {
+      if ((++spins & 1023u) == 0 && globaltimer_ns() - t0 > kWatchdogNs) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// The cluster barrier in two halves (cluster.sync() is both): arrive
+// releases this thread's writes, wait acquires everyone's. All threads call both.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One strip's partial x W[strip, tile], chunk by chunk into part[p][r][jj]
+// (p < hsplit, r < B, jj < th): warp unit = 64 columns (lane = columns jj
+// and jj + 32: W reads conflict-free) x kRT rows (x reads broadcast, 4
+// columns of x at once) x one chunk of the strip's rows, summed in order.
+// Two columns a lane make each broadcast x value feed two FMAs. x and W are
+// zero past the strip's nq rows, and W past the tile's nj columns.
+template <bool kBf, typename T>
+__device__ __forceinline__ void hidden_products(const T* x, const Store* w, const Layout& L,
+                                                int tv, int th, int nq, int B, int nj,
+                                                float* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ncg = cdiv(nj, 64), nrt = cdiv(B, kRT), nq4 = cdiv(nq, 4) * 4;
+  const int chunk = cdiv(tv / 4, L.hsplit) * 4;
+  for (int u = warp; u < ncg * nrt * L.hsplit; u += kRWarps) {
+    const int cg = u % ncg, rest = u / ncg, rt = rest % nrt, p = rest / nrt;
+    const int j0 = cg * 64 + lane, r0 = rt * kRT;
+    const bool two = cg * 64 + 32 < nj;  // the warp's second 32 columns exist
+    const int qa = p * chunk, qb = min(qa + chunk, nq4);
+    const T* xr[kRT];
+#pragma unroll
+    for (int rr = 0; rr < kRT; ++rr) xr[rr] = x + min(r0 + rr, B - 1) * tv;
+    float acc[2][kRT];
+#pragma unroll
+    for (int rr = 0; rr < kRT; ++rr) acc[0][rr] = acc[1][rr] = 0.0f;
+    for (int q = qa; q < qb; q += 4) {
+      float wv[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wv[0][i] = op<kBf>(ld(w + (q + i) * L.ldw + j0));
+        wv[1][i] = two ? op<kBf>(ld(w + (q + i) * L.ldw + j0 + 32)) : 0.0f;
+      }
+#pragma unroll
+      for (int rr = 0; rr < kRT; ++rr) {
+        float xv[4];
+        load4(xr[rr] + q, xv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float xo = op<kBf>(xv[i]);
+          acc[0][rr] = fmaf(xo, wv[0][i], acc[0][rr]);
+          acc[1][rr] = fmaf(xo, wv[1][i], acc[1][rr]);
+        }
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRT; ++rr) {
+      if (r0 + rr >= B) continue;
+      part[(p * B + r0 + rr) * th + j0] = acc[0][rr];
+      if (two) part[(p * B + r0 + rr) * th + j0 + 32] = acc[1][rr];
+    }
+  }
+}
+
+// One strip's partial h W[strip, tile]^T of nseg row sets, chunk by chunk
+// into part[p][seg][r][qq]: warp unit = 64 visible rows (lane = rows qq and
+// qq + 32; with the padded row stride, 4 consecutive elements of 8 lanes'
+// rows fall in distinct banks) x kRT batch rows (h reads broadcast) x one
+// chunk of the tile's columns, summed in order. Two rows a lane make each
+// broadcast h value feed two FMAs. h and W are zero past the tile's columns.
+template <bool kBf>
+__device__ __forceinline__ void visible_products(const float* h0, const float* h1, int nseg,
+                                                 const Store* w, const Layout& L, int tv,
+                                                 int th, int nq, int B, int nj, float* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nqg = cdiv(nq, 64), nrt = cdiv(B, kRT), nj4 = cdiv(nj, 4) * 4;
+  const int chunk = cdiv(th / 4, L.vsplit) * 4;
+  for (int u = warp; u < nqg * nrt * nseg * L.vsplit; u += kRWarps) {
+    const int qg = u % nqg;
+    int rest = u / nqg;
+    const int rt = rest % nrt;
+    rest /= nrt;
+    const int seg = rest % nseg, p = rest / nseg;
+    const float* h = seg ? h1 : h0;
+    const int q0 = qg * 64 + lane, r0 = rt * kRT, ja = p * chunk, jb = min(ja + chunk, nj4);
+    const bool two = qg * 64 + 32 < nq;  // the warp's second 32 rows exist
+    const float* hr[kRT];
+#pragma unroll
+    for (int rr = 0; rr < kRT; ++rr) hr[rr] = h + min(r0 + rr, B - 1) * th;
+    float acc[2][kRT];
+#pragma unroll
+    for (int rr = 0; rr < kRT; ++rr) acc[0][rr] = acc[1][rr] = 0.0f;
+    const Store* wr0 = w + min(q0, tv - 1) * L.ldw;  // rows past the tile read its last row
+    const Store* wr1 = w + min(q0 + 32, tv - 1) * L.ldw;
+    for (int jj = ja; jj < jb; jj += 4) {
+      float wv[2][4];
+      load4(wr0 + jj, wv[0]);
+      if (two) load4(wr1 + jj, wv[1]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wv[0][i] = op<kBf>(wv[0][i]);
+        wv[1][i] = two ? op<kBf>(wv[1][i]) : 0.0f;
+      }
+#pragma unroll
+      for (int rr = 0; rr < kRT; ++rr) {
+        float hv[4];
+        load4(hr[rr] + jj, hv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float ho = op<kBf>(hv[i]);
+          acc[0][rr] = fmaf(ho, wv[0][i], acc[0][rr]);
+          acc[1][rr] = fmaf(ho, wv[1][i], acc[1][rr]);
+        }
+      }
+    }
+    float* out = part + ((p * nseg + seg) * B) * tv;
+#pragma unroll
+    for (int rr = 0; rr < kRT; ++rr) {
+      if (r0 + rr >= B) continue;
+      if (q0 < nq) out[(r0 + rr) * tv + q0] = acc[0][rr];
+      if (two && q0 + 32 < nq) out[(r0 + rr) * tv + q0 + 32] = acc[1][rr];
+    }
+  }
+}
+
+// The monitor's term of one element: squared error, or the cross-entropy
+// terms, of data x against its reconstruction y.
+__device__ __forceinline__ float monitor_term(float x, float y, bool xent, float acc) {
+  if (xent) {
+    const float pc = fminf(fmaxf(y, 1e-7f), 1.0f - 1e-7f);
+    return acc + (x * logf(pc) + (1.0f - x) * logf(1.0f - pc));
+  }
+  const float d = x - y;
+  return fmaf(d, d, acc);
+}
+
+// Sum of x over the block: warp butterflies, then the warps in order; every
+// thread gets it. red: kRWarps floats.
+__device__ __forceinline__ float block_total(float x, float* red) {
+  x = warp_sum(x);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  float t = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kRWarps; ++w) t += red[w];
+  return t;
+}
+
+template <bool kBf>
+__global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Tiling& T = a.t;
+  const Layout& L = a.L;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int g = static_cast<int>(blockIdx.x) / T.ranks, G = a.clusters;
+  const int V = a.V, H = a.H, B = a.B, S = T.nstrip, tv = T.tv, th = T.th, ldw = L.ldw;
+  const int Hp = T.ranks * th;  // row stride of the hidden partials
+  const int j0 = rank * th, nj = min(th, H - j0), nj4 = cdiv(nj, 4);
+  const int mine = (S - g + G - 1) / G;  // strips g, g + G, ...
+  const bool persistent = a.flags & kPersistent;
+  const bool gaussian = a.flags & kGaussian;
+  const bool sample_v = a.flags & kSampleVisible;
+  const bool xent = a.flags & kXent;
+  const bool inject = a.flags & kInject;
+  const bool lead = g == 0 && rank == 0;  // adds up the monitor, stamps the trace
+  const float inv_b = 1.0f / static_cast<float>(B);
+  Store* c_s = reinterpret_cast<Store*>(smem + L.c);
+  Store* vc_s = reinterpret_cast<Store*>(smem + L.vc);
+  float* h0p = reinterpret_cast<float*>(smem + L.h0p);
+  float* hmean = reinterpret_cast<float*>(smem + L.hmean);
+  float* h0s = reinterpret_cast<float*>(smem + L.h0s);
+  float* hcur = reinterpret_cast<float*>(smem + L.hcur);  // the PCD chain, or this update's CD chain
+  float* ud = reinterpret_cast<float*>(smem + L.ud);
+  float* part = reinterpret_cast<float*>(smem + L.part);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  auto strip = [&](int i) { return smem + static_cast<size_t>(i) * L.strip; };
+  auto Wt = [&](int i) { return reinterpret_cast<Store*>(strip(i) + L.w); };
+  auto vWt = [&](int i) { return reinterpret_cast<Store*>(strip(i) + L.vw); };
+  auto bt = [&](int i) { return reinterpret_cast<Store*>(strip(i) + L.b); };
+  auto vbt = [&](int i) { return reinterpret_cast<Store*>(strip(i) + L.vb); };
+  auto v0t = [&](int i, int p) { return reinterpret_cast<Store*>(strip(i) + L.v0 + p * L.v0_buf); };
+  auto vst = [&](int i) { return reinterpret_cast<float*>(strip(i) + L.vs); };
+  auto qt = [&](int i, int p) { return reinterpret_cast<float*>(strip(i) + L.q + p * L.q_par); };
+  auto q0_of = [&](int i) { return (g + i * G) * tv; };
+  auto nq_of = [&](int i) { return min(tv, V - q0_of(i)); };
+
+  // the rows of minibatch `mb` into buffer p of each strip: cp.async where a
+  // 4-byte word holds whole elements, else plain copies
+  auto stage_batch = [&](int mb, int p) {
+    const Store* src = a.data + static_cast<size_t>(mb) * B * V;
+    for (int i = 0; i < mine; ++i) {
+      const int q0 = q0_of(i), nq = nq_of(i);
+      Store* dst = v0t(i, p);
+      if (sizeof(Store) == 4) {
+        for (int idx = tid; idx < B * nq; idx += kRThreads) {
+          const int r = idx / nq, q = idx - r * nq;
+          cp_async4(dst + r * tv + q, src + static_cast<size_t>(r) * V + q0 + q);
+        }
+      } else if (V % 2 == 0) {  // bf16 pairs: q0 and nq are even
+        const int np = nq / 2;
+        for (int idx = tid; idx < B * np; idx += kRThreads) {
+          const int r = idx / np, q = 2 * (idx - r * np);
+          cp_async4(dst + r * tv + q, src + static_cast<size_t>(r) * V + q0 + q);
+        }
+      } else {
+        for (int idx = tid; idx < B * nq; idx += kRThreads) {
+          const int r = idx / nq, q = idx - r * nq;
+          dst[r * tv + q] = src[static_cast<size_t>(r) * V + q0 + q];
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // load the resident state (shared memory starts at zero: the tiles' padding
+  // and the rows past a strip's end stay zero for the whole run)
+  for (int x = tid; x < L.total / 16; x += kRThreads)
+    reinterpret_cast<uint4*>(smem)[x] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  // the W and vW tiles with cp.async, all in flight at once (4-byte words:
+  // bf16 pairs where H and the tile's columns are even, else plain copies)
+  const bool words = sizeof(Store) == 4 || (H % 2 == 0 && nj % 2 == 0);
+  const int per = words ? 4 / static_cast<int>(sizeof(Store)) : 1;  // elements a copy
+  const int njw = nj / per;
+  for (int i = 0; i < mine; ++i) {
+    const int q0 = q0_of(i), nq = nq_of(i);
+    for (int idx = tid; idx < nq * njw; idx += kRThreads) {
+      const int q = idx / njw, jj = per * (idx - q * njw);
+      const size_t gi = static_cast<size_t>(q0 + q) * H + j0 + jj;
+      if (words) {
+        cp_async4(Wt(i) + q * ldw + jj, a.W + gi);
+        cp_async4(vWt(i) + q * ldw + jj, a.vW + gi);
+      } else {
+        Wt(i)[q * ldw + jj] = a.W[gi];
+        vWt(i)[q * ldw + jj] = a.vW[gi];
+      }
+    }
+    for (int q = tid; q < nq; q += kRThreads) {
+      bt(i)[q] = a.b[q0 + q];
+      vbt(i)[q] = a.vb[q0 + q];
+    }
+  }
+  for (int jj = tid; jj < nj; jj += kRThreads) {
+    c_s[jj] = a.c[j0 + jj];
+    vc_s[jj] = a.vc[j0 + jj];
+  }
+  if (persistent)
+    for (int idx = tid; idx < B * nj; idx += kRThreads) {
+      const int r = idx / nj, jj = idx - r * nj;
+      hcur[r * th + jj] = ld(a.chain + static_cast<size_t>(r) * H + j0 + jj);
+    }
+  stage_batch(a.order[0], 0);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const long long nupd = static_cast<long long>(a.E) * a.nb;
+  const int nstamp = 6 * a.k + 5;
+  const size_t bhp = static_cast<size_t>(B) * Hp;
+  const size_t bh = static_cast<size_t>(B) * H;
+  unsigned nbar = 0;  // tile barriers passed
+  int nhid = 0, nvis = 0;
+  float err_sum = 0.0f;  // lead's kMonitorTid: the running monitor sum of the epoch
+  int next_mb = nupd > 1 ? a.order[1] : 0;  // the minibatch of the next update
+  unsigned long long* stamp = nullptr;
+  auto mark = [&]() {
+    if (stamp) *stamp++ = globaltimer_ns();
+  };
+
+  // lead's last warp (idle in a hidden phase's sums at the graded shapes):
+  // add update u's monitor (its strip sums are complete after the barrier
+  // that follows it; lane s loads strip s's, lane 0 adds them in strip order)
+  // and close its epoch
+  constexpr int kMonitorTid = kRThreads - 32;
+  auto add_monitor = [&](long long u) {
+    if (!(lead && tid >= kMonitorTid)) return;
+    const float x = lane < S ? __ldcg(a.mon + (u & 1) * S + lane) : 0.0f;
+    float tot = 0.0f;
+    for (int s = 0; s < S; ++s) tot += __shfl_sync(0xffffffffu, x, s);
+    if (lane != 0) return;
+    err_sum += xent ? -tot / static_cast<float>(B)
+                    : tot / (static_cast<float>(B) * static_cast<float>(V));
+    if ((u + 1) % a.nb == 0) {
+      a.errs[u / a.nb] = err_sum * (1.0f / static_cast<float>(a.nb));
+      err_sum = 0.0f;
+    }
+  };
+
+  // a hidden phase: the strips' partials of x (this update's rows or vs) into
+  // the device buffer, the tile barrier, the strip-ordered sums, sigmoid, draw
+  auto hidden_phase = [&](bool from_data, int pv, float* hprob, float* hsamp,
+                          const float* u_inj, unsigned upd, int kind, int t, long long u) {
+    mark();
+    if (from_data && u + 1 < nupd) {  // the next update's rows land while this one runs
+      stage_batch(next_mb, pv ^ 1);
+      if (u + 2 < nupd) next_mb = a.order[u + 2];  // read now, used an update later
+    }
+    float* dev = a.part + static_cast<size_t>(nhid & 1) * S * bhp;
+    for (int i = 0; i < mine; ++i) {
+      if (from_data)
+        hidden_products<kBf>(v0t(i, pv), Wt(i), L, tv, th, nq_of(i), B, nj, part);
+      else
+        hidden_products<kBf>(vst(i), Wt(i), L, tv, th, nq_of(i), B, nj, part);
+      __syncthreads();
+      float* dst = dev + static_cast<size_t>(g + i * G) * bhp + j0;
+      for (int idx = tid; idx < B * nj4; idx += kRThreads) {
+        const int r = idx / nj4, jq = 4 * (idx - r * nj4);
+        float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int p = 0; p < L.hsplit; ++p) {
+          const float4 v = *reinterpret_cast<const float4*>(part + (p * B + r) * th + jq);
+          sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+        }
+        __stcg(reinterpret_cast<float4*>(dst + static_cast<size_t>(r) * Hp + jq), sum);
+      }
+      if (i + 1 < mine) __syncthreads();  // (tile_arrive syncs after the last strip)
+    }
+    mark();
+    tile_arrive(a.bar + rank);
+    // while the other clusters arrive: this phase's draws (or injected uniforms)
+    for (int idx = tid; idx < B * nj; idx += kRThreads) {
+      const int r = idx / nj, jj = idx - r * nj;
+      ud[r * th + jj] = u_inj ? u_inj[static_cast<size_t>(r) * H + j0 + jj]
+                              : draw_uniform(a.seed, upd, kind, t, r, j0 + jj);
+    }
+    tile_wait(a.bar + rank, ++nbar * static_cast<unsigned>(G));
+    mark();
+    if (from_data && u > 0) add_monitor(u - 1);
+    for (int idx = tid; idx < B * nj4; idx += kRThreads) {
+      const int r = idx / nj4, jq = 4 * (idx - r * nj4);
+      const float* p = dev + static_cast<size_t>(r) * Hp + j0 + jq;
+      float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int s0 = 0; s0 < kMaxStrips; s0 += kInFlight) {
+        float4 v[kInFlight];  // a batch of strips' loads in flight before its first add
+#pragma unroll
+        for (int b = 0; b < kInFlight; ++b)
+          if (s0 + b < S) v[b] = __ldcg(reinterpret_cast<const float4*>(p + (s0 + b) * bhp));
+#pragma unroll
+        for (int b = 0; b < kInFlight; ++b) {
+          if (s0 + b < S) {
+            sum.x += v[b].x; sum.y += v[b].y; sum.z += v[b].z; sum.w += v[b].w;
+          }
+        }
+      }
+      const float sv[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int jj = jq + i;
+        if (jj >= nj) break;
+        const float pr = sigmoidf(sv[i] + ld(c_s + jj));
+        hprob[r * th + jj] = pr;
+        hsamp[r * th + jj] = ud[r * th + jj] < pr ? 1.0f : 0.0f;
+      }
+    }
+    ++nhid;
+    __syncthreads();
+  };
+
+  for (int e = 0; e < a.E; ++e) {
+    const int abs_epoch = a.start_epoch + e;
+    const float m = ((a.flags & kMomentumSchedule) && abs_epoch < a.switch_epoch)
+                        ? a.initial_momentum
+                        : a.momentum;
+    for (int ib = 0; ib < a.nb; ++ib) {
+      const long long u = static_cast<long long>(e) * a.nb + ib;
+      const int pv = static_cast<int>(u & 1);
+      const unsigned upd = static_cast<unsigned>(abs_epoch) * static_cast<unsigned>(a.nb) +
+                           static_cast<unsigned>(ib);
+      const size_t ei = static_cast<size_t>(u);
+      stamp = (a.trace && lead && tid == 0) ? a.trace + ei * nstamp : nullptr;
+      hidden_phase(true, pv, h0p, h0s, inject ? a.u_h0 + ei * bh : nullptr, upd, kDrawH0, 0, u);
+
+      const float* hsrc = persistent ? hcur : h0s;
+      for (int t = 0; t < a.k; ++t) {
+        // visible phase t: partials, cluster barrier, rank-ordered sums
+        mark();
+        const bool recon = t == 0 && persistent;  // PCD: the monitor's reconstruction from h0s
+        const int nseg = recon ? 2 : 1;
+        const int pq = nvis & 1;
+        for (int i = 0; i < mine; ++i) {
+          const int nq = nq_of(i), nq4 = cdiv(nq, 4);
+          visible_products<kBf>(hsrc, h0s, nseg, Wt(i), L, tv, th, nq, B, nj, part);
+          __syncthreads();
+          float* q = qt(i, pq);
+          for (int idx = tid; idx < nseg * B * nq4; idx += kRThreads) {
+            const int row = idx / nq4, qq = 4 * (idx - row * nq4);  // row = seg * B + r
+            float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            for (int p = 0; p < L.vsplit; ++p) {
+              const float4 v =
+                  *reinterpret_cast<const float4*>(part + (p * nseg * B + row) * tv + qq);
+              sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+            }
+            *reinterpret_cast<float4*>(q + row * tv + qq) = sum;
+          }
+          if (i + 1 < mine) __syncthreads();  // (the cluster barrier follows the last strip)
+        }
+        mark();
+        cluster_arrive();
+        // while the cluster arrives: the draws (or injected uniforms or
+        // noise) of the visible samples, into vs
+        if (sample_v) {
+          const float* uv =
+              inject ? a.u_v + (ei * a.k + t) * static_cast<size_t>(B) * V : nullptr;
+          for (int i = 0; i < mine; ++i) {
+            const int q0 = q0_of(i), nq = nq_of(i);
+            float* vs = vst(i);
+            for (int idx = tid; idx < B * nq; idx += kRThreads) {
+              const int r = idx / nq, q = idx - r * nq;
+              vs[r * tv + q] = uv ? uv[static_cast<size_t>(r) * V + q0 + q]
+                               : gaussian ? draw_normal(a.seed, upd, kDrawV, t, r, q0 + q)
+                                          : draw_uniform(a.seed, upd, kDrawV, t, r, q0 + q);
+            }
+          }
+        }
+        __syncthreads();
+        cluster_wait();
+        mark();
+        const bool monitor = t == 0 && rank == 0;
+        for (int i = 0; i < mine; ++i) {
+          const int nq = nq_of(i), nq4 = cdiv(nq, 4);
+          const float* rq[kMaxRanks];
+#pragma unroll
+          for (int c = 0; c < kMaxRanks; ++c)
+            rq[c] = c < T.ranks ? cluster.map_shared_rank(qt(i, pq), c) : nullptr;
+          const Store* v0 = v0t(i, pv);
+          const Store* bs = bt(i);
+          float* vs = vst(i);
+          float err = 0.0f;
+          for (int idx = tid; idx < B * nq4; idx += kRThreads) {
+            const int r = idx / nq4, qq = 4 * (idx - r * nq4), o = r * tv + qq;
+            // the C ranks' partials, every load in flight before the first add
+            auto rank_sum = [&](int off) {
+              float4 v[kMaxRanks];
+#pragma unroll
+              for (int c = 0; c < kMaxRanks; ++c)
+                if (c < T.ranks) v[c] = *reinterpret_cast<const float4*>(rq[c] + off);
+              float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+              for (int c = 0; c < kMaxRanks; ++c) {
+                if (c < T.ranks) {
+                  sum.x += v[c].x; sum.y += v[c].y; sum.z += v[c].z; sum.w += v[c].w;
+                }
+              }
+              return sum;
+            };
+            const float4 sum = rank_sum(o);
+            const float4 sum2 =
+                (monitor && recon) ? rank_sum(B * tv + o) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            const float sv[4] = {sum.x, sum.y, sum.z, sum.w};
+            const float sv2[4] = {sum2.x, sum2.y, sum2.z, sum2.w};
+#pragma unroll
+            for (int ii = 0; ii < 4; ++ii) {
+              const int qi = qq + ii;
+              if (qi >= nq) break;
+              const float bq = ld(bs + qi);
+              const float pre = sv[ii] + bq;
+              const float mean = gaussian ? pre : sigmoidf(pre);
+              float sample = mean;
+              if (sample_v) {  // vs holds this element's draw
+                const float d = vs[o + ii];
+                sample = gaussian ? mean + d : (d < mean ? 1.0f : 0.0f);
+              }
+              vs[o + ii] = sample;
+              if (monitor) {
+                const float p2 = sv2[ii] + bq;
+                const float y = recon ? (gaussian ? p2 : sigmoidf(p2)) : mean;
+                err = monitor_term(ld(v0 + o + ii), y, xent, err);
+              }
+            }
+          }
+          if (monitor) {
+            const float tot = block_total(err, red);
+            if (tid == 0) __stcg(a.mon + (u & 1) * S + g + i * G, tot);
+          }
+        }
+        ++nvis;
+        __syncthreads();
+        // hidden phase t: into the chain (PCD) or this update's CD chain
+        hidden_phase(false, pv, hmean, hcur,
+                     inject ? a.u_h + (ei * a.k + t) * bh : nullptr, upd, kDrawH, t, u);
+        hsrc = hcur;
+      }
+
+      // update: W and vW tiles, b and vb of each strip, c and vc (b and c on
+      // the last threads, whose warps hold the fewest W units)
+      mark();
+      const int rev = kRThreads - 1 - tid;
+      for (int i = 0; i < mine; ++i) {
+        const int nq = nq_of(i);
+        const Store* v0 = v0t(i, pv);
+        const float* vs = vst(i);
+        Store* w = Wt(i);
+        Store* vw = vWt(i);
+        // warp unit: 4 visible rows x 64 columns (lane = columns jj, jj + 32),
+        // so each broadcast row of v0 and vs feeds two columns
+        const int ncg = cdiv(nj, 64), nq4 = cdiv(nq, 4);
+        for (int unit = warp; unit < nq4 * ncg; unit += kRWarps) {
+          const int cg = unit % ncg, qb = 4 * (unit / ncg);
+          const int j0 = cg * 64 + lane;
+          const bool two = cg * 64 + 32 < nj;  // the warp's second 32 columns exist
+          float pos[2][4], neg[2][4];
+#pragma unroll
+          for (int qi = 0; qi < 4; ++qi) pos[0][qi] = pos[1][qi] = neg[0][qi] = neg[1][qi] = 0.0f;
+#pragma unroll 4
+          for (int r = 0; r < B; ++r) {
+            const float hp0 = op<kBf>(h0p[r * th + j0]), hm0 = op<kBf>(hmean[r * th + j0]);
+            const float hp1 = two ? op<kBf>(h0p[r * th + j0 + 32]) : 0.0f;
+            const float hm1 = two ? op<kBf>(hmean[r * th + j0 + 32]) : 0.0f;
+            float xv[4], sv[4];
+            load4(v0 + r * tv + qb, xv);
+            load4(vs + r * tv + qb, sv);
+#pragma unroll
+            for (int qi = 0; qi < 4; ++qi) {
+              const float xo = op<kBf>(xv[qi]), so = op<kBf>(sv[qi]);
+              pos[0][qi] = fmaf(xo, hp0, pos[0][qi]);
+              neg[0][qi] = fmaf(so, hm0, neg[0][qi]);
+              pos[1][qi] = fmaf(xo, hp1, pos[1][qi]);
+              neg[1][qi] = fmaf(so, hm1, neg[1][qi]);
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int jj = j0 + 32 * c;
+            if (jj >= nj) break;
+#pragma unroll
+            for (int qi = 0; qi < 4; ++qi) {
+              if (qb + qi >= nq) break;
+              const int o = (qb + qi) * ldw + jj;
+              apply_loaded(a, w + o, vw + o, ld(w + o), ld(vw + o),
+                           (pos[c][qi] - neg[c][qi]) * inv_b, m, a.lr, true);
+            }
+          }
+        }
+        // b from the threads after the c ones: (rev - nj) mod kRThreads, which
+        // stays in [0, kRThreads) also where a tile is wider than the block
+        for (int q = ((rev - nj) % kRThreads + kRThreads) % kRThreads; q < nq;
+             q += kRThreads) {
+          float acc = 0.0f;
+          for (int r = 0; r < B; ++r) acc += ld(v0 + r * tv + q) - vs[r * tv + q];
+          apply(a, bt(i) + q, vbt(i) + q, acc * inv_b, m, a.lr, false);
+        }
+      }
+      for (int jj = rev; jj < nj; jj += kRThreads) {
+        float acc = 0.0f, on = 0.0f;
+        for (int r = 0; r < B; ++r) {
+          acc += h0p[r * th + jj] - hmean[r * th + jj];
+          on += h0p[r * th + jj];
+        }
+        float gc = acc * inv_b;
+        if (a.flags & kSparsity) gc = gc + a.sparsity_cost * (a.sparsity_target - on * inv_b);
+        apply(a, c_s + jj, vc_s + jj, gc, m, a.lr, false);
+      }
+      cp_async_wait_all();  // the next update's rows
+      __syncthreads();
+      mark();
+    }
+  }
+
+  // the last update's monitor: one more barrier of the rank-0 tiles
+  if (rank == 0) {
+    tile_arrive(a.bar);
+    tile_wait(a.bar, ++nbar * static_cast<unsigned>(G));
+    add_monitor(nupd - 1);
+  }
+  // write the state back once
+  for (int i = 0; i < mine; ++i) {
+    const int q0 = q0_of(i), nq = nq_of(i);
+    for (int idx = tid; idx < nq * nj; idx += kRThreads) {
+      const int q = idx / nj, jj = idx - q * nj;
+      const size_t gi = static_cast<size_t>(q0 + q) * H + j0 + jj;
+      a.W[gi] = Wt(i)[q * ldw + jj];
+      a.vW[gi] = vWt(i)[q * ldw + jj];
+    }
+    if (rank == 0)
+      for (int q = tid; q < nq; q += kRThreads) {
+        a.b[q0 + q] = bt(i)[q];
+        a.vb[q0 + q] = vbt(i)[q];
+      }
+  }
+  if (g == 0) {
+    for (int jj = tid; jj < nj; jj += kRThreads) {
+      a.c[j0 + jj] = c_s[jj];
+      a.vc[j0 + jj] = vc_s[jj];
+    }
+    if (persistent)
+      for (int idx = tid; idx < B * nj; idx += kRThreads) {
+        const int r = idx / nj, jj = idx - r * nj;
+        st(a.chain + static_cast<size_t>(r) * H + j0 + jj, hcur[r * th + jj]);
+      }
+  }
+  cluster.sync();  // no block leaves while another may still read its shared memory
+}
+
+const void* kernel_fn(bool bf) {
+  return bf ? reinterpret_cast<const void*>(&cd_train_resident_kernel<true>)
+            : reinterpret_cast<const void*>(&cd_train_resident_kernel<false>);
+}
+
+// Lets the kernel ask for up to the card's opt-in shared memory (once per
+// kernel and device: changing a kernel's attribute between launches costs a
+// wait for the launches before), and gives the clusters of `ranks` blocks
+// with that much shared memory each (one block an SM) that fit the card at
+// once, asked once per kernel, device and cluster size. `optin` is the card's
+// opt-in shared memory per block.
+constexpr int kMaxDevices = 16;
+
+cudaError_t max_clusters(bool bf, int device, int ranks, int optin, int* out) {
+  static int set[2][kMaxDevices];
+  static int known[2][kMaxDevices][kMaxRanks + 1];
+  if (device < 0 || device >= kMaxDevices || ranks < 1 || ranks > kMaxRanks)
+    return cudaErrorInvalidValue;
+  const void* fn = kernel_fn(bf);
+  cudaError_t err;
+  if (set[bf][device] != optin) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return err;
+    set[bf][device] = optin;
+  }
+  if (known[bf][device][ranks] == 0) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(ranks);
+    cfg.blockDim = dim3(kRThreads);
+    cfg.dynamicSmemBytes = optin;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = ranks;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    if ((err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg)) != cudaSuccess) return err;
+    known[bf][device][ranks] = n > 0 ? n : -1;
+  }
+  *out = known[bf][device][ranks] > 0 ? known[bf][device][ranks] : 0;
+  return cudaSuccess;
+}
+
+constexpr int kModeFlags = kTempering | kEnhanced | kLearnVar | kPseudo;
+
+}  // namespace
+
+extern "C" {
+
+// The tiling of a V x H run: out = {tv, th, strips, ranks}.
+void cd_train_resident_tiling(int V, int H, int* out) {
+  const Tiling t = tiling(V, H);
+  out[0] = t.tv;
+  out[1] = t.th;
+  out[2] = t.nstrip;
+  out[3] = t.ranks;
+}
+
+// Shared memory bytes a block needs when it holds ns strips.
+int cd_train_resident_smem_bytes(int V, int H, int B, int flags, int ns) {
+  return layout(tiling(V, H), B, (flags & kPersistent) ? 2 : 1, ns,
+                static_cast<int>(sizeof(Store))).total;
+}
+
+// out = {opt-in shared memory per block, clusters of this tiling's ranks
+// that fit the card at once}. Returns a cudaError_t.
+int cd_train_resident_limits(int V, int H, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                    device)) != cudaSuccess)
+    return err;
+  return max_clusters(false, device, tiling(V, H).ranks, out[0], &out[1]);
+}
+
+// Scratch floats the wrapper allocates (zeroed) for one run: the hidden
+// partials [2, S, B, ranks * th], the monitor's strip sums [2, S], the
+// barrier counters [ranks].
+long long cd_train_resident_scratch_floats(int V, int H, int B) {
+  const Tiling t = tiling(V, H);
+  return 2LL * t.nstrip * B * t.ranks * t.th + 2LL * t.nstrip + t.ranks;
+}
+
+// Launches the whole run on `stream`: `clusters` clusters of the tiling's
+// ranks (<= 0: as many as the card holds at once, balanced over the strips).
+// Returns a cudaError_t (0 on success): cudaErrorInvalidValue for an
+// estimator mode or strips that do not fit a block's shared memory,
+// cudaErrorCooperativeLaunchTooLarge for more clusters than fit the card or
+// than there are strips; neither launches.
+int cd_train_resident_run(const Store* data, const int* order, const float* u_h0,
+                          const float* u_h, const float* u_v, Store* W, Store* b, Store* c,
+                          Store* vW, Store* vb, Store* vc, Store* chain, float* errs,
+                          float* scratch, unsigned long long* trace, int V, int H, int B,
+                          int nb, int E, int k, int start_epoch, int switch_epoch, int flags,
+                          float lr, float momentum, float initial_momentum, float l2,
+                          float grad_clip, float sparsity_target, float sparsity_cost,
+                          unsigned long long seed, int device, int clusters, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (flags & kModeFlags) return cudaErrorInvalidValue;
+  const bool bf = flags & kBf16;
+  const Tiling t = tiling(V, H);
+  int optin = 0;
+  if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
+      cudaSuccess)
+    return err;
+  const int nseg = (flags & kPersistent) ? 2 : 1;
+  int maxc = 0;
+  if ((err = max_clusters(bf, device, t.ranks, optin, &maxc)) != cudaSuccess) return err;
+  if (clusters <= 0) {
+    const int per = cdiv(t.nstrip, maxc > 0 ? maxc : 1);
+    clusters = cdiv(t.nstrip, per);
+  }
+  if (clusters > maxc || clusters > t.nstrip) return cudaErrorCooperativeLaunchTooLarge;
+  const int ns = cdiv(t.nstrip, clusters);
+  const Layout L = layout(t, B, nseg, ns, static_cast<int>(sizeof(Store)));
+  if (L.total > optin) return cudaErrorInvalidValue;
+  const int smem = L.total > kMinSmem ? L.total : (kMinSmem < optin ? kMinSmem : optin);
+
+  Args a;
+  a.data = data; a.order = order; a.u_h0 = u_h0; a.u_h = u_h; a.u_v = u_v;
+  a.W = W; a.b = b; a.c = c; a.vW = vW; a.vb = vb; a.vc = vc; a.chain = chain; a.errs = errs;
+  a.part = scratch;
+  a.mon = scratch + 2LL * t.nstrip * B * t.ranks * t.th;
+  a.bar = reinterpret_cast<unsigned*>(a.mon + 2 * t.nstrip);
+  a.trace = trace;
+  a.V = V; a.H = H; a.B = B; a.nb = nb; a.E = E; a.k = k;
+  a.start_epoch = start_epoch; a.switch_epoch = switch_epoch; a.flags = flags;
+  a.lr = lr; a.momentum = momentum; a.initial_momentum = initial_momentum; a.l2 = l2;
+  a.grad_clip = grad_clip; a.sparsity_target = sparsity_target;
+  a.sparsity_cost = sparsity_cost; a.seed = seed;
+  a.t = t; a.L = L; a.clusters = clusters;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * t.ranks);
+  cfg.blockDim = dim3(kRThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = t.ranks;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;  // every block resident at once
+  attrs[1].val.cooperative = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 2;
+  void* params[] = {&a};
+  if ((err = cudaLaunchKernelExC(&cfg, kernel_fn(bf), params)) != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+const char* cd_train_resident_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

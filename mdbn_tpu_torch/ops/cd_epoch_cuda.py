@@ -12,8 +12,10 @@ in plain PyTorch, built from ``core.rbm_math``'s ``cd_step_stats`` /
 (``hbm_state``, ``chunk_update``, ``stream_vel``, H padding) compute the same
 function under a VMEM budget; this kernel keeps all state in device memory
 at any width, so they have no counterpart of their own. A wide run inside
-its scope goes to the W-blocked kernel of ``ops.cd_epoch_wide_cuda`` instead
-(``select_kernel``). Both take
+its scope goes to the W-blocked kernel of ``ops.cd_epoch_wide_cuda`` instead,
+and a run of the plain estimator whose W fits the shared memory of the card
+to the resident kernel of ``ops.cd_epoch_resident_cuda``
+(``select_kernel``; ``kernel_run`` gives the wrapper of each). They take
 
 - ``params`` / ``velocity`` (``RBMParams``, with ``z`` under learned
   variance) and the PCD ``chain`` [CR, H], CR = B, or M*B rung-major under
@@ -34,6 +36,7 @@ changes only in PCD mode, as in the TPU kernel.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -96,12 +99,35 @@ def wide_unsupported(cfg: RBMConfig) -> Optional[str]:
 WIDE_MIN_VISIBLE = 4096
 
 
-def select_kernel(cfg: RBMConfig) -> str:
+def select_kernel(cfg: RBMConfig, limits: Optional[Tuple[int, int]] = None) -> str:
     """The kernel a run of ``cfg`` takes: "cd_train_wide" when the config lies
     in the W-blocked kernel's scope and is at least ``WIDE_MIN_VISIBLE``
-    wide, else "cd_train". Decided from the config alone."""
-    wide = wide_unsupported(cfg) is None and cfg.n_visible >= WIDE_MIN_VISIBLE
-    return "cd_train_wide" if wide else "cd_train"
+    wide; else "cd_train_resident" when it runs the plain estimator (no
+    tempering, enhanced gradient, learned variance or pseudo monitor; k <=
+    255) and its tiles of W and the velocity fit the shared memory of a card
+    with ``limits`` (``ops.cd_epoch_resident_cuda.device_limits``; None: an
+    H100's); else "cd_train". Decided from the config and those two numbers.
+    Timed on an H100 (scripts/torch_kernel_ab.py --sweep: V 64-4095, H
+    100-8192, batches 4-64, f32 and bf16), the resident kernel is ahead of
+    cd_train.cu wherever its tiles fit, by 1.1x to 2.4x, so there is no
+    width cut-off."""
+    if wide_unsupported(cfg) is None and cfg.n_visible >= WIDE_MIN_VISIBLE:
+        return "cd_train_wide"
+    from .cd_epoch_resident_cuda import resident_admits
+
+    return "cd_train_resident" if resident_admits(cfg, limits) else "cd_train"
+
+
+def kernel_run(kernel: str) -> Callable:
+    """The wrapper that launches ``kernel`` (a name ``select_kernel`` gives),
+    with the signature of ``cd_train_run``."""
+    if kernel == "cd_train_resident":
+        from .cd_epoch_resident_cuda import cd_train_resident_run
+
+        return cd_train_resident_run
+    if kernel not in ("cd_train", "cd_train_wide"):
+        raise ValueError(f"no kernel {kernel!r}")
+    return functools.partial(cd_train_run, wide=kernel == "cd_train_wide")
 
 
 # The visible width from which a data-parallel run inside the W-blocked
@@ -445,12 +471,22 @@ def kernel_inputs(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
         seed = _draw_seed(generator)
     return KernelInputs(
         data=_on_device(data[: nb * B], "data", (nb * B, V), device, sdt),
-        order=order.to(device=device, dtype=torch.int32).contiguous(),
+        order=_to_device(order.to(torch.int32), device),
         params=state(params, ""), velocity=state(velocity, "v"),
         chain=_on_device(chain, "chain", (CR, H), device, sdt).clone(),
         draws=draws, flags=flags, seed=seed, nb=nb, n_epochs=n_epochs,
         device_index=device.index if device.index is not None else torch.cuda.current_device(),
         stream=torch.cuda.current_stream(device).cuda_stream)
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``, contiguous. A CPU tensor goes through pinned memory
+    without blocking: a copy from pageable memory would wait for the kernels
+    already queued on the stream, so the host could not queue the next launch
+    while the card runs the last one."""
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.contiguous().pin_memory().to(device, non_blocking=True)
+    return t.to(device).contiguous()
 
 
 def check_trace(trace: Optional[torch.Tensor], shape, device: torch.device) -> None:
@@ -479,17 +515,16 @@ def cd_train_run(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
                  start_epoch: int = 0,
                  uniforms: Optional[Dict[str, torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None, grid: int = 0,
-                 trace: Optional[torch.Tensor] = None, wide: Optional[bool] = None,
+                 trace: Optional[torch.Tensor] = None, wide: bool = False,
                  ) -> Tuple[RBMParams, RBMParams, torch.Tensor, torch.Tensor]:
     """The run on a CUDA kernel (see module doc); one launch on the current
     stream. CPU tensors take ``cd_train_run_plain``. ``grid`` is the
     cooperative grid (0: the kernel's default); the result does not depend on
     it, which the tests check by launching several grids.
-    ``wide``: None lets ``select_kernel`` choose between ``csrc/cd_train.cu``
-    and the W-blocked ``csrc/cd_train_wide.cu``
-    (``ops.cd_epoch_wide_cuda.cd_train_wide_run``); True asks for the
-    W-blocked kernel at any size and raises for a config outside its scope;
-    False asks for ``cd_train.cu``.
+    ``wide``: False runs ``csrc/cd_train.cu``; True runs the W-blocked
+    ``csrc/cd_train_wide.cu`` (``ops.cd_epoch_wide_cuda.cd_train_wide_run``)
+    at any size and raises for a config outside its scope. The kernel a run
+    of ``cfg`` should take is ``kernel_run(select_kernel(cfg, limits))``.
     ``trace``, an int64 CUDA tensor [E, nb, trace_len(cfg)] (W-blocked:
     ``wide_trace_len``), receives the device clock (ns) at the start of each
     phase of each update as block 0 sees it.
@@ -506,8 +541,6 @@ def cd_train_run(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
                                   start_epoch, uniforms, generator)
     if data.device.type != "cuda":
         raise ValueError(f"cd_train_run takes CPU or CUDA tensors, got {data.device}")
-    if wide is None:
-        wide = select_kernel(cfg) == "cd_train_wide"
     if wide:
         from .cd_epoch_wide_cuda import cd_train_wide_run
 

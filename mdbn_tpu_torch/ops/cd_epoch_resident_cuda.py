@@ -1,0 +1,259 @@
+"""The training run of one RBM with W resident in shared memory: CUDA kernel.
+
+``cd_train_resident_run`` wraps the hand-written kernel
+``csrc/cd_train_resident.cu``, which computes what ``csrc/cd_train.cu``'s
+plain variant computes (``mdbn_tpu/ops/cd_epoch_pallas.py::_cd_train_kernel``
+in single-device mode without the estimator modes), in one launch of
+thread-block clusters that keep their tiles of W and its velocity in shared
+memory for the whole run. It has the signature of
+``ops.cd_epoch_cuda.cd_train_run``, the same inject layout and Philox keying;
+its plain version is ``ops.cd_epoch_cuda.cd_train_run_plain``, the same
+function. ``grid`` counts clusters here.
+
+The tiling depends on (V, H) alone: V is cut into at most 15 strips of a
+multiple of 4 rows, H into at most 8 column tiles of a multiple of 32
+columns, one block each; a cluster of those blocks holds one or more strips.
+Whether the tiles fit the card (``resident_tiles``) is decided from the
+config, the opt-in shared memory of a block and the number of clusters the
+card holds at once; ``ops.cd_epoch_cuda.select_kernel`` admits a run to the
+kernel when they fit.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from ..config import RBMConfig
+from ..core.rbm_math import RBMParams
+from . import cd_epoch_cuda as K
+
+# Launches of the resident CUDA kernel in this process (incremented only where
+# the kernel is launched).
+cd_train_resident_launches = 0
+
+MAX_STRIPS, MAX_RANKS = 15, 8  # csrc/cd_train_resident.cu: kMaxStrips, kMaxRanks
+THREADS, ROWS_PER_THREAD = 512, 4  # kRThreads, kRT
+MAX_SPLIT, MAX_VSPLIT = 4, 2  # kMaxSplit, kMaxVSplit
+# An NVIDIA H100 80GB HBM3: the opt-in shared memory of a block
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin) and, by cluster size, the clusters
+# of one-block-per-SM blocks the card holds at once
+# (cudaOccupancyMaxActiveClusters), as measured on the card by
+# scripts/torch_kernel_ab.py --sweep. A run on a card takes that card's own.
+H100_SMEM_PER_BLOCK = 232448
+H100_MAX_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
+def resident_unsupported(cfg: RBMConfig) -> Optional[str]:
+    """Why the resident kernel does not take ``cfg`` (None when it does,
+    leaving aside whether its tiles fit the card)."""
+    outside = [name for name, on in (
+        ("the pseudo-likelihood monitor", cfg.error_metric not in ("mse", "xent")),
+        ("the enhanced gradient", cfg.gradient != "plain"),
+        ("tempering", cfg.pt_temps > 1),
+        ("learned variance", cfg.learn_variance)) if on]
+    if outside:
+        return ("the resident kernel runs the plain CD/PCD estimator; it does not take "
+                f"{', '.join(outside)} (csrc/cd_train.cu does)")
+    return K.kernel_unsupported(cfg)
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tiling(n_visible: int, n_hidden: int) -> Tuple[int, int, int, int]:
+    """(rows of a strip, columns of a tile, strips, ranks) of a V x H run:
+    the kernel's ``tiling``."""
+    tv = (_cdiv(n_visible, MAX_STRIPS) + 3) // 4 * 4
+    th = (_cdiv(n_hidden, MAX_RANKS) + 31) // 32 * 32
+    return tv, th, _cdiv(n_visible, tv), _cdiv(n_hidden, th)
+
+
+def split_for(units: int, slots: int, quads: int, most: int) -> int:
+    """The kernel's ``split_for``: the fewest chunks, at most ``most``, of a
+    product's summed dimension (``quads`` groups of 4) that make the longest
+    of ``slots`` workers' walks over ``units`` work units shortest."""
+    best, cost = 1, _cdiv(units, slots) * quads
+    for s in range(2, most + 1):
+        c = _cdiv(units * s, slots) * _cdiv(quads, s)
+        if c < cost:
+            best, cost = s, c
+    return best
+
+
+def smem_bytes(cfg: RBMConfig, strips_per_cluster: int) -> int:
+    """Shared memory bytes of a block that holds ``strips_per_cluster``
+    strips: the kernel's ``layout(...).total``. Per strip: its W and vW tiles
+    (rows padded by 4 elements), b and vb, the batch's rows and the next
+    batch's, vs, and the visible partials by parity (two row sets under PCD);
+    per block: c, vc, five [B, th] hidden buffers (h0p, hmean, h0s, the chain,
+    the draws), the products' chunk sums
+    and the reduction slots."""
+    tv, th, _, _ = tiling(cfg.n_visible, cfg.n_hidden)
+    B, sz = cfg.batch_size, 2 if cfg.param_dtype == "bfloat16" else 4
+    nseg = 2 if cfg.persistent else 1
+    nrt = _cdiv(B, ROWS_PER_THREAD)
+    hsplit = split_for(_cdiv(th, 64) * nrt, THREADS // 32, tv // 4, MAX_SPLIT)
+    vsplit = split_for(_cdiv(tv, 64) * nrt, THREADS // 32, th // 4, MAX_VSPLIT)
+    strip = (2 * _align16(tv * (th + 4) * sz) + 2 * _align16(tv * sz)
+             + 2 * _align16(B * tv * sz) + _align16(B * tv * 4) + 2 * nseg * B * tv * 4)
+    block = (2 * _align16(th * sz) + 5 * _align16(B * th * 4)
+             + _align16(max(hsplit * B * th, vsplit * nseg * B * tv) * 4)
+             + _align16(THREADS // 32 * 4))
+    return strip * strips_per_cluster + block
+
+
+@dataclass(frozen=True)
+class ResidentTiles:
+    """How a run lies on the card: W cut into ``strips`` strips of ``rows``
+    rows and ``ranks`` column tiles of ``cols`` columns; ``clusters`` clusters
+    of ``ranks`` blocks, each holding ``strips_per_cluster`` strips in
+    ``smem_bytes`` of shared memory; ``fits`` when that is within a block's
+    shared memory and the clusters fit the card at once."""
+
+    rows: int
+    cols: int
+    strips: int
+    ranks: int
+    clusters: int
+    strips_per_cluster: int
+    smem_bytes: int
+    fits: bool
+
+
+def resident_tiles(cfg: RBMConfig, smem_per_block: int = H100_SMEM_PER_BLOCK,
+                   max_clusters: Optional[int] = None, clusters: int = 0) -> ResidentTiles:
+    """The tiling of ``cfg`` and whether it fits a card whose blocks opt in to
+    ``smem_per_block`` bytes of shared memory and which holds ``max_clusters``
+    clusters of this tiling's size at once (None: an H100's,
+    ``H100_MAX_CLUSTERS``). ``clusters`` = 0 takes as many clusters as fit,
+    balanced over the strips; a given count that is larger than the card
+    holds or than there are strips, or too small for its strips to fit a
+    block, raises ValueError."""
+    tv, th, strips, ranks = tiling(cfg.n_visible, cfg.n_hidden)
+    if max_clusters is None:
+        max_clusters = H100_MAX_CLUSTERS[ranks]
+    if clusters > 0:
+        if clusters > min(max_clusters, strips):
+            raise ValueError(f"{clusters} clusters: the card holds {max_clusters} clusters of "
+                             f"{ranks} blocks at once, and the run has {strips} strips")
+        per = -(-strips // clusters)
+        need = smem_bytes(cfg, per)
+        if need > smem_per_block:
+            raise ValueError(f"{clusters} clusters are too few for {strips} strips: {per} "
+                             f"strips a block take {need} bytes of shared memory, a block "
+                             f"has {smem_per_block}")
+        return ResidentTiles(tv, th, strips, ranks, clusters, per, need, True)
+    per = -(-strips // max(max_clusters, 1))
+    use = -(-strips // per)
+    need = smem_bytes(cfg, per)
+    return ResidentTiles(tv, th, strips, ranks, use, per, need,
+                         max_clusters > 0 and need <= smem_per_block)
+
+
+def resident_admits(cfg: RBMConfig, limits: Optional[Tuple[int, int]] = None) -> bool:
+    """Whether the resident kernel takes ``cfg`` on a card with ``limits``
+    (``device_limits``; None: an H100's)."""
+    if resident_unsupported(cfg) is not None:
+        return False
+    smem, maxc = limits if limits is not None else (H100_SMEM_PER_BLOCK, None)
+    return resident_tiles(cfg, smem, maxc).fits
+
+
+def device_limits(cfg: RBMConfig, device: torch.device) -> Tuple[int, int]:
+    """(opt-in shared memory of a block, clusters of ``cfg``'s tiling that
+    the card holds at once), asked of ``device``; builds the kernels at
+    first use."""
+    import ctypes
+
+    from .._build import load_library
+
+    lib = load_library("cd_train_resident", cfg.param_dtype).lib
+    out = (ctypes.c_int * 2)()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    rc = lib.cd_train_resident_limits(cfg.n_visible, cfg.n_hidden, index, out)
+    if rc != 0:
+        raise RuntimeError(f"cd_train_resident limits: cudaError {rc} "
+                           f"({lib.cd_train_resident_error_string(rc).decode()})")
+    return int(out[0]), int(out[1])
+
+
+def resident_trace_phases(cfg: RBMConfig) -> List[str]:
+    """The kernel's steps of one update, in the order a trace stamps their
+    starts: per hidden phase (from the data, then one per Gibbs step) its
+    products, its barrier of the blocks that share a column tile across
+    clusters and its sums; per visible phase its products, its cluster
+    barrier and its sums; the update. So an update of CD-k holds k + 1
+    ``:tile_barrier`` steps and k ``:cluster_barrier`` steps."""
+    steps = ("products", "tile_barrier", "sums")
+    names = [f"hidden_from_data:{s}" for s in steps]
+    for t in range(cfg.k):
+        names += [f"visible_{t}:{s}" for s in ("products", "cluster_barrier", "sums")]
+        names += [f"hidden_{t}:{s}" for s in steps]
+    return names + ["update_and_monitor"]
+
+
+def resident_trace_len(cfg: RBMConfig) -> int:
+    """Clock stamps per update in a trace: one per phase, and the end."""
+    return len(resident_trace_phases(cfg)) + 1
+
+
+def cd_train_resident_run(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
+                          chain: torch.Tensor, data: torch.Tensor, order: torch.Tensor,
+                          start_epoch: int = 0,
+                          uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                          generator: Optional[torch.Generator] = None, grid: int = 0,
+                          trace: Optional[torch.Tensor] = None,
+                          ) -> Tuple[RBMParams, RBMParams, torch.Tensor, torch.Tensor]:
+    """The run on the resident CUDA kernel; one launch on the current stream.
+    Takes CUDA tensors only (``ops.cd_epoch_cuda.cd_train_run_plain`` is its
+    plain version). ``grid`` is the number of clusters (0: as many as the
+    card holds, balanced over the strips); the result does not depend on it.
+    ``trace``, an int64 CUDA tensor [E, nb, resident_trace_len(cfg)],
+    receives the device clock (ns) at the start of each phase of each update
+    as block 0 sees it.
+    Raises ValueError for a config or input the kernel does not take (a
+    cluster count too small for the tiles included) and RuntimeError when
+    the launch fails."""
+    global cd_train_resident_launches
+    if data.device.type != "cuda":
+        raise ValueError(f"cd_train_resident_run takes CUDA tensors, got {data.device}; "
+                         "cd_epoch_cuda.cd_train_run_plain is its plain version")
+    reason = resident_unsupported(cfg)
+    if reason is not None:
+        raise ValueError(reason)
+    x = K.kernel_inputs(cfg, params, velocity, chain, data, order, uniforms, generator)
+    device = data.device
+    B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
+    K.check_trace(trace, (x.n_epochs, x.nb, resident_trace_len(cfg)), device)
+    tiles = resident_tiles(cfg, *device_limits(cfg, device), clusters=grid)
+    if not tiles.fits:
+        raise ValueError(f"a {V}x{H} run at batch {B} does not fit the card's shared memory "
+                         f"({tiles.smem_bytes} bytes a block); csrc/cd_train.cu takes it")
+
+    from .._build import load_library  # builds the kernels at first use
+
+    lib = load_library("cd_train_resident", cfg.param_dtype).lib
+    errs = torch.empty(x.n_epochs, dtype=torch.float32, device=device)
+    # the hidden partials, the monitor's strip sums and the barrier counters (zero)
+    scratch = torch.zeros(int(lib.cd_train_resident_scratch_floats(V, H, B)),
+                          dtype=torch.float32, device=device)
+    p, v, u, ptr = x.params, x.velocity, x.draws, K.ptr
+    rc = lib.cd_train_resident_run(
+        ptr(x.data), ptr(x.order), ptr(u["h0"]), ptr(u["h"]), ptr(u["v"]), ptr(p.W), ptr(p.b),
+        ptr(p.c), ptr(v.W), ptr(v.b), ptr(v.c), ptr(x.chain), ptr(errs), ptr(scratch),
+        ptr(trace), V, H, B, x.nb, x.n_epochs, cfg.k, start_epoch, cfg.momentum_switch_epoch,
+        x.flags, cfg.lr, *K.schedule_args(cfg), x.seed, x.device_index, tiles.clusters,
+        x.stream)
+    if rc != 0:
+        raise RuntimeError(f"cd_train_resident kernel launch failed: cudaError {rc} "
+                           f"({lib.cd_train_resident_error_string(rc).decode()})")
+    cd_train_resident_launches += 1
+    return p, v, x.chain, errs

@@ -7,12 +7,13 @@ runs when the caller needs per-epoch callbacks or checkpoints.
 
 Engines (``cfg.engine``):
 
-- ``"pallas"`` -> ``"cuda"``: a hand-written kernel
-  (``ops.cd_epoch_cuda.cd_train_run``, one launch per run):
-  ``csrc/cd_train.cu``, or the W-blocked ``csrc/cd_train_wide.cu`` for a
-  wide run inside that kernel's scope
-  (``ops.cd_epoch_cuda.select_kernel``, from the config alone).
-  Raises on the CPU, and for a config the kernel does not take.
+- ``"pallas"`` -> ``"cuda"``: a hand-written kernel, one launch per run,
+  the one ``ops.cd_epoch_cuda.select_kernel`` names from the config and the
+  card's shared memory: ``csrc/cd_train_resident.cu`` (W resident in shared
+  memory) for a run of the plain estimator whose tiles fit the card, the
+  W-blocked ``csrc/cd_train_wide.cu`` for a wide run inside that kernel's
+  scope, else ``csrc/cd_train.cu`` (``ops.cd_epoch_cuda.kernel_run``).
+  Raises on the CPU, and for a config the kernels do not take.
 - ``"xla"`` -> ``"eager"``: ``ops.cd_epoch_cuda.cd_train_run_plain``, the
   plain PyTorch version of the same run, on any device.
 - ``"auto"``: ``"cuda"`` when the state lies on a CUDA device and the kernel
@@ -95,8 +96,9 @@ def _check_runtime(runtime: TrainRuntimeConfig) -> None:
 
 class EpochMetrics:
     """Per-epoch errors and rates of a run, its engine, and the kernel its
-    route took ("cd_train", "cd_train_wide", "cd_grads" or "cd_grads_wide";
-    under an eager engine, the kernel whose plain version ran)."""
+    route took ("cd_train_resident", "cd_train", "cd_train_wide", "cd_grads"
+    or "cd_grads_wide"; under an eager engine, the kernel whose plain version
+    ran: "cd_train", whose plain version is also the resident kernel's)."""
 
     __slots__ = ("errors", "updates_per_sec", "wall_seconds", "engine", "kernel")
 
@@ -142,7 +144,16 @@ def train_rbm(
     engine = resolve_dp_engine(cfg, dev) if dp else resolve_engine(cfg, dev)
     if dp and mesh.backend == "nccl" and dev != mesh.device:
         raise ValueError(f"the model lies on {dev}, this rank's card is {mesh.device}")
-    run = cd_epoch_cuda.cd_train_run if engine == "cuda" else cd_epoch_cuda.cd_train_run_plain
+    if dp:
+        kernel = cd_epoch_cuda.select_dp_kernel(cfg)
+    elif engine == "cuda":
+        from ..ops.cd_epoch_resident_cuda import device_limits
+
+        kernel = cd_epoch_cuda.select_kernel(cfg, device_limits(cfg, dev))
+    else:
+        kernel = "cd_train"
+    run = (cd_epoch_cuda.kernel_run(kernel) if engine == "cuda"
+           else cd_epoch_cuda.cd_train_run_plain)
     writes = not dp or mesh.rank == 0
     data = torch.as_tensor(data).to(device=dev, dtype=torch_dtype(cfg.param_dtype))
     nb = data.shape[0] // cfg.batch_size
@@ -168,8 +179,6 @@ def train_rbm(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    kernel = (cd_epoch_cuda.select_dp_kernel(cfg) if dp
-              else cd_epoch_cuda.select_kernel(cfg) if engine == "cuda" else "cd_train")
     metrics = EpochMetrics(engine, kernel)
     per_epoch = epoch_callback is not None or runtime.checkpoint_every_epochs > 0
     if per_epoch:

@@ -2,21 +2,35 @@
 """Time the CUDA train kernels of two checkouts of mdbn_tpu_torch on one card.
 
     python3 scripts/torch_kernel_ab.py --base DIR [--reps 20]
+    python3 scripts/torch_kernel_ab.py --sweep [--reps 10] [--out FILE]
 
 Runs the checkout at DIR (the base) and this checkout in separate processes,
 in the order base, this, this, base. Each process builds its own kernels
 from its own sources, runs one warm-up epoch per shape, then times ``reps``
 one-epoch kernel runs with CUDA events at two shapes the graded configs
-train at on csrc/cd_train.cu, c1 (Bernoulli 784x500, B 20, CD-1) and c2
-(Gaussian 2000x400, B 20, CD-1, mean-field visibles), and at two rows of the
+train at, c1 (Bernoulli 784x500, B 20, CD-1) and c2 (Gaussian 2000x400, B
+20, CD-1, mean-field visibles), on csrc/cd_train.cu called directly and on
+the kernel that checkout's ``select_kernel`` picks (the parent's cd_train.cu
+against this checkout's csrc/cd_train_resident.cu), and at two rows of the
 wide slice on the W-blocked csrc/cd_train_wide.cu, w20k (Gaussian
 20000x400, B 20, lr 0.001) and w20k_mom_bf16 (the same with momentum 0.5 at
 bf16 storage and compute). Each process also hashes the parameters and
-velocities after a 2-epoch run from a fixed state with the kernel's own
-draws from a fixed seed, so the summary says whether the two checkouts'
-kernels give the same bits. Prints one JSON line per process, then a
-summary line with each side's best time and the card's name and power
-limit. Needs one CUDA device; writes only each checkout's kernel build.
+velocities after a 2-epoch run of cd_train.cu and cd_train_wide.cu, called
+directly, from a fixed state with the kernel's own draws from a fixed seed,
+so the summary says whether the two checkouts' kernels give the same bits.
+Prints one JSON line per process, then a summary line with each side's best
+time and the card's name and power limit.
+
+--sweep (this checkout alone) measures where the resident kernel takes
+over: the card's opt-in shared memory of a block and, per cluster size, the
+clusters it holds at once (ops.cd_epoch_resident_cuda.H100_MAX_CLUSTERS),
+then for a grid of shapes (V x H at batch 20, float32 and bfloat16; c1's
+width at growing batches; narrow V with 2000 to 8192 hidden units at
+batches 4 and 20) whether the tiles fit and, where they do, the
+resident kernel's and cd_train.cu's time per update in turns (resident,
+cd_train, cd_train, resident). One JSON line per shape, then a summary with
+the largest fitting shapes and every shape where cd_train.cu is faster.
+Needs one CUDA device; writes only each checkout's kernel build.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SELECTED = ("c1", "c2")  # also timed on the kernel select_kernel picks
 WIDE = dict(n_visible=20000, n_hidden=400, batch_size=20, lr=0.001, visible="gaussian")
 SHAPES = {  # name -> (config fields, data rows, the W-blocked kernel)
     "c1": (dict(n_visible=784, n_hidden=500, batch_size=20, lr=0.1), 2000, False),
@@ -48,6 +63,36 @@ def digest(tensors) -> str:
     for t in tensors:
         h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def _time_ms(fn, reps: int) -> float:
+    """Mean ms per call of ``fn`` by CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _selected(K, cfg, dev):
+    """(name, wrapper) of the kernel the checkout's select_kernel picks for
+    ``cfg`` (before the resident kernel, select_kernel took the config
+    alone and cd_train_run dispatched)."""
+    import functools
+
+    if hasattr(K, "kernel_run"):
+        from mdbn_tpu_torch.ops.cd_epoch_resident_cuda import device_limits
+
+        name = K.select_kernel(cfg, device_limits(cfg, dev))
+        return name, K.kernel_run(name)
+    name = K.select_kernel(cfg)
+    return name, functools.partial(K.cd_train_run, wide=name == "cd_train_wide")
 
 
 def child(root: str, reps: int) -> dict:
@@ -81,29 +126,87 @@ def child(root: str, reps: int) -> dict:
             K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None, gen,
                            wide=wide)
 
-        run()
-        torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(reps):
-            run()
-        end.record()
-        torch.cuda.synchronize()
-        out[f"{name}_ms_per_epoch"] = start.elapsed_time(end) / reps
+        out[f"{name}_ms_per_epoch"] = _time_ms(run, reps)
+        if name in SELECTED:
+            kernel, fn = _selected(K, cfg, dev)
+            out[f"{name}_selected"] = kernel
+            out[f"{name}_selected_ms_per_epoch"] = _time_ms(
+                lambda: fn(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None, gen),
+                reps)
     return out
+
+
+def sweep(reps: int) -> list:
+    """Fit and times of the resident kernel against cd_train.cu (see module doc)."""
+    sys.path.insert(0, HERE)
+    import ctypes
+
+    import torch
+
+    from mdbn_tpu_torch._build import load_library
+    from mdbn_tpu_torch.config import RBMConfig
+    from mdbn_tpu_torch.core.rbm_math import torch_dtype
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
+
+    dev = torch.device("cuda", 0)
+    lib = load_library("cd_train_resident").lib
+    limits = {}
+    for ranks in range(1, R.MAX_RANKS + 1):  # H = 32 * ranks gives that many column tiles
+        out = (ctypes.c_int * 2)()
+        lib.cd_train_resident_limits(64, 32 * ranks, 0, out)
+        limits[ranks] = int(out[1])
+    lines = [{"smem_per_block": int(out[0]), "max_clusters_by_ranks": limits}]
+    print(json.dumps(lines[0]), flush=True)
+    shapes = [dict(n_visible=v, n_hidden=h, batch_size=20, param_dtype=dt)
+              for dt in ("float32", "bfloat16")
+              for v in (250, 500, 784, 1000, 1500, 2000, 2500, 3000, 3500, 4095)
+              for h in (100, 200, 400, 500, 1000)]
+    shapes += [dict(n_visible=784, n_hidden=500, batch_size=b, param_dtype="float32")
+               for b in (32, 48, 64, 80, 96)]
+    # past 4096 hidden units a column tile is wider than the block (512 threads)
+    shapes += [dict(n_visible=v, n_hidden=h, batch_size=b, param_dtype="float32")
+               for b in (4, 20) for v in (64, 256, 400) for h in (2000, 4352, 8192)]
+    for kw in shapes:
+        cfg = RBMConfig(**kw, lr=0.05)
+        tiles = R.resident_tiles(cfg, *R.device_limits(cfg, dev))
+        rec = dict(kw, fits=tiles.fits, smem_bytes=tiles.smem_bytes,
+                   strips_per_cluster=tiles.strips_per_cluster, clusters=tiles.clusters,
+                   selected=K.select_kernel(cfg, R.device_limits(cfg, dev)))
+        if tiles.fits:
+            nb = 20
+            gen = torch.Generator().manual_seed(0)
+            data = (torch.rand((nb * cfg.batch_size, cfg.n_visible), generator=gen) < 0.3)
+            data = data.to(device=dev, dtype=torch_dtype(cfg.param_dtype))
+            st = init_train_state(cfg, device=dev)
+            args = (cfg, st.params, st.velocity, st.chain_h, data, K.batch_order(cfg, nb, 1, None),
+                    0, None, gen)
+            t = [_time_ms(lambda: R.cd_train_resident_run(*args), reps),
+                 _time_ms(lambda: K.cd_train_run(*args, wide=False), reps),
+                 _time_ms(lambda: K.cd_train_run(*args, wide=False), reps),
+                 _time_ms(lambda: R.cd_train_resident_run(*args), reps)]
+            rec.update(resident_us_per_update=min(t[0], t[3]) * 1e3 / nb,
+                       cd_train_us_per_update=min(t[1], t[2]) * 1e3 / nb)
+        print(json.dumps(rec), flush=True)
+        lines.append(rec)
+    return lines
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--base", help="root of the checkout to compare against")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--sweep", action="store_true",
+                    help="measure the resident kernel's fit and where cd_train.cu wins")
+    ap.add_argument("--out", help="--sweep: also write its lines to this file")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         print(json.dumps(child(args.child, args.reps)), flush=True)
         return 0
-    if not args.base:
-        ap.error("--base is required")
+    if not args.base and not args.sweep:
+        ap.error("--base or --sweep is required")
     import torch
 
     if not torch.cuda.is_available():
@@ -111,6 +214,26 @@ def main() -> int:
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    if args.sweep:
+        lines = sweep(args.reps)
+        timed = [r for r in lines[1:] if "resident_us_per_update" in r]
+        summary = {"nvidia_smi": smi, "order": "resident, cd_train, cd_train, resident",
+                   "largest_fitting": {f"{dt} B{b}": max(
+                       ((r["n_visible"] * r["n_hidden"], r["n_visible"], r["n_hidden"])
+                        for r in lines[1:] if r["fits"] and r["param_dtype"] == dt
+                        and r["batch_size"] == b), default=None)
+                       for dt in ("float32", "bfloat16") for b in (4, 20)},
+                   "largest_fitting_batch_at_c1": max(
+                       (r["batch_size"] for r in lines[1:] if r["fits"]
+                        and (r["n_visible"], r["n_hidden"]) == (784, 500)), default=None),
+                   "cd_train_faster": [r for r in timed if r["cd_train_us_per_update"]
+                                       < r["resident_us_per_update"]]}
+        print(json.dumps(summary), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                for r in lines + [summary]:
+                    f.write(json.dumps(r) + "\n")
+        return 0
     runs = []
     for side, root in (("base", args.base), ("this", HERE), ("this", HERE),
                        ("base", args.base)):
@@ -125,6 +248,11 @@ def main() -> int:
         for name in SHAPES:
             summary[f"{side}_{name}_ms_per_epoch_best"] = min(
                 r[f"{name}_ms_per_epoch"] for r in runs if r["side"] == side)
+        for name in SELECTED:
+            summary[f"{side}_{name}_selected"] = runs[0 if side == "base" else 1][
+                f"{name}_selected"]
+            summary[f"{side}_{name}_selected_ms_per_epoch_best"] = min(
+                r[f"{name}_selected_ms_per_epoch"] for r in runs if r["side"] == side)
     summary["identical_bits"] = {name: len({r[f"{name}_bits"] for r in runs}) == 1
                                  for name in SHAPES}
     print(json.dumps(summary))

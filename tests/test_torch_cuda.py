@@ -10,8 +10,9 @@ trajectories agree to fp32 summation-order noise. Tolerance rtol=atol=1e-4
 over 2 epochs of a small problem (the two differ only in the order of fp32
 sums; a single flipped sample would show as an O(lr/B) = 1e-2 jump).
 The estimator modes (tempering, enhanced gradient, learned variance, the
-pseudo-likelihood monitor) are held the same way, and so is the W-blocked
-kernel (csrc/cd_train_wide.cu) against its own plain version, and the
+pseudo-likelihood monitor) are held the same way, and so are the W-blocked
+kernel (csrc/cd_train_wide.cu) against its own plain version, the resident
+kernel (csrc/cd_train_resident.cu) against cd_train_run_plain, and the
 data-parallel path's per-step kernel (csrc/cd_grads.cu) one step at a time,
 with a one-rank NCCL mesh through its entry points. At bf16
 storage both sides round one float32 result into bf16, so they agree except
@@ -28,6 +29,7 @@ from mdbn_tpu_torch.config import RBMConfig
 from mdbn_tpu_torch.core.state import init_train_state
 from mdbn_tpu_torch.core.rbm_math import torch_dtype
 from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
 from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -277,6 +279,174 @@ def test_wide_kernel_raises_outside_its_scope(cuda):
     with pytest.raises(ValueError, match="CUDA tensors"):
         KW.cd_train_wide_run(cfg.replace(sample_visible=False), st.params, st.velocity,
                              st.chain_h, data.cpu(), order, 0, None, torch.Generator())
+
+
+# the resident kernel, csrc/cd_train_resident.cu, against its plain version
+# (cd_train_run_plain) at both storage dtypes: CD and PCD, momentum, Bernoulli
+# and Gaussian (mean-field and sampled), mse and xent, at tolerances of
+# cd_train.cu's tests; the odd shape spreads over 13 clusters of 3 ranks with a
+# short last strip and tile
+RESIDENT_CASES = {
+    "cd1": CASES[0],
+    "pcd-k2-momentum-l2": CASES[1],
+    "gaussian-meanfield": CASES[2],
+    "gaussian-sampled-k2": CASES[3],
+    "xent-schedule-sparsity-clip": CASES[4],
+    "bf16-compute": CASES[5],
+    "bf16-storage-f32-compute": BF16_CASES["cd1-f32-compute"],
+    "bf16-pcd-momentum": BF16_CASES["pcd-momentum"],
+    "bf16-gaussian-sampled": BF16_CASES["gaussian-sampled"],
+    "odd-13-clusters-pcd": RBMConfig(n_visible=301, n_hidden=77, batch_size=13, lr=0.05, k=2,
+                                     persistent=True, momentum=0.5),
+    "c1-width-xent": RBMConfig(n_visible=784, n_hidden=500, batch_size=20, lr=0.05,
+                               error_metric="xent"),
+    # column tiles of 544, wider than the block's 512 threads
+    "wide-tile-64x4352-b4-pcd": RBMConfig(n_visible=64, n_hidden=4352, batch_size=4, lr=0.05,
+                                          persistent=True, momentum=0.5),
+}
+# 13 strips of 16 rows, 4 ranks: the same bits on 13, 7 and 4 clusters
+CLUSTERED = dict(n_visible=200, n_hidden=100, batch_size=20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(RESIDENT_CASES))
+def test_resident_kernel_matches_plain_inject(cuda, name):
+    cfg = RESIDENT_CASES[name]
+    assert K.select_kernel(cfg) == "cd_train_resident"
+    st, data, order, u = _inputs(cfg, cuda)
+    before = R.cd_train_resident_launches, K.cd_train_launches
+    got = R.cd_train_resident_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
+    torch.cuda.synchronize()
+    assert (R.cd_train_resident_launches, K.cd_train_launches) == (before[0] + 1, before[1])
+    assert got[0].W.dtype == got[2].dtype == st.params.W.dtype
+    _check(got, K.cd_train_run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
+                                     u))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cd1", "pcd-k2-momentum", "bf16-pcd-momentum"])
+def test_resident_kernel_is_cluster_count_independent_and_trains(cuda, name):
+    base = {"cd1": dict(lr=0.1), "pcd-k2-momentum": dict(lr=0.1, k=2, persistent=True,
+                                                         momentum=0.5, l2=1e-3),
+            "bf16-pcd-momentum": dict(lr=0.1, k=2, persistent=True, momentum=0.5, **BF16)}
+    cfg = RBMConfig(**CLUSTERED, **base[name])
+    tiles = R.resident_tiles(cfg)
+    assert (tiles.strips, tiles.ranks) == (13, 4)
+    st, data, order, _ = _inputs(cfg, cuda, E=4)
+    trace = [torch.zeros((4, 6, R.resident_trace_len(cfg)), dtype=torch.int64, device=cuda)
+             for _ in range(4)]
+    runs = [R.cd_train_resident_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
+                                    None, torch.Generator().manual_seed(3), grid=g, trace=tr)
+            for g, tr in zip((13, 7, 4, 0), trace)]
+    for r in runs[1:]:
+        for part in (0, 1):
+            for n in ("W", "b", "c"):
+                torch.testing.assert_close(getattr(r[part], n), getattr(runs[0][part], n),
+                                           rtol=0, atol=0)
+        torch.testing.assert_close(r[2], runs[0][2], rtol=0, atol=0)
+        torch.testing.assert_close(r[3], runs[0][3], rtol=0, atol=0)
+    for tr in trace:
+        assert bool((tr.diff(dim=2) >= 0).all()) and bool((tr > 0).all())
+    errs = runs[0][3].tolist()
+    assert all(np.isfinite(errs)) and errs[-1] < errs[0]
+
+
+# the same bits on two cluster counts where two strips fit one block: c5's
+# tower recipe at c2's width (2000x400) at batch 4 (at batch 20 only 15
+# clusters hold its tiles), and 64x4352 at batch 4 (tiles of 544 columns)
+TWO_COUNTS = {
+    "c5-tower-recipe-c2-width-b4": (RBMConfig(n_visible=2000, n_hidden=400, batch_size=4,
+                                              visible="gaussian", lr=0.01, k=2,
+                                              persistent=True, momentum=0.5, l2=1e-4),
+                                    (15, 8)),
+    "wide-tile-64x4352-b4": (RBMConfig(n_visible=64, n_hidden=4352, batch_size=4, lr=0.05,
+                                       k=2, persistent=True, momentum=0.5), (8, 4)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TWO_COUNTS))
+def test_resident_kernel_bits_on_two_cluster_counts(cuda, name):
+    cfg, counts = TWO_COUNTS[name]
+    st, data, order, _ = _inputs(cfg, cuda, E=3)
+    runs = [R.cd_train_resident_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
+                                    None, torch.Generator().manual_seed(3), grid=g)
+            for g in counts]
+    for part in (0, 1):
+        for n in ("W", "b", "c"):
+            torch.testing.assert_close(getattr(runs[1][part], n), getattr(runs[0][part], n),
+                                       rtol=0, atol=0)
+    torch.testing.assert_close(runs[1][2], runs[0][2], rtol=0, atol=0)
+    torch.testing.assert_close(runs[1][3], runs[0][3], rtol=0, atol=0)
+    assert all(np.isfinite(runs[0][3].tolist()))
+
+
+@pytest.mark.cuda
+def test_resident_kernel_rejects_bad_inputs(cuda):
+    cfg = RBMConfig(**CLUSTERED, lr=0.1)
+    st, data, order, _ = _inputs(cfg, cuda)
+    before = R.cd_train_resident_launches
+    with pytest.raises(ValueError, match="tempering"):
+        R.cd_train_resident_run(cfg.replace(persistent=True, pt_temps=3), st.params,
+                                st.velocity, st.chain_h, data, order, 0, None,
+                                torch.Generator())
+    with pytest.raises(ValueError, match="bfloat16"):  # float32 state under a bf16 config
+        R.cd_train_resident_run(cfg.replace(param_dtype="bfloat16"), st.params, st.velocity,
+                                st.chain_h, data, order, 0, None, torch.Generator())
+    c1 = RBMConfig(n_visible=784, n_hidden=500, batch_size=20, lr=0.1)
+    st1, data1, order1, _ = _inputs(c1, cuda)
+    with pytest.raises(ValueError, match="too few"):  # c1's 14 strips on one cluster
+        R.cd_train_resident_run(c1, st1.params, st1.velocity, st1.chain_h, data1, order1, 0,
+                                None, torch.Generator(), grid=1)
+    with pytest.raises(ValueError, match="clusters"):  # more clusters than strips
+        R.cd_train_resident_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
+                                None, torch.Generator(), grid=14)
+    with pytest.raises(ValueError, match="trace"):
+        R.cd_train_resident_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
+                                None, torch.Generator(),
+                                trace=torch.zeros((2, 6, 3), dtype=torch.int64, device=cuda))
+    assert R.cd_train_resident_launches == before
+
+
+@pytest.mark.cuda
+def test_resident_layout_matches_the_library(cuda):
+    """The wrapper's fit (resident_tiles, smem_bytes) is the kernel's own."""
+    import ctypes
+
+    from mdbn_tpu_torch._build import load_library
+
+    for V, H, B, dtype, pcd in ((784, 500, 20, "float32", False), (2000, 400, 20, "float32",
+                                True), (250, 100, 20, "bfloat16", True), (301, 77, 13,
+                                "float32", False), (784, 500, 64, "bfloat16", False)):
+        cfg = RBMConfig(n_visible=V, n_hidden=H, batch_size=B, param_dtype=dtype,
+                        persistent=pcd)
+        lib = load_library("cd_train_resident", dtype).lib
+        out = (ctypes.c_int * 4)()
+        lib.cd_train_resident_tiling(V, H, out)
+        t = R.resident_tiles(cfg)
+        assert tuple(out) == (t.rows, t.cols, t.strips, t.ranks)
+        for ns in (1, 2, 3):
+            assert lib.cd_train_resident_smem_bytes(V, H, B, K.kernel_flags(cfg), ns) == \
+                R.smem_bytes(cfg, ns)
+        smem, maxc = R.device_limits(cfg, cuda)
+        if torch.cuda.get_device_name(cuda).startswith("NVIDIA H100"):
+            assert (smem, maxc) == (R.H100_SMEM_PER_BLOCK, R.H100_MAX_CLUSTERS[t.ranks])
+
+
+@pytest.mark.cuda
+def test_train_takes_the_resident_kernel(cuda):
+    from mdbn_tpu_torch import RBM
+
+    cfg = RBMConfig(**CLUSTERED, lr=0.1, epochs=3, engine="pallas")
+    data = _inputs(cfg, cuda)[1]
+    before = R.cd_train_resident_launches, K.cd_train_launches
+    rbm = RBM(cfg, device=cuda).train(data)
+    assert (rbm.metrics.engine, rbm.metrics.kernel) == ("cuda", "cd_train_resident")
+    assert (R.cd_train_resident_launches, K.cd_train_launches) == (before[0] + 1, before[1])
+    assert rbm.history[-1] < rbm.history[0]
+    mode = RBM(cfg.replace(gradient="enhanced"), device=cuda).train(data)
+    assert mode.metrics.kernel == "cd_train"
+    assert K.cd_train_launches == before[1] + 1
 
 
 # the data-parallel path's per-step kernel, csrc/cd_grads.cu, at the shapes of

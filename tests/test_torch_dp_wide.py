@@ -207,7 +207,7 @@ def test_select_dp_kernel_at_the_threshold(monkeypatch):
     monkeypatch.setattr(K, "WIDE_DP_MIN_VISIBLE", 32)
     assert K.select_dp_kernel(base.replace(n_visible=32)) == "cd_grads_wide"
     assert K.select_dp_kernel(base.replace(n_visible=31)) == "cd_grads"
-    assert K.select_kernel(base.replace(n_visible=32)) == "cd_train"
+    assert K.select_kernel(base.replace(n_visible=32)) == "cd_train_resident"
 
 
 OUTSIDE = {"sampled visibles": dict(sample_visible=True),

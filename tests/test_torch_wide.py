@@ -31,6 +31,7 @@ from mdbn_tpu_torch.convert import (convert_config, rbm_from_numpy, state_from_n
                                     state_to_numpy)
 from mdbn_tpu_torch.core.rbm_math import torch_dtype
 from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+from mdbn_tpu_torch.ops.cd_epoch_resident_cuda import resident_tiles, resident_unsupported
 from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
 from mdbn_tpu_torch.train.trainer import resolve_engine, train_rbm
 
@@ -306,8 +307,16 @@ def test_admission(name):
                                  "w40k_bf16", "w20k_b64"))
     at = tcfg.replace(n_visible=K.WIDE_MIN_VISIBLE)
     assert K.select_kernel(at) == ("cd_train_wide" if in_scope else "cd_train")
-    assert K.select_kernel(at.replace(n_visible=K.WIDE_MIN_VISIBLE - 1)) == "cd_train"
-    assert K.select_kernel(at.replace(n_visible=2000)) == "cd_train"  # c2's width
+    # below it, a run of the plain estimator whose tiles fit the card's shared
+    # memory takes the resident kernel (csrc/cd_train_resident.cu), any other
+    # run cd_train.cu: the last column below the threshold, and c2's width
+    for v in (K.WIDE_MIN_VISIBLE - 1, 2000):
+        below = at.replace(n_visible=v)
+        resident = resident_unsupported(below) is None and resident_tiles(below).fits
+        assert K.select_kernel(below) == ("cd_train_resident" if resident else "cd_train")
+    plain = name not in ("w20k_lv", "w20k_enh", "w20k_pt3_bf16")
+    assert (K.select_kernel(at.replace(n_visible=2000)) == "cd_train_resident") == (
+        plain and name != "w20k_b64")  # 64 rows of 2000 do not fit a block
 
 
 # ---- bf16 state through convert.py, a checkpoint and the API ---------------------
