@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from mdbn_tpu_torch/csrc (nvcc, sm_90a: cd_train.cu,
-cd_train_wide.cu, cd_train_resident.cu, cd_grads.cu and cd_grads_wide.cu,
-each at float32 and bfloat16 storage, in parallel) and runs twenty-four
-phases, one line each (23 and 24 run after 5):
+cd_train_wide.cu, cd_train_resident.cu, cd_train_wide_modes.cu, cd_grads.cu
+and cd_grads_wide.cu, each at float32 and bfloat16 storage, in parallel) and
+runs twenty-four phases, one line each (23 and 24 run after 5):
 
 1. device: torch and CUDA versions, the card's name and power limit, build time;
 2. cd_train.cu against its plain PyTorch version on the card, inject mode with
@@ -39,18 +39,22 @@ phases, one line each (23 and 24 run after 5):
    each kernel against its plain version at full width for 2 epochs, whole
    runs at float32, one update at a time for PCD, tempering, momentum and
    bf16 storage (one bf16 ulp); a 20000-wide row that the admission rule
-   gives to the W-blocked kernel is compared on both kernels; which kernel
-   launched, by the two counters; identical bits on grids of 1, 7 and 132
-   blocks;
+   gives to another kernel (the W-blocked kernel, or the strip-split kernel
+   of the estimator modes, cd_train_wide_modes.cu, for learned variance, the
+   enhanced gradient and tempering) is compared on both kernels; which
+   kernel launched, by the counters; identical bits on grids of 1, 7 and 132
+   blocks and the default (w20k, w20k_pt3_bf16, w28k, w40k_bf16 on the row's
+   kernel; w20k_pt3_bf16, w20k_enh and w20k_lv on cd_train_wide_modes.cu);
 10. 20000x400, 20000x400 with momentum at bf16, 28000x400 and 40000x1000 bf16
-    (W-blocked kernel), 20000x400 enhanced and 3-rung tempering at bf16
-    (cd_train.cu) for 10 epochs through RBM.train (engine "pallas"): the
-    kernel the admission rule picks launched, parameters finite, the
-    monitor falls;
-11. kernel and plain time per epoch of each wide row (on both kernels where
-    phase 9 compared both), the kernel's phases, and the bound (what of W and
-    its velocity the L2 cannot hold moves once per update; the velocity is
-    read only under momentum);
+    (W-blocked kernel), 20000x400 enhanced, with learned variance and with
+    3-rung tempering at bf16 (cd_train_wide_modes.cu) for 10 epochs through
+    RBM.train (engine "pallas"): the kernel the admission rule picks
+    launched and no other, parameters finite, the monitor falls;
+11. kernel and plain time per epoch of each wide row (on both kernels, in
+    turns, where phase 9 compared both), each kernel's phases (the median of
+    each trace stamp), and the bound (what of W and its velocity the L2
+    cannot hold moves once per update; the velocity is read only under
+    momentum);
 12. the data-parallel path's per-step kernel (cd_grads.cu) against its plain
     version on the same hardened draws, one step each, at full width: c1
     (784x500, batch 20), c1's third shard of a 3-way split of 20 (7 rows, one
@@ -168,7 +172,8 @@ PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
 # The wide slice (scripts/bench_wide.py's shapes): name -> (config fields on
 # top of WIDE_BASE, data rows, the kernel the row is compared and timed on,
 # compared one update at a time). cd_train.cu is asked for on the 20000-wide
-# rows that the admission rule gives to the W-blocked kernel (WIDE_ADMITTED):
+# rows that the admission rule gives to the W-blocked kernel (WIDE_ADMITTED)
+# or to the strip-split kernel of the estimator modes (WIDE_MODES_ADMITTED):
 # those rows are held against their plain version on both kernels.
 WIDE_BASE = dict(visible="gaussian", lr=0.001, batch_size=20, k=1, seed=0)
 BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
@@ -191,10 +196,13 @@ WIDE_ROWS = {
 }
 WIDE_ADMITTED = ("w20k", "w20k_h512", "w20k_mom", "w20k_mom_bf16", "w28k", "w40k_bf16",
                  "w20k_b64")  # select_kernel gives these to cd_train_wide.cu
-# through RBM.train: four rows in the W-blocked kernel's scope, and one row
-# outside it at each storage dtype, which cd_train.cu takes at this width
-WIDE_TRAINED = ("w20k", "w20k_mom_bf16", "w28k", "w40k_bf16", "w20k_enh", "w20k_pt3_bf16")
+WIDE_MODES_ADMITTED = ("w20k_lv", "w20k_enh", "w20k_pt3_bf16")  # ... to cd_train_wide_modes.cu
+# through RBM.train: four rows in the W-blocked kernel's scope, and the three
+# estimator-mode rows, which the strip-split kernel of the modes takes
+WIDE_TRAINED = ("w20k", "w20k_mom_bf16", "w28k", "w40k_bf16", "w20k_enh", "w20k_pt3_bf16",
+                "w20k_lv")
 GRID_ROWS = ("w20k", "w20k_pt3_bf16", "w28k", "w40k_bf16")  # run on grids 1, 7, 132 too
+GRID_MODES_ROWS = ("w20k_pt3_bf16", "w20k_enh", "w20k_lv")  # the same on cd_train_wide_modes.cu
 # The data-parallel path: 3 ranks on the one card split c1's batch of 20 into
 # shards of 7 rows, the last with one pad row. Its replay is held at the
 # tolerance of tests/test_pallas_dp.py: the all-reduce adds the shards in
@@ -343,32 +351,38 @@ def _max_diff(got, want, rtol, atol, off=None) -> float:
     return max(err, float((got[3] - want[3]).abs().max()))
 
 
-def _runners(wide, clusters=None):
+def _runners(wide, clusters=None, modes=False):
     """(kernel, plain) of a comparison: the W-blocked pair when ``wide``; the
     resident kernel on ``clusters`` clusters (0: its default) when that is
-    not None."""
+    not None; the strip-split kernel of the estimator modes
+    (csrc/cd_train_wide_modes.cu) when ``modes``."""
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
     from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
     from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
+    from mdbn_tpu_torch.ops import cd_epoch_wide_modes_cuda as WMC
 
     def kernel(*args):
         if clusters is not None:
             return R.cd_train_resident_run(*args, grid=clusters)
+        if modes:
+            return WMC.cd_train_wide_modes_run(*args)
         return K.cd_train_run(*args, wide=wide)
 
     return kernel, KW.cd_train_wide_run_plain if wide else K.cd_train_run_plain
 
 
-def compare_run(cfg, data, n_epochs, device, seed, wide=False, clusters=None) -> float:
+def compare_run(cfg, data, n_epochs, device, seed, wide=False, clusters=None,
+                modes=False) -> float:
     """The whole n_epochs run on the kernel and on the plain version, from the
-    same state with the same hardened draws (``clusters``: see _runners)."""
+    same state with the same hardened draws (``clusters``, ``modes``: see
+    _runners)."""
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
 
     import torch
 
     st, u, nb = _inputs(cfg, data, n_epochs, device, seed, wide=wide)
     order = K.batch_order(cfg, nb, n_epochs, None)
-    kernel, plain = _runners(wide, clusters)
+    kernel, plain = _runners(wide, clusters, modes)
     got = kernel(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
     want = plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
     torch.cuda.synchronize()
@@ -376,7 +390,7 @@ def compare_run(cfg, data, n_epochs, device, seed, wide=False, clusters=None) ->
 
 
 def compare_replay(cfg, data, n_epochs, device, seed, wide=False, off=None,
-                   clusters=None) -> float:
+                   clusters=None, modes=False) -> float:
     """Every update of the kernel's own n_epochs trajectory, replayed by the
     plain version from the same state. PCD with momentum amplifies fp32
     rounding differences from update to update (the plain version on the CPU
@@ -393,7 +407,7 @@ def compare_replay(cfg, data, n_epochs, device, seed, wide=False, off=None,
     B = cfg.batch_size
     one = torch.zeros((1, 1), dtype=torch.int32)
     p, v, chain = st.params, st.velocity, st.chain_h
-    kernel, plain = _runners(wide, clusters)
+    kernel, plain = _runners(wide, clusters, modes)
     err, errs_k, errs_p = 0.0, [], []
     for e in range(n_epochs):
         for i in range(nb):
@@ -603,6 +617,22 @@ def wide_rows(dev):
             for name, (_, _, kernel, replayed) in WIDE_ROWS.items()}
 
 
+def wide_admitted(name) -> str:
+    """The kernel select_kernel gives the wide row ``name``."""
+    return ("cd_train_wide" if name in WIDE_ADMITTED else
+            "cd_train_wide_modes" if name in WIDE_MODES_ADMITTED else "cd_train")
+
+
+def trace_phases_of(kernel, cfg) -> list:
+    """The phases a trace of ``kernel`` stamps for one update of ``cfg``."""
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
+    from mdbn_tpu_torch.ops import cd_epoch_wide_modes_cuda as WMC
+
+    return {"cd_train": K.trace_phases, "cd_train_wide": KW.wide_trace_phases,
+            "cd_train_wide_modes": WMC.wide_modes_trace_phases}[kernel](cfg)
+
+
 def run_wide(dev, smi) -> list:
     """The wide slice's phases; returns its entries of the kernel line."""
     import numpy as np
@@ -611,7 +641,7 @@ def run_wide(dev, smi) -> list:
     from mdbn_tpu_torch import RBM
     from mdbn_tpu_torch.core.state import init_train_state
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
-    from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
+    from mdbn_tpu_torch.ops import cd_epoch_wide_modes_cuda as WMC
 
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     rows = wide_rows(dev)
@@ -627,35 +657,39 @@ def run_wide(dev, smi) -> list:
     errs, off = {}, {}
     for name, (cfg, data, kernel, replayed) in rows.items():
         admitted = K.select_kernel(cfg)
-        if (admitted == "cd_train_wide") != (name in WIDE_ADMITTED):
+        if admitted != wide_admitted(name):
             raise AssertionError(f"{name}: the admission rule picks {admitted}")
         for kern in dict.fromkeys((kernel, admitted)):
             key = name if kern == kernel else f"{name}@{kern}"
-            wide = kern == "cd_train_wide"
+            wide, modes = kern == "cd_train_wide", kern == "cd_train_wide_modes"
             zero_train_counts()
             if replayed:
                 n_off = [0, 0]
-                errs[key] = compare_replay(cfg, data, 2, dev, seed=3, wide=wide, off=n_off)
+                errs[key] = compare_replay(cfg, data, 2, dev, seed=3, wide=wide, off=n_off,
+                                           modes=modes)
                 if n_off[1]:
                     off[key] = {"differ": n_off[0], "of": n_off[1]}
             else:
-                errs[key] = compare_run(cfg, data, 2, dev, seed=3, wide=wide)
+                errs[key] = compare_run(cfg, data, 2, dev, seed=3, wide=wide, modes=modes)
             only(kern, key)
     # identical bits whatever the grid: 1, 7 and 132 blocks against the default,
-    # two updates with the kernel's own draws
-    for name in GRID_ROWS:
-        cfg, data, kernel, _ = rows[name]
+    # two updates with the kernel's own draws; the GRID_ROWS on the row's
+    # kernel, the GRID_MODES_ROWS on cd_train_wide_modes.cu
+    grid_checks = [(n, rows[n][2]) for n in GRID_ROWS] + [(n, "cd_train_wide_modes")
+                                                         for n in GRID_MODES_ROWS]
+    for name, kern in grid_checks:
+        cfg, data = rows[name][:2]
         st = init_train_state(cfg, device=dev)
         order = K.batch_order(cfg, 2, 1, None)
-        runs = [K.cd_train_run(cfg, st.params, st.velocity, st.chain_h,
-                               data[: 2 * cfg.batch_size], order, 0, None,
-                               torch.Generator().manual_seed(7), grid=g,
-                               wide=kernel == "cd_train_wide") for g in (0, 1, 7, 132)]
+        runs = [K.kernel_run(kern)(cfg, st.params, st.velocity, st.chain_h,
+                                   data[: 2 * cfg.batch_size], order, 0, None,
+                                   torch.Generator().manual_seed(7), grid=g)
+                for g in (0, 1, 7, 132)]
         for r in runs[1:]:
             same = all(torch.equal(x, y) for i in (0, 1) for x, y in
                        zip(r[i].as_dict().values(), runs[0][i].as_dict().values()))
             if not (same and torch.equal(r[2], runs[0][2]) and torch.equal(r[3], runs[0][3])):
-                raise AssertionError(f"{name}: the result depends on the grid")
+                raise AssertionError(f"{name}: the result of {kern} depends on the grid")
     # asking for the W-blocked kernel outside its scope raises
     cfg_lv, data_lv = rows["w20k_lv"][:2]
     st = init_train_state(cfg_lv, device=dev)
@@ -667,24 +701,37 @@ def run_wide(dev, smi) -> list:
         refusal = str(e)
     else:
         raise AssertionError("the W-blocked kernel took a learned-variance config")
+    # and so does asking for the strip-split kernel of the modes on the plain estimator
+    cfg_w, data_w = rows["w20k"][:2]
+    st = init_train_state(cfg_w, device=dev)
+    try:
+        WMC.cd_train_wide_modes_run(
+            cfg_w, st.params, st.velocity, st.chain_h, data_w,
+            K.batch_order(cfg_w, data_w.shape[0] // cfg_w.batch_size, 1, None), 0, None,
+            torch.Generator().manual_seed(0))
+    except ValueError as e:
+        modes_refusal = str(e)
+    else:
+        raise AssertionError("the strip-split kernel of the modes took a plain config")
     phase("kernel_vs_plain_wide", max_abs_err=errs, bf16_elements_one_ulp_apart=off,
           replayed=[n for n, r in rows.items() if r[3]], run_rtol=RTOL, run_atol=ATOL,
           replay_rtol=REPLAY_RTOL, replay_atol=REPLAY_ATOL,
           bf16_tolerance="a velocity one bf16 ulp (2^-7 of its value), a parameter its "
                          "velocity's ulp and one of its own, + replay_atol",
-          identical_bits_on_grids={"grids": [1, 7, 132, "default"], "rows": list(GRID_ROWS)},
-          outside_scope_raises=refusal)
+          identical_bits_on_grids={"grids": [1, 7, 132, "default"],
+                                   "rows": [f"{n}@{k}" for n, k in grid_checks]},
+          outside_scope_raises=[refusal, modes_refusal])
 
     # wide_train: through RBM.train on the kernel the admission rule picks
     trained, launches = {}, {}
     for name in WIDE_TRAINED:
         cfg, data = rows[name][:2]
-        kernel = "cd_train_wide" if name in WIDE_ADMITTED else "cd_train"
+        kernel = wide_admitted(name)
         zero_train_counts()
         t0 = time.perf_counter()
         rbm = RBM(cfg.replace(epochs=10, engine="pallas"), device=dev).train(data)
         seconds = time.perf_counter() - t0
-        launches[name] = only(kernel, name)
+        launches[name] = {kernel: only(kernel, name)}
         hist = rbm.history
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in rbm.params.as_dict().values())
@@ -692,12 +739,14 @@ def run_wide(dev, smi) -> list:
             raise AssertionError(f"{name}: engine {rbm.metrics.engine}, finite {finite}")
         if len(hist) != 10 or not all(np.isfinite(hist)) or not hist[-1] < hist[0]:
             raise AssertionError(f"{name}: the monitor did not fall: {hist}")
-        trained[name] = {"kernel": kernel, "launches": launches[name], "first_err": hist[0],
+        trained[name] = {"kernel": kernel, "launches": launches[name][kernel],
+                         "first_err": hist[0],
                          "final_err": hist[-1], "seconds": round(seconds, 3)}
     phase("wide_train", runs=trained)
 
-    # timing_wide: one epoch per call, plain, kernel, kernel, plain; a row that
-    # the admission rule gives to the other kernel is timed on that one too
+    # timing_wide: one epoch per call; a row that the admission rule gives to
+    # another kernel is timed on both, in turns: plain, each kernel, each
+    # kernel in reverse order, plain (the better of each side's two times)
     timing = {}
     for name, (cfg, data, kernel, _) in rows.items():
         st = init_train_state(cfg, device=dev)
@@ -705,46 +754,50 @@ def run_wide(dev, smi) -> list:
         order = K.batch_order(cfg, nb, 1, None)
         gen = torch.Generator().manual_seed(0)
         bound_ms, bound_by = bound(cfg, nb, l2)
-        for kern in dict.fromkeys((kernel, K.select_kernel(cfg))):
-            wide = kern == "cd_train_wide"
-            run_plain = _runners(wide)[1]
+        kerns = list(dict.fromkeys((kernel, K.select_kernel(cfg))))
+        plains = list(dict.fromkeys(k == "cd_train_wide" for k in kerns))
 
-            def kernel_fn(trace=None):
-                K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
-                               gen, trace=trace, wide=wide)
+        def kernel_fn(kern, trace=None):
+            K.kernel_run(kern)(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
+                               gen, trace=trace)
 
-            def plain_fn():
-                run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None, gen)
+        def plain_fn(wide):
+            _runners(wide)[1](cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
+                              gen)
 
-            t_plain1 = time_runs(plain_fn, 2)
-            t_kernel1 = time_runs(kernel_fn, 5)
-            t_kernel2 = time_runs(kernel_fn, 5)
-            t_plain2 = time_runs(plain_fn, 2)
-            t_kernel, t_plain = min(t_kernel1, t_kernel2), min(t_plain1, t_plain2)
-            phases = KW.wide_trace_phases(cfg) if wide else K.trace_phases(cfg)
+        t_plain = {w: [time_runs(lambda w=w: plain_fn(w), 2)] for w in plains}
+        t_kern = {k: [] for k in kerns}
+        for kern in kerns + kerns[::-1]:
+            t_kern[kern].append(time_runs(lambda kern=kern: kernel_fn(kern), 5))
+        for w in plains[::-1]:
+            t_plain[w].append(time_runs(lambda w=w: plain_fn(w), 2))
+        for kern in kerns:
+            phases = trace_phases_of(kern, cfg)
             trace = torch.zeros((1, nb, len(phases) + 1), dtype=torch.int64, device=dev)
-            kernel_fn(trace=trace)
+            kernel_fn(kern, trace=trace)
             torch.cuda.synchronize()
             spans = (trace[0, :, 1:] - trace[0, :, :-1]).double().median(0).values / 1e3
+            tk, tp = t_kern[kern], t_plain[kern == "cd_train_wide"]
+            t_kernel, t_plain_min = min(tk), min(tp)
             timing[name if kern == kernel else f"{name}@{kern}"] = {
                 "kernel": kern, "updates_per_run": nb, "kernel_ms": t_kernel * 1e3,
-                "plain_ms": t_plain * 1e3,
-                "kernel_ms_calls": [t_kernel1 * 1e3, t_kernel2 * 1e3],
-                "plain_ms_calls": [t_plain1 * 1e3, t_plain2 * 1e3],
+                "plain_ms": t_plain_min * 1e3,
+                "kernel_ms_calls": [t * 1e3 for t in tk],
+                "plain_ms_calls": [t * 1e3 for t in tp],
                 "kernel_us_per_update": t_kernel * 1e6 / nb,
-                "plain_us_per_update": t_plain * 1e6 / nb,
+                "plain_us_per_update": t_plain_min * 1e6 / nb,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "flops_per_update": update_flops(cfg),
                 "kernel_phase_us_median": dict(zip(phases, spans.tolist()))}
-    phase("timing_wide", order="plain, kernel, kernel, plain", nvidia_smi=smi, l2_bytes=l2,
-          rows=timing)
+    phase("timing_wide", order="plain, each kernel, each kernel in reverse, plain",
+          nvidia_smi=smi, l2_bytes=l2, rows=timing)
 
     def entry(name, row, line, what, key=None):
         t = timing[key or row]
         return {"name": name, "route": "cuda",
                 "source": f"mdbn_tpu_torch/csrc/{t['kernel']}.cu",
                 "replaces": f"mdbn_tpu/ops/cd_epoch_pallas.py:{line}",
-                "launches": launches[row], "max_abs_err": errs[key or row],
+                "launches": launches[row].get(t["kernel"], 0), "max_abs_err": errs[key or row],
                 "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": None,
                 "ms_per": f"one epoch of {row} ({t['updates_per_run']} updates): {what}"}
@@ -760,7 +813,16 @@ def run_wide(dev, smi) -> list:
                   key="w20k@cd_train_wide"),
             entry("cd_train_wide[w20k_mom_bf16]", "w20k_mom_bf16", 1981,
                   "the W-blocked kernel under momentum at bf16",
-                  key="w20k_mom_bf16@cd_train_wide")]
+                  key="w20k_mom_bf16@cd_train_wide"),
+            entry("cd_train_wide_modes[w20k_pt3_bf16]", "w20k_pt3_bf16", 995,
+                  "the strip-split kernel of the modes: tempering (3 rungs), bf16 storage and "
+                  "compute", key="w20k_pt3_bf16@cd_train_wide_modes"),
+            entry("cd_train_wide_modes[w20k_enh]", "w20k_enh", 1568,
+                  "the strip-split kernel of the modes: the enhanced gradient, float32",
+                  key="w20k_enh@cd_train_wide_modes"),
+            entry("cd_train_wide_modes[w20k_lv]", "w20k_lv", 980,
+                  "the strip-split kernel of the modes: learned variance, float32",
+                  key="w20k_lv@cd_train_wide_modes")]
 
 
 def train_counts() -> dict:
@@ -768,17 +830,21 @@ def train_counts() -> dict:
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
     from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
     from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
+    from mdbn_tpu_torch.ops import cd_epoch_wide_modes_cuda as WMC
 
     return {"cd_train": K.cd_train_launches, "cd_train_wide": KW.cd_train_wide_launches,
-            "cd_train_resident": R.cd_train_resident_launches}
+            "cd_train_resident": R.cd_train_resident_launches,
+            "cd_train_wide_modes": WMC.cd_train_wide_modes_launches}
 
 
 def zero_train_counts() -> None:
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
     from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
     from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
+    from mdbn_tpu_torch.ops import cd_epoch_wide_modes_cuda as WMC
 
     K.cd_train_launches = KW.cd_train_wide_launches = R.cd_train_resident_launches = 0
+    WMC.cd_train_wide_modes_launches = 0
 
 
 def check_counts(name, expected: dict) -> dict:

@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel -> the storage types it is built at
 KERNELS = {"cd_train": ("float32", "bfloat16"), "cd_train_wide": ("float32", "bfloat16"),
            "cd_train_resident": ("float32", "bfloat16"),
+           "cd_train_wide_modes": ("float32", "bfloat16"),
            "cd_grads": ("float32", "bfloat16"), "cd_grads_wide": ("float32", "bfloat16")}
 
 
@@ -131,17 +132,29 @@ def _declare_error_string(lib: ctypes.CDLL, name: str) -> None:
     fn.restype = ctypes.c_char_p
 
 
-def _declare_cd_train(lib: ctypes.CDLL) -> None:
-    lib.cd_train_run.argtypes = (
+def _declare_train_run(lib: ctypes.CDLL, name: str) -> None:
+    """``<name>_run``, ``<name>_scratch_floats`` and ``<name>_error_string``
+    of cd_train.cu and cd_train_wide_modes.cu, which take the same arguments."""
+    run = getattr(lib, f"{name}_run")
+    run.argtypes = (
         [_P] * 19  # data, order, u_h0, u_h, u_v, u_swap, betas, W, b, c, vW, vb, vc, z, vz,
                    # chain, errs, scratch, trace
         + [_I] * 10  # V, H, B, M, nb, E, k, start_epoch, switch_epoch, flags
         + [_F] * 8  # lr, lr_z, momentum, initial_momentum, l2, grad_clip, sparsity_target/cost
         + _TAIL)
-    lib.cd_train_run.restype = _I
-    lib.cd_train_scratch_floats.argtypes = [_I] * 5  # V, H, B, M, flags
-    lib.cd_train_scratch_floats.restype = ctypes.c_longlong
-    _declare_error_string(lib, "cd_train_error_string")
+    run.restype = _I
+    scratch = getattr(lib, f"{name}_scratch_floats")
+    scratch.argtypes = [_I] * 5  # V, H, B, M, flags
+    scratch.restype = ctypes.c_longlong
+    _declare_error_string(lib, f"{name}_error_string")
+
+
+def _declare_cd_train(lib: ctypes.CDLL) -> None:
+    _declare_train_run(lib, "cd_train")
+
+
+def _declare_cd_train_wide_modes(lib: ctypes.CDLL) -> None:
+    _declare_train_run(lib, "cd_train_wide_modes")
 
 
 def _declare_cd_train_wide(lib: ctypes.CDLL) -> None:
@@ -215,4 +228,5 @@ def _declare_cd_grads_wide(lib: ctypes.CDLL) -> None:
 
 _DECLARE = {"cd_train": _declare_cd_train, "cd_train_wide": _declare_cd_train_wide,
             "cd_train_resident": _declare_cd_train_resident,
+            "cd_train_wide_modes": _declare_cd_train_wide_modes,
             "cd_grads": _declare_cd_grads, "cd_grads_wide": _declare_cd_grads_wide}

@@ -13,9 +13,11 @@ in plain PyTorch, built from ``core.rbm_math``'s ``cd_step_stats`` /
 function under a VMEM budget; this kernel keeps all state in device memory
 at any width, so they have no counterpart of their own. A wide run inside
 its scope goes to the W-blocked kernel of ``ops.cd_epoch_wide_cuda`` instead,
-and a run of the plain estimator whose W fits the shared memory of the card
-to the resident kernel of ``ops.cd_epoch_resident_cuda``
-(``select_kernel``; ``kernel_run`` gives the wrapper of each). They take
+a wide run under tempering, the enhanced gradient or learned variance to the
+strip-split kernel of ``ops.cd_epoch_wide_modes_cuda``, and a run of the
+plain estimator whose W fits the shared memory of the card to the resident
+kernel of ``ops.cd_epoch_resident_cuda`` (``select_kernel``; ``kernel_run``
+gives the wrapper of each). They take
 
 - ``params`` / ``velocity`` (``RBMParams``, with ``z`` under learned
   variance) and the PCD ``chain`` [CR, H], CR = B, or M*B rung-major under
@@ -89,6 +91,28 @@ def wide_unsupported(cfg: RBMConfig) -> Optional[str]:
     return kernel_unsupported(cfg)
 
 
+def wide_modes_unsupported(cfg: RBMConfig) -> Optional[str]:
+    """Why the strip-split kernel of the estimator modes
+    (``csrc/cd_train_wide_modes.cu``) does not take ``cfg`` (None when it
+    does): it runs tempering, the enhanced gradient and learned variance, in
+    any combination, at either storage dtype."""
+    if cfg.pt_temps <= 1 and cfg.gradient == "plain" and not cfg.learn_variance:
+        return ("the plain estimator belongs to csrc/cd_train_wide.cu and "
+                "csrc/cd_train_resident.cu; the strip-split kernel of the estimator modes "
+                "runs tempering, the enhanced gradient or learned variance")
+    if cfg.error_metric == "pseudo":
+        return ("the pseudo-likelihood monitor (it flips one bit of a binary visible, and no "
+                "wide row uses it) stays on csrc/cd_train.cu")
+    if cfg.batch_size > WIDE_MODES_MAX_BATCH:
+        return (f"the strip-split kernel of the estimator modes stages a strip of the whole "
+                f"batch in shared memory: batch_size > {WIDE_MODES_MAX_BATCH} stays on "
+                "csrc/cd_train.cu")
+    return kernel_unsupported(cfg)
+
+
+WIDE_MODES_MAX_BATCH = 256  # csrc/cd_wide_modes_phases.cuh: kMaxBatch
+
+
 # The visible width from which a run inside the W-blocked kernel's scope takes
 # it. cd_train.cu gives a hidden phase's unit all V rows of its W columns, so
 # its time per update grows with V from a low floor; cd_train_wide.cu splits
@@ -99,9 +123,22 @@ def wide_unsupported(cfg: RBMConfig) -> Optional[str]:
 WIDE_MIN_VISIBLE = 4096
 
 
+# The visible width from which a run of the estimator modes that
+# csrc/cd_train_wide_modes.cu takes (wide_modes_unsupported) goes to it
+# instead of csrc/cd_train.cu. Timed on an H100 at H 400, batch 20
+# (scripts/torch_wide_crossover.py --modes), the strip-split kernel is ahead
+# from V 3000 under 3-rung tempering at bf16, from 4096 under the enhanced
+# gradient and from 5000 under learned variance (at 4096 it is 1% behind),
+# by 2.0-2.4x at 20000: the smallest measured width from which it wins in
+# every mode.
+WIDE_MODES_MIN_VISIBLE = 5000
+
+
 def select_kernel(cfg: RBMConfig, limits: Optional[Tuple[int, int]] = None) -> str:
     """The kernel a run of ``cfg`` takes: "cd_train_wide" when the config lies
     in the W-blocked kernel's scope and is at least ``WIDE_MIN_VISIBLE``
+    wide; "cd_train_wide_modes" when it lies in the scope of the strip-split
+    kernel of the estimator modes and is at least ``WIDE_MODES_MIN_VISIBLE``
     wide; else "cd_train_resident" when it runs the plain estimator (no
     tempering, enhanced gradient, learned variance or pseudo monitor; k <=
     255) and its tiles of W and the velocity fit the shared memory of a card
@@ -113,6 +150,8 @@ def select_kernel(cfg: RBMConfig, limits: Optional[Tuple[int, int]] = None) -> s
     width cut-off."""
     if wide_unsupported(cfg) is None and cfg.n_visible >= WIDE_MIN_VISIBLE:
         return "cd_train_wide"
+    if wide_modes_unsupported(cfg) is None and cfg.n_visible >= WIDE_MODES_MIN_VISIBLE:
+        return "cd_train_wide_modes"
     from .cd_epoch_resident_cuda import resident_admits
 
     return "cd_train_resident" if resident_admits(cfg, limits) else "cd_train"
@@ -125,6 +164,10 @@ def kernel_run(kernel: str) -> Callable:
         from .cd_epoch_resident_cuda import cd_train_resident_run
 
         return cd_train_resident_run
+    if kernel == "cd_train_wide_modes":
+        from .cd_epoch_wide_modes_cuda import cd_train_wide_modes_run
+
+        return cd_train_wide_modes_run
     if kernel not in ("cd_train", "cd_train_wide"):
         raise ValueError(f"no kernel {kernel!r}")
     return functools.partial(cd_train_run, wide=kernel == "cd_train_wide")

@@ -12,7 +12,9 @@ Engines (``cfg.engine``):
   card's shared memory: ``csrc/cd_train_resident.cu`` (W resident in shared
   memory) for a run of the plain estimator whose tiles fit the card, the
   W-blocked ``csrc/cd_train_wide.cu`` for a wide run inside that kernel's
-  scope, else ``csrc/cd_train.cu`` (``ops.cd_epoch_cuda.kernel_run``).
+  scope, ``csrc/cd_train_wide_modes.cu`` for a wide run under tempering, the
+  enhanced gradient or learned variance, else ``csrc/cd_train.cu``
+  (``ops.cd_epoch_cuda.kernel_run``).
   Raises on the CPU, and for a config the kernels do not take.
 - ``"xla"`` -> ``"eager"``: ``ops.cd_epoch_cuda.cd_train_run_plain``, the
   plain PyTorch version of the same run, on any device.
@@ -96,9 +98,10 @@ def _check_runtime(runtime: TrainRuntimeConfig) -> None:
 
 class EpochMetrics:
     """Per-epoch errors and rates of a run, its engine, and the kernel its
-    route took ("cd_train_resident", "cd_train", "cd_train_wide", "cd_grads"
-    or "cd_grads_wide"; under an eager engine, the kernel whose plain version
-    ran: "cd_train", whose plain version is also the resident kernel's)."""
+    route took ("cd_train_resident", "cd_train", "cd_train_wide",
+    "cd_train_wide_modes", "cd_grads" or "cd_grads_wide"; under an eager
+    engine, the kernel whose plain version ran: "cd_train", whose plain
+    version is also the resident kernel's and the wide modes kernel's)."""
 
     __slots__ = ("errors", "updates_per_sec", "wall_seconds", "engine", "kernel")
 

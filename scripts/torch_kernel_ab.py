@@ -14,10 +14,16 @@ the kernel that checkout's ``select_kernel`` picks (the parent's cd_train.cu
 against this checkout's csrc/cd_train_resident.cu), and at two rows of the
 wide slice on the W-blocked csrc/cd_train_wide.cu, w20k (Gaussian
 20000x400, B 20, lr 0.001) and w20k_mom_bf16 (the same with momentum 0.5 at
-bf16 storage and compute). Each process also hashes the parameters and
-velocities after a 2-epoch run of cd_train.cu and cd_train_wide.cu, called
-directly, from a fixed state with the kernel's own draws from a fixed seed,
-so the summary says whether the two checkouts' kernels give the same bits.
+bf16 storage and compute), and at the slice's three estimator-mode rows
+(w20k_pt3_bf16: 3-rung tempering, PCD, bf16 storage and compute; w20k_enh:
+the enhanced gradient; w20k_lv: learned variance) on cd_train.cu called
+directly and on the kernel each checkout's ``select_kernel`` picks (the
+parent's cd_train.cu against this checkout's csrc/cd_train_wide_modes.cu).
+Each process also hashes the parameters and velocities after a 2-epoch run
+of the directly called kernel and of the selected one, from a fixed state
+with the kernel's own draws from a fixed seed, so the summary says whether
+the two checkouts' kernels give the same bits (``identical_bits``; for the
+selected kernel, at the shapes where both checkouts select the same one).
 Prints one JSON line per process, then a summary line with each side's best
 time and the card's name and power limit.
 
@@ -43,15 +49,20 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SELECTED = ("c1", "c2")  # also timed on the kernel select_kernel picks
+# also timed on the kernel select_kernel picks
+SELECTED = ("c1", "c2", "w20k", "w20k_mom_bf16", "w20k_pt3_bf16", "w20k_enh", "w20k_lv")
 WIDE = dict(n_visible=20000, n_hidden=400, batch_size=20, lr=0.001, visible="gaussian")
+BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
 SHAPES = {  # name -> (config fields, data rows, the W-blocked kernel)
     "c1": (dict(n_visible=784, n_hidden=500, batch_size=20, lr=0.1), 2000, False),
     "c2": (dict(n_visible=2000, n_hidden=400, batch_size=20, lr=0.01, visible="gaussian"),
            2000, False),
     "w20k": (WIDE, 400, True),
-    "w20k_mom_bf16": (dict(WIDE, momentum=0.5, param_dtype="bfloat16",
-                           compute_dtype="bfloat16"), 400, True),
+    "w20k_mom_bf16": (dict(WIDE, momentum=0.5, **BF16), 400, True),
+    "w20k_pt3_bf16": (dict(WIDE, persistent=True, pt_temps=3, pt_beta_min=0.3, **BF16), 400,
+                      False),
+    "w20k_enh": (dict(WIDE, gradient="enhanced"), 400, False),
+    "w20k_lv": (dict(WIDE, learn_variance=True), 400, False),
 }
 
 
@@ -130,6 +141,11 @@ def child(root: str, reps: int) -> dict:
         if name in SELECTED:
             kernel, fn = _selected(K, cfg, dev)
             out[f"{name}_selected"] = kernel
+            p, v, _, errs = fn(cfg, st.params, st.velocity, st.chain_h, data,
+                               K.batch_order(cfg, nb, 2, None), 0, None,
+                               torch.Generator().manual_seed(1))
+            out[f"{name}_selected_bits"] = digest([*p.as_dict().values(),
+                                                   *v.as_dict().values(), errs])
             out[f"{name}_selected_ms_per_epoch"] = _time_ms(
                 lambda: fn(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None, gen),
                 reps)
@@ -255,6 +271,9 @@ def main() -> int:
                 r[f"{name}_selected_ms_per_epoch"] for r in runs if r["side"] == side)
     summary["identical_bits"] = {name: len({r[f"{name}_bits"] for r in runs}) == 1
                                  for name in SHAPES}
+    summary["selected_identical_bits"] = {
+        name: len({r[f"{name}_selected_bits"] for r in runs}) == 1 for name in SELECTED
+        if len({r[f"{name}_selected"] for r in runs}) == 1}
     print(json.dumps(summary))
     return 0
 

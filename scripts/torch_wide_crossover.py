@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time both CUDA train kernels on the shapes both take, on one card; with
---dp, both data-parallel routes.
+--dp, both data-parallel routes; with --modes, cd_train.cu against the
+strip-split kernel of the estimator modes.
 
     python3 scripts/torch_wide_crossover.py [--reps 5]
     python3 scripts/torch_wide_crossover.py --dp [--reps 3]
+    python3 scripts/torch_wide_crossover.py --modes [--reps 5]
 
 ``ops.cd_epoch_cuda.select_kernel`` sends a run either to ``csrc/cd_train.cu``
 or to the W-blocked ``csrc/cd_train_wide.cu``. This script measures where the
@@ -31,6 +33,20 @@ one epoch's wall time (host clock around a synchronised call, after a
 warm-up epoch) and, from one torch.profiler trace of an epoch, the device
 time per step of the route's two kernels and of every kernel. The better of
 each route's two readings counts; "faster" compares the route's kernels.
+
+With --modes, ``ops.cd_epoch_cuda.select_kernel``'s choice for a run under
+tempering, the enhanced gradient or learned variance: ``csrc/cd_train.cu``
+against ``csrc/cd_train_wide_modes.cu`` (``WIDE_MODES_MIN_VISIBLE``), each
+called directly through ``kernel_run``, at H 400 and batch 20 (Gaussian, CD-1,
+lr 0.001, standard-normal data from a seed) for V = 784, 1000, 1500, 2000,
+3000, 4096, 5000, 10000 and 20000, under 3-rung tempering at bf16 storage and
+compute (PCD, beta_min 0.3: the w20k_pt3_bf16 row's recipe), the enhanced
+gradient and learned variance at float32 (w20k_enh, w20k_lv). One epoch of
+20 updates per call, in the order cd_train, wide_modes, wide_modes, cd_train
+after a warm-up call each; the better of each side's two times counts. One
+JSON line per shape, then a summary with the card's name and power limit and
+the smallest width from which the strip-split kernel is faster at every
+measured width of every mode.
 """
 
 from __future__ import annotations
@@ -62,6 +78,12 @@ SHAPES = {  # name -> (config fields on top of BASE, data rows)
 
 
 DP_SHAPES = [name for name in SHAPES if name not in ("w20k_h512", "w20k_mom", "w20k_b64")]
+MODES_WIDTHS = (784, 1000, 1500, 2000, 3000, 4096, 5000, 10000, 20000)
+MODES = {  # config fields on top of BASE (scripts/bench_wide.py's mode rows)
+    "pt3_bf16": dict(persistent=True, pt_temps=3, pt_beta_min=0.3, **BF16),
+    "enhanced": dict(gradient="enhanced"),
+    "lv": dict(learn_variance=True),
+}
 ROUTE_KERNELS = {"cd_grads": ("cd_grads_kernel", "cd_update_kernel"),
                  "cd_grads_wide": ("cd_wide_step_kernel", "cd_wide_update_kernel")}
 
@@ -151,6 +173,60 @@ def dp_main(reps: int, smi: str) -> int:
     return 0
 
 
+def modes_main(reps: int, smi: str) -> int:
+    import torch
+
+    from mdbn_tpu_torch.config import RBMConfig
+    from mdbn_tpu_torch.core.rbm_math import torch_dtype
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+
+    dev = torch.device("cuda", 0)
+    kernels = ("cd_train", "cd_train_wide_modes")
+    faster = {}
+    for mode, fields in MODES.items():
+        for v in MODES_WIDTHS:
+            cfg = RBMConfig(**{**BASE, **fields, "n_visible": v})
+            if K.wide_modes_unsupported(cfg) is not None:
+                raise AssertionError(f"{mode}: outside the strip-split kernel's scope")
+            gen = torch.Generator(device=dev).manual_seed(0)
+            data = torch.randn((400, v), generator=gen,
+                               device=dev).to(torch_dtype(cfg.param_dtype))
+            st = init_train_state(cfg, device=dev)
+            nb = 400 // cfg.batch_size
+            order = K.batch_order(cfg, nb, 1, None)
+            seeds = torch.Generator().manual_seed(0)
+
+            def run(kern):
+                K.kernel_run(kern)(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
+                                   None, seeds)
+
+            times = {k: [] for k in kernels}
+            for kern in kernels + kernels[::-1]:
+                times[kern].append(time_runs(lambda kern=kern: run(kern), reps) * 1e6 / nb)
+            best = {k: min(t) for k, t in times.items()}
+            faster[f"{mode}@{v}"] = min(best, key=best.get)
+            print(json.dumps({
+                "mode": mode, "V": v, "H": cfg.n_hidden, "B": cfg.batch_size,
+                "param_dtype": cfg.param_dtype, "updates_per_run": nb,
+                "cd_train_us_per_update": best["cd_train"],
+                "cd_train_wide_modes_us_per_update": best["cd_train_wide_modes"],
+                "cd_train_us_calls": times["cd_train"],
+                "cd_train_wide_modes_us_calls": times["cd_train_wide_modes"],
+                "select_kernel": K.select_kernel(cfg),
+                "faster": faster[f"{mode}@{v}"]}), flush=True)
+    # the smallest measured width from which the strip-split kernel wins at
+    # every larger measured width of every mode
+    ahead = [v for v in MODES_WIDTHS
+             if all(faster[f"{m}@{w}"] == "cd_train_wide_modes"
+                    for m in MODES for w in MODES_WIDTHS if w >= v)]
+    print(json.dumps({"order": "cd_train, wide_modes, wide_modes, cd_train",
+                      "nvidia_smi": smi, "faster": faster,
+                      "wide_modes_ahead_from": min(ahead) if ahead else None,
+                      "WIDE_MODES_MIN_VISIBLE": K.WIDE_MODES_MIN_VISIBLE}))
+    return 0
+
+
 def time_runs(fn, reps: int) -> float:
     """Mean seconds per call of ``fn`` on the card, after one warm-up call."""
     import torch
@@ -171,6 +247,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--dp", action="store_true",
                     help="time the two data-parallel routes on one NCCL rank")
+    ap.add_argument("--modes", action="store_true",
+                    help="time cd_train.cu against the strip-split kernel of the modes")
     args = ap.parse_args()
     import torch
 
@@ -190,6 +268,8 @@ def main() -> int:
     build_all()
     if args.dp:
         return dp_main(args.reps, smi)
+    if args.modes:
+        return modes_main(args.reps, smi)
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     faster = {}
     for name, (fields, n) in SHAPES.items():

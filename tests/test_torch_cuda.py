@@ -973,3 +973,143 @@ def test_wide_dp_one_rank_nccl(cuda, monkeypatch):
         torch.testing.assert_close(a.chain_h, chain, rtol=0, atol=0)
     finally:
         dist.destroy_process_group()
+
+
+# the strip-split kernel of the estimator modes, csrc/cd_train_wide_modes.cu,
+# against its plain version (cd_train_run_plain) under each mode and pt3_lv at
+# both storage dtypes, at cd_train.cu's tolerances; one case spans three x W
+# strips, several update units and a batch over 8. The cases of more than 64
+# rows (a batch over 64, or a ladder of 3 x 32 and more) take x W over several
+# row groups and h W^T over several passes of a segment; those where 2 B H
+# floats pass the update's shared memory (24576 floats) read h0p and hmean
+# from device memory instead of staging them (csrc/cd_train_wide_modes.cu:
+# Args::hstaged); the last reaches the largest batch the kernel takes.
+WM = "cd_train_wide_modes"
+UNSTAGED = dict(visible="gaussian", lr=0.001, n_hidden=400)
+WIDE_MODES_CASES = {
+    "pt-gaussian-meanfield": RBMConfig(**SMALL, visible="gaussian", lr=0.005, persistent=True,
+                                       pt_temps=3, pt_beta_min=0.3, momentum=0.5),
+    "pt-bernoulli-k2": MODES["pt-bernoulli"],
+    "pt-gaussian-sampled": MODES["pt-gaussian-sampled"],
+    "enhanced-sparsity": MODES["enhanced-sparsity"],
+    "enhanced-gaussian-three-strips": RBMConfig(n_visible=1100, n_hidden=72, batch_size=20,
+                                                visible="gaussian", lr=0.005,
+                                                gradient="enhanced", l2=1e-4, grad_clip=0.5),
+    "learn-variance": MODES["learn-variance"],
+    "learn-variance-meanfield-pcd": MODES["learn-variance-meanfield-pcd"],
+    "pt3-lv": MODES["pt-learn-variance"],
+    "bf16-pt-gaussian": RBMConfig(**SMALL, visible="gaussian", lr=0.005, persistent=True,
+                                  pt_temps=3, pt_beta_min=0.3, **BF16),
+    "bf16-pt-bernoulli": BF16_CASES["pt"],
+    "bf16-enhanced": BF16_CASES["enhanced"],
+    "bf16-learn-variance": BF16_CASES["learn-variance"],
+    "bf16-pt3-lv": RBMConfig(**SMALL, visible="gaussian", lr=0.005, persistent=True,
+                             pt_temps=3, pt_beta_min=0.3, learn_variance=True, momentum=0.5,
+                             **BF16),
+    "pt3-gaussian-ladder-96": RBMConfig(n_visible=600, n_hidden=96, batch_size=32,
+                                        visible="gaussian", lr=0.002, persistent=True,
+                                        pt_temps=3, pt_beta_min=0.3),
+    "enhanced-batch-96-unstaged": RBMConfig(n_visible=1100, batch_size=96,
+                                            gradient="enhanced", l2=1e-4, grad_clip=0.5,
+                                            **UNSTAGED),
+    "learn-variance-batch-80-unstaged": RBMConfig(n_visible=600, batch_size=80,
+                                                  learn_variance=True, momentum=0.5,
+                                                  **dict(UNSTAGED, n_hidden=200)),
+    "bf16-pt3-lv-ladder-96-unstaged": RBMConfig(n_visible=1100, batch_size=32,
+                                                persistent=True, pt_temps=3, pt_beta_min=0.3,
+                                                learn_variance=True, **UNSTAGED, **BF16),
+    "pt3-enhanced-bernoulli-batch-256": RBMConfig(n_visible=600, n_hidden=64, batch_size=256,
+                                                  lr=0.05, persistent=True, pt_temps=3,
+                                                  pt_beta_min=0.3, gradient="enhanced"),
+}
+
+
+def _wide_modes_counts():
+    from mdbn_tpu_torch.ops import cd_epoch_wide_modes_cuda as WMC
+
+    return (WMC.cd_train_wide_modes_launches, K.cd_train_launches,
+            KW.cd_train_wide_launches, R.cd_train_resident_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WIDE_MODES_CASES))
+def test_wide_modes_kernel_matches_plain_inject(cuda, name):
+    from mdbn_tpu_torch.ops import cd_epoch_wide_modes_cuda as WMC
+
+    cfg = WIDE_MODES_CASES[name]
+    assert K.wide_modes_unsupported(cfg) is None
+    st, data, order, u = _inputs(cfg, cuda)
+    before = _wide_modes_counts()
+    got = K.kernel_run(WM)(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
+    torch.cuda.synchronize()
+    assert _wide_modes_counts() == (before[0] + 1, *before[1:])
+    assert got[0].W.dtype == got[2].dtype == st.params.W.dtype
+    _check(got, K.cd_train_run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
+                                     u))
+    assert WMC.cd_train_wide_modes_run is K.kernel_run(WM)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pt-bernoulli-k2", "enhanced-gaussian-three-strips",
+                                  "learn-variance", "pt3-lv", "bf16-pt-gaussian",
+                                  "enhanced-batch-96-unstaged",
+                                  "bf16-pt3-lv-ladder-96-unstaged",
+                                  "pt3-enhanced-bernoulli-batch-256"])
+def test_wide_modes_kernel_is_grid_independent_and_trains(cuda, name):
+    from mdbn_tpu_torch.ops import cd_epoch_wide_modes_cuda as WMC
+
+    cfg = WIDE_MODES_CASES[name]
+    st, data, order, _ = _inputs(cfg, cuda, E=4)
+    trace = [torch.zeros((4, 6, WMC.wide_modes_trace_len(cfg)), dtype=torch.int64,
+                         device=cuda) for _ in range(4)]
+    runs = [WMC.cd_train_wide_modes_run(cfg, st.params, st.velocity, st.chain_h, data, order,
+                                        0, None, torch.Generator().manual_seed(3), grid=g,
+                                        trace=tr)
+            for g, tr in zip((1, 7, 132, 0), trace)]
+    for r in runs[1:]:
+        for part in (0, 1):
+            for n in ("W", "b", "c", "z"):
+                if getattr(r[part], n) is not None:
+                    torch.testing.assert_close(getattr(r[part], n),
+                                               getattr(runs[0][part], n), rtol=0, atol=0)
+        torch.testing.assert_close(r[2], runs[0][2], rtol=0, atol=0)
+        torch.testing.assert_close(r[3], runs[0][3], rtol=0, atol=0)
+    for tr in trace:
+        assert bool((tr.diff(dim=2) >= 0).all()) and bool((tr > 0).all())
+    assert all(np.isfinite(runs[0][3].tolist()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pt-gaussian-meanfield", "learn-variance-meanfield-pcd"])
+def test_wide_modes_kernel_draws_as_cd_train_from_one_seed(cuda, name):
+    """cd_train.cu and the strip-split kernel share the Philox keying: one
+    seed gives the same samples, and the runs agree at cd_train.cu's
+    tolerance."""
+    cfg = WIDE_MODES_CASES[name]
+    st, data, order, _ = _inputs(cfg, cuda)
+    a, b = (K.kernel_run(kern)(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
+                               torch.Generator().manual_seed(5)) for kern in ("cd_train", WM))
+    torch.testing.assert_close(a[2], b[2], rtol=0, atol=0)
+    _check(b, a)
+
+
+@pytest.mark.cuda
+def test_wide_modes_kernel_raises_outside_its_scope(cuda):
+    from mdbn_tpu_torch.ops import cd_epoch_wide_modes_cuda as WMC
+
+    cfg = WIDE_MODES_CASES["enhanced-sparsity"]
+    st, data, order, _ = _inputs(cfg, cuda)
+    before = _wide_modes_counts()
+    for outside, what in ((cfg.replace(gradient="plain"), "plain estimator"),
+                          (cfg.replace(error_metric="pseudo"), "pseudo"),
+                          (cfg.replace(batch_size=640), "batch")):
+        with pytest.raises(ValueError, match=what):
+            WMC.cd_train_wide_modes_run(outside, st.params, st.velocity, st.chain_h, data,
+                                        order, 0, None, torch.Generator())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        WMC.cd_train_wide_modes_run(cfg, st.params, st.velocity, st.chain_h, data.cpu(),
+                                    order, 0, None, torch.Generator())
+    with pytest.raises(RuntimeError, match="cudaError"):
+        WMC.cd_train_wide_modes_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
+                                    None, torch.Generator(), grid=1 << 20)
+    assert _wide_modes_counts() == before

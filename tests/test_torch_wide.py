@@ -274,15 +274,15 @@ SLICE = {  # scripts/bench_wide.py's shapes -> the kernel each takes
     "w20k": (RBMConfig(n_visible=20000, n_hidden=400, **WIDE), "cd_train_wide"),
     "w20k_h512": (RBMConfig(n_visible=20000, n_hidden=512, **WIDE), "cd_train_wide"),
     "w20k_lv": (RBMConfig(n_visible=20000, n_hidden=400, learn_variance=True, **WIDE),
-                "cd_train"),
+                "cd_train_wide_modes"),
     "w20k_mom": (RBMConfig(n_visible=20000, n_hidden=400, momentum=0.5, **WIDE),
                  "cd_train_wide"),
     "w20k_mom_bf16": (RBMConfig(n_visible=20000, n_hidden=400, momentum=0.5, **WIDE, **BF16),
                       "cd_train_wide"),
     "w20k_enh": (RBMConfig(n_visible=20000, n_hidden=400, gradient="enhanced", **WIDE),
-                 "cd_train"),
+                 "cd_train_wide_modes"),
     "w20k_pt3_bf16": (RBMConfig(n_visible=20000, n_hidden=400, persistent=True, pt_temps=3,
-                                pt_beta_min=0.3, **WIDE, **BF16), "cd_train"),
+                                pt_beta_min=0.3, **WIDE, **BF16), "cd_train_wide_modes"),
     "w28k": (RBMConfig(n_visible=28000, n_hidden=400, **WIDE), "cd_train_wide"),
     "w40k_bf16": (RBMConfig(n_visible=40000, n_hidden=1000, **WIDE, **BF16), "cd_train_wide"),
     "w20k_b64": (RBMConfig(n_visible=20000, n_hidden=400, **{**WIDE, "batch_size": 64}),
@@ -305,15 +305,26 @@ def test_admission(name):
     assert in_scope == (kernel == "cd_train_wide")
     assert in_scope == (name in ("w20k", "w20k_h512", "w20k_mom", "w20k_mom_bf16", "w28k",
                                  "w40k_bf16", "w20k_b64"))
+    # the estimator-mode rows take the strip-split kernel of the modes
+    # (csrc/cd_train_wide_modes.cu) from WIDE_MODES_MIN_VISIBLE columns on
+    modes = K.wide_modes_unsupported(tcfg) is None
+    assert modes == (kernel == "cd_train_wide_modes")
+
+    def modes_from(c):
+        return modes and c.n_visible >= K.WIDE_MODES_MIN_VISIBLE
+
     at = tcfg.replace(n_visible=K.WIDE_MIN_VISIBLE)
-    assert K.select_kernel(at) == ("cd_train_wide" if in_scope else "cd_train")
+    assert K.select_kernel(at) == ("cd_train_wide" if in_scope else
+                                   "cd_train_wide_modes" if modes_from(at) else "cd_train")
     # below it, a run of the plain estimator whose tiles fit the card's shared
     # memory takes the resident kernel (csrc/cd_train_resident.cu), any other
     # run cd_train.cu: the last column below the threshold, and c2's width
     for v in (K.WIDE_MIN_VISIBLE - 1, 2000):
         below = at.replace(n_visible=v)
         resident = resident_unsupported(below) is None and resident_tiles(below).fits
-        assert K.select_kernel(below) == ("cd_train_resident" if resident else "cd_train")
+        assert K.select_kernel(below) == ("cd_train_resident" if resident else
+                                          "cd_train_wide_modes" if modes_from(below) else
+                                          "cd_train")
     plain = name not in ("w20k_lv", "w20k_enh", "w20k_pt3_bf16")
     assert (K.select_kernel(at.replace(n_visible=2000)) == "cd_train_resident") == (
         plain and name != "w20k_b64")  # 64 rows of 2000 do not fit a block
