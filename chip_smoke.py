@@ -8,7 +8,8 @@ cd_train_wide.cu, cd_train_resident.cu, cd_train_wide_modes.cu, cd_grads.cu
 and cd_grads_wide.cu, each at float32 and bfloat16 storage, in parallel) and
 runs twenty-four phases, one line each (23 and 24 run after 5):
 
-1. device: torch and CUDA versions, the card's name and power limit, build time;
+1. device: torch and CUDA versions, the card's name and power limit, build time,
+   and each compiled function's registers, stack and spill bytes (ptxas -v);
 2. cd_train.cu against its plain PyTorch version on the card, inject mode with
    hardened uniforms: the whole run at c1's width (784x500, B 20, CD-1,
    2 epochs), and every update of a run at c5's tower recipe on c2's width
@@ -225,6 +226,42 @@ PSEUDO_BIT = 5
 
 def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def ptxas_summary(log: str) -> list:
+    """nvcc -Xptxas -v's report, one entry per compiled function (a kernel,
+    or a phase compiled as a function of its own): its name with its leading
+    bool template arguments (a kernel's or phase's first is bf16 compute;
+    update_units' second is momentum), registers (kernels), stack frame and
+    spill bytes."""
+    import re
+
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            mangled, name = m.group(1), None
+            # <length><name>I<args>; a length may follow a hash's digits
+            for d in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+                for k in range(1, min(3, len(d.group(1))) + 1):
+                    end = d.end() + int(d.group(1)[-k:])
+                    if mangled[end:end + 1] == "I":
+                        bools = re.match(r"I((?:Lb[01]E)*)", mangled[end:]).group(1)
+                        name = (f"{mangled[d.end():end]}"
+                                f"<{','.join(re.findall(r'Lb([01])E', bools))}>")
+            cur = {"function": name or mangled[-40:]}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def mode_configs(c1, c1_data, ge_lv):
@@ -2307,9 +2344,7 @@ def run() -> int:
     phase("device", torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi,
           kind=torch.cuda.get_device_name(0), build_s=round(time.perf_counter() - t0, 3),
           nvcc_s={f"{k}_{dt}": round(lib.seconds, 3) for (k, dt), lib in libs.items()},
-          ptxas={f"{k}_{dt}": [ln.split(":", 1)[-1].strip() for ln in lib.log.splitlines()
-                               if "registers" in ln or "spill" in ln or "entry function" in ln]
-                 for (k, dt), lib in libs.items()})
+          ptxas={f"{k}_{dt}": ptxas_summary(lib.log) for (k, dt), lib in libs.items()})
 
     # 2. kernel against its plain version
     c1 = load_config(C1)["model"]

@@ -166,6 +166,9 @@ def _declare_cd_train_wide(lib: ctypes.CDLL) -> None:
     lib.cd_train_wide_run.restype = _I
     lib.cd_train_wide_scratch_floats.argtypes = [_I] * 3  # V, H, B
     lib.cd_train_wide_scratch_floats.restype = ctypes.c_longlong
+    lib.cd_train_wide_plan.argtypes = [_I] * 3 + [_F] * 2 + [_I, _P]  # H, B, flags,
+    # momentum, initial_momentum, limit, out[8]
+    lib.cd_train_wide_plan.restype = None
     _declare_error_string(lib, "cd_train_wide_error_string")
 
 

@@ -48,15 +48,17 @@
 // writes W and its velocity once (64 MB, 19 us) and reads every rank's
 // factors. Both are far from their bounds at this batch: the step is 3 + 3k
 // dependent phases with a grid barrier after each (cd_train_wide.cu's
-// products), the update cd_train_wide.cu's update phase, whose stage, sum
-// and load-update-store do not overlap.
+// products), the update cd_train_wide.cu's update phase.
 //
 // Design: the step is one cooperative launch (grid barriers between its
-// phases, at most two blocks per SM); the monitor's row sums ride as extra
-// units of the first Gibbs step's x W pass, and block 0 adds them after the
-// last phase. The update is an ordinary launch: its W units and its c warps
-// are independent of one another. Nothing is atomic and the unit order is
-// fixed, so grids 1, 7, 132 and the default give the same bits.
+// phases); the monitor's row sums ride as extra units of the first Gibbs
+// step's x W pass, and block 0 adds them after the last phase. The update is
+// an ordinary launch: its W units and its c warps are independent of one
+// another. Both run cd_train_wide.cu's phases with their launch setup: one
+// 256-thread block an SM, dynamic shared memory sized by wide_plan (the
+// update stages every rank's h0p and hmean once where they fit). Nothing is
+// atomic and the unit order is fixed, so grids 1, 7, 132 and the default
+// give the same bits.
 
 #include "cd_wide_phases.cuh"
 
@@ -99,18 +101,19 @@ struct StepArgs {
   float* v1mean;          // scratch [B, V] the monitor's reconstruction (unrounded)
   float* rowerr;          // scratch [B]
   int V, H, B, NS, k, flags, nvalid;
+  int vis_rows, vis_window, hstride;  // the WidePlan
   float inv_norm;
   unsigned long long seed;
 };
 
 template <bool kBf>
-__global__ void __launch_bounds__(kThreads, 2) cd_wide_step_kernel(StepArgs a) {
-  __shared__ __align__(16) float smem[kSmemFloats];  // 36 KB
+__global__ void __launch_bounds__(kThreads, 1)
+    cd_wide_step_kernel(const __grid_constant__ StepArgs a) {
   cg::grid_group grid = cg::this_grid();
   const bool inject = a.flags & kInject;
   const bool persistent = a.flags & kPersistent;
   const size_t bh = static_cast<size_t>(a.B) * a.H;
-  xw_partial_phase<kBf>(a, smem, a.v0);
+  xw_partial_phase<kBf>(a, a.v0, Monitor{});
   grid.sync();
   hidden_reduce_phase(a, a.h0p, a.h0s, inject ? a.u_h0 : nullptr, 0u, kDrawH0, 0, a.hmat,
                       1.0f, a.nvalid);
@@ -118,9 +121,9 @@ __global__ void __launch_bounds__(kThreads, 2) cd_wide_step_kernel(StepArgs a) {
   Store* hdst = persistent ? a.chain : a.hbuf;
   for (int t = 0; t < a.k; ++t) {
     const Store* hsrc = t > 0 ? hdst : (persistent ? a.chain_in : a.h0s);
-    visible_phase<kBf>(a, smem, hsrc, (t == 0 && persistent) ? a.h0s : nullptr, t);
+    visible_phase<kBf>(a, hsrc, (t == 0 && persistent) ? a.h0s : nullptr, t);
     grid.sync();
-    xw_partial_phase<kBf>(a, smem, a.vs,
+    xw_partial_phase<kBf>(a, a.vs,
                           t == 0 ? Monitor{a.v0, a.v1mean, a.rowerr, a.B} : Monitor{});
     grid.sync();
     const bool last = t == a.k - 1;
@@ -139,8 +142,10 @@ __global__ void __launch_bounds__(kThreads, 2) cd_wide_step_kernel(StepArgs a) {
 }
 
 // Every rank's rows of the gather buffer, in rank order: row r is row
-// r % lb of rank r / lb; v0 comes from the global minibatch.
+// r % lb of rank r / lb; v0 comes from the global minibatch. The accessors
+// are BatchRows' (cd_wide_phases.cuh).
 struct GatheredRows {
+  static constexpr bool kContiguousH = false;
   const Store* x0;           // [>= R, V] the global minibatch
   const unsigned char* buf;  // [ndev, slot.bytes]
   Slot slot;
@@ -150,14 +155,16 @@ struct GatheredRows {
     rr = r - d * lb;
     return buf + d * slot.bytes;
   }
-  __device__ __forceinline__ float v0(int r, int q) const {
-    return ld(x0 + static_cast<size_t>(r) * V + q);
+  __device__ __forceinline__ unsigned v0_bits(int r, int q) const {
+    return raw_bits(x0 + static_cast<size_t>(r) * V + q);
   }
-  __device__ __forceinline__ float vs(int r, int q) const {
+  __device__ __forceinline__ unsigned vs_bits(int r, int q) const {
     int rr;
     const Store* x = reinterpret_cast<const Store*>(at(r, rr) + slot.vs);
-    return ld(x + static_cast<size_t>(rr) * V + q);
+    return raw_bits(x + static_cast<size_t>(rr) * V + q);
   }
+  __device__ __forceinline__ float v0_of(unsigned x) const { return from_raw<Store>(x); }
+  __device__ __forceinline__ float vs_of(unsigned x) const { return from_raw<Store>(x); }
   __device__ __forceinline__ float hp(int r, int j) const {
     int rr;
     return reinterpret_cast<const float*>(at(r, rr) + slot.h)[rr * H + j];
@@ -177,15 +184,15 @@ struct UpdateArgs {
   Store* vc;
   float* err;    // [1]: the update's mean monitor
   int V, H, R, ndev, flags;
+  int hstaged, strip_rows, wtiles;  // the WidePlan
   float lr, m, scale, l2, grad_clip, sparsity_target, sparsity_cost;
 };
 
 template <bool kBf>
-__global__ void __launch_bounds__(kThreads, 2) cd_wide_update_kernel(UpdateArgs a,
-                                                                     GatheredRows rows) {
-  __shared__ __align__(16) float smem[kSmemFloats];  // 36 KB
-  const Split s;
-  update_phase<kBf>(a, smem, s, rows, a.R, a.m);
+__global__ void __launch_bounds__(kThreads, 1)
+    cd_wide_update_kernel(const __grid_constant__ UpdateArgs a,
+                          const __grid_constant__ GatheredRows rows) {
+  update_phase<kBf>(a, rows, a.R, a.m, Monitor{});
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     float tot = 0.0f;
     for (int d = 0; d < a.ndev; ++d)
@@ -220,15 +227,20 @@ const void* step_variant(bool bf) {
             : reinterpret_cast<const void*>(&cd_wide_step_kernel<false>);
 }
 
-// The SM count of `device` and the step variants' co-resident blocks per SM,
-// asked once per device.
-cudaError_t device_info(int device, int* nsm, int* per_sm_step) {
-  static int cached_nsm[64] = {0}, cached_per_sm[64][2] = {{0}};
+const void* update_variant(bool bf) {
+  return bf ? reinterpret_cast<const void*>(&cd_wide_update_kernel<true>)
+            : reinterpret_cast<const void*>(&cd_wide_update_kernel<false>);
+}
+
+// The SM count of `device` and its opt-in shared memory a block, asked once
+// per device.
+cudaError_t device_info(int device, int* nsm, int* optin) {
+  static int cached_nsm[64] = {0}, cached_optin[64] = {0};
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (cached_nsm[device] == 0) {
-    int coop = 0, n = 0;
+    int coop = 0, n = 0, o = 0;
     if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device)) !=
         cudaSuccess)
       return err;
@@ -236,17 +248,23 @@ cudaError_t device_info(int device, int* nsm, int* per_sm_step) {
     if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)) !=
         cudaSuccess)
       return err;
-    for (int v = 0; v < 2; ++v) {
-      if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &cached_per_sm[device][v], step_variant(v == 1), kThreads, 0)) != cudaSuccess)
-        return err;
-    }
+    if ((err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
+        cudaSuccess)
+      return err;
+    cached_optin[device] = o;
     cached_nsm[device] = n;
   }
   *nsm = cached_nsm[device];
-  per_sm_step[0] = cached_per_sm[device][0];
-  per_sm_step[1] = cached_per_sm[device][1];
+  *optin = cached_optin[device];
   return cudaSuccess;
+}
+
+// Sets `fn`'s dynamic shared memory to `bytes` and gives its co-resident
+// blocks per SM.
+cudaError_t prepare(const void* fn, int bytes, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kThreads, bytes);
 }
 
 }  // namespace
@@ -255,7 +273,7 @@ extern "C" {
 
 // Launches one step on `stream`, writing the rank's slot (`slot`, bytes of
 // cd_wide_slot_bytes(V, H, B)) and, under PCD, chain_out. grid <= 0 picks
-// two blocks per SM. Returns a cudaError_t (0 on success); a grid larger than
+// one block per SM. Returns a cudaError_t (0 on success); a grid larger than
 // the co-resident block count returns cudaErrorCooperativeLaunchTooLarge
 // without launching.
 int cd_wide_step(const Store* v0, const float* u_h0, const float* u_h, const Store* W,
@@ -263,13 +281,15 @@ int cd_wide_step(const Store* v0, const float* u_h0, const float* u_h, const Sto
                  unsigned char* slot, float* scratch, int V, int H, int B, int k, int flags,
                  int nvalid, float inv_norm, unsigned long long seed, int device, int grid,
                  void* stream) {
-  int nsm = 0, per_sm[2] = {0, 0};
-  cudaError_t err = device_info(device, &nsm, per_sm);
+  int nsm = 0, optin = 0, co = 0;
+  cudaError_t err = device_info(device, &nsm, &optin);
   if (err != cudaSuccess) return err;
+  const WidePlan plan = wide_plan(H, (flags & kPersistent) ? 2 * B : B, true, 0, false, optin);
+  if (!plan.ok) return cudaErrorInvalidValue;
   const bool bf = flags & kBf16;
-  const int co = per_sm[bf ? 1 : 0];
-  if (grid <= 0) grid = nsm * (co < 2 ? co : 2);
-  if (grid > co * nsm) return cudaErrorCooperativeLaunchTooLarge;
+  if ((err = prepare(step_variant(bf), plan.smem_bytes, &co)) != cudaSuccess) return err;
+  if (grid <= 0) grid = nsm;
+  if (grid < 1 || grid > co * nsm) return cudaErrorCooperativeLaunchTooLarge;
 
   const Slot sl = slot_layout(V, H, B);
   StepArgs a;
@@ -281,10 +301,11 @@ int cd_wide_step(const Store* v0, const float* u_h0, const float* u_h, const Sto
   carve_scratch(a, scratch, V, H, B);
   a.V = V; a.H = H; a.B = B; a.NS = (V + kStripRows - 1) / kStripRows; a.k = k;
   a.flags = flags; a.nvalid = nvalid; a.inv_norm = inv_norm; a.seed = seed;
+  a.vis_rows = plan.vis_rows; a.vis_window = plan.vis_window; a.hstride = plan.hstride;
 
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(step_variant(bf), dim3(grid), dim3(kThreads), params, 0,
-                                    static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel(step_variant(bf), dim3(grid), dim3(kThreads), params,
+                                    plan.smem_bytes, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -293,29 +314,34 @@ int cd_wide_step(const Store* v0, const float* u_h0, const float* u_h, const Sto
 // lb rows each (`gathered`, ndev * cd_wide_slot_bytes(V, H, lb) bytes), the
 // first R rows in rank order, with v0 [R, V] the global minibatch: W, b, c
 // and their velocities change in place, err [1] gets the update's monitor.
-// grid <= 0 picks two blocks per SM. Returns a cudaError_t (0 on success).
+// grid <= 0 picks one block per SM. Returns a cudaError_t (0 on success).
 int cd_wide_update(const Store* v0, const unsigned char* gathered, Store* W, Store* b, Store* c,
                    Store* vW, Store* vb, Store* vc, float* err, int V, int H, int R, int lb,
                    int ndev, int flags, float scale, float lr, float m, float l2,
                    float grad_clip, float sparsity_target, float sparsity_cost, int device,
                    int grid, void* stream) {
-  int nsm = 0, per_sm[2] = {0, 0};
-  cudaError_t e = device_info(device, &nsm, per_sm);
+  int nsm = 0, optin = 0, co = 0;
+  cudaError_t e = device_info(device, &nsm, &optin);
   if (e != cudaSuccess) return e;
-  if (grid <= 0) grid = 2 * nsm;
+  const WidePlan plan = wide_plan(H, 0, false, R, m != 0.0f, optin);
+  if (!plan.ok) return cudaErrorInvalidValue;
+  const bool bf = flags & kBf16;
+  if ((e = prepare(update_variant(bf), plan.smem_bytes, &co)) != cudaSuccess) return e;
+  if (grid <= 0) grid = nsm;
   UpdateArgs a;
   a.W = W; a.b = b; a.c = c; a.vW = vW; a.vb = vb; a.vc = vc; a.err = err;
   a.V = V; a.H = H; a.R = R; a.ndev = ndev; a.flags = flags;
   a.lr = lr; a.m = m; a.scale = scale; a.l2 = l2; a.grad_clip = grad_clip;
   a.sparsity_target = sparsity_target; a.sparsity_cost = sparsity_cost;
+  a.hstaged = plan.hstaged; a.strip_rows = plan.strip_rows; a.wtiles = plan.wtiles;
   GatheredRows rows;
   rows.x0 = v0; rows.buf = gathered; rows.slot = slot_layout(V, H, lb);
   rows.lb = lb; rows.V = V; rows.H = H;
   cudaStream_t st_ = static_cast<cudaStream_t>(stream);
-  if (flags & kBf16)
-    cd_wide_update_kernel<true><<<grid, kThreads, 0, st_>>>(a, rows);
+  if (bf)
+    cd_wide_update_kernel<true><<<grid, kThreads, plan.smem_bytes, st_>>>(a, rows);
   else
-    cd_wide_update_kernel<false><<<grid, kThreads, 0, st_>>>(a, rows);
+    cd_wide_update_kernel<false><<<grid, kThreads, plan.smem_bytes, st_>>>(a, rows);
   return cudaGetLastError();
 }
 

@@ -113,14 +113,17 @@ def wide_modes_unsupported(cfg: RBMConfig) -> Optional[str]:
 WIDE_MODES_MAX_BATCH = 256  # csrc/cd_wide_modes_phases.cuh: kMaxBatch
 
 
-# The visible width from which a run inside the W-blocked kernel's scope takes
-# it. cd_train.cu gives a hidden phase's unit all V rows of its W columns, so
-# its time per update grows with V from a low floor; cd_train_wide.cu splits
-# every x W product over strips of V and starts from a higher floor (3 + 3k
-# grid barriers per update against 2 + 2k). Timed on an H100 at H 400, batch 20
-# (scripts/torch_wide_crossover.py), cd_train.cu is ahead at V 2000 and the
-# W-blocked kernel from V 5000 on, by 2x at 20000 and beyond.
-WIDE_MIN_VISIBLE = 4096
+# The visible width from which a run inside the W-blocked kernel's scope whose
+# tiles do not fit the resident kernel takes the W-blocked kernel instead of
+# cd_train.cu. cd_train.cu gives a hidden phase's unit all V rows of its W
+# columns, so its time per update grows with V from a low floor;
+# cd_train_wide.cu splits every x W product over strips of V and starts from a
+# higher floor (3 + 3k grid barriers per update, about 60 us at any width).
+# Timed on an H100 (scripts/torch_wide_crossover.py: H 400 and 1000, batch 20
+# and 64, float32 and bf16, in turns): the resident kernel is ahead of the
+# W-blocked kernel wherever its tiles fit (up to V 4096 at bf16), and the
+# W-blocked kernel ahead of cd_train.cu at every measured width from this one.
+WIDE_MIN_VISIBLE = 2000
 
 
 # The visible width from which a run of the estimator modes that
@@ -135,26 +138,29 @@ WIDE_MODES_MIN_VISIBLE = 5000
 
 
 def select_kernel(cfg: RBMConfig, limits: Optional[Tuple[int, int]] = None) -> str:
-    """The kernel a run of ``cfg`` takes: "cd_train_wide" when the config lies
-    in the W-blocked kernel's scope and is at least ``WIDE_MIN_VISIBLE``
-    wide; "cd_train_wide_modes" when it lies in the scope of the strip-split
-    kernel of the estimator modes and is at least ``WIDE_MODES_MIN_VISIBLE``
-    wide; else "cd_train_resident" when it runs the plain estimator (no
-    tempering, enhanced gradient, learned variance or pseudo monitor; k <=
-    255) and its tiles of W and the velocity fit the shared memory of a card
-    with ``limits`` (``ops.cd_epoch_resident_cuda.device_limits``; None: an
-    H100's); else "cd_train". Decided from the config and those two numbers.
-    Timed on an H100 (scripts/torch_kernel_ab.py --sweep: V 64-4095, H
-    100-8192, batches 4-64, f32 and bf16), the resident kernel is ahead of
-    cd_train.cu wherever its tiles fit, by 1.1x to 2.4x, so there is no
-    width cut-off."""
+    """The kernel a run of ``cfg`` takes: "cd_train_resident" when it runs
+    the plain estimator (no tempering, enhanced gradient, learned variance or
+    pseudo monitor; k <= 255) and its tiles of W and the velocity fit the
+    shared memory of a card with ``limits``
+    (``ops.cd_epoch_resident_cuda.device_limits``; None: an H100's); else
+    "cd_train_wide" when the config lies in the W-blocked kernel's scope and
+    is at least ``WIDE_MIN_VISIBLE`` wide; "cd_train_wide_modes" when it lies
+    in the scope of the strip-split kernel of the estimator modes and is at
+    least ``WIDE_MODES_MIN_VISIBLE`` wide; else "cd_train". Decided from the
+    config and those two numbers. Timed on an H100 (scripts/torch_kernel_ab.py
+    --sweep: V 64-4095, H 100-8192, batches 4-64, f32 and bf16), the resident
+    kernel is ahead of cd_train.cu wherever its tiles fit, by 1.1x to 2.4x,
+    and (scripts/torch_wide_crossover.py) of the W-blocked kernel, so there
+    is no width cut-off for it."""
+    from .cd_epoch_resident_cuda import resident_admits
+
+    if resident_admits(cfg, limits):
+        return "cd_train_resident"
     if wide_unsupported(cfg) is None and cfg.n_visible >= WIDE_MIN_VISIBLE:
         return "cd_train_wide"
     if wide_modes_unsupported(cfg) is None and cfg.n_visible >= WIDE_MODES_MIN_VISIBLE:
         return "cd_train_wide_modes"
-    from .cd_epoch_resident_cuda import resident_admits
-
-    return "cd_train_resident" if resident_admits(cfg, limits) else "cd_train"
+    return "cd_train"
 
 
 def kernel_run(kernel: str) -> Callable:

@@ -233,7 +233,7 @@ def cd_wide_step(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor, chain: tor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The step on the CUDA kernel (see module doc); one launch on the
     current stream. Takes CUDA tensors only (``cd_wide_step_plain`` is its
-    plain version). ``grid`` is the cooperative grid (0: two blocks per SM);
+    plain version). ``grid`` is the cooperative grid (0: one block per SM);
     the result does not depend on it. Returns (slot, new_chain). Raises
     ValueError for a config or input the kernel does not take and
     RuntimeError when the launch fails."""
@@ -324,8 +324,8 @@ def cd_wide_update(cfg: RBMConfig, params: RBMParams, velocity: RBMParams, v0: t
     """The update on the CUDA kernel, launched on the current stream: W, b, c
     and their velocities change IN PLACE (the data-parallel path holds its
     own copies) and are returned with the update's error. Takes CUDA tensors
-    only (``cd_wide_update_plain`` is its plain version); ``grid`` (0: two
-    blocks per SM) does not change the result. Raises ValueError for a config
+    only (``cd_wide_update_plain`` is its plain version); ``grid`` (0: one
+    block per SM) does not change the result. Raises ValueError for a config
     or input the kernel does not take and RuntimeError when the launch
     fails."""
     global cd_wide_update_launches

@@ -11,10 +11,12 @@ one-epoch kernel runs with CUDA events at two shapes the graded configs
 train at, c1 (Bernoulli 784x500, B 20, CD-1) and c2 (Gaussian 2000x400, B
 20, CD-1, mean-field visibles), on csrc/cd_train.cu called directly and on
 the kernel that checkout's ``select_kernel`` picks (the parent's cd_train.cu
-against this checkout's csrc/cd_train_resident.cu), and at two rows of the
-wide slice on the W-blocked csrc/cd_train_wide.cu, w20k (Gaussian
-20000x400, B 20, lr 0.001) and w20k_mom_bf16 (the same with momentum 0.5 at
-bf16 storage and compute), and at the slice's three estimator-mode rows
+against this checkout's csrc/cd_train_resident.cu), and at the four rows of
+the wide slice that the main path trains on the W-blocked
+csrc/cd_train_wide.cu, w20k (Gaussian 20000x400, B 20, lr 0.001),
+w20k_mom_bf16 (the same with momentum 0.5 at bf16 storage and compute), w28k
+(28000x400) and w40k_bf16 (40000x1000 at bf16, 10 updates an epoch), and at
+the slice's three estimator-mode rows
 (w20k_pt3_bf16: 3-rung tempering, PCD, bf16 storage and compute; w20k_enh:
 the enhanced gradient; w20k_lv: learned variance) on cd_train.cu called
 directly and on the kernel each checkout's ``select_kernel`` picks (the
@@ -23,7 +25,10 @@ Each process also hashes the parameters and velocities after a 2-epoch run
 of the directly called kernel and of the selected one, from a fixed state
 with the kernel's own draws from a fixed seed, so the summary says whether
 the two checkouts' kernels give the same bits (``identical_bits``; for the
-selected kernel, at the shapes where both checkouts select the same one).
+selected kernel, at the shapes where both checkouts select the same one),
+and after the W-blocked update alone (csrc/cd_grads_wide.cu's update kernel,
+which runs cd_train_wide.cu's update phase, over 3 ranks' gathered factors
+made from a seed at w20k's and w20k_mom_bf16's shapes: ``update_identical_bits``).
 Prints one JSON line per process, then a summary line with each side's best
 time and the card's name and power limit.
 
@@ -59,6 +64,8 @@ SHAPES = {  # name -> (config fields, data rows, the W-blocked kernel)
            2000, False),
     "w20k": (WIDE, 400, True),
     "w20k_mom_bf16": (dict(WIDE, momentum=0.5, **BF16), 400, True),
+    "w28k": (dict(WIDE, n_visible=28000), 400, True),
+    "w40k_bf16": (dict(WIDE, n_visible=40000, n_hidden=1000, **BF16), 200, True),
     "w20k_pt3_bf16": (dict(WIDE, persistent=True, pt_temps=3, pt_beta_min=0.3, **BF16), 400,
                       False),
     "w20k_enh": (dict(WIDE, gradient="enhanced"), 400, False),
@@ -106,6 +113,38 @@ def _selected(K, cfg, dev):
     return name, functools.partial(K.cd_train_run, wide=name == "cd_train_wide")
 
 
+UPDATE_ROWS = ("w20k", "w20k_mom_bf16")  # the W-blocked update alone, bits
+
+
+def update_bits(cfg, dev) -> str:
+    """sha256 of the parameters and velocities after one W-blocked update
+    (ops.cd_grads_wide_cuda.cd_wide_update) over 3 ranks' gathered factors
+    and a minibatch made from a seed."""
+    import torch
+
+    from mdbn_tpu_torch.core.rbm_math import RBMParams, torch_dtype
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+
+    ndev, B, V, H = 3, cfg.batch_size, cfg.n_visible, cfg.n_hidden
+    lb = -(-B // ndev)
+    local = cfg.replace(batch_size=lb)
+    sdt = torch_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rand = lambda *shape: 0.1 * torch.randn(shape, generator=gen, device=dev)
+    state = lambda: RBMParams(W=rand(V, H).to(sdt), b=rand(V).to(sdt), c=rand(H).to(sdt))
+    p, vel = state(), state()
+    gathered = torch.zeros(ndev * W.wide_factor_size(local), dtype=torch.uint8, device=dev)
+    for d, (vs, hmat, err) in enumerate(W.gathered_views(local, gathered, ndev)):
+        nv = min(lb, B - d * lb)
+        vs.copy_((10.0 * rand(lb, V)).to(sdt))
+        hmat[0, :nv] = torch.rand((nv, H), generator=gen, device=dev)
+        hmat[1, :nv] = -torch.rand((nv, H), generator=gen, device=dev)
+        err.copy_(rand(1).abs())
+    v0 = (10.0 * rand(B, V)).to(sdt)
+    got = W.cd_wide_update(cfg, p, vel, v0, gathered, ndev, 1.0 / ndev, 0)
+    return digest([*got[0].as_dict().values(), *got[1].as_dict().values()])
+
+
 def child(root: str, reps: int) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -138,6 +177,8 @@ def child(root: str, reps: int) -> dict:
                            wide=wide)
 
         out[f"{name}_ms_per_epoch"] = _time_ms(run, reps)
+        if name in UPDATE_ROWS:
+            out[f"{name}_update_bits"] = update_bits(cfg, dev)
         if name in SELECTED:
             kernel, fn = _selected(K, cfg, dev)
             out[f"{name}_selected"] = kernel
@@ -271,6 +312,8 @@ def main() -> int:
                 r[f"{name}_selected_ms_per_epoch"] for r in runs if r["side"] == side)
     summary["identical_bits"] = {name: len({r[f"{name}_bits"] for r in runs}) == 1
                                  for name in SHAPES}
+    summary["update_identical_bits"] = {name: len({r[f"{name}_update_bits"] for r in runs}) == 1
+                                        for name in UPDATE_ROWS}
     summary["selected_identical_bits"] = {
         name: len({r[f"{name}_selected_bits"] for r in runs}) == 1 for name in SELECTED
         if len({r[f"{name}_selected"] for r in runs}) == 1}

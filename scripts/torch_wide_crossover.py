@@ -1,25 +1,38 @@
 #!/usr/bin/env python3
-"""Time both CUDA train kernels on the shapes both take, on one card; with
---dp, both data-parallel routes; with --modes, cd_train.cu against the
-strip-split kernel of the estimator modes.
+"""Time the W-blocked CUDA train kernel against the kernel a run would take
+without it, on one card; with --dp, both data-parallel routes; with --modes,
+cd_train.cu against the strip-split kernel of the estimator modes.
 
     python3 scripts/torch_wide_crossover.py [--reps 5]
     python3 scripts/torch_wide_crossover.py --dp [--reps 3]
     python3 scripts/torch_wide_crossover.py --modes [--reps 5]
 
-``ops.cd_epoch_cuda.select_kernel`` sends a run either to ``csrc/cd_train.cu``
-or to the W-blocked ``csrc/cd_train_wide.cu``. This script measures where the
-second overtakes the first: Gaussian RBMs inside the W-blocked kernel's scope
-(mean-field negative phase, mse monitor, plain gradient), CD-1, lr 0.001,
+``ops.cd_epoch_cuda.select_kernel`` sends a run inside the W-blocked
+kernel's scope (mean-field negative phase, mse monitor, plain gradient) to
+``csrc/cd_train_wide.cu`` from ``WIDE_MIN_VISIBLE`` columns on, and below it
+to the resident kernel (``csrc/cd_train_resident.cu``) where its tiles fit,
+else to ``csrc/cd_train.cu``. This script measures where the W-blocked
+kernel overtakes that other kernel (the one ``select_kernel`` picks with
+the threshold out of the way): Gaussian RBMs, CD-1, lr 0.001,
 standard-normal data from a seed, at H 400 and batch 20 for V = 784, 2000,
-3000, 4096, 5000, 10000 and 20000, and the in-scope rows of the wide slice
+3000, 4096, 5000, 10000 and 20000 at float32 and for V = 3000, 4096, 5000
+and 10000 at bf16 storage and compute (where the resident kernel holds
+wider W), narrow shapes the resident kernel does not hold (V 1000 and 2000
+at batch 64, 2000x1000), and the in-scope rows of the wide slice
 (scripts/bench_wide.py's shapes: 20000x512, momentum 0.5 at float32 and at
-bf16 storage, batch 64, 28000x400, 40000x1000 bf16). Each shape runs one epoch
-of 20 updates (10 at batch 64 and at 40000x1000) per call, timed with CUDA
-events in the order cd_train, wide, wide, cd_train after a warm-up call each;
-the better of each side's two times counts. Prints one JSON line per shape
-with both kernels' µs per update and the weights' bytes, then a summary line
-with the card's name and power limit. Needs one CUDA device.
+bf16 storage, batch 64, 28000x400, 40000x1000 bf16). Each shape runs one epoch of 20 updates (10 at
+batch 64 and at 40000x1000) per call, timed with CUDA events in the order
+other, wide, wide, other after a warm-up call each; the better of each
+side's two times counts. Per shape one JSON line with both kernels' µs per
+update, the weights' bytes, and the W-blocked kernel's median µs in each
+phase of an update from its own trace (``wide_trace_phases``) and its
+launch plan (``wide_launch_plan``); then a summary line with the card's
+name and power limit, whether the resident kernel is ahead wherever its
+tiles fit (``resident_ahead_where_it_fits``: ``select_kernel`` tries it
+first), and the smallest measured width from which the W-blocked kernel is
+ahead of cd_train.cu at every measured shape at least that wide that the
+resident kernel does not hold (``wide_ahead_of_cd_train_from``), which sets
+``WIDE_MIN_VISIBLE``. Needs one CUDA device.
 
 With --dp the same shapes (H 400 and batch 20, plus w20k_mom_bf16, w28k and
 w40k_bf16) run through ``parallel.dp.train_rbm_shard_map(pallas_step=True)``
@@ -67,6 +80,13 @@ SHAPES = {  # name -> (config fields on top of BASE, data rows)
     "v4096": (dict(n_visible=4096), 400),
     "v5000": (dict(n_visible=5000), 400),
     "v10000": (dict(n_visible=10000), 400),
+    "v3000_bf16": (dict(n_visible=3000, **BF16), 400),
+    "v4096_bf16": (dict(n_visible=4096, **BF16), 400),
+    "v5000_bf16": (dict(n_visible=5000, **BF16), 400),
+    "v10000_bf16": (dict(n_visible=10000, **BF16), 400),
+    "v1000_b64": (dict(n_visible=1000, batch_size=64), 640),
+    "v2000_b64": (dict(n_visible=2000, batch_size=64), 640),
+    "v2000_h1000": (dict(n_visible=2000, n_hidden=1000), 400),
     "w20k": (dict(n_visible=20000), 400),
     "w20k_h512": (dict(n_visible=20000, n_hidden=512), 400),
     "w20k_mom": (dict(n_visible=20000, momentum=0.5), 400),
@@ -77,7 +97,8 @@ SHAPES = {  # name -> (config fields on top of BASE, data rows)
 }
 
 
-DP_SHAPES = [name for name in SHAPES if name not in ("w20k_h512", "w20k_mom", "w20k_b64")]
+DP_SHAPES = ["v784", "v2000", "v3000", "v4096", "v5000", "v10000", "w20k", "w20k_mom_bf16",
+             "w28k", "w40k_bf16"]
 MODES_WIDTHS = (784, 1000, 1500, 2000, 3000, 4096, 5000, 10000, 20000)
 MODES = {  # config fields on top of BASE (scripts/bench_wide.py's mode rows)
     "pt3_bf16": dict(persistent=True, pt_temps=3, pt_beta_min=0.3, **BF16),
@@ -270,10 +291,17 @@ def main() -> int:
         return dp_main(args.reps, smi)
     if args.modes:
         return modes_main(args.reps, smi)
+    from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
+    from mdbn_tpu_torch.ops.cd_epoch_resident_cuda import device_limits
+
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
-    faster = {}
+    faster, others, threshold = {}, {}, K.WIDE_MIN_VISIBLE
     for name, (fields, n) in SHAPES.items():
         cfg = RBMConfig(**{**BASE, **fields})
+        limits = device_limits(cfg, dev)
+        K.WIDE_MIN_VISIBLE = 1 << 30  # the kernel select_kernel picks without the W-blocked one
+        other = others[name] = K.select_kernel(cfg, limits)
+        K.WIDE_MIN_VISIBLE = threshold
         gen = torch.Generator(device=dev).manual_seed(0)
         data = torch.randn((n, cfg.n_visible), generator=gen,
                            device=dev).to(torch_dtype(cfg.param_dtype))
@@ -282,25 +310,46 @@ def main() -> int:
         order = K.batch_order(cfg, nb, 1, None)
         seeds = torch.Generator().manual_seed(0)
 
-        def run(wide):
-            K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
-                           seeds, wide=wide)
+        def run(kern, trace=None):
+            K.kernel_run(kern)(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
+                               seeds, **({} if trace is None else {"trace": trace}))
 
-        times = [time_runs(lambda w=w: run(w), args.reps) * 1e6 / nb
-                 for w in (False, True, True, False)]
-        plain, wide = min(times[0], times[3]), min(times[1], times[2])
+        kerns = (other, "cd_train_wide")
+        times = {k: [] for k in kerns}
+        for kern in kerns + kerns[::-1]:
+            times[kern].append(time_runs(lambda kern=kern: run(kern), args.reps) * 1e6 / nb)
+        phases = KW.wide_trace_phases(cfg)
+        trace = torch.zeros((1, nb, len(phases) + 1), dtype=torch.int64, device=dev)
+        run("cd_train_wide", trace)
+        torch.cuda.synchronize()
+        spans = (trace[0, :, 1:] - trace[0, :, :-1]).double().median(0).values / 1e3
+        best = {k: min(t) for k, t in times.items()}
         width = 2 if cfg.param_dtype == "bfloat16" else 4
-        faster[name] = "cd_train_wide" if wide < plain else "cd_train"
+        faster[name] = min(best, key=best.get)
         print(json.dumps({
             "shape": name, "V": cfg.n_visible, "H": cfg.n_hidden, "B": cfg.batch_size,
             "momentum": cfg.momentum, "param_dtype": cfg.param_dtype,
             "w_bytes": cfg.n_visible * cfg.n_hidden * width, "updates_per_run": nb,
-            "cd_train_us_per_update": plain, "cd_train_wide_us_per_update": wide,
-            "cd_train_us_calls": [times[0], times[3]],
-            "cd_train_wide_us_calls": [times[1], times[2]],
-            "select_kernel": K.select_kernel(cfg), "faster": faster[name]}), flush=True)
-    print(json.dumps({"order": "cd_train, wide, wide, cd_train", "nvidia_smi": smi,
-                      "l2_bytes": l2, "faster": faster}))
+            "other": other, "other_us_per_update": best[other],
+            "cd_train_wide_us_per_update": best["cd_train_wide"],
+            "other_us_calls": times[other], "cd_train_wide_us_calls": times["cd_train_wide"],
+            "cd_train_wide_phase_us_median": dict(zip(phases, spans.tolist())),
+            "launch_plan": KW.wide_launch_plan(cfg).__dict__,
+            "select_kernel": K.select_kernel(cfg, limits), "faster": faster[name]}),
+            flush=True)
+    # the resident kernel against the W-blocked one where its tiles fit; the
+    # W-blocked kernel against cd_train.cu from the smallest measured width at
+    # which it is ahead at every measured shape at least that wide
+    on_cd_train = {n: SHAPES[n][0]["n_visible"] for n in SHAPES if others[n] == "cd_train"}
+    ahead = [v for v in sorted(set(on_cd_train.values()))
+             if all(faster[n] == "cd_train_wide" for n, w in on_cd_train.items() if w >= v)]
+    print(json.dumps({"order": "other, wide, wide, other", "nvidia_smi": smi,
+                      "l2_bytes": l2, "faster": faster,
+                      "resident_ahead_where_it_fits": all(
+                          faster[n] == "cd_train_resident" for n in SHAPES
+                          if others[n] == "cd_train_resident"),
+                      "wide_ahead_of_cd_train_from": min(ahead) if ahead else None,
+                      "WIDE_MIN_VISIBLE": K.WIDE_MIN_VISIBLE}))
     return 0
 
 

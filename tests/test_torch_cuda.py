@@ -96,6 +96,35 @@ WIDE_CASES = {
     "bf16-gaussian": RBMConfig(**SMALL, visible="gaussian", lr=0.01, **MEANFIELD, **BF16),
     "bf16-pcd-momentum": RBMConfig(**SMALL, lr=0.1, persistent=True, momentum=0.5,
                                    **MEANFIELD, **BF16),
+    # the redesigned kernel's edges: V not a multiple of 16 or 512; H 257 and 1000
+    # (the update's 4-column groups and h W^T's tiles end part-way); batches 1,
+    # 20 and 64 (h W^T's rows per warp 1-8); B 128 at H 1000 past the update's
+    # staging fit (h0p and hmean through the L2, h W^T in passes of 32 rows);
+    # a row of h wider than shared memory (h W^T by windows, no W tiles)
+    "v4097-h257-b1-pcd-momentum": RBMConfig(n_visible=4097, n_hidden=257, batch_size=1,
+                                            visible="gaussian", lr=0.005, persistent=True,
+                                            momentum=0.5, **MEANFIELD),
+    "v4097-h1000-b20-xent": RBMConfig(n_visible=4097, n_hidden=1000, batch_size=20, lr=0.05,
+                                      error_metric="xent", **MEANFIELD),
+    "v4097-h257-b64-bf16-momentum": RBMConfig(n_visible=4097, n_hidden=257, batch_size=64,
+                                              visible="gaussian", lr=0.005, momentum=0.5,
+                                              **MEANFIELD, **BF16),
+    "v4097-h1000-b20-bf16-pcd-xent": RBMConfig(n_visible=4097, n_hidden=1000, batch_size=20,
+                                               lr=0.05, persistent=True, momentum=0.5,
+                                               error_metric="xent", **MEANFIELD, **BF16),
+    "v4097-h1000-b128-pcd-momentum-past-fit": RBMConfig(
+        n_visible=4097, n_hidden=1000, batch_size=128, visible="gaussian", lr=0.005,
+        persistent=True, momentum=0.5, **MEANFIELD),
+    "v64-h50000-b2-windowed": RBMConfig(n_visible=64, n_hidden=50000, batch_size=2,
+                                        visible="gaussian", lr=0.001, **MEANFIELD),
+    # bf16 compute on float32 storage: x W's tensor-core tiles round W as they stage it
+    "v4097-h1000-b20-f32-store-bf16-compute": RBMConfig(
+        n_visible=4097, n_hidden=1000, batch_size=20, visible="gaussian", lr=0.005,
+        momentum=0.5, compute_dtype="bfloat16", **MEANFIELD),
+    # past 256 rows with h unstaged: the update stages each strip in chunks
+    "v600-h1000-b300-chunked-momentum": RBMConfig(n_visible=600, n_hidden=1000, batch_size=300,
+                                                  visible="gaussian", lr=0.005, momentum=0.5,
+                                                  **MEANFIELD),
 }
 
 
@@ -251,6 +280,85 @@ def test_wide_kernel_sampling_is_grid_independent_and_trains(cuda, name):
     assert bool((trace[3].diff(dim=2) >= 0).all()) and bool((trace[3] > 0).all())
     errs = runs[0][3].tolist()
     assert all(np.isfinite(errs)) and errs[-1] < errs[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["v4097-h1000-b20-bf16-pcd-xent",
+                                  "v4097-h1000-b128-pcd-momentum-past-fit"])
+def test_wide_kernel_bits_on_grids(cuda, name):
+    """The redesigned kernel's sums run in a fixed order whatever a block
+    takes: grids 1, 7 and 132 give the default grid's bits, at bf16 storage
+    and past the update's staging fit."""
+    cfg = WIDE_CASES[name]
+    st, data, order, _ = _inputs(cfg, cuda, E=1, nb=2, wide=True)
+    runs = [KW.cd_train_wide_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
+                                 torch.Generator().manual_seed(3), grid=g)
+            for g in (0, 1, 7, 132)]
+    for r in runs[1:]:
+        for part in (0, 1):
+            for x, y in zip(r[part].as_dict().values(), runs[0][part].as_dict().values()):
+                assert torch.equal(x, y)
+        assert torch.equal(r[2], runs[0][2]) and torch.equal(r[3], runs[0][3])
+
+
+@pytest.mark.cuda
+def test_wide_launch_plan_matches_the_library(cuda):
+    """ops.cd_epoch_wide_cuda.wide_launch_plan mirrors csrc's wide_plan
+    (the shared memory a launch takes, what it stages) at the card's limit."""
+    import ctypes
+
+    from mdbn_tpu_torch._build import load_library
+
+    for cfg in list(WIDE_CASES.values()) + [
+            RBMConfig(n_visible=40000, n_hidden=1000, batch_size=20, visible="gaussian",
+                      lr=0.001, **BF16),
+            RBMConfig(n_visible=20000, n_hidden=400, batch_size=64, visible="gaussian",
+                      lr=0.001)]:
+        lib = load_library("cd_train_wide", cfg.param_dtype).lib
+        limit = R.device_limits(cfg, cuda)[0]  # the card's opt-in shared memory of a block
+        out = (ctypes.c_int * 8)()
+        lib.cd_train_wide_plan(cfg.n_hidden, cfg.batch_size, K.kernel_flags(cfg),
+                               *K.schedule_args(cfg)[:2], limit, out)
+        assert tuple(out) == KW.wide_launch_plan(cfg, limit).as_tuple(), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["three-strips-batch-40", "bf16-pcd-momentum"])
+def test_wide_dp_one_rank_equals_the_single_device_kernel(cuda, monkeypatch, name):
+    """The W-blocked DP step and update (csrc/cd_grads_wide.cu) run
+    cd_train_wide.cu's phases: on a one-rank NCCL mesh, three updates one at a
+    time give the single-device kernel's parameters and velocities bit for
+    bit on the same injected draws."""
+    import torch.distributed as dist
+
+    from mdbn_tpu_torch.core.state import TrainState
+    from mdbn_tpu_torch.parallel.dp import train_rbm_shard_map
+    from mdbn_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(K, "WIDE_DP_MIN_VISIBLE", 32)
+    cfg = WIDE_CASES[name].replace(engine="pallas")
+    assert K.select_dp_kernel(cfg) == "cd_grads_wide"
+    st, data, _, _ = _inputs(cfg, cuda, E=1, nb=3, wide=True)
+    B, one = cfg.batch_size, torch.zeros((1, 1), dtype=torch.int32)
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    mesh = make_mesh(1, backend="nccl")
+    try:
+        for t in range(3):
+            batch = data[t * B:(t + 1) * B]
+            u = K.draw_uniform_blocks(cfg, gen, 1, 1)
+            single = K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, batch, one, t, u,
+                                    wide=True)
+            st, errs = train_rbm_shard_map(
+                TrainState(st.params, st.velocity, st.chain_h, st.generator, t), batch, cfg,
+                mesh, 1, pallas_step=True, uniforms={k: x[:, :, None] for k, x in u.items()})
+            torch.cuda.synchronize()
+            for part in (0, 1):
+                for x, y in zip(single[part].as_dict().values(),
+                                (st.params, st.velocity)[part].as_dict().values()):
+                    assert torch.equal(x, y)
+            torch.testing.assert_close(errs, single[3], **REPLAY_TOL)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.cuda

@@ -300,7 +300,8 @@ def test_admission(name):
     assert resolve_engine(tcfg, cuda) == "cuda"
     assert resolve_engine(tcfg.replace(engine="pallas"), cuda) == "cuda"
     # the W-blocked kernel takes every run in its scope from WIDE_MIN_VISIBLE
-    # columns on, and none below it or outside its scope
+    # columns on whose tiles the resident kernel (csrc/cd_train_resident.cu,
+    # ahead wherever they fit) does not hold, and none outside its scope
     in_scope = K.wide_unsupported(tcfg) is None
     assert in_scope == (kernel == "cd_train_wide")
     assert in_scope == (name in ("w20k", "w20k_h512", "w20k_mom", "w20k_mom_bf16", "w28k",
@@ -310,24 +311,95 @@ def test_admission(name):
     modes = K.wide_modes_unsupported(tcfg) is None
     assert modes == (kernel == "cd_train_wide_modes")
 
-    def modes_from(c):
-        return modes and c.n_visible >= K.WIDE_MODES_MIN_VISIBLE
+    def expected(c):
+        if resident_unsupported(c) is None and resident_tiles(c).fits:
+            return "cd_train_resident"
+        if in_scope and c.n_visible >= K.WIDE_MIN_VISIBLE:
+            return "cd_train_wide"
+        if modes and c.n_visible >= K.WIDE_MODES_MIN_VISIBLE:
+            return "cd_train_wide_modes"
+        return "cd_train"
 
-    at = tcfg.replace(n_visible=K.WIDE_MIN_VISIBLE)
-    assert K.select_kernel(at) == ("cd_train_wide" if in_scope else
-                                   "cd_train_wide_modes" if modes_from(at) else "cd_train")
-    # below it, a run of the plain estimator whose tiles fit the card's shared
-    # memory takes the resident kernel (csrc/cd_train_resident.cu), any other
-    # run cd_train.cu: the last column below the threshold, and c2's width
-    for v in (K.WIDE_MIN_VISIBLE - 1, 2000):
-        below = at.replace(n_visible=v)
-        resident = resident_unsupported(below) is None and resident_tiles(below).fits
-        assert K.select_kernel(below) == ("cd_train_resident" if resident else
-                                          "cd_train_wide_modes" if modes_from(below) else
-                                          "cd_train")
+    for v in (K.WIDE_MIN_VISIBLE - 1, K.WIDE_MIN_VISIBLE, 2000, 3000, 4096, 5000):
+        c = tcfg.replace(n_visible=v)
+        assert K.select_kernel(c) == expected(c), v
     plain = name not in ("w20k_lv", "w20k_enh", "w20k_pt3_bf16")
-    assert (K.select_kernel(at.replace(n_visible=2000)) == "cd_train_resident") == (
-        plain and name != "w20k_b64")  # 64 rows of 2000 do not fit a block
+    resident_at = lambda v: K.select_kernel(tcfg.replace(n_visible=v)) == "cd_train_resident"
+    assert resident_at(2000) == (plain and name != "w20k_b64")  # 64 rows of 2000 do not fit
+    # at bf16 storage the resident kernel holds 3000 and 4096 columns of 400
+    assert resident_at(4096) == (name == "w20k_mom_bf16")
+    if in_scope and name != "w20k_b64" and tcfg.n_hidden == 400:
+        assert resident_at(3000) == (tcfg.param_dtype == "bfloat16")
+
+
+# ---- the W-blocked kernel's launch plan -------------------------------------------
+
+# past the update's staging fit (h0p and hmean [2, 128, 1000] f32 are 1 MB), and
+# a row of h wider than the h W^T phase's shared memory (50000 floats)
+PAST_FIT = {
+    "b128_h1000": RBMConfig(n_visible=4097, n_hidden=1000, **{**WIDE, "batch_size": 128}),
+    "h50000_b2": RBMConfig(n_visible=64, n_hidden=50000, **{**WIDE, "batch_size": 2}),
+}
+H100_SMEM = 232448  # an H100's opt-in shared memory of a block
+
+
+@pytest.mark.parametrize("name", [n for n, (_, k) in SLICE.items() if k == "cd_train_wide"]
+                         + list(PAST_FIT))
+def test_wide_launch_plan(name):
+    """One block an SM with up to the card's opt-in shared memory: every row
+    of the slice that the W-blocked kernel takes stages h0p and hmean once
+    per update phase (64 KB at w20k, 160 KB at w40k_bf16, 205 KB at
+    w20k_b64) and its whole batch of h once per h W^T pass; past the fit the
+    plan reads them from the L2 or stages windows instead, and refuses
+    nothing."""
+    tcfg = convert_config(SLICE[name][0] if name in SLICE else PAST_FIT[name])
+    assert K.wide_unsupported(tcfg) is None
+    B, H = tcfg.batch_size, tcfg.n_hidden
+    plan = KW.wide_launch_plan(tcfg)
+    assert plan.ok and plan.smem_bytes <= H100_SMEM and plan.smem_bytes % 16 == 0
+    h_bytes = 2 * B * H * 4
+    assert plan.h_staged == (name in SLICE)
+    if plan.h_staged:
+        assert h_bytes == {"w20k": 64000, "w20k_h512": 81920, "w20k_mom": 64000,
+                           "w20k_mom_bf16": 64000, "w28k": 64000, "w40k_bf16": 160000,
+                           "w20k_b64": 204800}[name]
+        assert plan.strip_rows == B and plan.smem_bytes >= h_bytes + 2 * 16 * B * 4
+        # h W^T: the whole batch in one pass of whole rows
+        assert (plan.vis_rows, plan.vis_window) == (B, H)
+        assert plan.hstride % 8 == 0 and plan.hstride >= H
+    else:
+        assert h_bytes + 2 * 16 * B * 4 > H100_SMEM and plan.strip_rows == B
+    # the update streams the next strip's W (and under momentum its velocity)
+    # into shared memory beside them where both fit: not beside w20k_b64's h,
+    # nor at all when one strip's 16 rows of 50000 columns (3.2 MB) pass the card's
+    assert plan.w_tiles == {"w20k_b64": 0, "h50000_b2": 0, "w20k_mom": 2,
+                            "w20k_mom_bf16": 2}.get(name, 1)
+    if name == "b128_h1000":  # passes of 32 rows of h, whole rows
+        assert (plan.vis_rows, plan.vis_window, plan.hstride) == (32, 1000, 1000)
+    if name == "h50000_b2":  # windows of whole W tiles (128 floats) per unit
+        assert plan.vis_rows == 2 and plan.vis_window < H and plan.vis_window % 128 == 0
+        assert plan.hstride == plan.vis_window
+    # under PCD a pass also holds the data chain's rows (the monitor)
+    pcd = KW.wide_launch_plan(tcfg.replace(persistent=True))
+    assert pcd.ok and plan.vis_rows <= pcd.vis_rows <= min(2 * B, 64)
+    if name == "w20k":
+        assert (pcd.vis_rows, pcd.smem_bytes) == (40, plan.smem_bytes)
+    # a smaller card: the same shapes fit less, and the plan says so
+    assert not KW.wide_launch_plan(tcfg, smem_limit=48 * 1024).ok
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_wide_trace_layout(k):
+    """The W-blocked kernel's trace keeps its layout, so phase times compare
+    across versions: per update x W from the data and its reduce, then per
+    Gibbs step the visible phase, x W and its reduce, then the update."""
+    tcfg = convert_config(RBMConfig(n_visible=20000, n_hidden=400, k=k, **{
+        kk: v for kk, v in WIDE.items() if kk != "k"}))
+    names = ["xw_from_data", "hidden_from_data"]
+    for t in range(k):
+        names += [f"visible_{t}", f"xw_{t}", f"hidden_{t}"]
+    assert KW.wide_trace_phases(tcfg) == names + ["update_and_monitor"]
+    assert KW.wide_trace_len(tcfg) == 3 * k + 4
 
 
 # ---- bf16 state through convert.py, a checkpoint and the API ---------------------
