@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from mdbn_tpu_torch/csrc (nvcc, sm_90a: cd_train.cu,
-cd_train_wide.cu, cd_train_resident.cu, cd_train_wide_modes.cu, cd_grads.cu
-and cd_grads_wide.cu, each at float32 and bfloat16 storage, in parallel) and
+cd_train_wide.cu, cd_train_resident.cu (its plain variant, its estimator
+modes without and with a tempering ladder: three libraries),
+cd_train_wide_modes.cu, cd_grads.cu and cd_grads_wide.cu, each at float32
+and bfloat16 storage, in parallel) and
 runs twenty-four phases, one line each (23 and 24 run after 5):
 
 1. device: torch and CUDA versions, the card's name and power limit, build time,
@@ -25,14 +27,19 @@ runs twenty-four phases, one line each (23 and 24 run after 5):
 5. cd_train.cu, called directly, and plain updates/s at c1's shape, and the
    kernel's median time per phase of an update (its own clock stamps, each
    phase with its barrier);
-6. the estimator modes, kernel against plain at full width for 2 epochs with
-   hardened draws: tempering (pt5: 784x500, 5 rungs) and learned variance
-   (lv: Gaussian 2000x200 on scale-corrupted GE) replayed one update at a
-   time, the enhanced gradient (784x500) and the pseudo-likelihood monitor
-   (c1) as whole runs;
-7. each mode trained for 10 epochs through RBM.train on the kernel (engine
-   "pallas"): final errors inside PARITY.md's bands, the pseudo monitor falls;
-8. kernel and plain time per epoch of each mode, and the kernel's phases;
+6. the estimator modes, each kernel against plain at full width for 2 epochs
+   with hardened draws, on the resident kernel (its kModes variant, which
+   select_kernel names for all four) and on cd_train.cu: tempering (pt5:
+   784x500, 5 rungs) and learned variance (lv: Gaussian 2000x200 on
+   scale-corrupted GE) replayed one update at a time, the enhanced gradient
+   (784x500) and the pseudo-likelihood monitor (c1) as whole runs; the
+   counters show that the kernel compared alone ran;
+7. each mode trained for 10 epochs through RBM.train (engine "pallas"): the
+   kernel select_kernel names launched once and no other, final errors
+   inside PARITY.md's bands, the pseudo monitor falls;
+8. time per epoch of each mode in turns (plain, resident, cd_train.cu,
+   cd_train.cu, resident, plain), each kernel's steps from its trace and the
+   resident kernel's barriers an update;
 9. the wide slice (scripts/bench_wide.py's shapes, Gaussian, batch 20:
    20000x400 plain, x512, learned variance, momentum, momentum at bf16
    storage, enhanced, 3-rung tempering at bf16 on cd_train.cu; 28000x400,
@@ -231,9 +238,9 @@ def phase(name: str, **fields) -> None:
 def ptxas_summary(log: str) -> list:
     """nvcc -Xptxas -v's report, one entry per compiled function (a kernel,
     or a phase compiled as a function of its own): its name with its leading
-    bool template arguments (a kernel's or phase's first is bf16 compute;
-    update_units' second is momentum), registers (kernels), stack frame and
-    spill bytes."""
+    bool or int template arguments (a kernel's or phase's first is bf16
+    compute; update_units' second is momentum, the resident kernel's its
+    variant, kModes), registers (kernels), stack frame and spill bytes."""
     import re
 
     out, cur = [], None
@@ -246,9 +253,9 @@ def ptxas_summary(log: str) -> list:
                 for k in range(1, min(3, len(d.group(1))) + 1):
                     end = d.end() + int(d.group(1)[-k:])
                     if mangled[end:end + 1] == "I":
-                        bools = re.match(r"I((?:Lb[01]E)*)", mangled[end:]).group(1)
+                        args = re.match(r"I((?:L[bi]\d+E)*)", mangled[end:]).group(1)
                         name = (f"{mangled[d.end():end]}"
-                                f"<{','.join(re.findall(r'Lb([01])E', bools))}>")
+                                f"<{','.join(re.findall(r'L[bi](\d+)E', args))}>")
             cur = {"function": name or mangled[-40:]}
             out.append(cur)
             continue
@@ -552,33 +559,47 @@ def queued_device_us(fn, reps: int) -> tuple:
 
 
 def run_modes(dev, smi, c1, c1_data, ge) -> list:
-    """Phases 6-8, the estimator modes; returns their entries of the kernel line."""
+    """Phases 6-8, the estimator modes on the kernel select_kernel names (the
+    resident kernel) and on cd_train.cu; returns their entries of the kernel
+    line."""
     import numpy as np
     import torch
 
     from mdbn_tpu_torch import RBM
     from mdbn_tpu_torch.core.state import init_train_state
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
 
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     modes = mode_configs(c1, c1_data, ge_scaled(ge))
+    kernels = {name: K.select_kernel(cfg, R.device_limits(cfg, dev))
+               for name, (cfg, _) in modes.items()}
+    if set(kernels.values()) != {"cd_train_resident"}:
+        raise AssertionError(f"the modes do not all take the resident kernel: {kernels}")
 
-    # 6. kernel against plain, 2 epochs each, hardened draws
-    errs = {name: (compare_replay if name in REPLAYED_MODES else compare_run)(
-        cfg, data, 2, dev, seed=2) for name, (cfg, data) in modes.items()}
+    # 6. each kernel against plain, 2 epochs each, hardened draws; the
+    # counters show that the kernel compared alone ran
+    errs = {"cd_train_resident": {}, "cd_train": {}}
+    for name, (cfg, data) in modes.items():
+        compare = compare_replay if name in REPLAYED_MODES else compare_run
+        for kern, clusters in (("cd_train_resident", 0), ("cd_train", None)):
+            zero_train_counts()
+            errs[kern][name] = compare(cfg, data, 2, dev, seed=2, clusters=clusters)
+            check_counts(f"{name}@{kern}", {kern: train_counts()[kern]})
     phase("kernel_vs_plain_modes", max_abs_err=errs, replayed=list(REPLAYED_MODES),
           run_rtol=RTOL, run_atol=ATOL, replay_rtol=REPLAY_RTOL, replay_atol=REPLAY_ATOL)
 
-    # 7. each mode through RBM.train on the kernel; count its launches
+    # 7. each mode through RBM.train; the kernel select_kernel names launched
+    # once and no other
     trained, launches = {}, {}
     for name, (cfg, data) in modes.items():
-        K.cd_train_launches = 0
+        zero_train_counts()
         rbm = RBM(cfg.replace(epochs=10, engine="pallas"), device=dev).train(data)
-        launches[name] = K.cd_train_launches
+        launches[name] = check_counts(name, {kernels[name]: 1})
         hist = rbm.history
-        if rbm.metrics.engine != "cuda" or launches[name] < 1:
-            raise AssertionError(f"{name} did not run on the kernel: engine "
-                                 f"{rbm.metrics.engine}, {launches[name]} launches")
+        if rbm.metrics.engine != "cuda" or rbm.metrics.kernel != kernels[name]:
+            raise AssertionError(f"{name} did not run on {kernels[name]}: engine "
+                                 f"{rbm.metrics.engine}, kernel {rbm.metrics.kernel}")
         if len(hist) != 10 or not all(np.isfinite(hist)):
             raise AssertionError(f"{name}: errors {hist}")
         band = MODE_BANDS[name]
@@ -587,49 +608,70 @@ def run_modes(dev, smi, c1, c1_data, ge) -> list:
         if band is not None and abs(hist[-1] - band[0]) > band[1]:
             raise AssertionError(f"{name}: final error {hist[-1]} not within {band[1]} of "
                                  f"{band[0]}")
-        trained[name] = {"first_err": hist[0], "final_err": hist[-1], "band": band}
+        trained[name] = {"kernel": kernels[name], "first_err": hist[0], "final_err": hist[-1],
+                         "band": band}
     phase("modes_train", launches=launches, errors=trained)
 
-    # 8. one epoch of each mode per call, plain, kernel, kernel, plain
+    # 8. one epoch of each mode per call: plain, resident, cd_train.cu,
+    # cd_train.cu, resident, plain; each kernel's steps from its trace
     timing, entries = {}, []
     for name, (cfg, data) in modes.items():
         st = init_train_state(cfg, device=dev)
         nb = data.shape[0] // cfg.batch_size
         order = K.batch_order(cfg, nb, 1, None)
         gen = torch.Generator().manual_seed(0)
+        args = (cfg, st.params, st.velocity, st.chain_h, data, order, 0, None, gen)
 
-        def kernel(cfg=cfg, st=st, data=data, order=order, gen=gen, trace=None):
-            K.cd_train_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None, gen,
-                           trace=trace)
+        def resident(trace=None):
+            R.cd_train_resident_run(*args, trace=trace)
 
-        def plain(cfg=cfg, st=st, data=data, order=order, gen=gen):
-            K.cd_train_run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
-                                 None, gen)
+        def cd_train(trace=None):
+            K.cd_train_run(*args, trace=trace)
 
-        t_plain1 = time_runs(plain, 2)
-        t_kernel1 = time_runs(kernel, 10)
-        t_kernel2 = time_runs(kernel, 10)
-        t_plain2 = time_runs(plain, 2)
-        t_kernel, t_plain = min(t_kernel1, t_kernel2), min(t_plain1, t_plain2)
-        trace = torch.zeros((1, nb, K.trace_len(cfg)), dtype=torch.int64, device=dev)
-        kernel(trace=trace)
-        torch.cuda.synchronize()
-        spans = (trace[0, :, 1:] - trace[0, :, :-1]).double().median(0).values / 1e3
+        def plain():
+            K.cd_train_run_plain(*args)
+
+        t = {}
+        for key, fn, reps in (("plain1", plain, 2), ("resident1", resident, 10),
+                              ("cd_train1", cd_train, 10), ("cd_train2", cd_train, 10),
+                              ("resident2", resident, 10), ("plain2", plain, 2)):
+            t[key] = time_runs(fn, reps) * 1e3
+        t_res, t_old = min(t["resident1"], t["resident2"]), min(t["cd_train1"], t["cd_train2"])
+        t_plain = min(t["plain1"], t["plain2"])
+        steps = {}
+        for kern, fn, names in (("cd_train_resident", resident, R.resident_trace_phases(cfg)),
+                                ("cd_train", cd_train, K.trace_phases(cfg))):
+            trace = torch.zeros((1, nb, len(names) + 1), dtype=torch.int64, device=dev)
+            fn(trace=trace)
+            torch.cuda.synchronize()
+            spans = (trace[0, :, 1:] - trace[0, :, :-1]).double().median(0).values / 1e3
+            steps[kern] = dict(zip(names, spans.tolist()))
+        res_steps = R.resident_trace_phases(cfg)
         bound_ms, bound_by = bound(cfg, nb, l2)
-        timing[name] = {"updates_per_run": nb, "kernel_ms": t_kernel * 1e3,
-                        "plain_ms": t_plain * 1e3, "kernel_ms_calls": [t_kernel1 * 1e3,
-                                                                      t_kernel2 * 1e3],
-                        "plain_ms_calls": [t_plain1 * 1e3, t_plain2 * 1e3],
-                        "bound_ms": bound_ms, "flops_per_update": update_flops(cfg),
-                        "kernel_phase_us_median": dict(zip(K.trace_phases(cfg), spans.tolist()))}
-        entries.append({
-            "name": f"cd_train[{name}]", "route": "cuda",
-            "source": "mdbn_tpu_torch/csrc/cd_train.cu",
-            "replaces": f"mdbn_tpu/ops/cd_epoch_pallas.py:{MODE_REPLACES[name]}",
-            "launches": launches[name], "max_abs_err": errs[name], "ms": t_kernel * 1e3,
-            "plain_ms": t_plain * 1e3, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "ms_per": f"one epoch of {name} ({nb} updates)"})
-    phase("timing_modes", order="plain, kernel, kernel, plain", nvidia_smi=smi, modes=timing)
+        timing[name] = {
+            "updates_per_run": nb, "resident_ms": t_res, "cd_train_ms": t_old,
+            "plain_ms": t_plain, "calls_ms": t,
+            "resident_us_per_update": t_res * 1e3 / nb,
+            "cd_train_us_per_update": t_old * 1e3 / nb, "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops_per_update": update_flops(cfg),
+            "resident_barriers_per_update": {
+                b: sum(p.endswith(f":{b}") for p in res_steps)
+                for b in ("tile_barrier", "cluster_barrier")},
+            "resident_phase_us_median": steps["cd_train_resident"],
+            "cd_train_phase_us_median": steps["cd_train"]}
+        for kern, source, ms, launched in (
+                ("cd_train_resident", "cd_train_resident.cu", t_res,
+                 launches[name]["cd_train_resident"]),
+                ("cd_train", "cd_train.cu", t_old, launches[name]["cd_train"])):
+            entries.append({
+                "name": f"{kern}[{name}]", "route": "cuda",
+                "source": f"mdbn_tpu_torch/csrc/{source}",
+                "replaces": f"mdbn_tpu/ops/cd_epoch_pallas.py:{MODE_REPLACES[name]}",
+                "launches": launched, "max_abs_err": errs[kern][name], "ms": ms,
+                "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "ms_per": f"one epoch of {name} ({nb} updates)"})
+    phase("timing_modes", order="plain, resident, cd_train, cd_train, resident, plain",
+          nvidia_smi=smi, modes=timing)
     return entries
 
 
@@ -2446,8 +2488,9 @@ def run() -> int:
     resident_entries = run_resident(dev, smi, c1, c1_data, ge, resident_main)
     mode_entries = run_modes(dev, smi, c1, c1_data, ge)
     wide_entries = run_wide(dev, smi)
-    # cd_train.cu's launches on the main path: the estimator modes' runs
-    # through RBM.train (phases 7 and 10); c1 and c4 take the resident kernel
+    # cd_train.cu's launches on the main path: the runs through RBM.train
+    # that take it (phases 7 and 10); c1, c4 and the narrow estimator modes
+    # take the resident kernel, the wide rows the W-blocked and modes kernels
     modes_main = sum(e["launches"] for e in mode_entries + wide_entries
                      if e["source"].endswith("/cd_train.cu"))
     entries = [{
@@ -2456,7 +2499,7 @@ def run() -> int:
         "max_abs_err": max_err, "ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "ms_per": f"one epoch at c1's shape ({nb} updates), called directly; launches: "
-                  "the estimator modes' runs through the API"}]
+                  "its runs through the API on the main path"}]
     entries += resident_entries + mode_entries + wide_entries
     grads_err, grads_t = run_grads(dev, smi, c1, c1_data, ge)
     update_err, update_t = run_update(dev, smi, c1)

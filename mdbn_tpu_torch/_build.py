@@ -3,8 +3,11 @@
 Each ``csrc/<kernel>.cu`` is compiled with ``nvcc`` for ``sm_90a`` once per
 storage type (``-DMDBN_STORE_BF16=0|1``: float32 or bfloat16 parameters, see
 ``csrc/cd_common.cuh``) into a shared library of its own with a plain C
-interface, loaded with ``ctypes``. The build happens at first use (never at
-import, so the package imports on machines without a GPU or ``nvcc``) into
+interface, loaded with ``ctypes``; the resident kernel's estimator modes are
+libraries of their own from the same source (``VARIANTS``: without and with
+a tempering ladder), so its three variants compile in parallel. The build
+happens at first use (never at import, so the package imports on machines
+without a GPU or ``nvcc``) into
 ``mdbn_tpu_torch/_build/<key>/``, where the key hashes the sources and the
 flags; the first use of any kernel builds every library that is missing, one
 ``nvcc`` process each, all started together; a later call with the same
@@ -33,8 +36,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel -> the storage types it is built at
 KERNELS = {"cd_train": ("float32", "bfloat16"), "cd_train_wide": ("float32", "bfloat16"),
            "cd_train_resident": ("float32", "bfloat16"),
+           "cd_train_resident_modes": ("float32", "bfloat16"),
+           "cd_train_resident_ladder": ("float32", "bfloat16"),
            "cd_train_wide_modes": ("float32", "bfloat16"),
            "cd_grads": ("float32", "bfloat16"), "cd_grads_wide": ("float32", "bfloat16")}
+
+# a library built from another kernel's source, with its flags
+VARIANTS = {"cd_train_resident_modes": ("cd_train_resident", ["-DMDBN_RESIDENT_MODES=1"]),
+            "cd_train_resident_ladder": ("cd_train_resident", ["-DMDBN_RESIDENT_MODES=2"])}
 
 
 @dataclass
@@ -76,8 +85,9 @@ def _so(out_dir: Path, kernel: str, storage: str) -> Path:
 def _compile(nvcc: str, out_dir: Path, kernel: str, storage: str) -> Tuple[float, str]:
     so = _so(out_dir, kernel, storage)
     tmp = out_dir / f"{so.stem}.{os.getpid()}.tmp.so"
-    cmd = [nvcc, *NVCC_FLAGS, f"-DMDBN_STORE_BF16={int(storage == 'bfloat16')}",
-           "-o", str(tmp), str(CSRC / f"{kernel}.cu")]
+    src, flags = VARIANTS.get(kernel, (kernel, []))
+    cmd = [nvcc, *NVCC_FLAGS, f"-DMDBN_STORE_BF16={int(storage == 'bfloat16')}", *flags,
+           "-o", str(tmp), str(CSRC / f"{src}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -134,7 +144,8 @@ def _declare_error_string(lib: ctypes.CDLL, name: str) -> None:
 
 def _declare_train_run(lib: ctypes.CDLL, name: str) -> None:
     """``<name>_run``, ``<name>_scratch_floats`` and ``<name>_error_string``
-    of cd_train.cu and cd_train_wide_modes.cu, which take the same arguments."""
+    of cd_train.cu, cd_train_wide_modes.cu and cd_train_resident.cu, which
+    take the same arguments."""
     run = getattr(lib, f"{name}_run")
     run.argtypes = (
         [_P] * 19  # data, order, u_h0, u_h, u_v, u_swap, betas, W, b, c, vW, vb, vc, z, vz,
@@ -173,22 +184,13 @@ def _declare_cd_train_wide(lib: ctypes.CDLL) -> None:
 
 
 def _declare_cd_train_resident(lib: ctypes.CDLL) -> None:
-    lib.cd_train_resident_run.argtypes = (
-        [_P] * 15  # data, order, u_h0, u_h, u_v, W, b, c, vW, vb, vc, chain, errs, scratch,
-                   # trace
-        + [_I] * 9  # V, H, B, nb, E, k, start_epoch, switch_epoch, flags
-        + [_F] * 7  # lr, momentum, initial_momentum, l2, grad_clip, sparsity_target/cost
-        + _TAIL)  # seed, device, clusters, stream
-    lib.cd_train_resident_run.restype = _I
+    _declare_train_run(lib, "cd_train_resident")  # the tail's grid: clusters
     lib.cd_train_resident_tiling.argtypes = [_I, _I, _P]  # V, H, out[4]
     lib.cd_train_resident_tiling.restype = None
-    lib.cd_train_resident_smem_bytes.argtypes = [_I] * 5  # V, H, B, flags, strips a block
+    lib.cd_train_resident_smem_bytes.argtypes = [_I] * 6  # V, H, B, M, flags, strips a block
     lib.cd_train_resident_smem_bytes.restype = _I
     lib.cd_train_resident_limits.argtypes = [_I, _I, _I, _P]  # V, H, device, out[2]
     lib.cd_train_resident_limits.restype = _I
-    lib.cd_train_resident_scratch_floats.argtypes = [_I] * 3  # V, H, B
-    lib.cd_train_resident_scratch_floats.restype = ctypes.c_longlong
-    _declare_error_string(lib, "cd_train_resident_error_string")
 
 
 def _declare_cd_grads(lib: ctypes.CDLL) -> None:
@@ -231,5 +233,7 @@ def _declare_cd_grads_wide(lib: ctypes.CDLL) -> None:
 
 _DECLARE = {"cd_train": _declare_cd_train, "cd_train_wide": _declare_cd_train_wide,
             "cd_train_resident": _declare_cd_train_resident,
+            "cd_train_resident_modes": _declare_cd_train_resident,
+            "cd_train_resident_ladder": _declare_cd_train_resident,
             "cd_train_wide_modes": _declare_cd_train_wide_modes,
             "cd_grads": _declare_cd_grads, "cd_grads_wide": _declare_cd_grads_wide}

@@ -91,6 +91,12 @@
 // deterministic and independent of the grid size. Any B is handled by
 // looping over row tiles. The optional trace records each phase's start on
 // block 0's clock (chip_smoke.py prints the breakdown).
+// Which runs take this kernel: ops.cd_epoch_cuda.select_kernel gives every
+// run whose tiles fit the shared memory of the card to cd_train_resident.cu
+// (the estimator modes included) and the wide runs to cd_train_wide.cu and
+// cd_train_wide_modes.cu; this kernel keeps k > 255, the mode runs that fit
+// neither (a tempering ladder too tall for the shared memory, say) and the
+// pseudo monitor at widths the resident kernel cannot hold.
 // In-place hazards of the modes: W, b, c and z change in place in the update
 // phase, so nothing in that phase may read them. The pseudo monitor reads W
 // and b, so it runs as extra units of the first visible phase; learned
@@ -99,11 +105,10 @@
 // snapshot. The enhanced bias sums need every W unit's gW_e, so each unit
 // writes per-unit partial sums and a bias phase after one more barrier adds
 // them in a fixed order. A tempering swap exchanges the two rows it owns.
-// Later: keep W in the distributed shared memory of a thread-block cluster
-// (fewer L2 round trips, cluster barriers instead of grid barriers), prefetch
-// W tiles with TMA/cp.async, and use wgmma tensor-core products once batches
-// are large enough to fill them. The product, pseudo and swap phases live in
-// cd_phases.cuh, shared with cd_grads.cu's data-parallel step.
+// cd_train_resident.cu is the redesign of this kernel (W in the shared memory
+// of thread-block clusters, cluster barriers instead of most grid barriers).
+// The product, pseudo and swap phases live in cd_phases.cuh, shared with
+// cd_grads.cu's data-parallel step.
 
 #include "cd_phases.cuh"
 

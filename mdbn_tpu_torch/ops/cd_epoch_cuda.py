@@ -11,13 +11,14 @@ in plain PyTorch, built from ``core.rbm_math``'s ``cd_step_stats`` /
 ``pt_step_stats`` and ``apply_update``. The TPU kernel's wide-state modes
 (``hbm_state``, ``chunk_update``, ``stream_vel``, H padding) compute the same
 function under a VMEM budget; this kernel keeps all state in device memory
-at any width, so they have no counterpart of their own. A wide run inside
-its scope goes to the W-blocked kernel of ``ops.cd_epoch_wide_cuda`` instead,
-a wide run under tempering, the enhanced gradient or learned variance to the
-strip-split kernel of ``ops.cd_epoch_wide_modes_cuda``, and a run of the
-plain estimator whose W fits the shared memory of the card to the resident
-kernel of ``ops.cd_epoch_resident_cuda`` (``select_kernel``; ``kernel_run``
-gives the wrapper of each). They take
+at any width, so they have no counterpart of their own. A run whose tiles
+of W fit the shared memory of the card goes to the resident kernel of
+``ops.cd_epoch_resident_cuda`` instead, under any estimator mode; a wide run
+that does not fit it to the W-blocked kernel of ``ops.cd_epoch_wide_cuda``
+(plain estimator) or the strip-split kernel of
+``ops.cd_epoch_wide_modes_cuda`` (tempering, the enhanced gradient, learned
+variance); ``cd_train.cu`` keeps k > 255 and the rest (``select_kernel``;
+``kernel_run`` gives the wrapper of each). They take
 
 - ``params`` / ``velocity`` (``RBMParams``, with ``z`` under learned
   variance) and the PCD ``chain`` [CR, H], CR = B, or M*B rung-major under
@@ -102,7 +103,8 @@ def wide_modes_unsupported(cfg: RBMConfig) -> Optional[str]:
                 "runs tempering, the enhanced gradient or learned variance")
     if cfg.error_metric == "pseudo":
         return ("the pseudo-likelihood monitor (it flips one bit of a binary visible, and no "
-                "wide row uses it) stays on csrc/cd_train.cu")
+                "wide row uses it) runs on csrc/cd_train_resident.cu where the tiles fit, "
+                "else on csrc/cd_train.cu")
     if cfg.batch_size > WIDE_MODES_MAX_BATCH:
         return (f"the strip-split kernel of the estimator modes stages a strip of the whole "
                 f"batch in shared memory: batch_size > {WIDE_MODES_MAX_BATCH} stays on "
@@ -138,20 +140,23 @@ WIDE_MODES_MIN_VISIBLE = 5000
 
 
 def select_kernel(cfg: RBMConfig, limits: Optional[Tuple[int, int]] = None) -> str:
-    """The kernel a run of ``cfg`` takes: "cd_train_resident" when it runs
-    the plain estimator (no tempering, enhanced gradient, learned variance or
-    pseudo monitor; k <= 255) and its tiles of W and the velocity fit the
+    """The kernel a run of ``cfg`` takes: "cd_train_resident" when k <= 255
+    and its tiles of W and the velocity (and, under an estimator mode, the
+    mode's buffers: a tempering ladder's M*B chain rows among them) fit the
     shared memory of a card with ``limits``
-    (``ops.cd_epoch_resident_cuda.device_limits``; None: an H100's); else
-    "cd_train_wide" when the config lies in the W-blocked kernel's scope and
-    is at least ``WIDE_MIN_VISIBLE`` wide; "cd_train_wide_modes" when it lies
-    in the scope of the strip-split kernel of the estimator modes and is at
-    least ``WIDE_MODES_MIN_VISIBLE`` wide; else "cd_train". Decided from the
+    (``ops.cd_epoch_resident_cuda.device_limits``; None: an H100's), under
+    the plain estimator or any estimator mode; else "cd_train_wide" when the
+    config lies in the W-blocked kernel's scope and is at least
+    ``WIDE_MIN_VISIBLE`` wide; "cd_train_wide_modes" when it lies in the
+    scope of the strip-split kernel of the estimator modes and is at least
+    ``WIDE_MODES_MIN_VISIBLE`` wide; else "cd_train". Decided from the
     config and those two numbers. Timed on an H100 (scripts/torch_kernel_ab.py
     --sweep: V 64-4095, H 100-8192, batches 4-64, f32 and bf16), the resident
     kernel is ahead of cd_train.cu wherever its tiles fit, by 1.1x to 2.4x,
     and (scripts/torch_wide_crossover.py) of the W-blocked kernel, so there
-    is no width cut-off for it."""
+    is no width cut-off for it; under the estimator modes the same holds
+    against cd_train.cu and the strip-split kernel (--sweep --modes and
+    torch_wide_crossover.py --modes)."""
     from .cd_epoch_resident_cuda import resident_admits
 
     if resident_admits(cfg, limits):

@@ -1,14 +1,17 @@
 """The training run of one RBM with W resident in shared memory: CUDA kernel.
 
 ``cd_train_resident_run`` wraps the hand-written kernel
-``csrc/cd_train_resident.cu``, which computes what ``csrc/cd_train.cu``'s
-plain variant computes (``mdbn_tpu/ops/cd_epoch_pallas.py::_cd_train_kernel``
-in single-device mode without the estimator modes), in one launch of
-thread-block clusters that keep their tiles of W and its velocity in shared
-memory for the whole run. It has the signature of
-``ops.cd_epoch_cuda.cd_train_run``, the same inject layout and Philox keying;
-its plain version is ``ops.cd_epoch_cuda.cd_train_run_plain``, the same
-function. ``grid`` counts clusters here.
+``csrc/cd_train_resident.cu``, which computes what ``csrc/cd_train.cu``
+computes (``mdbn_tpu/ops/cd_epoch_pallas.py::_cd_train_kernel`` in
+single-device mode, with its estimator modes: parallel tempering, the
+enhanced gradient, learned variance and the pseudo-likelihood monitor, in a
+variant of the kernel of their own), in one launch of thread-block clusters
+that keep their tiles of W and its velocity in shared memory for the whole
+run. It has the signature of ``ops.cd_epoch_cuda.cd_train_run``, the same
+inject layout and Philox keying (swap draws included), so one seed draws the
+same numbers on both kernels; its plain version is
+``ops.cd_epoch_cuda.cd_train_run_plain``, the same function. ``grid`` counts
+clusters here.
 
 The tiling depends on (V, H) alone: V is cut into at most 15 strips of a
 multiple of 4 rows, H into at most 8 column tiles of a multiple of 32
@@ -27,7 +30,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..config import RBMConfig
-from ..core.rbm_math import RBMParams
+from ..core.rbm_math import RBMParams, pt_betas
 from . import cd_epoch_cuda as K
 
 # Launches of the resident CUDA kernel in this process (incremented only where
@@ -48,16 +51,23 @@ H100_MAX_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 
 def resident_unsupported(cfg: RBMConfig) -> Optional[str]:
     """Why the resident kernel does not take ``cfg`` (None when it does,
-    leaving aside whether its tiles fit the card)."""
-    outside = [name for name, on in (
-        ("the pseudo-likelihood monitor", cfg.error_metric not in ("mse", "xent")),
-        ("the enhanced gradient", cfg.gradient != "plain"),
-        ("tempering", cfg.pt_temps > 1),
-        ("learned variance", cfg.learn_variance)) if on]
-    if outside:
-        return ("the resident kernel runs the plain CD/PCD estimator; it does not take "
-                f"{', '.join(outside)} (csrc/cd_train.cu does)")
+    leaving aside whether its tiles fit the card): it runs the plain
+    estimator and every estimator mode, so only what no CUDA kernel takes."""
     return K.kernel_unsupported(cfg)
+
+
+def has_modes(cfg: RBMConfig) -> bool:
+    """Whether ``cfg`` runs an estimator mode (the kernel's kModes variant)."""
+    return (cfg.pt_temps > 1 or cfg.gradient != "plain" or cfg.learn_variance
+            or cfg.error_metric == "pseudo")
+
+
+def resident_library(cfg: RBMConfig) -> str:
+    """The library of the kernel's variant that runs ``cfg`` (``_build.KERNELS``):
+    the plain estimator, the modes without a tempering ladder, or with one."""
+    if cfg.pt_temps > 1:
+        return "cd_train_resident_ladder"
+    return "cd_train_resident_modes" if has_modes(cfg) else "cd_train_resident"
 
 
 def _align16(x: int) -> int:
@@ -92,21 +102,50 @@ def smem_bytes(cfg: RBMConfig, strips_per_cluster: int) -> int:
     """Shared memory bytes of a block that holds ``strips_per_cluster``
     strips: the kernel's ``layout(...).total``. Per strip: its W and vW tiles
     (rows padded by 4 elements), b and vb, the batch's rows and the next
-    batch's, vs, and the visible partials by parity (two row sets under PCD);
-    per block: c, vc, five [B, th] hidden buffers (h0p, hmean, h0s, the chain,
-    the draws), the products' chunk sums
-    and the reduction slots."""
+    batch's, vs of the CR chain rows (CR = M*B under tempering, else B), and
+    the visible partials by parity (the plain variant: two row sets of B
+    under PCD; the modes: the most rows a visible phase holds, a Gibbs
+    step's CR + the monitor's B or the product phase's ladder + learned
+    variance's 2B); under learned variance z, vz, s, sigma and CR scaled rows;
+    under the enhanced gradient the pending gb, mu and two parities of the
+    ranks' shares. Per block: c, vc, h0p, h0s and the draws [B, th], hmean
+    and the chain [CR, th], the products' chunk sums and the reduction
+    slots; under the enhanced gradient lam, the pending gc and mean h0p and
+    the units' shares; under tempering the totals [CR, NT], c.h, the swap
+    flags and the rank's share of each strip's monitor; under the pseudo
+    monitor two parities of the ranks' shares."""
     tv, th, _, _ = tiling(cfg.n_visible, cfg.n_hidden)
     B, sz = cfg.batch_size, 2 if cfg.param_dtype == "bfloat16" else 4
+    pt, lv = cfg.pt_temps > 1, cfg.learn_variance
+    enh, pseudo = cfg.gradient == "enhanced", cfg.error_metric == "pseudo"
+    modes = has_modes(cfg)
+    CR = B * cfg.pt_temps if pt else B
+    NT = (1 if cfg.visible == "gaussian" else cfg.pt_temps) if pt else 0
     nseg = 2 if cfg.persistent else 1
+    recon = cfg.persistent and not pseudo
+    qrows = (max(CR + (B if recon else 0), (CR if pt else 0) + (2 * B if lv else 0))
+             if modes else nseg * B)
+    vseg = 2 if modes else nseg
     nrt = _cdiv(B, ROWS_PER_THREAD)
     hsplit = split_for(_cdiv(th, 64) * nrt, THREADS // 32, tv // 4, MAX_SPLIT)
     vsplit = split_for(_cdiv(tv, 64) * nrt, THREADS // 32, th // 4, MAX_VSPLIT)
-    strip = (2 * _align16(tv * (th + 4) * sz) + 2 * _align16(tv * sz)
-             + 2 * _align16(B * tv * sz) + _align16(B * tv * 4) + 2 * nseg * B * tv * 4)
-    block = (2 * _align16(th * sz) + 5 * _align16(B * th * 4)
-             + _align16(max(hsplit * B * th, vsplit * nseg * B * tv) * 4)
-             + _align16(THREADS // 32 * 4))
+    a = _align16
+    strip = (2 * a(tv * (th + 4) * sz) + 2 * a(tv * sz) + 2 * a(B * tv * sz)
+             + a(CR * tv * 4) + 2 * qrows * tv * 4)
+    if lv:
+        strip += 2 * a(tv * sz) + 2 * a(tv * 4) + a(CR * tv * 4)
+    if enh:
+        strip += 4 * a(tv * 4)
+    block = (2 * a(th * sz) + 3 * a(B * th * 4) + 2 * a(CR * th * 4)
+             + a(max(hsplit * B * th, vsplit * vseg * B * tv) * 4) + a(THREADS // 32 * 4))
+    if enh:
+        block += 3 * a(th * 4) + a(_cdiv(tv, 4) * th * 4) + a(_cdiv(th, 64) * tv * 4)
+    if pt:
+        block += a(CR * NT * 4) + a(CR * 4) + a(2 * CR * 4)
+    if pseudo:
+        block += a(2 * B * 4)
+    if pt:
+        block += a(strips_per_cluster * 4)
     return strip * strips_per_cluster + block
 
 
@@ -175,7 +214,7 @@ def device_limits(cfg: RBMConfig, device: torch.device) -> Tuple[int, int]:
 
     from .._build import load_library
 
-    lib = load_library("cd_train_resident", cfg.param_dtype).lib
+    lib = load_library(resident_library(cfg), cfg.param_dtype).lib
     out = (ctypes.c_int * 2)()
     index = device.index if device.index is not None else torch.cuda.current_device()
     rc = lib.cd_train_resident_limits(cfg.n_visible, cfg.n_hidden, index, out)
@@ -190,13 +229,32 @@ def resident_trace_phases(cfg: RBMConfig) -> List[str]:
     starts: per hidden phase (from the data, then one per Gibbs step) its
     products, its barrier of the blocks that share a column tile across
     clusters and its sums; per visible phase its products, its cluster
-    barrier and its sums; the update. So an update of CD-k holds k + 1
-    ``:tile_barrier`` steps and k ``:cluster_barrier`` steps."""
+    barrier and its sums (a tempering ladder's sums split over the ranks,
+    then a cluster barrier and the exchange of the samples:
+    ``:exchange:cluster_barrier``, ``:exchange:copy``; a ladder's hidden
+    sums split over the clusters, then a barrier of the tile's blocks and
+    the exchange through device memory: ``:exchange:tile_barrier``,
+    ``:exchange:copy``); under tempering or
+    learned variance the modes' product phase (the ladder's h W^T, W h0p and
+    W hmean) with its cluster barrier; under tempering the flag barrier of
+    every block before the swap rounds; the update. So an update of CD-k
+    holds k + 1 ``:tile_barrier`` steps and k ``:cluster_barrier`` steps;
+    tempering adds k + 1 of each,
+    learned variance one ``:cluster_barrier``, the enhanced gradient and the
+    pseudo monitor none."""
+    pt = cfg.pt_temps > 1
     steps = ("products", "tile_barrier", "sums")
+    vsteps = ("products", "cluster_barrier", "sums")
     names = [f"hidden_from_data:{s}" for s in steps]
     for t in range(cfg.k):
-        names += [f"visible_{t}:{s}" for s in ("products", "cluster_barrier", "sums")]
+        names += [f"visible_{t}:{s}" for s in vsteps]
+        names += [f"visible_{t}:exchange:{s}" for s in ("cluster_barrier", "copy")] if pt else []
         names += [f"hidden_{t}:{s}" for s in steps]
+        names += [f"hidden_{t}:exchange:{s}" for s in ("tile_barrier", "copy")] if pt else []
+    if pt or cfg.learn_variance:
+        names += [f"products:{s}" for s in vsteps]
+    if pt:
+        names += ["swap:tile_barrier", "swap:rounds"]
     return names + ["update_and_monitor"]
 
 
@@ -231,7 +289,7 @@ def cd_train_resident_run(cfg: RBMConfig, params: RBMParams, velocity: RBMParams
         raise ValueError(reason)
     x = K.kernel_inputs(cfg, params, velocity, chain, data, order, uniforms, generator)
     device = data.device
-    B, V, H = cfg.batch_size, cfg.n_visible, cfg.n_hidden
+    B, V, H, M = cfg.batch_size, cfg.n_visible, cfg.n_hidden, cfg.pt_temps
     K.check_trace(trace, (x.n_epochs, x.nb, resident_trace_len(cfg)), device)
     tiles = resident_tiles(cfg, *device_limits(cfg, device), clusters=grid)
     if not tiles.fits:
@@ -240,18 +298,21 @@ def cd_train_resident_run(cfg: RBMConfig, params: RBMParams, velocity: RBMParams
 
     from .._build import load_library  # builds the kernels at first use
 
-    lib = load_library("cd_train_resident", cfg.param_dtype).lib
+    lib = load_library(resident_library(cfg), cfg.param_dtype).lib
     errs = torch.empty(x.n_epochs, dtype=torch.float32, device=device)
-    # the hidden partials, the monitor's strip sums and the barrier counters (zero)
-    scratch = torch.zeros(int(lib.cd_train_resident_scratch_floats(V, H, B)),
+    betas = pt_betas(cfg, device) if M > 1 else None
+    # the hidden partials, the monitor's strip sums, the barrier counters
+    # (zero) and the modes' shares
+    scratch = torch.zeros(int(lib.cd_train_resident_scratch_floats(V, H, B, M, x.flags)),
                           dtype=torch.float32, device=device)
     p, v, u, ptr = x.params, x.velocity, x.draws, K.ptr
     rc = lib.cd_train_resident_run(
-        ptr(x.data), ptr(x.order), ptr(u["h0"]), ptr(u["h"]), ptr(u["v"]), ptr(p.W), ptr(p.b),
-        ptr(p.c), ptr(v.W), ptr(v.b), ptr(v.c), ptr(x.chain), ptr(errs), ptr(scratch),
-        ptr(trace), V, H, B, x.nb, x.n_epochs, cfg.k, start_epoch, cfg.momentum_switch_epoch,
-        x.flags, cfg.lr, *K.schedule_args(cfg), x.seed, x.device_index, tiles.clusters,
-        x.stream)
+        ptr(x.data), ptr(x.order), ptr(u["h0"]), ptr(u["h"]), ptr(u["v"]), ptr(u["swap"]),
+        ptr(betas), ptr(p.W), ptr(p.b), ptr(p.c), ptr(v.W), ptr(v.b), ptr(v.c), ptr(p.z),
+        ptr(v.z), ptr(x.chain), ptr(errs), ptr(scratch), ptr(trace),
+        V, H, B, M, x.nb, x.n_epochs, cfg.k, start_epoch, cfg.momentum_switch_epoch, x.flags,
+        cfg.lr, cfg.lr if cfg.lr_variance is None else cfg.lr_variance, *K.schedule_args(cfg),
+        x.seed, x.device_index, tiles.clusters, x.stream)
     if rc != 0:
         raise RuntimeError(f"cd_train_resident kernel launch failed: cudaError {rc} "
                            f"({lib.cd_train_resident_error_string(rc).decode()})")

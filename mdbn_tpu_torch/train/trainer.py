@@ -10,11 +10,11 @@ Engines (``cfg.engine``):
 - ``"pallas"`` -> ``"cuda"``: a hand-written kernel, one launch per run,
   the one ``ops.cd_epoch_cuda.select_kernel`` names from the config and the
   card's shared memory: ``csrc/cd_train_resident.cu`` (W resident in shared
-  memory) for a run of the plain estimator whose tiles fit the card, the
-  W-blocked ``csrc/cd_train_wide.cu`` for a wide run inside that kernel's
-  scope, ``csrc/cd_train_wide_modes.cu`` for a wide run under tempering, the
-  enhanced gradient or learned variance, else ``csrc/cd_train.cu``
-  (``ops.cd_epoch_cuda.kernel_run``).
+  memory) for a run whose tiles fit the card, under the plain estimator or
+  any estimator mode, the W-blocked ``csrc/cd_train_wide.cu`` for a wide run
+  inside that kernel's scope, ``csrc/cd_train_wide_modes.cu`` for a wide run
+  under tempering, the enhanced gradient or learned variance, else
+  ``csrc/cd_train.cu`` (``ops.cd_epoch_cuda.kernel_run``).
   Raises on the CPU, and for a config the kernels do not take.
 - ``"xla"`` -> ``"eager"``: ``ops.cd_epoch_cuda.cd_train_run_plain``, the
   plain PyTorch version of the same run, on any device.

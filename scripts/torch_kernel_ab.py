@@ -2,7 +2,7 @@
 """Time the CUDA train kernels of two checkouts of mdbn_tpu_torch on one card.
 
     python3 scripts/torch_kernel_ab.py --base DIR [--reps 20]
-    python3 scripts/torch_kernel_ab.py --sweep [--reps 10] [--out FILE]
+    python3 scripts/torch_kernel_ab.py --sweep [--modes] [--reps 10] [--out FILE]
 
 Runs the checkout at DIR (the base) and this checkout in separate processes,
 in the order base, this, this, base. Each process builds its own kernels
@@ -21,6 +21,13 @@ the slice's three estimator-mode rows
 the enhanced gradient; w20k_lv: learned variance) on cd_train.cu called
 directly and on the kernel each checkout's ``select_kernel`` picks (the
 parent's cd_train.cu against this checkout's csrc/cd_train_wide_modes.cu).
+The resident kernel's plain variant also runs at c4's GE tower's second
+layer (Bernoulli 400x100, B 20), c5's tower recipe at c2's width (PCD, k=2,
+momentum 0.5, L2 1e-4) and c1 at bf16 storage and compute, and the narrow
+estimator modes of chip_smoke.py's phase 6 (pt5: 784x500 PCD with 5 rungs;
+enhanced: 784x500; lv: Gaussian 2000x200 with learned variance; pseudo: c1
+with the pseudo monitor) on cd_train.cu and on the selected kernel (a parent
+before the resident kernel took the modes selects cd_train.cu there).
 Each process also hashes the parameters and velocities after a 2-epoch run
 of the directly called kernel and of the selected one, from a fixed state
 with the kernel's own draws from a fixed seed, so the summary says whether
@@ -41,6 +48,10 @@ batches 4 and 20) whether the tiles fit and, where they do, the
 resident kernel's and cd_train.cu's time per update in turns (resident,
 cd_train, cd_train, resident). One JSON line per shape, then a summary with
 the largest fitting shapes and every shape where cd_train.cu is faster.
+With --modes the sweep runs the estimator modes instead (the resident
+kernel's kModes variant): pt5, enhanced and pseudo (Bernoulli) and lv
+(Gaussian, learned variance) at V 250, 784, 2000 and 3000 x H 100, 500 and
+1000, batch 20, float32 and bfloat16.
 Needs one CUDA device; writes only each checkout's kernel build.
 """
 
@@ -55,13 +66,27 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # also timed on the kernel select_kernel picks
-SELECTED = ("c1", "c2", "w20k", "w20k_mom_bf16", "w20k_pt3_bf16", "w20k_enh", "w20k_lv")
+SELECTED = ("c1", "c2", "c4_ge1", "c5_tower", "c1_bf16", "pt5", "enhanced", "lv", "pseudo",
+            "w20k", "w20k_mom_bf16", "w20k_pt3_bf16", "w20k_enh", "w20k_lv")
 WIDE = dict(n_visible=20000, n_hidden=400, batch_size=20, lr=0.001, visible="gaussian")
 BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
 SHAPES = {  # name -> (config fields, data rows, the W-blocked kernel)
     "c1": (dict(n_visible=784, n_hidden=500, batch_size=20, lr=0.1), 2000, False),
     "c2": (dict(n_visible=2000, n_hidden=400, batch_size=20, lr=0.01, visible="gaussian"),
            2000, False),
+    "c4_ge1": (dict(n_visible=400, n_hidden=100, batch_size=20, seed=2), 400, False),
+    "c5_tower": (dict(n_visible=2000, n_hidden=400, batch_size=20, lr=0.005,
+                      visible="gaussian", k=2, persistent=True, momentum=0.5, l2=1e-4), 400,
+                 False),
+    "c1_bf16": (dict(n_visible=784, n_hidden=500, batch_size=20, **BF16), 2000, False),
+    "pt5": (dict(n_visible=784, n_hidden=500, batch_size=20, lr=0.1, persistent=True,
+                 pt_temps=5, pt_beta_min=0.2), 2000, False),
+    "enhanced": (dict(n_visible=784, n_hidden=500, batch_size=20, lr=0.1, gradient="enhanced"),
+                 2000, False),
+    "lv": (dict(n_visible=2000, n_hidden=200, batch_size=20, lr=0.005, visible="gaussian",
+                learn_variance=True), 400, False),
+    "pseudo": (dict(n_visible=784, n_hidden=500, batch_size=20, error_metric="pseudo"), 2000,
+               False),
     "w20k": (WIDE, 400, True),
     "w20k_mom_bf16": (dict(WIDE, momentum=0.5, **BF16), 400, True),
     "w28k": (dict(WIDE, n_visible=28000), 400, True),
@@ -193,7 +218,15 @@ def child(root: str, reps: int) -> dict:
     return out
 
 
-def sweep(reps: int) -> list:
+SWEEP_MODES = {  # --sweep --modes: config fields of each estimator mode
+    "pt5": dict(persistent=True, pt_temps=5, pt_beta_min=0.2),
+    "enhanced": dict(gradient="enhanced"),
+    "lv": dict(visible="gaussian", learn_variance=True, lr=0.005),
+    "pseudo": dict(error_metric="pseudo"),
+}
+
+
+def sweep(reps: int, modes: bool = False) -> list:
     """Fit and times of the resident kernel against cd_train.cu (see module doc)."""
     sys.path.insert(0, HERE)
     import ctypes
@@ -216,17 +249,23 @@ def sweep(reps: int) -> list:
         limits[ranks] = int(out[1])
     lines = [{"smem_per_block": int(out[0]), "max_clusters_by_ranks": limits}]
     print(json.dumps(lines[0]), flush=True)
-    shapes = [dict(n_visible=v, n_hidden=h, batch_size=20, param_dtype=dt)
-              for dt in ("float32", "bfloat16")
-              for v in (250, 500, 784, 1000, 1500, 2000, 2500, 3000, 3500, 4095)
-              for h in (100, 200, 400, 500, 1000)]
-    shapes += [dict(n_visible=784, n_hidden=500, batch_size=b, param_dtype="float32")
-               for b in (32, 48, 64, 80, 96)]
-    # past 4096 hidden units a column tile is wider than the block (512 threads)
-    shapes += [dict(n_visible=v, n_hidden=h, batch_size=b, param_dtype="float32")
-               for b in (4, 20) for v in (64, 256, 400) for h in (2000, 4352, 8192)]
+    if modes:
+        shapes = [dict(n_visible=v, n_hidden=h, batch_size=20, param_dtype=dt, mode=m)
+                  for m in SWEEP_MODES for dt in ("float32", "bfloat16")
+                  for v in (250, 784, 2000, 3000) for h in (100, 500, 1000)]
+    else:
+        shapes = [dict(n_visible=v, n_hidden=h, batch_size=20, param_dtype=dt)
+                  for dt in ("float32", "bfloat16")
+                  for v in (250, 500, 784, 1000, 1500, 2000, 2500, 3000, 3500, 4095)
+                  for h in (100, 200, 400, 500, 1000)]
+        shapes += [dict(n_visible=784, n_hidden=500, batch_size=b, param_dtype="float32")
+                   for b in (32, 48, 64, 80, 96)]
+        # past 4096 hidden units a column tile is wider than the block (512 threads)
+        shapes += [dict(n_visible=v, n_hidden=h, batch_size=b, param_dtype="float32")
+                   for b in (4, 20) for v in (64, 256, 400) for h in (2000, 4352, 8192)]
     for kw in shapes:
-        cfg = RBMConfig(**kw, lr=0.05)
+        fields = {k: x for k, x in kw.items() if k != "mode"}
+        cfg = RBMConfig(**{"lr": 0.05, **fields, **SWEEP_MODES.get(kw.get("mode"), {})})
         tiles = R.resident_tiles(cfg, *R.device_limits(cfg, dev))
         rec = dict(kw, fits=tiles.fits, smem_bytes=tiles.smem_bytes,
                    strips_per_cluster=tiles.strips_per_cluster, clusters=tiles.clusters,
@@ -234,7 +273,10 @@ def sweep(reps: int) -> list:
         if tiles.fits:
             nb = 20
             gen = torch.Generator().manual_seed(0)
-            data = (torch.rand((nb * cfg.batch_size, cfg.n_visible), generator=gen) < 0.3)
+            if cfg.visible == "bernoulli":
+                data = (torch.rand((nb * cfg.batch_size, cfg.n_visible), generator=gen) < 0.3)
+            else:
+                data = torch.randn((nb * cfg.batch_size, cfg.n_visible), generator=gen)
             data = data.to(device=dev, dtype=torch_dtype(cfg.param_dtype))
             st = init_train_state(cfg, device=dev)
             args = (cfg, st.params, st.velocity, st.chain_h, data, K.batch_order(cfg, nb, 1, None),
@@ -256,6 +298,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--sweep", action="store_true",
                     help="measure the resident kernel's fit and where cd_train.cu wins")
+    ap.add_argument("--modes", action="store_true",
+                    help="--sweep: the estimator modes' shapes instead of the plain ones")
     ap.add_argument("--out", help="--sweep: also write its lines to this file")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -272,14 +316,17 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     if args.sweep:
-        lines = sweep(args.reps)
+        lines = sweep(args.reps, args.modes)
         timed = [r for r in lines[1:] if "resident_us_per_update" in r]
+        groups = ([(m, dt, 20) for m in SWEEP_MODES for dt in ("float32", "bfloat16")]
+                  if args.modes else
+                  [(None, dt, b) for dt in ("float32", "bfloat16") for b in (4, 20)])
         summary = {"nvidia_smi": smi, "order": "resident, cd_train, cd_train, resident",
-                   "largest_fitting": {f"{dt} B{b}": max(
+                   "largest_fitting": {" ".join(filter(None, (m, dt, f"B{b}"))): max(
                        ((r["n_visible"] * r["n_hidden"], r["n_visible"], r["n_hidden"])
                         for r in lines[1:] if r["fits"] and r["param_dtype"] == dt
-                        and r["batch_size"] == b), default=None)
-                       for dt in ("float32", "bfloat16") for b in (4, 20)},
+                        and r["batch_size"] == b and r.get("mode") == m), default=None)
+                       for m, dt, b in groups},
                    "largest_fitting_batch_at_c1": max(
                        (r["batch_size"] for r in lines[1:] if r["fits"]
                         and (r["n_visible"], r["n_hidden"]) == (784, 500)), default=None),

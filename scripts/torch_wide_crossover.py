@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the W-blocked CUDA train kernel against the kernel a run would take
 without it, on one card; with --dp, both data-parallel routes; with --modes,
-cd_train.cu against the strip-split kernel of the estimator modes.
+cd_train.cu against the strip-split kernel of the estimator modes and the
+resident kernel where its tiles fit.
 
     python3 scripts/torch_wide_crossover.py [--reps 5]
     python3 scripts/torch_wide_crossover.py --dp [--reps 3]
@@ -54,12 +55,16 @@ called directly through ``kernel_run``, at H 400 and batch 20 (Gaussian, CD-1,
 lr 0.001, standard-normal data from a seed) for V = 784, 1000, 1500, 2000,
 3000, 4096, 5000, 10000 and 20000, under 3-rung tempering at bf16 storage and
 compute (PCD, beta_min 0.3: the w20k_pt3_bf16 row's recipe), the enhanced
-gradient and learned variance at float32 (w20k_enh, w20k_lv). One epoch of
-20 updates per call, in the order cd_train, wide_modes, wide_modes, cd_train
-after a warm-up call each; the better of each side's two times counts. One
-JSON line per shape, then a summary with the card's name and power limit and
-the smallest width from which the strip-split kernel is faster at every
-measured width of every mode.
+gradient and learned variance at float32 (w20k_enh, w20k_lv) and the
+enhanced gradient at bf16; where the tiles fit the card, the resident
+kernel's kModes variant (``csrc/cd_train_resident.cu``, which
+``select_kernel`` tries first) too. One epoch of 20 updates per call, in the
+order cd_train, wide_modes[, resident, resident], wide_modes, cd_train after
+a warm-up call each; the better of each side's two times counts. One JSON
+line per shape, then a summary with the card's name and power limit, the
+smallest width from which the strip-split kernel is faster than cd_train.cu
+at every measured width of every mode, and whether the resident kernel is
+ahead of both wherever its tiles fit (``resident_ahead_where_it_fits``).
 """
 
 from __future__ import annotations
@@ -104,6 +109,7 @@ MODES = {  # config fields on top of BASE (scripts/bench_wide.py's mode rows)
     "pt3_bf16": dict(persistent=True, pt_temps=3, pt_beta_min=0.3, **BF16),
     "enhanced": dict(gradient="enhanced"),
     "lv": dict(learn_variance=True),
+    "enhanced_bf16": dict(gradient="enhanced", **BF16),
 }
 ROUTE_KERNELS = {"cd_grads": ("cd_grads_kernel", "cd_update_kernel"),
                  "cd_grads_wide": ("cd_wide_step_kernel", "cd_wide_update_kernel")}
@@ -201,10 +207,10 @@ def modes_main(reps: int, smi: str) -> int:
     from mdbn_tpu_torch.core.rbm_math import torch_dtype
     from mdbn_tpu_torch.core.state import init_train_state
     from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
 
     dev = torch.device("cuda", 0)
-    kernels = ("cd_train", "cd_train_wide_modes")
-    faster = {}
+    faster, resident_ahead = {}, {}
     for mode, fields in MODES.items():
         for v in MODES_WIDTHS:
             cfg = RBMConfig(**{**BASE, **fields, "n_visible": v})
@@ -222,11 +228,16 @@ def modes_main(reps: int, smi: str) -> int:
                 K.kernel_run(kern)(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
                                    None, seeds)
 
+            fits = R.resident_admits(cfg, R.device_limits(cfg, dev))
+            kernels = ("cd_train", "cd_train_wide_modes") + (("cd_train_resident",)
+                                                             if fits else ())
             times = {k: [] for k in kernels}
             for kern in kernels + kernels[::-1]:
                 times[kern].append(time_runs(lambda kern=kern: run(kern), reps) * 1e6 / nb)
             best = {k: min(t) for k, t in times.items()}
-            faster[f"{mode}@{v}"] = min(best, key=best.get)
+            faster[f"{mode}@{v}"] = min(("cd_train", "cd_train_wide_modes"), key=best.get)
+            if fits:
+                resident_ahead[f"{mode}@{v}"] = min(best, key=best.get) == "cd_train_resident"
             print(json.dumps({
                 "mode": mode, "V": v, "H": cfg.n_hidden, "B": cfg.batch_size,
                 "param_dtype": cfg.param_dtype, "updates_per_run": nb,
@@ -234,6 +245,8 @@ def modes_main(reps: int, smi: str) -> int:
                 "cd_train_wide_modes_us_per_update": best["cd_train_wide_modes"],
                 "cd_train_us_calls": times["cd_train"],
                 "cd_train_wide_modes_us_calls": times["cd_train_wide_modes"],
+                "cd_train_resident_us_per_update": best.get("cd_train_resident"),
+                "cd_train_resident_us_calls": times.get("cd_train_resident"),
                 "select_kernel": K.select_kernel(cfg),
                 "faster": faster[f"{mode}@{v}"]}), flush=True)
     # the smallest measured width from which the strip-split kernel wins at
@@ -241,8 +254,11 @@ def modes_main(reps: int, smi: str) -> int:
     ahead = [v for v in MODES_WIDTHS
              if all(faster[f"{m}@{w}"] == "cd_train_wide_modes"
                     for m in MODES for w in MODES_WIDTHS if w >= v)]
-    print(json.dumps({"order": "cd_train, wide_modes, wide_modes, cd_train",
+    print(json.dumps({"order": "cd_train, wide_modes[, resident, resident], wide_modes, "
+                               "cd_train",
                       "nvidia_smi": smi, "faster": faster,
+                      "resident_ahead_where_it_fits": all(resident_ahead.values()),
+                      "resident_ahead": resident_ahead,
                       "wide_modes_ahead_from": min(ahead) if ahead else None,
                       "WIDE_MODES_MIN_VISIBLE": K.WIDE_MODES_MIN_VISIBLE}))
     return 0

@@ -494,10 +494,9 @@ def test_resident_kernel_rejects_bad_inputs(cuda):
     cfg = RBMConfig(**CLUSTERED, lr=0.1)
     st, data, order, _ = _inputs(cfg, cuda)
     before = R.cd_train_resident_launches
-    with pytest.raises(ValueError, match="tempering"):
-        R.cd_train_resident_run(cfg.replace(persistent=True, pt_temps=3), st.params,
-                                st.velocity, st.chain_h, data, order, 0, None,
-                                torch.Generator())
+    with pytest.raises(ValueError, match="Philox"):
+        R.cd_train_resident_run(cfg.replace(k=256), st.params, st.velocity, st.chain_h, data,
+                                order, 0, None, torch.Generator())
     with pytest.raises(ValueError, match="bfloat16"):  # float32 state under a bf16 config
         R.cd_train_resident_run(cfg.replace(param_dtype="bfloat16"), st.params, st.velocity,
                                 st.chain_h, data, order, 0, None, torch.Generator())
@@ -523,19 +522,26 @@ def test_resident_layout_matches_the_library(cuda):
 
     from mdbn_tpu_torch._build import load_library
 
-    for V, H, B, dtype, pcd in ((784, 500, 20, "float32", False), (2000, 400, 20, "float32",
-                                True), (250, 100, 20, "bfloat16", True), (301, 77, 13,
-                                "float32", False), (784, 500, 64, "bfloat16", False)):
+    pt5 = dict(persistent=True, pt_temps=5, pt_beta_min=0.2)
+    lv = dict(visible="gaussian", learn_variance=True)
+    for V, H, B, dtype, pcd, modes in (
+            (784, 500, 20, "float32", False, {}), (2000, 400, 20, "float32", True, {}),
+            (250, 100, 20, "bfloat16", True, {}), (301, 77, 13, "float32", False, {}),
+            (784, 500, 64, "bfloat16", False, {}), (784, 500, 20, "float32", True, pt5),
+            (784, 500, 20, "bfloat16", True, pt5), (2000, 200, 20, "float32", False, lv),
+            (2000, 200, 20, "bfloat16", True, dict(lv, pt_temps=3, pt_beta_min=0.4)),
+            (784, 500, 20, "float32", True, dict(gradient="enhanced", error_metric="pseudo")),
+            (64, 4352, 4, "float32", False, dict(gradient="enhanced"))):
         cfg = RBMConfig(n_visible=V, n_hidden=H, batch_size=B, param_dtype=dtype,
-                        persistent=pcd)
-        lib = load_library("cd_train_resident", dtype).lib
+                        **dict(dict(persistent=pcd), **modes))
+        lib = load_library(R.resident_library(cfg), dtype).lib
         out = (ctypes.c_int * 4)()
         lib.cd_train_resident_tiling(V, H, out)
         t = R.resident_tiles(cfg)
         assert tuple(out) == (t.rows, t.cols, t.strips, t.ranks)
         for ns in (1, 2, 3):
-            assert lib.cd_train_resident_smem_bytes(V, H, B, K.kernel_flags(cfg), ns) == \
-                R.smem_bytes(cfg, ns)
+            assert lib.cd_train_resident_smem_bytes(V, H, B, cfg.pt_temps, K.kernel_flags(cfg),
+                                                    ns) == R.smem_bytes(cfg, ns)
         smem, maxc = R.device_limits(cfg, cuda)
         if torch.cuda.get_device_name(cuda).startswith("NVIDIA H100"):
             assert (smem, maxc) == (R.H100_SMEM_PER_BLOCK, R.H100_MAX_CLUSTERS[t.ranks])
@@ -553,8 +559,8 @@ def test_train_takes_the_resident_kernel(cuda):
     assert (R.cd_train_resident_launches, K.cd_train_launches) == (before[0] + 1, before[1])
     assert rbm.history[-1] < rbm.history[0]
     mode = RBM(cfg.replace(gradient="enhanced"), device=cuda).train(data)
-    assert mode.metrics.kernel == "cd_train"
-    assert K.cd_train_launches == before[1] + 1
+    assert mode.metrics.kernel == "cd_train_resident"
+    assert (R.cd_train_resident_launches, K.cd_train_launches) == (before[0] + 2, before[1])
 
 
 # the data-parallel path's per-step kernel, csrc/cd_grads.cu, at the shapes of
@@ -1221,3 +1227,161 @@ def test_wide_modes_kernel_raises_outside_its_scope(cuda):
         WMC.cd_train_wide_modes_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
                                     None, torch.Generator(), grid=1 << 20)
     assert _wide_modes_counts() == before
+
+
+
+# the resident kernel's estimator modes (csrc/cd_train_resident.cu, its kModes
+# variant) against cd_train_run_plain on hardened draws: cd_train.cu's mode
+# cases and the bf16 ones over whole 2-epoch runs at their tolerances (TOL,
+# BF16_TOL), with cases over 13 strips of 4 ranks (CLUSTERED) and the odd
+# 301x77 shape; at the smoke's full widths (pt5 at 784x500, learned variance
+# at 2000x200) one update at a time at REPLAY_TOL, bf16 to one ulp
+RESIDENT_MODES = {
+    **MODES,
+    "bf16-pt-bernoulli": BF16_CASES["pt"],
+    "bf16-enhanced": BF16_CASES["enhanced"],
+    "bf16-learn-variance": BF16_CASES["learn-variance"],
+    "bf16-pt3-lv": WIDE_MODES_CASES["bf16-pt3-lv"],
+    "pt3-clustered-pcd-k2": RBMConfig(**CLUSTERED, lr=0.05, k=2, persistent=True, pt_temps=3,
+                                      pt_beta_min=0.3, momentum=0.5),
+    "enhanced-pseudo-clustered-pcd": RBMConfig(**CLUSTERED, lr=0.05, gradient="enhanced",
+                                               error_metric="pseudo", persistent=True,
+                                               momentum=0.5, sparsity_target=0.1,
+                                               sparsity_cost=0.5),
+    "lv-odd-13-clusters": RBMConfig(n_visible=301, n_hidden=77, batch_size=13,
+                                    visible="gaussian", lr=0.005, learn_variance=True,
+                                    momentum=0.5),
+    "enhanced-wide-tile-64x4352-b4": RBMConfig(n_visible=64, n_hidden=4352, batch_size=4,
+                                               lr=0.05, gradient="enhanced", momentum=0.5),
+}
+FULL_WIDTH = {
+    "pt5": RBMConfig(n_visible=784, n_hidden=500, batch_size=20, k=1, lr=0.1, persistent=True,
+                     pt_temps=5, pt_beta_min=0.2),
+    "lv": RBMConfig(n_visible=2000, n_hidden=200, batch_size=20, visible="gaussian",
+                    learn_variance=True, lr=0.005),
+    "pt5-bf16": RBMConfig(n_visible=784, n_hidden=500, batch_size=20, k=1, lr=0.1,
+                          persistent=True, pt_temps=5, pt_beta_min=0.2, **BF16),
+    "lv-bf16": RBMConfig(n_visible=2000, n_hidden=200, batch_size=20, visible="gaussian",
+                         learn_variance=True, lr=0.005, **BF16),
+}
+
+
+def _resident_counts():
+    return R.cd_train_resident_launches, K.cd_train_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(RESIDENT_MODES))
+def test_resident_modes_kernel_matches_plain_inject(cuda, name):
+    cfg = RESIDENT_MODES[name]
+    assert K.select_kernel(cfg) == "cd_train_resident" and R.has_modes(cfg)
+    st, data, order, u = _inputs(cfg, cuda)
+    before = _resident_counts()
+    got = R.cd_train_resident_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
+    torch.cuda.synchronize()
+    assert _resident_counts() == (before[0] + 1, before[1])
+    assert got[0].W.dtype == got[2].dtype == st.params.W.dtype
+    _check(got, K.cd_train_run_plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
+                                     u))
+
+
+def _within_one_ulp(got, want):
+    """bf16 state: a velocity within one bf16 ulp of the plain one, a
+    parameter within its own ulp and its velocity's (each side rounds one
+    float32 result once), beside atol."""
+    for n in ("W", "b", "c", "z"):
+        if getattr(want[0], n) is None:
+            continue
+        for i in (1, 0):
+            a, b = getattr(got[i], n).float(), getattr(want[i], n).float()
+            big = torch.maximum(a.abs(), b.abs())
+            if i == 0:
+                big = big + torch.maximum(getattr(got[1], n).float().abs(),
+                                          getattr(want[1], n).float().abs())
+            assert bool(((a - b).abs() <= big * 2.0 ** -7 + REPLAY_TOL["atol"]).all()), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FULL_WIDTH))
+def test_resident_modes_replayed_one_update_at_a_time(cuda, name):
+    """The smoke's full-width pt5 and lv, each update from the kernel's own
+    state on draws hardened against that state, at REPLAY_TOL (bf16: one
+    ulp); the chain's samples identical."""
+    cfg = FULL_WIDTH[name]
+    assert K.select_kernel(cfg) == "cd_train_resident"
+    st, data, _, u = _inputs(cfg, cuda, E=1, nb=3)
+    p, v, chain = st.params, st.velocity, st.chain_h
+    one = torch.zeros((1, 1), dtype=torch.int32)
+    B = cfg.batch_size
+    for i in range(3):
+        d = data[i * B:(i + 1) * B]
+        ui = K.harden_uniform_blocks(cfg, p, v, chain, d,
+                                     {k: x[:, i:i + 1] for k, x in u.items()}, 1)
+        got = R.cd_train_resident_run(cfg, p, v, chain, d, one, 0, ui)
+        want = K.cd_train_run_plain(cfg, p, v, chain, d, one, 0, ui)
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+        torch.testing.assert_close(got[3], want[3], **REPLAY_TOL)
+        if cfg.param_dtype == "bfloat16":
+            _within_one_ulp(got, want)
+        else:
+            for part in (0, 1):
+                for n in ("W", "b", "c", "z"):
+                    if getattr(want[part], n) is not None:
+                        torch.testing.assert_close(getattr(got[part], n),
+                                                   getattr(want[part], n), **REPLAY_TOL)
+        p, v, chain = got[:3]
+
+
+def _fewest_clusters(cfg) -> int:
+    """The smallest cluster count whose strips fit a block."""
+    tiles = R.resident_tiles(cfg)
+    for n in range(1, tiles.clusters + 1):
+        try:
+            R.resident_tiles(cfg, clusters=n)
+            return n
+        except ValueError:
+            continue
+    raise AssertionError("no cluster count holds the tiles")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pt3-clustered-pcd-k2", "enhanced-pseudo-clustered-pcd",
+                                  "lv-odd-13-clusters", "bf16-pt3-lv",
+                                  "enhanced-wide-tile-64x4352-b4"])
+def test_resident_modes_bits_on_two_cluster_counts(cuda, name):
+    """The default cluster count and the smallest that holds the tiles give
+    the same bits (seeded draws, 3 epochs); the traces rise."""
+    cfg = RESIDENT_MODES[name]
+    counts = (0, _fewest_clusters(cfg))
+    st, data, order, _ = _inputs(cfg, cuda, E=3)
+    trace = [torch.zeros((3, 6, R.resident_trace_len(cfg)), dtype=torch.int64, device=cuda)
+             for _ in counts]
+    runs = [R.cd_train_resident_run(cfg, st.params, st.velocity, st.chain_h, data, order, 0,
+                                    None, torch.Generator().manual_seed(3), grid=g, trace=tr)
+            for g, tr in zip(counts, trace)]
+    for part in (0, 1):
+        for n in ("W", "b", "c", "z"):
+            if getattr(runs[0][part], n) is not None:
+                torch.testing.assert_close(getattr(runs[1][part], n),
+                                           getattr(runs[0][part], n), rtol=0, atol=0)
+    torch.testing.assert_close(runs[1][2], runs[0][2], rtol=0, atol=0)
+    torch.testing.assert_close(runs[1][3], runs[0][3], rtol=0, atol=0)
+    for tr in trace:
+        assert bool((tr.diff(dim=2) >= 0).all()) and bool((tr > 0).all())
+    assert all(np.isfinite(runs[0][3].tolist()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pt-gaussian-sampled", "learn-variance-meanfield-pcd",
+                                  "pseudo-pt-enhanced", "enhanced-sparsity"])
+def test_resident_modes_draw_as_cd_train_from_one_seed(cuda, name):
+    """cd_train.cu and the resident kernel share the Philox keying, swap
+    draws included: one seed gives the same samples, and the runs agree at
+    cd_train.cu's tolerance."""
+    cfg = RESIDENT_MODES[name]
+    st, data, order, _ = _inputs(cfg, cuda)
+    a, b = (K.kernel_run(kern)(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
+                               torch.Generator().manual_seed(5))
+            for kern in ("cd_train", "cd_train_resident"))
+    torch.testing.assert_close(a[2], b[2], rtol=0, atol=0)
+    _check(b, a)

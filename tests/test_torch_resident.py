@@ -81,10 +81,16 @@ MODES = {
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_estimator_modes_stay_on_cd_train(mode):
+    """Each estimator mode takes the resident kernel at c1's shape (f32 and
+    bf16 storage) and stays on cd_train.cu only where its tiles do not fit
+    (a batch of 512 rows here)."""
     cfg = LAYERS["c1"].replace(**MODES[mode])
-    assert mode.split("-")[0] in R.resident_unsupported(cfg).replace(" ", "-")
-    assert K.select_kernel(cfg) == "cd_train"
-    assert K.select_kernel(cfg.replace(**BF16)) == "cd_train"
+    assert R.resident_unsupported(cfg) is None and R.has_modes(cfg)
+    assert K.select_kernel(cfg) == "cd_train_resident"
+    assert K.select_kernel(cfg.replace(**BF16)) == "cd_train_resident"
+    past = cfg.replace(batch_size=512)
+    assert not R.resident_tiles(past).fits
+    assert K.select_kernel(past) == "cd_train"
 
 
 def test_k_past_the_philox_layout_stays_on_cd_train():

@@ -323,9 +323,10 @@ def test_admission(name):
     for v in (K.WIDE_MIN_VISIBLE - 1, K.WIDE_MIN_VISIBLE, 2000, 3000, 4096, 5000):
         c = tcfg.replace(n_visible=v)
         assert K.select_kernel(c) == expected(c), v
-    plain = name not in ("w20k_lv", "w20k_enh", "w20k_pt3_bf16")
     resident_at = lambda v: K.select_kernel(tcfg.replace(n_visible=v)) == "cd_train_resident"
-    assert resident_at(2000) == (plain and name != "w20k_b64")  # 64 rows of 2000 do not fit
+    # the resident kernel takes the mode rows too where they fit: 64 rows of
+    # 2000, and a ladder of 3 x 20 chain rows of 2000, do not
+    assert resident_at(2000) == (name not in ("w20k_b64", "w20k_pt3_bf16"))
     # at bf16 storage the resident kernel holds 3000 and 4096 columns of 400
     assert resident_at(4096) == (name == "w20k_mom_bf16")
     if in_scope and name != "w20k_b64" and tcfg.n_hidden == 400:
