@@ -8,7 +8,8 @@ cd_train_wide.cu, cd_train_resident.cu (its plain variant, its estimator
 modes without and with a tempering ladder: three libraries),
 cd_train_wide_modes.cu, cd_grads.cu and cd_grads_wide.cu, each at float32
 and bfloat16 storage, in parallel) and
-runs twenty-four phases, one line each (23 and 24 run after 5):
+runs twenty-six phases, one line each (25 and 26 run after 4, 23 and 24
+after 5):
 
 1. device: torch and CUDA versions, the card's name and power limit, build time,
    and each compiled function's registers, stack and spill bytes (ptxas -v);
@@ -137,7 +138,25 @@ runs twenty-four phases, one line each (23 and 24 run after 5):
 24. timing_resident: one epoch per call of each of those shapes, in the
     order plain, resident, cd_train.cu, cd_train.cu, resident, plain; the
     resident kernel's median time per step of an update from its trace (k +
-    1 tile barriers an update), and the bound.
+    1 tile barriers an update), and the bound;
+25. analysis_cli: the CLI's analysis path through mdbn_tpu_torch.run.main:
+    configs/c5_pcd_kmeans.json as committed (every layer on the resident
+    kernel by the counters; the kmeans record's ARI against the planted
+    clusters at least 0.99 and, at ARI 1, its log-rank p equal to
+    GRADED_RUNS.md's 9.0e-20 to two digits), then on c5's saved model
+    (--load) an impute block holding out meth (its MSE under the
+    row-shuffled control's) and consensus k selection at 10 resamples, then
+    c1_real_mnist_idx and c4_real_omics_csv on fixture files written to a
+    temporary directory (scripts/torch_run_graded_configs.py's recipe): each
+    exits 0 on the resident kernel, c4_real with a kmeans record of three
+    non-empty clusters;
+26. k300: each kernel source at k = 300 against its plain version on
+    hardened injected draws (cd_train.cu, the resident kernel's three
+    variants and the two wide kernels over 2 updates at the run tolerance,
+    cd_grads.cu's step and cd_grads_wide.cu's step on a 7-row shard at the
+    replay tolerance, cd_grads.cu's update bit for bit), with the largest
+    difference of each; then RBM.train(engine="pallas") at k = 300 launches
+    the kernel select_kernel names, and no other.
 
 Then a JSON line describing the kernels, and last
 {"ok": true, "device": ...}. Exits non-zero, printing no result, when there
@@ -160,6 +179,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 C1 = os.path.join(HERE, "configs", "c1_bernoulli_rbm_mnist.json")
 C2 = os.path.join(HERE, "configs", "c2_gaussian_rbm_ge.json")
 C4 = os.path.join(HERE, "configs", "c4_mdbn_3modality.json")
+C5 = os.path.join(HERE, "configs", "c5_pcd_kmeans.json")
+C5_ARI_MIN = 0.99  # c5's kmeans record against its planted clusters
+C5_LOGRANK_P = 9.0e-20  # GRADED_RUNS.md: the same planted times on the same partition
+K300 = 300  # Gibbs steps past the 255 the Philox counter word once held
 C1_FINAL_ERR, C1_ERR_TOL = 0.0744, 0.001  # GRADED_RUNS.md, --epochs 10
 # kernel vs plain, same inputs and draws: the two differ only in the order of
 # fp32 sums (the kernel's fixed-order FMAs vs cuBLAS). Over c1's 200 CD-1
@@ -1077,7 +1100,8 @@ def run_resident(dev, smi, c1, c1_data, ge, main_launches: int) -> list:
             "max_abs_err": errs[name], "ms": t_res, "plain_ms": t_plain,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "ms_per": f"one epoch of {name} ({nb} updates); launches: the kernel's on the "
-                      "main path (c1 and c4 through the API)"})
+                      "main path (c1 and c4 through the API, c5, c1_real and c4_real "
+                      "through the CLI)"})
     phase("timing_resident", order="plain, resident, cd_train, cd_train, resident, plain",
           nvidia_smi=smi, l2_bytes=l2, shapes=timing)
     return entries
@@ -1491,7 +1515,7 @@ def run_dp(dev, smi, c1, t_cd_train_ms):
     from mdbn_tpu_torch.parallel.mesh import _free_port, make_mesh
     from mdbn_tpu_torch.run import build_data
 
-    c1_train, _ = build_data(load_config(C1)["data"])
+    c1_train, _, _ = build_data(load_config(C1)["data"])
     data = torch.as_tensor(c1_train, device=dev)
     cfg = c1.replace(engine="pallas")
     nb = data.shape[0] // cfg.batch_size
@@ -2354,6 +2378,203 @@ def run_dp_modes(dev, smi, c1, c1_data, ge) -> list:
     return entries
 
 
+def _cli(argv) -> list:
+    """``mdbn_tpu_torch.run.main(argv)`` in this process; the JSON records it
+    prints (its stdout is kept out of the smoke's)."""
+    import contextlib
+    import io
+
+    from mdbn_tpu_torch.run import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(list(argv))
+    if rc != 0:
+        raise AssertionError(f"the CLI exited {rc}: {argv}")
+    return [json.loads(l) for l in out.getvalue().splitlines() if l.startswith("{")]
+
+
+def run_analysis_cli(smi) -> int:
+    """The analysis_cli phase: the CLI's analysis path on the card. c5 as
+    committed (every layer on the resident kernel by its counter; the kmeans
+    record's ARI against the planted clusters and its log-rank p), then on
+    c5's saved model an impute block (meth held out) and consensus k
+    selection at 10 resamples, then c1_real_mnist_idx and c4_real_omics_csv
+    on fixture files (scripts/torch_run_graded_configs.py's recipe) written
+    to a temporary directory. Returns the resident kernel's launches."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from torch_run_graded_configs import make_real_data_fixtures, rewrite_real_config
+
+    from mdbn_tpu_torch.config import MDBNConfig, load_config
+
+    t0 = time.perf_counter()
+    launches, out = 0, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        exp5 = load_config(C5)
+        n5 = sum(len(t.layer_sizes) for t in exp5["model"].towers.values()) + 1
+        zero_train_counts()
+        t = time.perf_counter()
+        recs = _cli(["--config", C5, "--save", os.path.join(tmp, "c5")])
+        counts = check_counts("c5", {"cd_train_resident": n5})
+        launches += counts["cd_train_resident"]
+        (km,) = [r for r in recs if r["kind"] == "kmeans"]
+        ari, p = km["ari_vs_planted"], km["logrank"]["p_value"]
+        if ari < C5_ARI_MIN:
+            raise AssertionError(f"c5: ARI {ari} below {C5_ARI_MIN}")
+        if ari == 1.0 and f"{p:.1e}" != f"{C5_LOGRANK_P:.1e}":
+            raise AssertionError(f"c5: log-rank p {p:.3e} is not {C5_LOGRANK_P:.1e} at ARI 1")
+        out["c5"] = {"seconds": round(time.perf_counter() - t, 3), "launches": counts,
+                     "k": km["k"], "cluster_sizes": km["cluster_sizes"],
+                     "ari_vs_planted": ari, "logrank_p": p}
+        # inference on the saved model: imputation and consensus k selection
+        more = dict(json.load(open(C5)), analysis={
+            "kmeans": "consensus", "consensus_resamples": 10,
+            "impute": {"holdout": "meth"}})
+        path = os.path.join(tmp, "c5_inference.json")
+        with open(path, "w") as f:
+            json.dump(more, f)
+        zero_train_counts()
+        t = time.perf_counter()
+        recs = _cli(["--config", path, "--load", os.path.join(tmp, "c5")])
+        if any(train_counts().values()):
+            raise AssertionError(f"--load trained: {train_counts()}")
+        (imp,) = [r for r in recs if r["kind"] == "impute"]
+        (km,) = [r for r in recs if r["kind"] == "kmeans"]
+        if not (np.isfinite(imp["mse"]) and imp["ratio"] < 1.0):
+            raise AssertionError(f"c5 impute: {imp}")
+        if len(km["pac_scores"]) != 7 or km["ari_vs_planted"] < C5_ARI_MIN:
+            raise AssertionError(f"c5 consensus: {km}")
+        out["c5_load_impute_consensus"] = {
+            "seconds": round(time.perf_counter() - t, 3), "impute": imp, "k": km["k"],
+            "pac_scores": km["pac_scores"], "ari_vs_planted": km["ari_vs_planted"]}
+        fixtures = make_real_data_fixtures(tmp)
+        for name in ("c1_real_mnist_idx", "c4_real_omics_csv"):
+            cfg_path = rewrite_real_config(os.path.join(HERE, "configs", f"{name}.json"),
+                                           fixtures, tmp)
+            model = load_config(cfg_path)["model"]
+            n = (sum(len(t.layer_sizes) for t in model.towers.values()) + 1
+                 if isinstance(model, MDBNConfig) else 1)
+            metrics = os.path.join(tmp, f"{name}.jsonl")
+            zero_train_counts()
+            t = time.perf_counter()
+            recs = _cli(["--config", cfg_path, "--metrics", metrics])
+            counts = check_counts(name, {"cd_train_resident": n})
+            launches += counts["cd_train_resident"]
+            with open(metrics) as f:
+                logged = [json.loads(l) for l in f]
+            row = {"seconds": round(time.perf_counter() - t, 3), "launches": counts}
+            epochs = [r for r in logged if r["kind"] == "epoch"]
+            if epochs:
+                row["err"] = [epochs[0]["recon_error"], epochs[-1]["recon_error"]]
+            kms = [r for r in recs if r["kind"] == "kmeans"]
+            if name.startswith("c4"):
+                if len(kms) != 1 or min(kms[0]["cluster_sizes"]) == 0 or kms[0]["k"] != 3:
+                    raise AssertionError(f"{name}: kmeans records {kms}")
+                row["cluster_sizes"] = kms[0]["cluster_sizes"]
+            out[name] = row
+    phase("analysis_cli", runs=out, seconds=round(time.perf_counter() - t0, 3),
+          ari_min=C5_ARI_MIN, logrank_p_reference=C5_LOGRANK_P, nvidia_smi=smi)
+    return launches
+
+
+def run_k300(dev, smi) -> None:
+    """The k300 phase: every kernel source at k = 300 against its plain
+    version on hardened injected draws (2 updates at c4's GE second layer,
+    400x100; the wide kernels called directly at 2000x100, as the admission
+    rule does not pick them there; the DP kernels one step on a 7-row shard
+    with a pad row), with the largest difference of each; then
+    RBM.train(engine="pallas") at k = 300 launches the kernel select_kernel
+    names."""
+    import numpy as np
+    import torch
+
+    from mdbn_tpu_torch import RBM
+    from mdbn_tpu_torch.config import RBMConfig
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+    from mdbn_tpu_torch.ops.cd_step import draw_uniforms
+    from mdbn_tpu_torch.parallel.dp import world_scale
+
+    t0 = time.perf_counter()
+    base = RBMConfig(n_visible=400, n_hidden=100, batch_size=20, k=K300, lr=0.05)
+    wide = RBMConfig(n_visible=2000, n_hidden=100, batch_size=20, k=K300, lr=0.005,
+                     visible="gaussian", sample_visible=False)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = lambda cfg: (torch.rand((40, cfg.n_visible), generator=gen, device=dev) < 0.3).float() \
+        if cfg.visible == "bernoulli" else torch.randn((40, cfg.n_visible), generator=gen,
+                                                        device=dev)
+    runs = {"cd_train": (base.replace(persistent=True, momentum=0.5), False, None, False),
+            "cd_train_resident": (base, False, 0, False),
+            "cd_train_resident_modes[enhanced]": (base.replace(gradient="enhanced"), False, 0,
+                                                  False),
+            "cd_train_resident_ladder[pt3]": (base.replace(persistent=True, pt_temps=3,
+                                                           pt_beta_min=0.3), False, 0, False),
+            "cd_train_wide": (wide, True, None, False),
+            "cd_train_wide_modes[lv]": (wide.replace(learn_variance=True), False, None, True)}
+    errs = {}
+    for name, (cfg, is_wide, clusters, modes) in runs.items():
+        errs[name] = compare_run(cfg, rows(cfg), 1, dev, seed=7, wide=is_wide,
+                                 clusters=clusters, modes=modes)
+    # the DP kernels: cd_grads.cu's step and update, cd_grads_wide.cu's step
+    shard = base.replace(batch_size=7, persistent=True)
+    p, vel, chain = _grads_state(shard, dev, seed=8)
+    v0 = rows(shard)[:7]
+    v0[-1] = 0.0
+    mask = torch.ones((7, 1), device=dev)
+    mask[-1] = 0.0
+    u = G.harden_step(shard, p, chain, v0, draw_uniforms(shard, 7, gen))
+    got = G.cd_grads_step(shard, p, v0, chain, uniforms=u, mask=mask, norm=20 / 3)
+    want = G.cd_grads_step_plain(shard, p, v0, chain, uniforms=u, mask=mask, norm=20 / 3)
+    for a, b in zip((got[0].W, got[0].b, got[0].c, got[2]), (want[0].W, want[0].b, want[0].c,
+                                                             want[2])):
+        torch.testing.assert_close(a, b, rtol=REPLAY_RTOL, atol=REPLAY_ATOL)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    errs["cd_grads[step]"] = max(float((a - b).abs().max()) for a, b in zip(
+        (got[0].W, got[0].b, got[0].c, got[2]), (want[0].W, want[0].b, want[0].c, want[2])))
+    rand = lambda *shape: 0.1 * torch.randn(shape, generator=gen, device=dev)
+    V, H = base.n_visible, base.n_hidden
+    sp, sv = (RBMParams(W=rand(V, H), b=rand(V), c=rand(H)) for _ in range(2))
+    sums = 3 * rand(G.flat_size(shard))
+    want = G.cd_update_plain(shard, sp, sv, sums, world_scale(3), 0)
+    got = G.cd_update(shard, sp.map(torch.clone), sv.map(torch.clone), sums, world_scale(3), 0)
+    if not all(torch.equal(a, b) for a, b in zip(
+            [*got[0].as_dict().values(), *got[1].as_dict().values()],
+            [*want[0].as_dict().values(), *want[1].as_dict().values()])):
+        raise AssertionError("cd_grads.cu's update at k = 300 is not its plain version's bits")
+    errs["cd_grads[update]"] = 0.0
+    wshard = wide.replace(batch_size=7)
+    wp, _, wchain = _grads_state(wshard, dev, seed=9)
+    wv0 = rows(wshard)[:7]
+    wv0[6:] = 0.0
+    wu = G.harden_step(wshard, wp, wchain, wv0, draw_uniforms(wshard, 7, gen), wide=True)
+    got = W.cd_wide_step(wshard, wp, wv0, wchain, uniforms=wu, n_valid=6, norm=20 / 3)
+    want = W.cd_wide_step_plain(wshard, wp, wv0, wchain, uniforms=wu, n_valid=6, norm=20 / 3)
+    for a, b in zip(W.slot_views(wshard, got[0]), W.slot_views(wshard, want[0])):
+        torch.testing.assert_close(a, b, rtol=REPLAY_RTOL, atol=REPLAY_ATOL)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    errs["cd_grads_wide[step]"] = max(float((a - b).abs().max()) for a, b in zip(
+        W.slot_views(wshard, got[0]), W.slot_views(wshard, want[0])))
+    # the entry point: RBM.train on the kernel select_kernel names
+    cfg = base.replace(epochs=2, engine="pallas")
+    kernel = K.select_kernel(cfg, R.device_limits(cfg, dev))
+    data = rows(cfg)
+    zero_train_counts()
+    rbm = RBM(cfg, device=dev).train(torch.cat([data] * 5))
+    counts = check_counts("k300_train", {kernel: 1})
+    if rbm.metrics.kernel != kernel or not all(np.isfinite(rbm.history)):
+        raise AssertionError(f"k = 300 through RBM.train: kernel {rbm.metrics.kernel}, "
+                             f"errors {rbm.history}")
+    phase("k300", k=K300, max_abs_err=errs, run_rtol=RTOL, run_atol=ATOL,
+          step_rtol=REPLAY_RTOL, step_atol=REPLAY_ATOL, train_kernel=kernel,
+          train_launches=counts, train_errors=rbm.history,
+          seconds=round(time.perf_counter() - t0, 3), nvidia_smi=smi)
+
+
 def run() -> int:
     import torch
 
@@ -2403,7 +2624,7 @@ def run() -> int:
     # of the kernel select_kernel names for each layer (the resident kernel)
     c1_cfg = c1.replace(epochs=10, engine="pallas")
     c1_kernel = K.select_kernel(c1_cfg, R.device_limits(c1_cfg, dev))
-    c1_train, _ = build_data(load_config(C1)["data"])
+    c1_train, _, _ = build_data(load_config(C1)["data"])
     zero_train_counts()
     t0 = time.perf_counter()
     rbm = RBM(c1_cfg, device=dev).train(c1_train)
@@ -2427,7 +2648,7 @@ def run() -> int:
     m4 = dataclasses.replace(m4, towers={k: dataclasses.replace(t, engine="pallas")
                                          for k, t in m4.towers.items()},
                              joint=m4.joint.replace(engine="pallas"))
-    mods, _ = build_data(exp4["data"])
+    mods, _, _ = build_data(exp4["data"])
     zero_train_counts()
     t0 = time.perf_counter()
     mdbn = MDBN(m4, device=dev).train(mods)
@@ -2451,7 +2672,12 @@ def run() -> int:
           seconds=round(c4_s, 3),
           errors={name: [[h[0], h[-1]] for h in hist] if name != "joint" else [hist[0], hist[-1]]
                   for name, hist in mdbn.history.items()})
-    resident_main = c1_counts["cd_train_resident"] + c4_counts["cd_train_resident"]
+    # 25-26. the CLI's analysis path (c5, imputation and consensus on its
+    # saved model, the real-data configs on fixtures), then k = 300
+    cli_launches = run_analysis_cli(smi)
+    run_k300(dev, smi)
+    resident_main = (c1_counts["cd_train_resident"] + c4_counts["cd_train_resident"]
+                     + cli_launches)
 
     # 5. timing at c1's shape: one epoch (100 updates) per call
     st = init_train_state(c1, device=dev)

@@ -92,13 +92,17 @@ __device__ __forceinline__ float uniform_from_bits(unsigned bits) {
 }
 
 // The Philox block of draw (kind, t) for element (row, col) of update upd.
-// Each counter field is a full 32-bit word (col and row are element indices,
-// kind << 8 | t needs t < 256), so no shape overflows a field.
+// Each counter field is a full 32-bit word: col and row are element indices,
+// and the third word packs the draw as (t >> 8) << 10 | kind << 8 | (t & 255)
+// (kind < 4), so any t < 2^22 has a word of its own, and for t < 256 the word
+// is kind << 8 | t. t is the Gibbs step (k of them) or, for a swap draw, the
+// rung pair.
 __device__ __forceinline__ uint4 draw_bits(unsigned long long seed, unsigned upd, int kind,
                                            int t, int row, int col) {
   const uint2 key = make_uint2(static_cast<unsigned>(seed), static_cast<unsigned>(seed >> 32));
+  const unsigned ut = static_cast<unsigned>(t);
   const uint4 ctr = make_uint4(static_cast<unsigned>(col), static_cast<unsigned>(row),
-                               (static_cast<unsigned>(kind) << 8) | static_cast<unsigned>(t),
+                               ((ut >> 8) << 10) | (static_cast<unsigned>(kind) << 8) | (ut & 255u),
                                upd);
   return philox4x32_10(ctr, key);
 }

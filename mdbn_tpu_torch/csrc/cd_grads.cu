@@ -46,7 +46,8 @@
 // no statistic.
 //
 // Random numbers: Philox4x32-10 (cd_common.cuh) keyed by the wrapper's 64-bit
-// seed, counter (col, row, kind<<8 | t, 0); the data-parallel path derives a
+// seed, counter (col, row, the draw word of t and kind, 0: draw_bits); the
+// data-parallel path derives a
 // distinct seed per step and rank. Inject mode reads the ops/cd_step layout:
 // u_h0 [B, H], u_h [k, CR, H], u_v [k, CR, V] (uniforms, or normals for
 // Gaussian visibles), u_swap [2, (M-1)*B] (draw_pt_uniforms under tempering).

@@ -49,11 +49,12 @@
 //     of W and b_i, all before the update.
 //
 // Random numbers: Philox4x32-10 keyed by the 64-bit seed the wrapper draws
-// from its torch.Generator, counter (col, row, kind<<8 | t, absolute update
-// index), so a draw does not depend on the launch's grid shape. Uniforms use
+// from its torch.Generator, counter (col, row, the draw word of t and kind,
+// absolute update index; cd_common.cuh::draw_bits packs t < 2^22, so any k),
+// so a draw does not depend on the launch's grid shape. Uniforms use
 // the 23-bit mantissa trick of _uniform_from_bits, normals Box-Muller as in
 // _normal_from_bits. Swap draws are a kind of their own, counter (0, m*B+r,
-// kind<<8 | round, update). Inject mode reads the draw_uniform_blocks layout
+// the draw word of the round, update). Inject mode reads the draw_uniform_blocks layout
 // ([E, nb(,k), rows, D], swap [E, nb, 2, (M-1)*B]) from device buffers.
 //
 // Precision: with f32 compute every product is an fp32 FMA with fp32
@@ -94,7 +95,7 @@
 // Which runs take this kernel: ops.cd_epoch_cuda.select_kernel gives every
 // run whose tiles fit the shared memory of the card to cd_train_resident.cu
 // (the estimator modes included) and the wide runs to cd_train_wide.cu and
-// cd_train_wide_modes.cu; this kernel keeps k > 255, the mode runs that fit
+// cd_train_wide_modes.cu, at any k; this kernel keeps the mode runs that fit
 // neither (a tempering ladder too tall for the shared memory, say) and the
 // pseudo monitor at widths the resident kernel cannot hold.
 // In-place hazards of the modes: W, b, c and z change in place in the update

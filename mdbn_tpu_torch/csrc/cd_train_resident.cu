@@ -1529,8 +1529,8 @@ long long cd_train_resident_scratch_floats(int V, int H, int B, int M, int flags
 // ranks (<= 0: as many as the card holds at once, balanced over the strips).
 // The arguments are cd_train.cu's cd_train_run's, with the cluster count for
 // its grid. Returns a cudaError_t (0 on success): cudaErrorInvalidValue for
-// strips that do not fit a block's shared memory, k > 255 or a run of
-// another variant's (kLibModes),
+// strips that do not fit a block's shared memory or a run of another
+// variant's (kLibModes),
 // cudaErrorCooperativeLaunchTooLarge for more clusters than fit the card or
 // than there are strips; neither launches.
 int cd_train_resident_run(const Store* data, const int* order, const float* u_h0,
@@ -1545,7 +1545,7 @@ int cd_train_resident_run(const Store* data, const int* order, const float* u_h0
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const bool modes = flags & kModeFlags, pt = flags & kTempering;
-  if (k > 255 || (pt && M < 2) || (pt ? 2 : modes ? 1 : 0) != kLibModes)
+  if ((pt && M < 2) || (pt ? 2 : modes ? 1 : 0) != kLibModes)
     return cudaErrorInvalidValue;
   const bool bf = flags & kBf16;
   const Tiling t = tiling(V, H);

@@ -9,14 +9,14 @@
 // (:1568-1586), learned variance (:980-989, :1589-1596), bf16 storage
 // (:970-973, :1634-1711). It computes what csrc/cd_train.cu's kModes variant
 // computes for such a config (see that file's header for the function and
-// the modes), with the same Philox keying (counter (col, row, kind<<8 | t,
-// update), swap draws a kind of their own, counter (0, m*B+r, kind<<8 |
-// round, update)) and the same inject layout, so one seed draws the same
+// the modes), with the same Philox keying (counter (col, row, the draw word of t
+// and kind, update: cd_common.cuh::draw_bits), swap draws a kind of their
+// own, counter (0, m*B+r, the draw word of the round, update)) and the same inject layout, so one seed draws the same
 // numbers on both kernels. Its plain version is
 // ops.cd_epoch_cuda.cd_train_run_plain. Scope (the wrapper refuses the
 // rest, ops.cd_epoch_cuda.wide_modes_unsupported): at least one of the three
 // modes, Gaussian or Bernoulli visibles, mean-field or sampled, mse or xent
-// monitor, k <= 255, batch <= 256; not the pseudo-likelihood monitor.
+// monitor, any k, batch <= 256; not the pseudo-likelihood monitor.
 //
 // What bounds it on an H100 at the rows it was built for (20000x400, batch
 // 20): W is 32 MB at f32 (16 MB at bf16). One update needs 2 + 2k products
@@ -286,7 +286,7 @@ int cd_train_wide_modes_run(const Store* data, const int* order, const float* u_
                             float initial_momentum, float l2, float grad_clip,
                             float sparsity_target, float sparsity_cost, unsigned long long seed,
                             int device, int grid, void* stream) {
-  if (B > kMaxBatch || k > 255) return cudaErrorInvalidValue;
+  if (B > kMaxBatch) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int coop = 0, nsm = 0, per_sm = 0;

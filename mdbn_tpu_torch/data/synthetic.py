@@ -12,7 +12,7 @@ synthetic stand-ins shaped like their real datasets:
   *planted* patient-cluster structure so k-means recovery is assertable
   (BASELINE.json configs 2, 4, 5).
 
-Real MNIST/TCGA loaders (``mdbn_tpu/data/loaders.py``) are not ported yet.
+The real MNIST/TCGA loaders are ``data/loaders.py``.
 """
 
 from __future__ import annotations

@@ -1,23 +1,25 @@
 """Deep belief network: greedy layer-wise RBM stacking.
 
 Port of ``mdbn_tpu/models/dbn.py`` (``train`` with layer checkpoints,
-``transform``, ``history``, ``save``, ``load``). Layer l trains on layer
-l-1's mean-field probabilities. The fine-tuning, up-down and generation
-methods wait (ROADMAP.md Queue 1, items 6 and 9).
+``transform``, ``reconstruct``, ``generate``, ``history``, ``save``,
+``load``). Layer l trains on layer l-1's mean-field probabilities. The
+fine-tuning and up-down methods wait (ROADMAP.md Queue 1, item 9), so the
+stack's weights stay tied: ``reconstruct`` decodes with W^T and
+``generate`` walks down the recognition weights.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from ..config import DBNConfig, TrainRuntimeConfig
 from ..core.rbm_math import torch_dtype
 from ..core.state import default_device
-from ..ops.transform import stack_transform
+from ..ops.transform import reconstruct_stack, stack_transform
 from .rbm import RBM
 
 
@@ -76,6 +78,30 @@ class DBN:
                                "layers have been trained yet")
         return stack_transform([(r.params, r.cfg) for r in self.layers],
                                self._as_input(v))
+
+    def reconstruct(self, v) -> torch.Tensor:
+        """Deterministic encode -> decode through the whole stack (the tied
+        W^T down-pass)."""
+        if not self.layers:
+            raise RuntimeError("DBN.reconstruct called before train")
+        return reconstruct_stack(self._generative_layers(), self._as_input(v))
+
+    def generate(self, n_samples: int = 16, n_gibbs: int = 200, seed: int = 0,
+                 draws: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Sample from the DBN: Gibbs in the top RBM, mean-field down-pass,
+        with draws from a generator seeded ``seed`` on the model's device (or
+        ``draws``, as ``ops.sample.generate_from_stack`` takes them)."""
+        from ..ops.sample import generate_from_stack
+
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return generate_from_stack(self._generative_layers(), n_samples, n_gibbs,
+                                   generator=gen, draws=draws)
+
+    def _generative_layers(self):
+        """[(params, cfg)] of the down-pass, bottom-up: the tied weights
+        (untied generative weights come with up-down fine-tuning, which is
+        not ported)."""
+        return [(r.params, r.cfg) for r in self.layers]
 
     def _as_input(self, v) -> torch.Tensor:
         return torch.as_tensor(v).to(device=self.device,

@@ -1,17 +1,16 @@
 """User-facing RBM: ``train`` / ``transform`` on top of the PyTorch stack.
 
-Port of ``mdbn_tpu/models/rbm.py``. ``sample`` waits for ``ops/sample.py``
-(ROADMAP.md Queue 1, item 6).
+Port of ``mdbn_tpu/models/rbm.py``, with ``sample`` on ``ops/sample.py``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from ..config import RBMConfig, TrainRuntimeConfig
-from ..core.rbm_math import RBMParams, free_energy, torch_dtype
+from ..core.rbm_math import RBMParams, free_energy, noise_scale, torch_dtype
 from ..core.state import TrainState, default_device, init_train_state
 from ..ops import transform as tops
 from ..train.trainer import EpochMetrics, train_rbm
@@ -76,6 +75,29 @@ class RBM:
     def free_energy(self, v) -> torch.Tensor:
         return free_energy(self.params, self._as_input(v), self.cfg)
 
+    def free_energy_gap(self, train_v, valid_v) -> float:
+        """Overfitting monitor (Hinton's practical guide): the mean free
+        energy of held-out rows minus that of training rows. It grows as the
+        model overfits (the unknown log Z cancels in the difference)."""
+        return float(self.free_energy(valid_v).mean() - self.free_energy(train_v).mean())
+
+    def sample(self, n_samples: int = 16, n_gibbs: int = 200, v_init=None, seed: int = 0,
+               draws: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Generate samples by prolonged Gibbs chains ("daydreaming") from a
+        uniform binary start (or ``v_init``), with draws from a generator
+        seeded ``seed`` on the model's device (or ``draws``, as
+        ``ops.sample.gibbs_sample`` takes them). Returns mean-field visible
+        probabilities [n_samples, n_visible]."""
+        from ..ops.sample import gibbs_sample
+
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        if v_init is None:
+            v_init = (torch.rand((n_samples, self.cfg.n_visible), generator=gen,
+                                 device=self.device) < 0.5).float()
+        vmean, _ = gibbs_sample(self.params, self._as_input(v_init), self.cfg, n_gibbs,
+                                generator=gen, draws=draws)
+        return vmean
+
     def _as_input(self, v) -> torch.Tensor:
         return torch.as_tensor(v).to(device=self.device,
                                      dtype=torch_dtype(self.cfg.param_dtype))
@@ -87,6 +109,12 @@ class RBM:
     @property
     def history(self) -> list:
         return list(self.metrics.errors) if self.metrics else []
+
+    @property
+    def sigma(self) -> Optional[torch.Tensor]:
+        """[n_visible] learned visible standard deviations exp(z/2), in
+        float32; None unless ``cfg.learn_variance``."""
+        return noise_scale(self.params)
 
     def params_numpy(self) -> dict:
         return {k: v.detach().float().cpu().numpy()

@@ -17,7 +17,7 @@ of W fit the shared memory of the card goes to the resident kernel of
 that does not fit it to the W-blocked kernel of ``ops.cd_epoch_wide_cuda``
 (plain estimator) or the strip-split kernel of
 ``ops.cd_epoch_wide_modes_cuda`` (tempering, the enhanced gradient, learned
-variance); ``cd_train.cu`` keeps k > 255 and the rest (``select_kernel``;
+variance); ``cd_train.cu`` keeps the rest (``select_kernel``;
 ``kernel_run`` gives the wrapper of each). They take
 
 - ``params`` / ``velocity`` (``RBMParams``, with ``z`` under learned
@@ -62,19 +62,6 @@ _F_XENT, _F_INJECT, _F_CLIP, _F_SPARSITY, _F_MOM_SCHEDULE = 16, 32, 64, 128, 256
 _F_TEMPERING, _F_ENHANCED, _F_LEARN_VAR, _F_PSEUDO = 512, 1024, 2048, 4096
 
 
-def kernel_unsupported(cfg: RBMConfig) -> Optional[str]:
-    """Why the CUDA kernel does not take ``cfg`` (None when it does)."""
-    if cfg.k > 255:
-        return "k > 255 does not fit the kernel's Philox counter layout"
-    return None
-
-
-def check_kernel_supports(cfg: RBMConfig) -> None:
-    reason = kernel_unsupported(cfg)
-    if reason is not None:
-        raise ValueError(reason)
-
-
 def wide_unsupported(cfg: RBMConfig) -> Optional[str]:
     """Why the W-blocked kernel (``csrc/cd_train_wide.cu``) does not take
     ``cfg`` (None when it does). Its scope is that of the TPU's W-blocked
@@ -89,7 +76,7 @@ def wide_unsupported(cfg: RBMConfig) -> Optional[str]:
     if outside:
         return ("the W-blocked kernel runs a mean-field negative phase with an mse or xent "
                 f"monitor and the plain gradient; it does not take {', '.join(outside)}")
-    return kernel_unsupported(cfg)
+    return None
 
 
 def wide_modes_unsupported(cfg: RBMConfig) -> Optional[str]:
@@ -109,7 +96,7 @@ def wide_modes_unsupported(cfg: RBMConfig) -> Optional[str]:
         return (f"the strip-split kernel of the estimator modes stages a strip of the whole "
                 f"batch in shared memory: batch_size > {WIDE_MODES_MAX_BATCH} stays on "
                 "csrc/cd_train.cu")
-    return kernel_unsupported(cfg)
+    return None
 
 
 WIDE_MODES_MAX_BATCH = 256  # csrc/cd_wide_modes_phases.cuh: kMaxBatch
@@ -140,8 +127,8 @@ WIDE_MODES_MIN_VISIBLE = 5000
 
 
 def select_kernel(cfg: RBMConfig, limits: Optional[Tuple[int, int]] = None) -> str:
-    """The kernel a run of ``cfg`` takes: "cd_train_resident" when k <= 255
-    and its tiles of W and the velocity (and, under an estimator mode, the
+    """The kernel a run of ``cfg`` takes, at any k: "cd_train_resident" when
+    its tiles of W and the velocity (and, under an estimator mode, the
     mode's buffers: a tempering ladder's M*B chain rows among them) fit the
     shared memory of a card with ``limits``
     (``ops.cd_epoch_resident_cuda.device_limits``; None: an H100's), under
@@ -600,7 +587,6 @@ def cd_train_run(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
 
         return cd_train_wide_run(cfg, params, velocity, chain, data, order, start_epoch,
                                  uniforms, generator, grid, trace)
-    check_kernel_supports(cfg)
     x = kernel_inputs(cfg, params, velocity, chain, data, order, uniforms, generator)
     device = data.device
     B, V, H, M = cfg.batch_size, cfg.n_visible, cfg.n_hidden, cfg.pt_temps

@@ -49,13 +49,6 @@ H100_SMEM_PER_BLOCK = 232448
 H100_MAX_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 
 
-def resident_unsupported(cfg: RBMConfig) -> Optional[str]:
-    """Why the resident kernel does not take ``cfg`` (None when it does,
-    leaving aside whether its tiles fit the card): it runs the plain
-    estimator and every estimator mode, so only what no CUDA kernel takes."""
-    return K.kernel_unsupported(cfg)
-
-
 def has_modes(cfg: RBMConfig) -> bool:
     """Whether ``cfg`` runs an estimator mode (the kernel's kModes variant)."""
     return (cfg.pt_temps > 1 or cfg.gradient != "plain" or cfg.learn_variance
@@ -200,8 +193,6 @@ def resident_tiles(cfg: RBMConfig, smem_per_block: int = H100_SMEM_PER_BLOCK,
 def resident_admits(cfg: RBMConfig, limits: Optional[Tuple[int, int]] = None) -> bool:
     """Whether the resident kernel takes ``cfg`` on a card with ``limits``
     (``device_limits``; None: an H100's)."""
-    if resident_unsupported(cfg) is not None:
-        return False
     smem, maxc = limits if limits is not None else (H100_SMEM_PER_BLOCK, None)
     return resident_tiles(cfg, smem, maxc).fits
 
@@ -284,9 +275,6 @@ def cd_train_resident_run(cfg: RBMConfig, params: RBMParams, velocity: RBMParams
     if data.device.type != "cuda":
         raise ValueError(f"cd_train_resident_run takes CUDA tensors, got {data.device}; "
                          "cd_epoch_cuda.cd_train_run_plain is its plain version")
-    reason = resident_unsupported(cfg)
-    if reason is not None:
-        raise ValueError(reason)
     x = K.kernel_inputs(cfg, params, velocity, chain, data, order, uniforms, generator)
     device = data.device
     B, V, H, M = cfg.batch_size, cfg.n_visible, cfg.n_hidden, cfg.pt_temps

@@ -52,9 +52,6 @@ from ..core.rbm_math import (EnhancedSums, RBMParams, apply_update, cd_step_stat
                              finish_grads, pseudo_likelihood, pt_betas, pt_step_stats,
                              resolve_momentum, torch_dtype)
 from .cd_epoch_cuda import _F_INJECT, _on_device, kernel_flags, ptr
-# The DP kernels take what the train kernel takes: every mode, k <= 255.
-from .cd_epoch_cuda import check_kernel_supports as check_grads_supports
-from .cd_epoch_cuda import kernel_unsupported as grads_unsupported
 from .cd_step import draw_pt_uniforms, draw_uniforms
 
 # Launches of each CUDA kernel in this process (incremented only where the
@@ -135,7 +132,6 @@ def cd_grads_step_plain(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor,
     """The plain PyTorch version of the step (see module doc). Data and
     chain widen to f32 as they are read, as in the kernel; the chain written
     back rounds into its storage dtype."""
-    check_grads_supports(cfg)
     _check_pseudo(cfg, pseudo_bit)
     B, M = v0.shape[0], cfg.pt_temps
     if uniforms is None:
@@ -188,7 +184,6 @@ def step_launcher(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor, chain: to
     the launch fails, and counts nothing (``cd_grads_step`` counts;
     chip_smoke.py times ``launch`` alone). Raises ValueError for a config or
     input the kernel does not take."""
-    check_grads_supports(cfg)
     _check_pseudo(cfg, pseudo_bit)
     device, f32, sdt = v0.device, torch.float32, torch_dtype(cfg.param_dtype)
     B, V, H, k, M = cfg.batch_size, cfg.n_visible, cfg.n_hidden, cfg.k, cfg.pt_temps
@@ -299,7 +294,6 @@ def update_launcher(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
     their velocities in place; under the enhanced gradient after its matvec
     pass), raises RuntimeError when a launch fails, and counts nothing.
     Raises ValueError for a config or input the kernel does not take."""
-    check_grads_supports(cfg)
     device, f32, sdt = sums.device, torch.float32, torch_dtype(cfg.param_dtype)
     V, H = cfg.n_visible, cfg.n_hidden
     names = (("W", (V, H)), ("b", (V,)), ("c", (H,))) + ((("z", (V,)),) if cfg.learn_variance

@@ -50,7 +50,7 @@ from ..config import RBMConfig
 from ..core.state import TrainState
 from ..ops.cd_epoch_cuda import batch_order, select_dp_kernel
 from ..ops.cd_grads_cuda import (cd_grads_step, cd_grads_step_plain, cd_update,
-                                 cd_update_plain, check_grads_supports, flat_size)
+                                 cd_update_plain, flat_size)
 from ..ops.cd_grads_wide_cuda import (cd_wide_step, cd_wide_step_plain, cd_wide_update,
                                       cd_wide_update_plain, wide_factor_size)
 from .mesh import Mesh
@@ -135,8 +135,6 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
     per-step, per-rank draws {name: [n_epochs, nb, ndev, ...]}, each step's
     [...] in the layout of ``ops.cd_step.draw_uniforms`` (``draw_pt_uniforms``
     under tempering) at ``local_b`` rows, for exact tests."""
-    if pallas_step:
-        check_grads_supports(cfg)
     B, V = cfg.batch_size, cfg.n_visible
     nb = data.shape[0] // B
     if nb == 0:

@@ -1,26 +1,34 @@
 """CLI runner: ``python -m mdbn_tpu_torch.run --config configs/<name>.json``.
 
-Port of the model section of ``mdbn_tpu/run.py``: the experiment config's
-"model" (an RBMConfig / DBNConfig / MDBNConfig) trains on its "data" spec
-(synthetic kinds), and ``--save`` / ``--load`` / ``--transform-out`` persist
-the model and write latent codes. It runs on the CUDA card unless
-``--device cpu`` asks for the CPU. ``--dp N`` trains data-parallel over N
-ranks, one process each, under ``torchrun --nproc-per-node N``; rank 0
-writes the files. The config's "analysis" and "finetune" blocks, the
-real-data loaders and ``--tp`` raise an error that names the ROADMAP.md item
-porting them.
+Port of ``mdbn_tpu/run.py``: the experiment config's "model" (an RBMConfig
+/ DBNConfig / MDBNConfig) trains on its "data" spec (the synthetic kinds, or
+real IDX images and omics CSVs through ``data/loaders.py``), ``--save`` /
+``--load`` / ``--transform-out`` persist the model and write latent codes,
+and the "analysis" block runs after training and under ``--load``: k-means
+of the cohort's codes at a fixed k, by silhouette (``"auto"``) or by
+consensus PAC (``"consensus"``), the ARI against planted labels, a log-rank
+test and Cox regression across the clusters on planted or clinical survival,
+and leave-one-modality-out imputation (``"impute"``). Each record is printed
+as a JSON line and written to the ``--metrics`` file. Everything runs on the
+CUDA card unless ``--device cpu`` asks for the CPU. ``--dp N`` trains
+data-parallel over N ranks, one process each, under ``torchrun
+--nproc-per-node N``; rank 0 writes the files and runs the analysis. The
+analysis block's ``ais``, the "finetune" block and ``--tp`` raise an error
+that names the ROADMAP.md item porting them.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 
 import numpy as np
 import torch
 
+from .analysis.cluster import adjusted_rand_index, kmeans_cluster, select_n_clusters
 from .config import DBNConfig, MDBNConfig, RBMConfig, TrainRuntimeConfig, load_config
 from .data import synthetic
 from .models.dbn import DBN
@@ -37,36 +45,229 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def build_data(spec: dict):
-    """Synthetic generators behind the data spec format of mdbn_tpu.run.
-    Returns (data, labels)."""
+    """Synthetic generators and real-data loaders behind one spec format.
+
+    Returns (data, labels, patient_ids). Real kinds (``data.loaders``):
+    {"kind": "mnist_idx", "path": ..., "binarize": "threshold"|"sample",
+    "labels_path": ... (IDX1), "limit": N} and {"kind": "omics_csv", "paths":
+    {modality: csv_path}, "zscore": bool, "nan_policy":
+    "error"|"drop"|"impute_mean", "align": "strict"|"intersect",
+    "orientation": "auto"|"patients_rows"|"features_rows"|{modality: mode},
+    "header": "auto"|bool, "clinical_csv": path (its patient IDs are the
+    reference cohort of the orientation's auto-detection)}."""
     kind = spec.get("kind", "mnist_like")
     kw = {k: v for k, v in spec.items() if k != "kind"}
     if kind == "mnist_like":
-        return synthetic.mnist_like(**kw, return_labels=True)
+        # the generator's prototype ids double as planted labels
+        data, labels = synthetic.mnist_like(**kw, return_labels=True)
+        return data, labels, None
     if kind == "bars_and_stripes":
-        return synthetic.bars_and_stripes(**kw), None
+        return synthetic.bars_and_stripes(**kw), None, None
     if kind == "tcga_like":
-        return synthetic.tcga_like(**kw)
-    if kind in ("mnist_idx", "omics_csv"):
-        raise not_ported(f"the {kind!r} data loader (data/loaders.py)", "1")
+        mods, labels = synthetic.tcga_like(**kw)
+        return mods, labels, None
+    if kind == "mnist_idx":
+        from .data.loaders import load_mnist_images, load_mnist_labels
+
+        limit = kw.pop("limit", None)
+        labels_path = kw.pop("labels_path", None)
+        data = load_mnist_images(**kw)
+        labels = None
+        if labels_path:
+            labels = load_mnist_labels(labels_path)
+            if len(labels) != len(data):
+                raise ValueError(f"{len(labels)} labels for {len(data)} "
+                                 "images — mismatched IDX files")
+            labels = labels[:limit] if limit else labels
+        return (data[:limit] if limit else data), labels, None
+    if kind == "omics_csv":
+        from .data.loaders import load_clinical_csv, load_omics_csv
+
+        reference_ids = None
+        if kw.get("clinical_csv"):
+            _, _, reference_ids = load_clinical_csv(kw["clinical_csv"])
+        mats, ids = load_omics_csv(
+            kw["paths"], zscore_features=kw.get("zscore", True),
+            nan_policy=kw.get("nan_policy", "error"),
+            align=kw.get("align", "strict"), return_ids=True,
+            header=kw.get("header", "auto"),
+            orientation=kw.get("orientation", "auto"),
+            reference_ids=reference_ids)
+        return mats, None, ids
     raise ValueError(f"unknown data kind {kind!r}")
 
 
 def _check_sections(exp: dict) -> None:
-    """Raise for the config blocks that are not ported; called after
-    training, where the JAX runner runs them."""
+    """Raise for the config blocks that are not ported, before anything
+    trains."""
     if exp.get("finetune"):
         raise not_ported("the 'finetune' block (train/finetune.py, autoencoder.py, "
                          "labeled.py, updown.py)", "9")
-    analysis = exp.get("analysis") or {}
-    if analysis.get("ais"):
+    if (exp.get("analysis") or {}).get("ais"):
         raise not_ported("the analysis 'ais' block (analysis/ais.py)", "10")
-    if analysis.get("impute"):
-        raise not_ported("the analysis 'impute' block (ops/sample.py, MDBN.impute)", "6")
-    if analysis:
-        raise not_ported("the 'analysis' block (k-means, consensus and survival: "
-                         "analysis/cluster.py, kmeans_jax.py, consensus.py, "
-                         "survival.py)", "8")
+
+
+def _emit(rec: dict, mw) -> None:
+    """A record to the metrics file (rank 0's) and to stdout as a JSON line."""
+    if mw is not None:
+        mw.write(rec)
+    print(json.dumps(rec), flush=True)
+
+
+class Analysis:
+    """The config's "analysis" block on a trained (or loaded) model: the
+    cohort's codes, k-means and its scores, survival across the clusters,
+    and imputation. Every computation runs on the model's device except the
+    survival statistics and the consensus cut, which run on the host as in
+    the JAX runner."""
+
+    CHUNK_ROWS = 65536  # cohort rows transformed at once
+
+    def __init__(self, exp: dict, data, labels, patient_ids):
+        self.analysis = exp.get("analysis") or {}
+        self.data, self.labels, self.patient_ids = data, labels, patient_ids
+        self._codes = None
+
+    def cohort_codes(self, model) -> np.ndarray:
+        """Latent codes of the whole configured cohort, on the host,
+        transformed in chunks of ``CHUNK_ROWS`` rows and cached, so a run that
+        both writes codes and clusters transforms once."""
+        if self._codes is None:
+            data = self.data
+            n = len(next(iter(data.values()))) if isinstance(data, dict) else len(data)
+            parts = []
+            for lo in range(0, n, self.CHUNK_ROWS):
+                sl = slice(lo, lo + self.CHUNK_ROWS)
+                part = {m: v[sl] for m, v in data.items()} if isinstance(data, dict) else data[sl]
+                parts.append(model.transform(part).float().cpu().numpy())
+            self._codes = np.concatenate(parts, axis=0)
+        return self._codes
+
+    def run(self, model, mw) -> None:
+        """k-means (fixed k, "auto" or "consensus") with survival, and
+        imputation, as the block asks. Used after training and under
+        ``--load``."""
+        a = self.analysis
+        if not a:
+            return
+        if a.get("impute"):
+            self.impute(model, mw, a["impute"])
+        if "kmeans" not in a:
+            if not a.get("impute"):
+                log.warning("config has an 'analysis' block without a 'kmeans', 'ais' or "
+                            "'impute' key — nothing to run; keys seen: %s", sorted(a))
+            return
+        self.kmeans(model, mw)
+
+    def impute(self, model, mw, spec) -> None:
+        """Leave-one-modality-out imputation (MDBN only): {"holdout": "meth"}
+        withholds that modality, infers it from the rest (clamped Gibbs on the
+        joint RBM and the tower's down-pass) and reports its MSE against the
+        truth and against a row-shuffled truth; a ratio below 1 means the
+        model carries patient-specific signal across modalities."""
+        if not isinstance(model, MDBN):
+            log.warning("'impute' is only defined for MDBN configs")
+            return
+        holdout = spec.get("holdout") if isinstance(spec, dict) else None
+        if not holdout:
+            raise ValueError("'impute' needs {'holdout': '<modality>'}")
+        data = self.data
+        if not isinstance(data, dict) or holdout not in data:
+            raise ValueError(f"holdout modality {holdout!r} not in the data (have: "
+                             f"{sorted(data) if isinstance(data, dict) else type(data)})")
+        observed = {m: v for m, v in data.items() if m != holdout}
+        imp = model.impute(observed, n_gibbs=int(spec.get("n_gibbs", 200)),
+                           seed=int(spec.get("seed", 0)),
+                           n_chains=int(spec.get("n_chains", 8)))
+        x = imp[holdout].float().cpu().numpy()
+        truth = np.asarray(data[holdout])
+        mse = float(np.mean((x - truth) ** 2))
+        shuf = truth[np.random.default_rng(0).permutation(len(truth))]
+        control = float(np.mean((x - shuf) ** 2))
+        rec = {"kind": "impute", "holdout": holdout, "mse": mse,
+               "shuffled_control_mse": control,
+               "ratio": mse / control if control else float("nan")}
+        log.info("impute %s from %s: mse %.4f vs shuffled control %.4f (ratio %.3f)",
+                 holdout, sorted(observed), mse, control, rec["ratio"])
+        _emit(rec, mw)
+
+    def kmeans(self, model, mw) -> None:
+        a, device = self.analysis, model.device
+        codes = self.cohort_codes(model)
+        spec = a["kmeans"]
+        scores, score_key = None, None
+        span = dict(k_min=int(a.get("k_min", 2)), k_max=int(a.get("k_max", 8)))
+        consensus = dict(n_resamples=int(a.get("consensus_resamples", 100)),
+                         subsample=float(a.get("consensus_subsample", 0.8)), device=device)
+        if spec == "auto":
+            k, scores, pred = select_n_clusters(codes, **span, device=device)
+            score_key = "silhouette_scores"
+            log.info("silhouette-selected k=%d (scores: %s)", k,
+                     {kk: round(s, 3) for kk, s in scores.items()})
+        elif spec == "consensus":
+            from .analysis.consensus import select_n_clusters_consensus
+
+            k, scores, pred = select_n_clusters_consensus(codes, **span, **consensus)
+            score_key = "pac_scores"
+            log.info("consensus-selected k=%d (PAC: %s)", k,
+                     {kk: round(s, 3) for kk, s in scores.items()})
+        else:
+            k = int(spec)
+            if a.get("consensus"):
+                from .analysis.consensus import consensus_cluster
+
+                pred, _ = consensus_cluster(codes, k, **consensus)
+            else:
+                pred, _ = kmeans_cluster(codes, k, seed=0, device=device)
+        rec = {"kind": "kmeans", "k": k,
+               "cluster_sizes": np.bincount(pred, minlength=k).tolist()}
+        if scores is not None:
+            rec[score_key] = {str(kk): s for kk, s in scores.items()}
+        if self.labels is not None:
+            rec["ari_vs_planted"] = adjusted_rand_index(self.labels, pred)
+            log.info("k-means ARI vs planted clusters: %.3f", rec["ari_vs_planted"])
+        self.survival(rec, pred)
+        _emit(rec, mw)
+
+    def survival(self, rec: dict, pred: np.ndarray) -> None:
+        """Do the clusters separate survival? "survival": true plants
+        exponential survival times on the generator's labels;
+        {"clinical_csv": path} loads per-patient (time, event) records,
+        aligned to the cohort by patient ID where the omics CSVs carried
+        one, with "cox" for hazard ratios against cluster "cox_baseline"."""
+        spec = self.analysis.get("survival")
+        times = events = None
+        if isinstance(spec, dict) and spec.get("clinical_csv"):
+            from .data.loaders import load_clinical_csv
+
+            times, events, _ = load_clinical_csv(spec["clinical_csv"],
+                                                 patient_ids=self.patient_ids)
+            if len(times) != len(pred):
+                raise ValueError(
+                    f"clinical file has {len(times)} patients but the cohort has "
+                    f"{len(pred)} — and no patient IDs were available to align them")
+        elif spec and self.labels is not None:
+            from .analysis.survival import synthetic_survival
+
+            times, events = synthetic_survival(self.labels, seed=0)
+        elif spec:
+            log.warning("'survival': true needs planted labels (synthetic data kinds) "
+                        "or a {'clinical_csv': ...} spec — skipping the survival leg")
+        if times is None:
+            return
+        from .analysis.survival import cox_ph_clusters, logrank_test
+
+        lr = logrank_test(times, events, pred)
+        rec["logrank"] = lr
+        log.info("log-rank test across clusters: chi2=%.2f p=%.2e", lr["chi2"], lr["p_value"])
+        if isinstance(spec, dict) and spec.get("cox"):
+            cox = cox_ph_clusters(times, events, pred,
+                                  baseline=int(spec.get("cox_baseline", 0)))
+            rec["cox"] = {k: cox[k] for k in ("clusters", "hazard_ratio", "ci95_low",
+                                              "ci95_high", "p_wald", "lr_chi2", "lr_p",
+                                              "converged")}
+            log.info("Cox hazard ratios vs baseline: %s (LR p=%.2e)",
+                     [round(h, 3) for h in cox["hazard_ratio"]], cox["lr_p"])
 
 
 def _dp_mesh(n: int, device: str):
@@ -116,10 +317,12 @@ def main(argv=None):
     rank0 = mesh is None or mesh.rank == 0
 
     exp = load_config(args.config)
+    _check_sections(exp)
     model_cfg = exp["model"]
-    data, _labels = build_data(exp.get("data", {"kind": "mnist_like"}))
+    data, labels, patient_ids = build_data(exp.get("data", {"kind": "mnist_like"}))
     if isinstance(data, dict) and "modality" in exp:
         data = data[exp["modality"]]  # single-modality configs on multi-omics data
+    analysis = Analysis(exp, data, labels, patient_ids)
 
     def override(cfg):
         """Apply --epochs/--engine to any model config (recursing into MDBN)."""
@@ -140,7 +343,7 @@ def main(argv=None):
         raise TypeError(f"unsupported model config {type(model_cfg)}")
 
     def write_codes(model) -> None:
-        codes = model.transform(data).float().cpu().numpy()
+        codes = analysis.cohort_codes(model)
         out = args.transform_out
         if out.endswith(".csv"):
             np.savetxt(out, codes, delimiter=",")
@@ -149,10 +352,13 @@ def main(argv=None):
         log.info("wrote %s latent codes to %s", codes.shape, out)
 
     if args.load:
+        # inference: a saved model codes, clusters or imputes the configured cohort
         model = model_cls.load(args.load, device=device)
-        if args.transform_out and rank0:
-            write_codes(model)
-        _check_sections(exp)
+        with MetricsWriter(args.metrics if rank0 else None) as mw:
+            if args.transform_out and rank0:
+                write_codes(model)
+            if rank0:
+                analysis.run(model, mw)
         return 0
 
     runtime = TrainRuntimeConfig(checkpoint_dir=args.checkpoint_dir,
@@ -194,7 +400,9 @@ def main(argv=None):
             model.train(data, mesh=mesh, runtime=layer_runtime,
                         checkpoint_dir=args.checkpoint_dir)
             for name, hist in model.history.items():
-                mw.write({"kind": "tower", "name": name, "history": hist})
+                rbms = model.towers[name].layers if name in model.towers else [model.joint]
+                mw.write({"kind": "tower", "name": name, "history": hist,
+                          "kernels": [r.metrics.kernel if r.metrics else None for r in rbms]})
                 log.info("%s trained", name)
             if args.checkpoint_dir and rank0:
                 model.save(os.path.join(args.checkpoint_dir, "mdbn_final"))
@@ -203,7 +411,8 @@ def main(argv=None):
             log.info("model saved to %s", args.save)
         if args.transform_out and rank0:
             write_codes(model)
-    _check_sections(exp)
+        if rank0:
+            analysis.run(model, mw)
     return 0
 
 

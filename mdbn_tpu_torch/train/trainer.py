@@ -14,19 +14,18 @@ Engines (``cfg.engine``):
   any estimator mode, the W-blocked ``csrc/cd_train_wide.cu`` for a wide run
   inside that kernel's scope, ``csrc/cd_train_wide_modes.cu`` for a wide run
   under tempering, the enhanced gradient or learned variance, else
-  ``csrc/cd_train.cu`` (``ops.cd_epoch_cuda.kernel_run``).
-  Raises on the CPU, and for a config the kernels do not take.
+  ``csrc/cd_train.cu`` (``ops.cd_epoch_cuda.kernel_run``), at any k.
+  Raises on the CPU.
 - ``"xla"`` -> ``"eager"``: ``ops.cd_epoch_cuda.cd_train_run_plain``, the
   plain PyTorch version of the same run, on any device.
-- ``"auto"``: ``"cuda"`` when the state lies on a CUDA device and the kernel
-  takes the config, else ``"eager"``. Decided from the config and the
-  device before anything runs.
+- ``"auto"``: ``"cuda"`` when the state lies on a CUDA device, else
+  ``"eager"``. Decided from the config and the device before anything runs.
 
 Under a data-parallel ``mesh`` of more than one rank
 (``parallel.mesh.make_mesh``) the run goes through
 ``parallel.dp.train_rbm_shard_map``: ``"cuda_dp"`` runs each rank's step on
 the DP kernels (``engine="pallas"`` or ``"auto"`` on CUDA, in every estimator
-mode and at both storage dtypes; a config they do not take raises),
+mode, at both storage dtypes and at any k),
 ``"eager_dp"`` on their plain versions (``"xla"``, or the CPU). Which DP
 kernels, ``ops.cd_epoch_cuda.select_dp_kernel`` decides from the config:
 ``csrc/cd_grads.cu`` (a step into a flat buffer, an all-reduce, an
@@ -49,37 +48,33 @@ from ..config import RBMConfig, TrainRuntimeConfig
 from ..core.rbm_math import torch_dtype
 from ..core.state import TrainState, init_train_state
 from ..ops import cd_epoch_cuda
-from ..ops.cd_grads_cuda import check_grads_supports
 from ..parallel.dp import train_rbm_shard_map
 
 
 def resolve_engine(cfg: RBMConfig, device: torch.device) -> str:
-    """The engine a run of ``cfg`` on ``device`` uses: "cuda" or "eager"."""
+    """The engine a run of ``cfg`` on ``device`` uses: "cuda" (the kernel
+    ``ops.cd_epoch_cuda.select_kernel`` names, which takes every config) or
+    "eager". ``"auto"`` runs the kernel on CUDA and the eager engine on the
+    CPU; ``"pallas"`` raises on the CPU; ``"xla"`` is the eager engine."""
     if cfg.engine == "xla":
         return "eager"
-    reason = cd_epoch_cuda.kernel_unsupported(cfg)
-    if cfg.engine == "pallas":
-        if device.type != "cuda":
-            raise ValueError(f"engine='pallas' runs the CUDA kernel, and the model "
-                             f"lies on {device}; use engine='xla' (the eager "
-                             f"PyTorch engine) there")
-        if reason is not None:
-            raise ValueError(reason)
-        return "cuda"
-    return "cuda" if device.type == "cuda" and reason is None else "eager"
+    if cfg.engine == "pallas" and device.type != "cuda":
+        raise ValueError(f"engine='pallas' runs the CUDA kernel, and the model "
+                         f"lies on {device}; use engine='xla' (the eager "
+                         f"PyTorch engine) there")
+    return "cuda" if device.type == "cuda" else "eager"
 
 
 def resolve_dp_engine(cfg: RBMConfig, device: torch.device) -> str:
     """The engine a run of ``cfg`` on ``device`` under a mesh of more than one
     rank uses: "cuda_dp" or "eager_dp". On CUDA, ``"pallas"`` and ``"auto"``
-    run the DP kernels and raise for a config they do not take (``k >
-    255``); "eager_dp" is ``"xla"``, or the CPU. Either engine takes the
+    run the DP kernels, which take every config; "eager_dp" is ``"xla"``, or
+    the CPU. Either engine takes the
     route ``ops.cd_epoch_cuda.select_dp_kernel`` gives: ``csrc/cd_grads.cu``
     (the step's statistics, an all-reduce, the update), or for a wide run in
     the W-blocked kernel's scope ``csrc/cd_grads_wide.cu`` (the step's
     factors, an all-gather, the update that forms the gradient from them)."""
     if cfg.engine != "xla" and device.type == "cuda":
-        check_grads_supports(cfg)
         return "cuda_dp"
     if cfg.engine == "pallas":
         raise ValueError(f"engine='pallas' under a mesh runs the CUDA kernels of cd_grads.cu, "

@@ -35,7 +35,13 @@ the two checkouts' kernels give the same bits (``identical_bits``; for the
 selected kernel, at the shapes where both checkouts select the same one),
 and after the W-blocked update alone (csrc/cd_grads_wide.cu's update kernel,
 which runs cd_train_wide.cu's update phase, over 3 ranks' gathered factors
-made from a seed at w20k's and w20k_mom_bf16's shapes: ``update_identical_bits``).
+made from a seed at w20k's and w20k_mom_bf16's shapes: ``update_identical_bits``),
+and after the data-parallel kernels (``dp_identical_bits``): csrc/cd_grads.cu's
+step (its flat buffer and chain, from a seed) and its update (on 3 ranks' sums
+made from a seed) at c1, c5_tower and the four estimator modes, and
+csrc/cd_grads_wide.cu's step (its slot and chain) at w20k and w20k_mom_bf16.
+The c1_k255 and c4_ge1_k255 rows run 255 Gibbs steps, the most whose draws
+(cd_common.cuh::draw_bits) a checkout from before k > 255 was admitted keys.
 Prints one JSON line per process, then a summary line with each side's best
 time and the card's name and power limit.
 
@@ -66,7 +72,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # also timed on the kernel select_kernel picks
-SELECTED = ("c1", "c2", "c4_ge1", "c5_tower", "c1_bf16", "pt5", "enhanced", "lv", "pseudo",
+SELECTED = ("c1", "c2", "c4_ge1", "c4_ge1_k255", "c1_k255", "c5_tower", "c1_bf16", "pt5", "enhanced", "lv", "pseudo",
             "w20k", "w20k_mom_bf16", "w20k_pt3_bf16", "w20k_enh", "w20k_lv")
 WIDE = dict(n_visible=20000, n_hidden=400, batch_size=20, lr=0.001, visible="gaussian")
 BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
@@ -75,6 +81,9 @@ SHAPES = {  # name -> (config fields, data rows, the W-blocked kernel)
     "c2": (dict(n_visible=2000, n_hidden=400, batch_size=20, lr=0.01, visible="gaussian"),
            2000, False),
     "c4_ge1": (dict(n_visible=400, n_hidden=100, batch_size=20, seed=2), 400, False),
+    "c4_ge1_k255": (dict(n_visible=400, n_hidden=100, batch_size=20, seed=2, k=255,
+                         persistent=True), 100, False),
+    "c1_k255": (dict(n_visible=784, n_hidden=500, batch_size=20, lr=0.1, k=255), 40, False),
     "c5_tower": (dict(n_visible=2000, n_hidden=400, batch_size=20, lr=0.005,
                       visible="gaussian", k=2, persistent=True, momentum=0.5, l2=1e-4), 400,
                  False),
@@ -170,6 +179,43 @@ def update_bits(cfg, dev) -> str:
     return digest([*got[0].as_dict().values(), *got[1].as_dict().values()])
 
 
+DP_ROWS = ("c1", "c5_tower", "pt5", "enhanced", "lv", "pseudo")  # cd_grads.cu's bits
+WIDE_DP_ROWS = ("w20k", "w20k_mom_bf16")  # cd_grads_wide.cu's step, bits
+
+
+def dp_bits(cfg, data, dev, wide: bool) -> dict:
+    """sha256 of csrc/cd_grads.cu's step (flat buffer and chain, seeded
+    draws) on the first minibatch and of its update on 3 ranks' sums made
+    from a seed; with ``wide``, of csrc/cd_grads_wide.cu's step (slot and
+    chain) instead."""
+    import torch
+
+    from mdbn_tpu_torch.core.rbm_math import RBMParams, torch_dtype
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+
+    st = init_train_state(cfg, device=dev)
+    v0 = data[:cfg.batch_size]
+    bit = dict(pseudo_bit=5) if cfg.error_metric == "pseudo" else {}
+    if wide:
+        slot, ch = W.cd_wide_step(cfg, st.params, v0, st.chain_h, seed=1)
+        return {"step": digest([slot, ch])}
+    flat = torch.zeros(G.flat_size(cfg), device=dev)
+    _, ch, _ = G.cd_grads_step(cfg, st.params, v0, st.chain_h, seed=1, out=flat, **bit)
+    sdt = torch_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rand = lambda *shape: 0.1 * torch.randn(shape, generator=gen, device=dev)
+    V, H = cfg.n_visible, cfg.n_hidden
+    z = lambda: rand(V).to(sdt) if cfg.learn_variance else None
+    p, vel = (RBMParams(W=rand(V, H).to(sdt), b=rand(V).to(sdt), c=rand(H).to(sdt), z=z())
+              for _ in range(2))
+    got = G.cd_update(cfg, p, vel, 3 * rand(G.flat_size(cfg)),
+                      float(torch.tensor(1.0 / 3, dtype=torch.float32)), 0)
+    return {"step": digest([flat, ch]),
+            "update": digest([*got[0].as_dict().values(), *got[1].as_dict().values(), got[2]])}
+
+
 def child(root: str, reps: int) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -204,6 +250,9 @@ def child(root: str, reps: int) -> dict:
         out[f"{name}_ms_per_epoch"] = _time_ms(run, reps)
         if name in UPDATE_ROWS:
             out[f"{name}_update_bits"] = update_bits(cfg, dev)
+        if name in DP_ROWS + WIDE_DP_ROWS:
+            for part, h in dp_bits(cfg, data, dev, name in WIDE_DP_ROWS).items():
+                out[f"{name}_dp_{part}_bits"] = h
         if name in SELECTED:
             kernel, fn = _selected(K, cfg, dev)
             out[f"{name}_selected"] = kernel
@@ -361,6 +410,8 @@ def main() -> int:
                                  for name in SHAPES}
     summary["update_identical_bits"] = {name: len({r[f"{name}_update_bits"] for r in runs}) == 1
                                         for name in UPDATE_ROWS}
+    summary["dp_identical_bits"] = {key[:-len("_bits")]: len({r[key] for r in runs}) == 1
+                                    for key in runs[0] if "_dp_" in key}
     summary["selected_identical_bits"] = {
         name: len({r[f"{name}_selected_bits"] for r in runs}) == 1 for name in SELECTED
         if len({r[f"{name}_selected"] for r in runs}) == 1}

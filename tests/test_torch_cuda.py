@@ -494,9 +494,6 @@ def test_resident_kernel_rejects_bad_inputs(cuda):
     cfg = RBMConfig(**CLUSTERED, lr=0.1)
     st, data, order, _ = _inputs(cfg, cuda)
     before = R.cd_train_resident_launches
-    with pytest.raises(ValueError, match="Philox"):
-        R.cd_train_resident_run(cfg.replace(k=256), st.params, st.velocity, st.chain_h, data,
-                                order, 0, None, torch.Generator())
     with pytest.raises(ValueError, match="bfloat16"):  # float32 state under a bf16 config
         R.cd_train_resident_run(cfg.replace(param_dtype="bfloat16"), st.params, st.velocity,
                                 st.chain_h, data, order, 0, None, torch.Generator())
@@ -652,8 +649,6 @@ def test_grads_kernel_refuses(cuda):
     before = G.cd_grads_launches
     with pytest.raises(ValueError, match="bfloat16"):  # f32 state for a bf16-storage config
         G.cd_grads_step(cfg.replace(param_dtype="bfloat16"), p, v0, chain, seed=1)
-    with pytest.raises(ValueError, match="Philox"):
-        G.cd_grads_step(cfg.replace(k=256), p, v0, chain, seed=1)
     with pytest.raises(ValueError, match="shape"):
         G.cd_grads_step(cfg, p, v0[:-1], chain, seed=1)
     with pytest.raises(ValueError, match="float32"):
@@ -1385,3 +1380,105 @@ def test_resident_modes_draw_as_cd_train_from_one_seed(cuda, name):
             for kern in ("cd_train", "cd_train_resident"))
     torch.testing.assert_close(a[2], b[2], rtol=0, atol=0)
     _check(b, a)
+
+
+# k = 300, past the 255 Gibbs steps the Philox counter word once held
+# (cd_common.cuh::draw_bits): each of the six kernel sources against its plain
+# version on hardened injected draws over 2 epochs (the DP kernels one step),
+# at a shape each admits; the wide kernels are called directly, as the
+# admission rule does not pick them at these widths. Then the seeded draws:
+# cd_train.cu and the resident kernel key Philox alike, so one seed gives the
+# same run on both at k = 300, as at k = 1.
+K300 = {
+    "cd_train-pcd-momentum": ("cd_train", RBMConfig(**SMALL, k=300, persistent=True,
+                                                    momentum=0.5, lr=0.1)),
+    "resident-plain-gaussian": ("cd_train_resident",
+                                RBMConfig(**SMALL, k=300, visible="gaussian", lr=0.01)),
+    "resident-modes-enhanced": ("cd_train_resident",
+                                RBMConfig(**SMALL, k=300, gradient="enhanced", lr=0.1)),
+    "resident-ladder-pt3": ("cd_train_resident",
+                            RBMConfig(**SMALL, k=300, persistent=True, pt_temps=3,
+                                      pt_beta_min=0.3, lr=0.1)),
+    "wide-gaussian-meanfield": ("cd_train_wide",
+                                RBMConfig(**SMALL, k=300, visible="gaussian", lr=0.01,
+                                          **MEANFIELD)),
+    "wide-modes-lv": (WM, RBMConfig(**SMALL, k=300, visible="gaussian", lr=0.005,
+                                    learn_variance=True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(K300))
+def test_k300_train_kernels_match_plain_inject(cuda, name):
+    from mdbn_tpu_torch.ops import cd_epoch_wide_modes_cuda as WMC
+
+    kernel, cfg = K300[name]
+    wide = kernel == "cd_train_wide"
+    st, data, order, u = _inputs(cfg, cuda, nb=3, wide=wide)
+    counter = {"cd_train": (K, "cd_train_launches"),
+               "cd_train_resident": (R, "cd_train_resident_launches"),
+               "cd_train_wide": (KW, "cd_train_wide_launches"),
+               WM: (WMC, "cd_train_wide_modes_launches")}[kernel]
+    before = getattr(*counter)
+    got = K.kernel_run(kernel)(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u)
+    torch.cuda.synchronize()
+    assert getattr(*counter) == before + 1
+    plain = KW.cd_train_wide_run_plain if wide else K.cd_train_run_plain
+    _check(got, plain(cfg, st.params, st.velocity, st.chain_h, data, order, 0, u))
+
+
+@pytest.mark.cuda
+def test_k300_dp_kernels_match_plain(cuda):
+    """cd_grads.cu's step on a 7-row shard with a pad row and its update on 3
+    ranks' sums, and cd_grads_wide.cu's step, at k = 300."""
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+    from mdbn_tpu_torch.parallel.dp import world_scale
+
+    cfg = RBMConfig(**{**SMALL, "batch_size": 7}, k=300, persistent=True, lr=0.1)
+    p, v0, chain, mask, u = _mode_inputs(cfg, cuda)
+    got = G.cd_grads_step(cfg, p, v0, chain, uniforms=u, mask=mask, norm=20 / 3)
+    want = G.cd_grads_step_plain(cfg, p, v0, chain, uniforms=u, mask=mask, norm=20 / 3)
+    for a, b in ((got[0].W, want[0].W), (got[0].b, want[0].b), (got[0].c, want[0].c),
+                 (got[2], want[2])):
+        torch.testing.assert_close(a, b, **REPLAY_TOL)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    rand = lambda *shape: 0.1 * torch.randn(shape, generator=gen, device=cuda)
+    V, H = cfg.n_visible, cfg.n_hidden
+    p, vel = (RBMParams(W=rand(V, H), b=rand(V), c=rand(H)) for _ in range(2))
+    sums = 3 * rand(G.flat_size(cfg))
+    want = G.cd_update_plain(cfg, p, vel, sums, world_scale(3), 0)
+    got = G.cd_update(cfg, p.map(torch.clone), vel.map(torch.clone), sums, world_scale(3), 0)
+    for a, b in zip(list(got[0].as_dict().values()) + list(got[1].as_dict().values()),
+                    list(want[0].as_dict().values()) + list(want[1].as_dict().values())):
+        assert torch.equal(a, b)
+    wcfg = RBMConfig(**{**SMALL, "batch_size": 7}, k=300, visible="gaussian", lr=0.01,
+                     **MEANFIELD)
+    p, v0, chain, u = _wide_dp_inputs(wcfg, 6, cuda)
+    before = W.cd_wide_step_launches
+    got, c_got = W.cd_wide_step(wcfg, p, v0, chain, uniforms=u, n_valid=6, norm=20 / 3)
+    torch.cuda.synchronize()
+    assert W.cd_wide_step_launches == before + 1
+    want, c_want = W.cd_wide_step_plain(wcfg, p, v0, chain, uniforms=u, n_valid=6, norm=20 / 3)
+    for a, b in zip(W.slot_views(wcfg, got), W.slot_views(wcfg, want)):
+        torch.testing.assert_close(a, b, **REPLAY_TOL)
+    torch.testing.assert_close(c_got, c_want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_k300_seeded_draws_alike_and_train_takes_the_kernel(cuda):
+    from mdbn_tpu_torch import RBM
+
+    cfg = RBMConfig(**SMALL, k=300, persistent=True, lr=0.1)
+    st, data, order, _ = _inputs(cfg, cuda, E=1, nb=1)  # one update: few knife-edge draws
+    runs = [K.kernel_run(name)(cfg, st.params, st.velocity, st.chain_h, data, order, 0, None,
+                               torch.Generator().manual_seed(5))
+            for name in ("cd_train", "cd_train_resident")]
+    torch.testing.assert_close(runs[1][2], runs[0][2], rtol=0, atol=0)
+    torch.testing.assert_close(runs[1][0].W, runs[0][0].W, **TOL)
+    before = R.cd_train_resident_launches
+    rbm = RBM(cfg.replace(engine="pallas", epochs=2), device=cuda).train(data)
+    assert rbm.metrics.kernel == K.select_kernel(cfg) == "cd_train_resident"
+    assert R.cd_train_resident_launches == before + 1

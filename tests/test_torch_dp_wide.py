@@ -216,15 +216,20 @@ OUTSIDE = {"sampled visibles": dict(sample_visible=True),
            "enhanced": dict(gradient="enhanced"),
            "tempering": dict(persistent=True, pt_temps=3),
            "learned variance": dict(learn_variance=True, sample_visible=False),
-           "Philox": dict(k=256)}
+           "Philox": dict(k=300)}  # inside the scope: any k
 
 
 @pytest.mark.parametrize("name", list(OUTSIDE))
 def test_select_dp_kernel_outside_the_scope(name):
     """A config outside the W-blocked kernel's scope takes cd_grads at any
-    width, and the W-blocked DP step refuses it."""
+    width, and the W-blocked DP step refuses it; k 300 lies inside it and
+    takes cd_grads_wide as k 1 does."""
     cfg = RBMConfig(n_visible=K.WIDE_DP_MIN_VISIBLE, n_hidden=16, visible="gaussian",
                     batch_size=5).replace(**OUTSIDE[name])
+    if name == "Philox":
+        assert K.wide_unsupported(cfg) is None
+        assert K.select_dp_kernel(cfg) == "cd_grads_wide"
+        return
     assert K.wide_unsupported(cfg) is not None
     assert K.select_dp_kernel(cfg) == "cd_grads"
     st = init_train_state(cfg, device="cpu")

@@ -59,7 +59,6 @@ def test_graded_layers_take_the_resident_kernel(name, storage):
     cfg = LAYERS[name]
     if storage == "bfloat16":
         cfg = cfg.replace(**BF16)
-    assert R.resident_unsupported(cfg) is None
     assert R.resident_tiles(cfg).fits
     assert K.select_kernel(cfg) == "cd_train_resident"
 
@@ -80,12 +79,12 @@ MODES = {
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-def test_estimator_modes_stay_on_cd_train(mode):
+def test_estimator_modes_take_the_resident_kernel(mode):
     """Each estimator mode takes the resident kernel at c1's shape (f32 and
     bf16 storage) and stays on cd_train.cu only where its tiles do not fit
     (a batch of 512 rows here)."""
     cfg = LAYERS["c1"].replace(**MODES[mode])
-    assert R.resident_unsupported(cfg) is None and R.has_modes(cfg)
+    assert R.has_modes(cfg)
     assert K.select_kernel(cfg) == "cd_train_resident"
     assert K.select_kernel(cfg.replace(**BF16)) == "cd_train_resident"
     past = cfg.replace(batch_size=512)
@@ -94,9 +93,13 @@ def test_estimator_modes_stay_on_cd_train(mode):
 
 
 def test_k_past_the_philox_layout_stays_on_cd_train():
-    cfg = LAYERS["c1"].replace(k=256)
-    assert "Philox" in R.resident_unsupported(cfg)
-    assert K.select_kernel(cfg) == "cd_train"
+    """Past 255 Gibbs steps the Philox counter still holds each step's draws
+    (cd_common.cuh::draw_bits): c1 at k 256 and 300 takes the resident
+    kernel, as at k 1."""
+    for k in (256, 300):
+        cfg = LAYERS["c1"].replace(k=k)
+        assert R.resident_admits(cfg)
+        assert K.select_kernel(cfg) == "cd_train_resident"
 
 
 @pytest.mark.parametrize("grow", ["n_hidden", "n_visible", "batch_size"])

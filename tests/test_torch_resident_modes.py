@@ -46,7 +46,7 @@ SMOKE = {"pt5": RBMConfig(**C1, persistent=True, pt_temps=5, pt_beta_min=0.2),
 @pytest.mark.parametrize("mode", list(SMOKE))
 def test_each_mode_takes_the_resident_kernel(mode, storage):
     cfg = SMOKE[mode].replace(**STORAGE[storage])
-    assert R.has_modes(cfg) and R.resident_unsupported(cfg) is None
+    assert R.has_modes(cfg)
     assert R.resident_tiles(cfg).fits
     assert K.select_kernel(cfg) == RES
     assert K.kernel_run(K.select_kernel(cfg)) is R.cd_train_resident_run
@@ -183,9 +183,10 @@ def test_wrapper_refuses_cpu_tensors(mode):
         R.cd_train_resident_run(cfg, st.params, st.velocity, st.chain_h, data,
                                 K.batch_order(cfg, 2, 1, None), 0, None,
                                 torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="Philox"):  # k > 255, before anything is built
-        R.cd_train_resident_run(cfg.replace(k=256), st.params, st.velocity, st.chain_h,
-                                _OnTheCard(), None, 0, None, None)
+    with pytest.raises(ValueError, match="cd_train_run_plain"):  # k > 255 alike
+        R.cd_train_resident_run(cfg.replace(k=300), st.params, st.velocity, st.chain_h, data,
+                                K.batch_order(cfg, 2, 1, None), 0, None,
+                                torch.Generator().manual_seed(0))
     assert R.cd_train_resident_launches == before
 
 

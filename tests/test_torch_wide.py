@@ -31,7 +31,7 @@ from mdbn_tpu_torch.convert import (convert_config, rbm_from_numpy, state_from_n
                                     state_to_numpy)
 from mdbn_tpu_torch.core.rbm_math import torch_dtype
 from mdbn_tpu_torch.ops import cd_epoch_cuda as K
-from mdbn_tpu_torch.ops.cd_epoch_resident_cuda import resident_tiles, resident_unsupported
+from mdbn_tpu_torch.ops.cd_epoch_resident_cuda import resident_tiles
 from mdbn_tpu_torch.ops import cd_epoch_wide_cuda as KW
 from mdbn_tpu_torch.train.trainer import resolve_engine, train_rbm
 
@@ -295,7 +295,7 @@ def test_admission(name):
     cfg, kernel = SLICE[name]
     tcfg = convert_config(cfg)
     assert K.select_kernel(tcfg) == kernel
-    assert K.kernel_unsupported(tcfg) is None
+    assert K.select_kernel(tcfg.replace(k=300)) == kernel
     cuda = torch.device("cuda")
     assert resolve_engine(tcfg, cuda) == "cuda"
     assert resolve_engine(tcfg.replace(engine="pallas"), cuda) == "cuda"
@@ -312,7 +312,7 @@ def test_admission(name):
     assert modes == (kernel == "cd_train_wide_modes")
 
     def expected(c):
-        if resident_unsupported(c) is None and resident_tiles(c).fits:
+        if resident_tiles(c).fits:
             return "cd_train_resident"
         if in_scope and c.n_visible >= K.WIDE_MIN_VISIBLE:
             return "cd_train_wide"
