@@ -8,8 +8,8 @@ cd_train_wide.cu, cd_train_resident.cu (its plain variant, its estimator
 modes without and with a tempering ladder: three libraries),
 cd_train_wide_modes.cu, cd_grads.cu and cd_grads_wide.cu, each at float32
 and bfloat16 storage, in parallel) and
-runs twenty-six phases, one line each (25 and 26 run after 4, 23 and 24
-after 5):
+runs twenty-seven phases, one line each (25, 26 and 27 run after 4, 23 and
+24 after 5):
 
 1. device: torch and CUDA versions, the card's name and power limit, build time,
    and each compiled function's registers, stack and spill bytes (ptxas -v);
@@ -157,6 +157,24 @@ after 5):
     replay tolerance, cd_grads.cu's update bit for bit), with the largest
     difference of each; then RBM.train(engine="pallas") at k = 300 launches
     the kernel select_kernel names, and no other.
+27. finetune: the phase-2 trainers (no kernel of their own: eager PyTorch on
+    the card). c3's DBN and c4's MDBN trained as committed (their layers on
+    the kernel select_kernel names, the resident kernel, by the counters),
+    then each mode (classifier, autoencoder, label_top, updown,
+    updown_labeled) for 10 epochs through the models' methods: every
+    parameter, head, decoder and generative tensor on the card and finite,
+    the losses falling, the planted classes recovered (accuracy >= 0.9);
+    c3 with a labeled up-down block at label_fraction 0.3 and c4 with a
+    classifier block through the CLI (mdbn_tpu_torch.run.main), their
+    records; the first epoch of each mode on the card against the same call
+    on the CPU on the draws the CPU run made, at rtol = atol = 1e-4, TF32
+    off (every tensor; the autoencoder by its codes and reconstructions, as
+    Adam moves a weight whose gradient is at rounding level by up to lr
+    either way, and the count of its weights past the tolerance is
+    printed); save -> load on the card keeping predict, predict_generative,
+    reconstruct and generate bit for bit; one epoch of each mode at 784 ->
+    500 -> 500 (mnist_like, 2000 rows, batch 20) timed with CUDA events, and
+    the card's busy share over one up-down epoch from a torch.profiler trace.
 
 Then a JSON line describing the kernels, and last
 {"ok": true, "device": ...}. Exits non-zero, printing no result, when there
@@ -180,6 +198,13 @@ C1 = os.path.join(HERE, "configs", "c1_bernoulli_rbm_mnist.json")
 C2 = os.path.join(HERE, "configs", "c2_gaussian_rbm_ge.json")
 C4 = os.path.join(HERE, "configs", "c4_mdbn_3modality.json")
 C5 = os.path.join(HERE, "configs", "c5_pcd_kmeans.json")
+C3 = os.path.join(HERE, "configs", "c3_dbn_3layer.json")
+# The phase-2 trainers (phase 27): each mode for FT_EPOCHS epochs on c3's
+# DBN and c4's MDBN; the first epoch on the card against the CPU on the same
+# injected draws at FT_RTOL / FT_ATOL (TF32 off); the planted classes must be
+# recovered to FT_ACC_MIN by the label modes
+FT_MODES = ("classifier", "autoencoder", "label_top", "updown", "updown_labeled")
+FT_EPOCHS, FT_RTOL, FT_ATOL, FT_ACC_MIN = 10, 1e-4, 1e-4, 0.9
 C5_ARI_MIN = 0.99  # c5's kmeans record against its planted clusters
 C5_LOGRANK_P = 9.0e-20  # GRADED_RUNS.md: the same planted times on the same partition
 K300 = 300  # Gibbs steps past the 255 the Philox counter word once held
@@ -1101,7 +1126,8 @@ def run_resident(dev, smi, c1, c1_data, ge, main_launches: int) -> list:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "ms_per": f"one epoch of {name} ({nb} updates); launches: the kernel's on the "
                       "main path (c1 and c4 through the API, c5, c1_real and c4_real "
-                      "through the CLI)"})
+                      "through the CLI; phase 27's pretraining of c3 and c4 through the "
+                      "API and through the CLI)"})
     phase("timing_resident", order="plain, resident, cd_train, cd_train, resident, plain",
           nvidia_smi=smi, l2_bytes=l2, shapes=timing)
     return entries
@@ -2479,6 +2505,259 @@ def run_analysis_cli(smi) -> int:
     return launches
 
 
+def _ft_mode(model, mode: str, x, y, n_classes: int, epochs: int, draws=None) -> list:
+    """One phase-2 mode through the model's own method; its history. For
+    updown_labeled a label top is fitted first where there is none (same
+    epochs). ``draws``: the mode's draws, passed to the trainer (the
+    autoencoder draws nothing; updown_labeled's are {"label_top", "updown"})."""
+    kw = dict(epochs=epochs)
+    if mode == "classifier":
+        return model.finetune(x, y, n_classes, **kw, draws=draws)
+    if mode == "autoencoder":
+        return model.finetune_autoencoder(x, **kw)
+    if mode == "updown":
+        return model.finetune_updown(x, **kw, draws=draws)
+    if mode == "label_top":
+        return model.fit_label_top(x, y, n_classes, **kw, draws=draws)
+    if model._label_top is None:
+        model.fit_label_top(x, y, n_classes, **kw, draws=None if draws is None else draws["label_top"])
+    return model.finetune_updown_labeled(x, y, **kw, draws=None if draws is None else draws["updown"])
+
+
+def _ft_tensors(model) -> dict:
+    """Every parameter and fine-tuned tensor of a DBN or MDBN, by name."""
+    from mdbn_tpu_torch.models.mdbn import MDBN
+
+    out = {}
+    dbns = (model.towers.items() if isinstance(model, MDBN) else [("", model)])
+    for name, dbn in dbns:
+        for l, r in enumerate(dbn.layers):
+            out.update({f"{name}/layer{l}.{k}": t for k, t in r.params.as_dict().items()})
+        for l, pair in enumerate(dbn._gen or []):
+            out.update({f"{name}/gen{l}.{k}": t for k, t in zip("Wb", pair)})
+        if isinstance(dbn._decoder, list):
+            out.update({f"{name}/decoder{l}": t for l, t in enumerate(dbn._decoder)})
+    if isinstance(model, MDBN):
+        out.update({f"joint.{k}": t for k, t in model.joint.params.as_dict().items()})
+        if model._decoder is not None:
+            out.update({f"decoder/{m}{l}": t for m, Ds in model._decoder.items()
+                        for l, t in enumerate(Ds)})
+        for k, t in zip("Wb", model._joint_gen or ()):
+            out[f"joint_gen.{k}"] = t
+    for k, t in zip(("head.W", "head.b"), model._head or ()):
+        out[k] = t
+    if model._label_top is not None:
+        out.update({f"label_top.{k}": t for k, t in model._label_top[0].as_dict().items()})
+    return out
+
+
+def _ft_draws(mode: str, epochs_steps: int):
+    """Empty draw dicts for one epoch of ``epochs_steps`` minibatches: the
+    CPU run fills them with the draws it makes, the card's run is fed them."""
+    steps = lambda: {"steps": [[{} for _ in range(epochs_steps)]]}  # noqa: E731
+    if mode == "classifier":
+        return {}
+    if mode == "updown_labeled":
+        return {"label_top": steps(), "updown": steps()}
+    return steps()
+
+
+def run_finetune_phase(dev, smi) -> int:
+    """The finetune phase (27): the phase-2 trainers on the card.
+
+    (a) c3's DBN and c4's MDBN trained as committed (their layers on the
+    kernel select_kernel names, by the counters), then each of FT_MODES for
+    FT_EPOCHS epochs through the models' methods on a copy of each: every
+    parameter, head, decoder and generative tensor on the card, the losses
+    falling, the planted classes recovered; (b) two CLI runs
+    (mdbn_tpu_torch.run.main, as ``python -m mdbn_tpu_torch.run``) of c3 with
+    a labeled up-down block at label_fraction 0.3 and c4 with a classifier
+    block, their records checked; (c) the first epoch of each mode on the
+    card against the same call on the CPU on the draws the CPU run made, at
+    FT_RTOL / FT_ATOL with TF32 off (the autoencoder by its codes and
+    reconstructions); (d) save -> load on the card keeps
+    predict, predict_generative, reconstruct and generate bit for bit; (e)
+    one epoch of each mode at 784 -> 500 -> 500 (mnist_like, 2000 rows,
+    batch 20, 100 steps) timed with CUDA events, and the card's busy share
+    over one up-down epoch from a torch.profiler trace. Returns the resident
+    kernel's launches of the main path (the pretraining of c3, c4 and the
+    CLI runs)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdbn_tpu_torch import DBN, MDBN
+    from mdbn_tpu_torch.config import DBNConfig, MDBNConfig, load_config
+    from mdbn_tpu_torch.data.synthetic import mnist_like
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
+    from mdbn_tpu_torch.run import build_data
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the phase-2 trainers' matmuls must be full f32")
+    t0 = time.perf_counter()
+    launches, out = 0, {}
+    # a process's first torch.optim.Adam imports its compile machinery (seconds
+    # on the host): done here, outside the autoencoder's times
+    torch.optim.Adam([torch.zeros(1, device=dev, requires_grad=True)])
+    # (a) pretraining as committed, then each mode for FT_EPOCHS epochs
+    exp3, exp4 = load_config(C3), load_config(C4)
+    d3, y3, _ = build_data(exp3["data"])
+    x3 = d3[exp3["modality"]]
+    x4, y4, _ = build_data(exp4["data"])
+    cases = {}
+    for name, cls, cfg, x, y in (("c3", DBN, exp3["model"], x3, y3),
+                                 ("c4", MDBN, exp4["model"], x4, y4)):
+        zero_train_counts()
+        t = time.perf_counter()
+        model = cls(cfg, device=dev).train(x)
+        pre_s = time.perf_counter() - t
+        rbms = ([r for tw in model.towers.values() for r in tw.layers] + [model.joint]
+                if cls is MDBN else model.layers)
+        kernels = [K.select_kernel(r.cfg, R.device_limits(r.cfg, dev)) for r in rbms]
+        counts = check_counts(f"{name}_pretrain", {k: kernels.count(k) for k in set(kernels)})
+        launches += counts.get("cd_train_resident", 0)
+        n_classes = int(np.max(y)) + 1
+        cases[name] = (model, x, np.asarray(y), n_classes)
+        row = {"pretrain_s": round(pre_s, 3), "launches": counts}
+        for mode in FT_MODES:
+            m = copy.deepcopy(model)
+            if mode == "updown_labeled":  # its label top first, outside the time
+                m.fit_label_top(x, y, n_classes, epochs=FT_EPOCHS)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hist = _ft_mode(m, mode, x, y, n_classes, FT_EPOCHS)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+            tensors = _ft_tensors(m)
+            off = [k for k, v in tensors.items() if v.device.type != "cuda"]
+            bad = [k for k, v in tensors.items() if not bool(torch.isfinite(v).all())]
+            if off or bad:
+                raise AssertionError(f"{name} {mode}: off the card {off}, not finite {bad}")
+            if not hist[-1] < hist[0]:
+                raise AssertionError(f"{name} {mode}: the loss did not fall: {hist}")
+            rec = {"s_per_epoch": sec / FT_EPOCHS, "first": hist[0], "last": hist[-1],
+                   "tensors_on_cuda": len(tensors)}
+            if mode in ("classifier", "label_top", "updown_labeled"):
+                pred = (m.predict(x) if mode == "classifier" else m.predict_generative(x))
+                rec["train_accuracy"] = float((pred.cpu().numpy() == y[:len(pred)]).mean())
+                if rec["train_accuracy"] < FT_ACC_MIN:
+                    raise AssertionError(f"{name} {mode}: accuracy {rec}")
+            row[mode] = rec
+        out[name] = row
+    # (b) two CLI runs with a finetune block
+    cli = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ft_") as tmp:
+        for name, path, spec in (
+                ("c3_updown_labeled", C3, {"mode": "updown_labeled", "label_fraction": 0.3}),
+                ("c4_classifier", C4, {"mode": "classifier"})):
+            cfg_path = os.path.join(tmp, f"{name}.json")
+            with open(cfg_path, "w") as f:
+                json.dump(dict(json.load(open(path)), finetune=spec), f)
+            zero_train_counts()
+            t = time.perf_counter()
+            recs = _cli(["--config", cfg_path])
+            counts = train_counts()
+            launches += counts["cd_train_resident"]
+            (ft,) = [r for r in recs if r["kind"] == "finetune"]
+            accs = [ft.get("train_accuracy", 0.0)] + (
+                [ft["accuracy_unlabeled"]] if spec["mode"] == "updown_labeled" else [])
+            if ft["mode"] != spec["mode"] or min(accs) < FT_ACC_MIN:
+                raise AssertionError(f"{name}: finetune record {ft}")
+            cli[name] = {"seconds": round(time.perf_counter() - t, 3), "launches": counts,
+                         "record": ft}
+    # (c) the first epoch of each mode on the card against the CPU, same draws
+    errs, off = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ftsave_") as tmp:
+        for name, (model, x, y, n_classes) in cases.items():
+            path = os.path.join(tmp, name)
+            model.save(path)
+            cls = type(model)
+            for mode in FT_MODES:
+                cpu, gpu = cls.load(path, device="cpu"), cls.load(path, device=dev)
+                draws = _ft_draws(mode, len(y) // 20)  # c3's and c4's batch: 20
+                hc = _ft_mode(cpu, mode, x, y, n_classes, 1, draws=draws)
+                hg = _ft_mode(gpu, mode, x, y, n_classes, 1, draws=draws)
+                tc, tg = _ft_tensors(cpu), _ft_tensors(gpu)
+                if sorted(tc) != sorted(tg):
+                    raise AssertionError(f"{name} {mode}: {sorted(tc)} vs {sorted(tg)}")
+                worst = max(float((tg[k].cpu() - tc[k]).abs().max()) for k in tc)
+                if mode == "autoencoder":
+                    # Adam divides each gradient by its own root mean square, so a
+                    # weight whose gradient is at rounding level (a hidden unit off
+                    # for every row) moves by up to lr either way on two devices;
+                    # the autoencoder is held by what it computes, its codes and
+                    # reconstructions, and the weights' spread is reported
+                    off[f"{name}_{mode}"] = sum(int((~torch.isclose(
+                        tg[k].cpu(), tc[k], rtol=FT_RTOL, atol=FT_ATOL)).sum()) for k in tc)
+                    tc = {"transform": cpu.transform(x), "reconstruct": cpu.reconstruct(x)}
+                    tg = {"transform": gpu.transform(x), "reconstruct": gpu.reconstruct(x)}
+                    tc, tg = ({f"{k}/{m}": v for k, d in t.items()
+                               for m, v in (d.items() if isinstance(d, dict) else [("", d)])}
+                              for t in (tc, tg))
+                for k in tc:
+                    torch.testing.assert_close(tg[k].cpu(), tc[k], rtol=FT_RTOL, atol=FT_ATOL,
+                                               msg=lambda m, k=k: f"{name} {mode} {k}: {m}")
+                torch.testing.assert_close(torch.tensor(hg), torch.tensor(hc), rtol=FT_RTOL,
+                                           atol=FT_ATOL)
+                errs[f"{name}_{mode}"] = worst
+        # (d) save -> load on the card: the same outputs, bit for bit
+        for name, (model, x, y, n_classes) in cases.items():
+            m = copy.deepcopy(model)
+            for mode in ("classifier", "autoencoder", "updown_labeled"):
+                _ft_mode(m, mode, x, y, n_classes, 2)
+            path = os.path.join(tmp, f"{name}_tuned")
+            m.save(path)
+            back = type(m).load(path, device=dev)
+            outs = lambda mm: {"predict": mm.predict(x),  # noqa: E731
+                               "predict_generative": mm.predict_generative(x),
+                               "reconstruct": mm.reconstruct(x),
+                               "generate": mm.generate(n_samples=8, n_gibbs=20, seed=3)}
+            a, b = outs(m), outs(back)
+            for k in a:
+                pairs = ([(a[k][t], b[k][t]) for t in a[k]] if isinstance(a[k], dict)
+                         else [(a[k], b[k])])
+                if not all(torch.equal(aa, bb) for aa, bb in pairs):
+                    raise AssertionError(f"{name}: save -> load changed {k}")
+    # (e) one epoch of each mode at 784 -> 500 -> 500, and the busy share
+    data = mnist_like(2000, seed=0, return_labels=True)
+    xm, ym = data[0], np.asarray(data[1])
+    cm = int(ym.max()) + 1
+    big = DBN(DBNConfig(layer_sizes=[500, 500], epochs=2, lr=0.1, batch_size=20, seed=0),
+              device=dev).train(xm)
+    timing = {}
+    for mode in FT_MODES:
+        m = copy.deepcopy(big)
+        if mode == "updown_labeled":
+            m.fit_label_top(xm, ym, cm, epochs=1)  # timed below: labeled up-down alone
+        timing[mode] = {"ms_per_epoch": time_runs(
+            lambda m=m, mode=mode: _ft_mode(m, mode, xm, ym, cm, 1), 3) * 1e3}
+    m = copy.deepcopy(big)
+    m.finetune_updown(xm, epochs=1)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        m.finetune_updown(xm, epochs=1)
+        end.record()
+        torch.cuda.synchronize()
+    busy_us = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if us > 0 and ev.self_cpu_time_total == 0:  # kernels: device time, no CPU time
+            busy_us += us
+    wall_us = start.elapsed_time(end) * 1e3
+    timing["updown_profiled"] = {"wall_ms": wall_us / 1e3, "kernel_ms": busy_us / 1e3,
+                                 "busy_share": busy_us / wall_us if wall_us else None}
+    phase("finetune", epochs=FT_EPOCHS, runs=out, cli=cli, card_vs_cpu_max_abs_err=errs,
+          autoencoder_weights_past_tolerance=off, rtol=FT_RTOL, atol=FT_ATOL, save_load_identical_bits=True,
+          timing_784_500_500=timing, seconds=round(time.perf_counter() - t0, 3),
+          nvidia_smi=smi)
+    return launches
+
+
 def run_k300(dev, smi) -> None:
     """The k300 phase: every kernel source at k = 300 against its plain
     version on hardened injected draws (2 updates at c4's GE second layer,
@@ -2676,8 +2955,10 @@ def run() -> int:
     # saved model, the real-data configs on fixtures), then k = 300
     cli_launches = run_analysis_cli(smi)
     run_k300(dev, smi)
+    # 27. the phase-2 trainers (their pretraining on the resident kernel)
+    ft_launches = run_finetune_phase(dev, smi)
     resident_main = (c1_counts["cd_train_resident"] + c4_counts["cd_train_resident"]
-                     + cli_launches)
+                     + cli_launches + ft_launches)
 
     # 5. timing at c1's shape: one epoch (100 updates) per call
     st = init_train_state(c1, device=dev)

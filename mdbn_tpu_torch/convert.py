@@ -5,7 +5,10 @@ returns as numpy — ``RBM.params_numpy()`` ({"W", "b", "c"[, "z"]}) and the
 ``checkpoint._state_to_pytree`` dict ({"params", "velocity", "chain_h",
 "key", "epoch"}) — and config objects of either package (converted by their
 ``__type__`` name, through the JSON form both packages share). The reverse
-functions give numpy for the JAX side.
+functions give numpy for the JAX side. A DBN's or MDBN's fine-tuned state
+(the classifier's head, the autoencoder's decoder, up-down's generative
+weights, the label top) crosses the same way (``finetuned_to_numpy``,
+``set_finetuned_from_numpy``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from .config import _from_jsonable, _to_jsonable
 from .core.rbm_math import RBMParams, torch_dtype, zero_velocity
 from .core.state import TrainState, chain_rows, default_device
 from .models.dbn import DBN
+from .models.dbn import _np as _arr
 from .models.mdbn import MDBN
 from .models.rbm import RBM
 
@@ -112,3 +116,69 @@ def mdbn_from_numpy(cfg, towers: Dict[str, Sequence[Tuple[Dict[str, np.ndarray],
 def stack_to_numpy(model) -> List[Tuple[Dict[str, np.ndarray], dict]]:
     """A port DBN's layers as [(params_numpy, config dict)] for the JAX side."""
     return [(r.params_numpy(), config_to_dict(r.cfg)) for r in model.layers]
+
+
+# -- the phase-2 state: head, decoder, generative weights, label top ----------------
+
+
+def _pairs_to_numpy(pairs):
+    return [(_arr(W), _arr(b)) for W, b in pairs]
+
+
+def finetuned_to_numpy(model) -> dict:
+    """A port DBN's or MDBN's fine-tuned state as numpy, the keys present
+    where the model has the piece: "head" (Wh, bh); "decoder" (a DBN's list,
+    an MDBN's {tower: [D...], "__joint__": [Dj]}); "gen" (a DBN's [(W, b)],
+    an MDBN's {tower: [(W, b)]}); "label_top" ({"W", "b", "c"}, n_classes);
+    "joint_gen" (W, b) (an MDBN after labeled up-down)."""
+    out = {}
+    if model._head is not None:
+        out["head"] = tuple(_arr(t) for t in model._head)
+    if model._decoder is not None:
+        dec = model._decoder
+        out["decoder"] = ({m: [_arr(D) for D in Ds] for m, Ds in dec.items()}
+                          if isinstance(dec, dict) else [_arr(D) for D in dec])
+    if model._label_top is not None:
+        p, n_classes = model._label_top
+        out["label_top"] = ({"W": _arr(p.W), "b": _arr(p.b), "c": _arr(p.c)}, int(n_classes))
+    if isinstance(model, MDBN):
+        gens = {m: t._gen for m, t in model.towers.items() if t._gen is not None}
+        if gens:
+            out["gen"] = {m: _pairs_to_numpy(g) for m, g in gens.items()}
+        if model._joint_gen is not None:
+            out["joint_gen"] = tuple(_arr(t) for t in model._joint_gen)
+    elif model._gen is not None:
+        out["gen"] = _pairs_to_numpy(model._gen)
+    return out
+
+
+def set_finetuned_from_numpy(model, state: dict):
+    """Sets a port DBN's or MDBN's fine-tuned state from numpy, in
+    ``finetuned_to_numpy``'s layout (the label top's parameters may be any
+    object with W, b and c, such as the JAX package's ``RBMParams``).
+    Returns the model."""
+    def t(a) -> torch.Tensor:
+        return torch.tensor(np.asarray(a, np.float32), device=model.device)
+
+    def pairs(ps):
+        return [(t(W), t(b)) for W, b in ps]
+
+    if "head" in state:
+        model._head = tuple(t(a) for a in state["head"])
+    if "decoder" in state:
+        dec = state["decoder"]
+        model._decoder = ({m: [t(D) for D in Ds] for m, Ds in dec.items()}
+                          if isinstance(dec, dict) else [t(D) for D in dec])
+    if "label_top" in state:
+        p, n_classes = state["label_top"]
+        W, b, c = (p[k] if isinstance(p, dict) else getattr(p, k) for k in "Wbc")
+        model._label_top = (RBMParams(W=t(W), b=t(b), c=t(c)), int(n_classes))
+    if "gen" in state:
+        if isinstance(model, MDBN):
+            for m, g in state["gen"].items():
+                model.towers[m]._gen = pairs(g)
+        else:
+            model._gen = pairs(state["gen"])
+    if "joint_gen" in state:
+        model._joint_gen = tuple(t(a) for a in state["joint_gen"])
+    return model

@@ -56,6 +56,20 @@ class RBMParams:
                 if getattr(self, f.name) is not None}
 
 
+def check_fixed_variance_layers(layers, what: str) -> None:
+    """Phase-2 algorithms that unroll raw (W, b, c) weights reject
+    learned-variance layers rather than silently dropping the sigma^2
+    scaling from the recognition pass. ``layers``: iterable of (RBMParams,
+    RBMConfig)."""
+    for p, cfg in layers:
+        if p.z is not None or cfg.learn_variance:
+            raise ValueError(
+                f"{what} does not support learn_variance layers (its "
+                "unrolled weight stack would silently drop the learned "
+                "sigma^2 scaling); pretrain this stack with "
+                "learn_variance=False to use it")
+
+
 def init_params(cfg: RBMConfig, generator: torch.Generator,
                 device: torch.device | str = "cpu") -> RBMParams:
     """W from ``generator`` (a CPU generator, so the init does not depend on

@@ -203,3 +203,45 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
                  if persistent else state.chain_h)
     return (TrainState(params, velocity, new_chain, state.generator, state.epoch + n_epochs),
             torch.stack(errs))
+
+
+# -- the phase-2 trainers under a mesh -------------------------------------------
+#
+# The reference places a fine-tuning epoch on its mesh by GSPMD
+# (``mdbn_tpu/parallel/dp.py::dp_put_finetune``): the minibatch's row dim
+# sharded over the mesh's first axis, the parameters replicated, the same math
+# as one device. Here each rank takes its rows of every minibatch
+# (``finetune_rows``), computes its rows' sums of the gradients or statistics,
+# and one all-reduce (``all_reduce_sums``) gives every rank the whole
+# minibatch's sums before the same update. The trainers (``train/finetune.py``,
+# ``autoencoder.py``, ``labeled.py``, ``updown.py``) call these.
+
+
+def finetune_rows(mesh: Optional[Mesh], rows: int) -> slice:
+    """This rank's rows of a fine-tuning minibatch of ``rows`` rows. As in the
+    reference, when the mesh's size does not divide ``rows`` the minibatch is
+    split over the first g ranks, g the largest divisor of ``rows`` not above
+    the mesh's size; the ranks past g hold no rows (they still take part in
+    every all-reduce, with zero sums)."""
+    if mesh is None or mesh.size == 1:
+        return slice(0, rows)
+    g = max(d for d in range(1, min(rows, mesh.size) + 1) if rows % d == 0)
+    per = rows // g
+    if mesh.rank >= g:
+        return slice(rows, rows)
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def all_reduce_sums(tensors: List[torch.Tensor], mesh: Optional[Mesh]) -> List[torch.Tensor]:
+    """Each tensor summed over the mesh's ranks, through one all-reduce of a
+    flat float32 buffer; the tensors as they are without a mesh of more than
+    one rank."""
+    if mesh is None or mesh.size == 1:
+        return list(tensors)
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    out, lo = [], 0
+    for t in tensors:
+        out.append(flat[lo:lo + t.numel()].view(t.shape).to(t.dtype))
+        lo += t.numel()
+    return out

@@ -4,7 +4,11 @@ Port of ``mdbn_tpu/run.py``: the experiment config's "model" (an RBMConfig
 / DBNConfig / MDBNConfig) trains on its "data" spec (the synthetic kinds, or
 real IDX images and omics CSVs through ``data/loaders.py``), ``--save`` /
 ``--load`` / ``--transform-out`` persist the model and write latent codes,
-and the "analysis" block runs after training and under ``--load``: k-means
+the "finetune" block runs the phase-2 trainers after training (and on a
+``--load``-ed model, resuming its fine-tuned state): the deep autoencoder,
+the backprop classifier, the associative label top, up-down and labeled
+up-down, semi-supervised under "label_fraction", each with its record; and
+the "analysis" block runs after that and under ``--load``: k-means
 of the cohort's codes at a fixed k, by silhouette (``"auto"``) or by
 consensus PAC (``"consensus"``), the ARI against planted labels, a log-rank
 test and Cox regression across the clusters on planted or clinical survival,
@@ -12,9 +16,10 @@ and leave-one-modality-out imputation (``"impute"``). Each record is printed
 as a JSON line and written to the ``--metrics`` file. Everything runs on the
 CUDA card unless ``--device cpu`` asks for the CPU. ``--dp N`` trains
 data-parallel over N ranks, one process each, under ``torchrun
---nproc-per-node N``; rank 0 writes the files and runs the analysis. The
-analysis block's ``ais``, the "finetune" block and ``--tp`` raise an error
-that names the ROADMAP.md item porting them.
+--nproc-per-node N`` (the "finetune" block too: each rank its rows of every
+minibatch); rank 0 writes the files and runs the analysis. The analysis
+block's ``ais`` and ``--tp`` raise an error that names the ROADMAP.md item
+porting them.
 """
 
 from __future__ import annotations
@@ -100,9 +105,6 @@ def build_data(spec: dict):
 def _check_sections(exp: dict) -> None:
     """Raise for the config blocks that are not ported, before anything
     trains."""
-    if exp.get("finetune"):
-        raise not_ported("the 'finetune' block (train/finetune.py, autoencoder.py, "
-                         "labeled.py, updown.py)", "9")
     if (exp.get("analysis") or {}).get("ais"):
         raise not_ported("the analysis 'ais' block (analysis/ais.py)", "10")
 
@@ -112,6 +114,113 @@ def _emit(rec: dict, mw) -> None:
     if mw is not None:
         mw.write(rec)
     print(json.dumps(rec), flush=True)
+
+
+FINETUNE_MODES = ("autoencoder", "classifier", "label_top", "updown", "updown_labeled")
+
+
+def run_finetune(exp: dict, model, data, labels, mesh, mw) -> bool:
+    """The config's "finetune" block (the reference's ``run.py:256-405``):
+    {"mode": "autoencoder" | "classifier" | "label_top" | "updown" |
+    "updown_labeled", "epochs": N, "lr": x, ...} on a DBN or MDBN, with the
+    data spec's labels for the label modes. "label_fraction": f keeps a
+    seeded fraction of the labels ("label_seed") and marks the rest -1, so
+    the generative label modes train semi-supervised and the record also
+    gives the accuracy on the hidden-label rows. Every rank trains (its rows
+    of each minibatch under a mesh); rank 0 writes the record. Returns
+    whether the block ran (the model's weights changed)."""
+    spec = exp.get("finetune")
+    if not spec:
+        return False
+    if isinstance(model, RBM):
+        raise ValueError("'finetune' applies to DBN/MDBN configs (an RBM "
+                         "has no stack to fine-tune)")
+    mode = spec.get("mode", "autoencoder")
+    if mode not in FINETUNE_MODES:
+        raise ValueError(f"finetune mode must be 'autoencoder', 'classifier', 'label_top', "
+                         f"'updown' or 'updown_labeled', got {mode!r}")
+    epochs = int(spec.get("epochs", 10))
+    batch = int(spec.get("batch_size", 20))
+    labels_used, hidden_rows = labels, None
+    frac = spec.get("label_fraction")
+    if frac is not None:
+        if labels is None:
+            raise ValueError("'label_fraction' needs labels in the data spec to subsample")
+        if mode not in ("label_top", "updown_labeled"):
+            raise ValueError("'label_fraction' applies to the generative label modes "
+                             "(label_top / updown_labeled)")
+        frac = float(frac)
+        if not 0.0 < frac <= 1.0:
+            raise ValueError(f"label_fraction={frac} not in (0, 1]")
+        keep = np.random.default_rng(int(spec.get("label_seed", 0))).random(len(labels)) < frac
+        if not keep.any():
+            raise ValueError(f"label_fraction={frac} left zero labeled rows at this seed")
+        labels_used = np.where(keep, np.asarray(labels), -1)
+        hidden_rows = ~keep
+    if mode in ("classifier", "label_top", "updown_labeled") and labels is None:
+        raise ValueError(f"'finetune': {{'mode': '{mode}'}} needs labels — use a synthetic "
+                         "data kind with planted labels or add 'labels_path' (IDX1 file) to "
+                         "a mnist_idx data spec")
+    n_classes = int(spec.get("n_classes", int(np.max(labels)) + 1)) if labels is not None else 0
+
+    def accuracies(pred) -> dict:
+        """Accuracy on the labeled rows, and on the hidden-label rows."""
+        pred = pred.cpu().numpy()
+        truth = np.asarray(labels)[: len(pred)]
+        lab = np.asarray(labels_used)[: len(pred)] >= 0
+        accs = {"train_accuracy": float((pred[lab] == truth[lab]).mean())}
+        if hidden_rows is not None and hidden_rows[: len(pred)].any():
+            hid = hidden_rows[: len(pred)]
+            accs["accuracy_unlabeled"] = float((pred[hid] == truth[hid]).mean())
+        return accs
+
+    rec = {"kind": "finetune", "mode": mode, "epochs": epochs}
+    if mode == "autoencoder":
+        history = model.finetune_autoencoder(data, epochs=epochs,
+                                             lr=float(spec.get("lr", 1e-3)), mesh=mesh)
+        rec.update(loss_first=history[0], loss_last=history[-1])
+        log.info("autoencoder fine-tune: loss %.5f -> %.5f", history[0], history[-1])
+    elif mode == "updown":
+        history = model.finetune_updown(data, epochs=epochs, lr=float(spec.get("lr", 0.01)),
+                                        k=int(spec.get("k", 1)), batch_size=batch, mesh=mesh)
+        rec.update(wake_mse_first=history[0], wake_mse_last=history[-1])
+        log.info("up-down fine-tune: wake mse %.5f -> %.5f", history[0], history[-1])
+    elif mode == "label_top":
+        history = model.fit_label_top(
+            data, np.asarray(labels_used), n_classes, n_hidden=int(spec.get("n_hidden", 64)),
+            epochs=epochs, lr=float(spec.get("lr", 0.1)), k=int(spec.get("k", 1)),
+            batch_size=batch, mesh=mesh)
+        accs = accuracies(model.predict_generative(data))
+        rec.update(n_classes=n_classes, err_first=history[0], err_last=history[-1], **accs)
+        log.info("label-top fit: code mse %.5f -> %.5f, train acc %.3f",
+                 history[0], history[-1], accs["train_accuracy"])
+    elif mode == "updown_labeled":
+        if model._label_top is None:
+            # the label top comes first; fit it with the block's knobs
+            model.fit_label_top(
+                data, np.asarray(labels_used), n_classes,
+                n_hidden=int(spec.get("n_hidden", 64)),
+                epochs=int(spec.get("label_top_epochs", 20)),
+                lr=float(spec.get("label_top_lr", 0.1)), batch_size=batch, mesh=mesh)
+        history = model.finetune_updown_labeled(
+            data, np.asarray(labels_used), epochs=epochs, lr=float(spec.get("lr", 0.01)),
+            k=int(spec.get("k", 1)), batch_size=batch, mesh=mesh)
+        accs = accuracies(model.predict_generative(data))
+        rec.update(wake_mse_first=history[0], wake_mse_last=history[-1], **accs)
+        log.info("labeled up-down: wake mse %.5f -> %.5f, train acc %.3f",
+                 history[0], history[-1], accs["train_accuracy"])
+    else:
+        history = model.finetune(data, np.asarray(labels), n_classes, epochs=epochs,
+                                 lr=float(spec.get("lr", 0.1)), batch_size=batch, mesh=mesh)
+        pred = model.predict(data).cpu().numpy()
+        acc = float((pred == np.asarray(labels)[: len(pred)]).mean())
+        rec.update(n_classes=n_classes, loss_first=history[0], loss_last=history[-1],
+                   train_accuracy=acc)
+        log.info("classifier fine-tune: loss %.5f -> %.5f, train acc %.3f",
+                 history[0], history[-1], acc)
+    if mesh is None or mesh.rank == 0:
+        _emit(rec, mw)
+    return True
 
 
 class Analysis:
@@ -351,14 +460,23 @@ def main(argv=None):
             np.save(out, codes)
         log.info("wrote %s latent codes to %s", codes.shape, out)
 
+    def finetune(model, mw) -> None:
+        if run_finetune(exp, model, data, labels, mesh, mw):
+            analysis._codes = None  # the weights changed: any cached codes are stale
+
     if args.load:
-        # inference: a saved model codes, clusters or imputes the configured cohort
+        # inference: a saved model codes, clusters or imputes the configured
+        # cohort; a "finetune" block resumes or extends its fine-tuning
         model = model_cls.load(args.load, device=device)
         with MetricsWriter(args.metrics if rank0 else None) as mw:
+            finetune(model, mw)
             if args.transform_out and rank0:
                 write_codes(model)
             if rank0:
                 analysis.run(model, mw)
+        if args.save and rank0:
+            model.save(args.save)
+            log.info("model saved to %s", args.save)
         return 0
 
     runtime = TrainRuntimeConfig(checkpoint_dir=args.checkpoint_dir,
@@ -406,6 +524,7 @@ def main(argv=None):
                 log.info("%s trained", name)
             if args.checkpoint_dir and rank0:
                 model.save(os.path.join(args.checkpoint_dir, "mdbn_final"))
+        finetune(model, mw)
         if args.save and rank0:
             model.save(args.save)
             log.info("model saved to %s", args.save)

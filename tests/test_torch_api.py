@@ -196,6 +196,61 @@ def test_mdbn_resume_and_save_load(tmp_path):
     torch.testing.assert_close(m3.transform(mods), codes1, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("kind", ["dbn", "mdbn"])
+def test_finetuned_state_save_load_round_trip(kind, tmp_path):
+    """Each piece of fine-tuned state (head, decoder, generative weights,
+    label top, the MDBN's joint generative weights) survives save -> load
+    bit for bit, under the reference's file names and array keys, and a
+    save without a piece removes its stale file."""
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 3, 40)
+    if kind == "dbn":
+        x = (rng.random((40, 12)) < 0.4).astype(np.float32)
+        model = DBN(DBNConfig(layer_sizes=[8, 6], epochs=1, batch_size=10), device=CPU).train(x)
+        names = ["head.npz", "decoder.npz", "gen.npz", "label_top.npz"]
+    else:
+        x = {m: rng.normal(size=(40, d)).astype(np.float32) for m, d in (("a", 10), ("b", 8))}
+        tower = DBNConfig(layer_sizes=[6], visible="gaussian", epochs=1, batch_size=10)
+        model = MDBN(MDBNConfig(towers={"a": tower, "b": tower},
+                                joint=RBMConfig(n_visible=1, n_hidden=5, epochs=1,
+                                                batch_size=10)), device=CPU).train(x)
+        names = ["head.npz", "mdbn_decoder.npz", "tower_a/gen.npz", "label_top.npz",
+                 "joint_gen.npz"]
+    model.finetune(x, y, 3, epochs=1, batch_size=10)
+    model.finetune_autoencoder(x, epochs=1, batch_size=10)
+    model.fit_label_top(x, y, 3, n_hidden=4, epochs=1, batch_size=10)
+    model.finetune_updown_labeled(x, y, epochs=1, batch_size=10)
+    model.save(str(tmp_path / "m"))
+    for name in names:
+        assert (tmp_path / "m" / name).exists(), name
+    back = type(model).load(str(tmp_path / "m"), device=CPU)
+    torch.testing.assert_close(back.predict(x), model.predict(x), rtol=0, atol=0)
+    torch.testing.assert_close(back.predict_generative(x), model.predict_generative(x),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(back.class_posterior(x), model.class_posterior(x), rtol=0, atol=0)
+    for a, b in ((back.reconstruct(x), model.reconstruct(x)),
+                 (back.generate(n_samples=3, n_gibbs=2), model.generate(n_samples=3, n_gibbs=2)),
+                 (back.generate_class(1, n_samples=3, n_gibbs=2),
+                  model.generate_class(1, n_samples=3, n_gibbs=2))):
+        for k in (a if isinstance(a, dict) else {"": a}):
+            aa, bb = (a, b) if not isinstance(a, dict) else (a[k], b[k])
+            torch.testing.assert_close(aa, bb, rtol=0, atol=0)
+    with np.load(tmp_path / "m" / "label_top.npz") as z:
+        assert sorted(z.files) == ["W", "b", "c", "n_classes"] and int(z["n_classes"]) == 3
+    # saving a model without the pieces removes the stale files
+    fresh = type(model).load(str(tmp_path / "m"), device=CPU)
+    fresh._head = fresh._decoder = fresh._label_top = None
+    if kind == "dbn":
+        fresh._gen = None
+    else:
+        fresh._joint_gen = None
+        for t in fresh.towers.values():
+            t._gen = None
+    fresh.save(str(tmp_path / "m"))
+    for name in names:
+        assert not (tmp_path / "m" / name).exists(), name
+
+
 def test_cli_train_save_load_resume(tmp_path):
     cfg_path = str(tmp_path / "exp.json")
     save_config({"model": RBMConfig(n_visible=64, n_hidden=8, epochs=2, batch_size=10),
@@ -225,11 +280,17 @@ def test_cli_not_ported_sections_raise(tmp_path):
     cfg_path = str(tmp_path / "exp.json")
     base = {"model": RBMConfig(n_visible=16, n_hidden=4, epochs=1, batch_size=10),
             "data": {"kind": "mnist_like", "n_samples": 20, "n_features": 16, "seed": 0}}
-    for extra, item in (({"analysis": {"kmeans": 3, "ais": True}}, "item 10"),
-                        ({"finetune": {"mode": "autoencoder"}}, "item 9")):
+    for extra, item in (({"analysis": {"kmeans": 3, "ais": True}}, "item 10"),):
         save_config({**base, **extra}, cfg_path)
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
             main(["--config", cfg_path, "--device", "cpu"])
+    # the "finetune" block is ported: it runs after training and writes its record
+    metrics = str(tmp_path / "ft.jsonl")
+    save_config({**base, "model": DBNConfig(layer_sizes=[6, 4], epochs=1, batch_size=10),
+                 "finetune": {"mode": "autoencoder", "epochs": 2}}, cfg_path)
+    assert main(["--config", cfg_path, "--device", "cpu", "--metrics", metrics]) == 0
+    (ft,) = [r for r in map(json.loads, open(metrics)) if r["kind"] == "finetune"]
+    assert ft["mode"] == "autoencoder" and ft["epochs"] == 2 and ft["loss_last"] > 0
     save_config(base, cfg_path)
     with pytest.raises(NotImplementedError, match="dp x tp.*item 11"):
         main(["--config", cfg_path, "--device", "cpu", "--dp", "2", "--tp", "2"])

@@ -9,8 +9,10 @@ its analysis block, on the CPU (``--device cpu``) at a tiny size.
   (planted) and from a clinical CSV with ``cox``; ``impute``; ``--load``;
 - the records: the same kinds and keys as the JAX package's runner prints
   for the same config (the values differ: each side trains its own model).
-  ``ais`` and ``finetune`` still raise naming their ROADMAP.md items
-  (tests/test_torch_api.py).
+  ``ais`` still raises naming its ROADMAP.md item (tests/test_torch_api.py);
+- the ``finetune`` block in each of its five modes on a DBN and an MDBN,
+  after training and on a ``--load``-ed model, with the reference's record
+  keys, and ``label_fraction`` with the reference's checks.
 """
 
 import json
@@ -143,3 +145,68 @@ def test_analysis_errors(tmp_path):
            "analysis": {"kmeans": 2, "survival": {"clinical_csv": str(short)}}}
     with pytest.raises(ValueError, match="7 rows don't match the 40-patient cohort"):
         _run(tmp_path, exp)
+
+
+# -- the "finetune" block ---------------------------------------------------------------
+
+DBN = {"__type__": "DBNConfig", "layer_sizes": [8, 6], "batch_size": 10, "epochs": 2, "seed": 0}
+FINETUNE_KEYS = {  # the reference's records (mdbn_tpu/run.py:256-405)
+    "autoencoder": {"loss_first", "loss_last"},
+    "classifier": {"n_classes", "loss_first", "loss_last", "train_accuracy"},
+    "label_top": {"n_classes", "err_first", "err_last", "train_accuracy"},
+    "updown": {"wake_mse_first", "wake_mse_last"},
+    "updown_labeled": {"wake_mse_first", "wake_mse_last", "train_accuracy"},
+}
+
+
+@pytest.mark.parametrize("model", ["dbn", "mdbn"])
+@pytest.mark.parametrize("mode", list(FINETUNE_KEYS))
+def test_finetune_block_each_mode(tmp_path, mode, model):
+    """Each mode of the block after training, on planted labels; the record
+    has the reference's keys; a --load run resumes the saved fine-tuned
+    state (its record's first value continues from the trained model)."""
+    spec = {"mode": mode, "epochs": 2, "n_hidden": 5, "label_top_epochs": 2}
+    if model == "dbn":
+        exp = {"data": {"kind": "mnist_like", "n_samples": 40, "n_features": 16, "seed": 1},
+               "model": DBN, "finetune": spec}
+    else:
+        exp = {"data": {"kind": "tcga_like", "n_patients": 40, "dims": DIMS, "seed": 2},
+               "model": MDBN, "finetune": spec}
+    recs = _run(tmp_path, exp, extra=["--save", str(tmp_path / "m")])
+    (ft,) = _records(recs, "finetune")
+    assert ft["mode"] == mode and ft["epochs"] == 2
+    assert set(ft) - {"kind", "mode", "epochs", "ts"} == FINETUNE_KEYS[mode]
+    assert all(np.isfinite(v) for k, v in ft.items() if k not in ("kind", "mode", "ts"))
+    if "train_accuracy" in ft:
+        assert 0.0 <= ft["train_accuracy"] <= 1.0
+    (again,) = _records(_run(tmp_path, exp, extra=["--load", str(tmp_path / "m")]), "finetune")
+    assert set(again) == set(ft)
+
+
+def test_finetune_label_fraction(tmp_path):
+    """"label_fraction" keeps a seeded share of the labels (the reference's
+    rng draw): the label modes train semi-supervised and also report the
+    accuracy on the hidden-label rows; the reference's checks."""
+    exp = {"data": {"kind": "mnist_like", "n_samples": 40, "n_features": 16, "seed": 1},
+           "model": DBN,
+           "finetune": {"mode": "updown_labeled", "epochs": 1, "label_fraction": 0.3,
+                        "label_seed": 2, "n_hidden": 5, "label_top_epochs": 1}}
+    (ft,) = _records(_run(tmp_path, exp), "finetune")
+    assert 0.0 <= ft["train_accuracy"] <= 1.0 and 0.0 <= ft["accuracy_unlabeled"] <= 1.0
+    exp["finetune"]["label_fraction"] = 1.0  # no hidden rows: no accuracy_unlabeled
+    (ft,) = _records(_run(tmp_path, exp), "finetune")
+    assert "accuracy_unlabeled" not in ft
+    for spec, match in (({"mode": "classifier", "label_fraction": 0.5}, "generative label"),
+                        ({"mode": "label_top", "label_fraction": 1.5}, r"not in \(0, 1\]"),
+                        ({"mode": "label_top", "label_fraction": 1e-9}, "zero labeled"),
+                        ({"mode": "spectral"}, "finetune mode must be")):
+        with pytest.raises(ValueError, match=match):
+            _run(tmp_path, {**exp, "finetune": spec})
+    bars = {"data": {"kind": "bars_and_stripes", "side": 4}, "model": DBN,
+            "finetune": {"mode": "label_top"}}
+    with pytest.raises(ValueError, match="needs labels"):
+        _run(tmp_path, bars)
+    rbm = {**exp, "model": {"__type__": "RBMConfig", "n_visible": 16, "n_hidden": 4,
+                            "batch_size": 10, "epochs": 1}}
+    with pytest.raises(ValueError, match="DBN/MDBN configs"):
+        _run(tmp_path, rbm)

@@ -1482,3 +1482,89 @@ def test_k300_seeded_draws_alike_and_train_takes_the_kernel(cuda):
     rbm = RBM(cfg.replace(engine="pallas", epochs=2), device=cuda).train(data)
     assert rbm.metrics.kernel == K.select_kernel(cfg) == "cd_train_resident"
     assert R.cd_train_resident_launches == before + 1
+
+
+# -- the phase-2 trainers on the card against the CPU -----------------------------------
+#
+# No kernel of their own (the reference runs them as plain XLA): each trainer's
+# eager loop on the card against the same call on the CPU, fed the draws the
+# CPU run made (the trainers write what they draw into the empty dicts they are
+# given), TF32 off, at TOL over 2 epochs of 3 minibatches.
+
+FT_TRAINERS = ("finetune_stack", "autoencoder_stack", "label_top", "updown_stack",
+               "updown_labeled", "finetune_mdbn", "autoencoder_mdbn", "updown_mdbn",
+               "updown_mdbn_labeled")
+
+
+def _ft_call(name: str, device, draws):
+    """Trainer ``name`` on fixed weights and data made from a seed, on
+    ``device``; the tensors and floats it returns, flattened."""
+    from mdbn_tpu_torch.config import DBNConfig
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.train import autoencoder, finetune, labeled, updown
+
+    rng = np.random.default_rng(0)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+
+    def params(V, H):
+        return RBMParams(W=f32(rng.normal(0, 0.5, (V, H))), b=f32(rng.normal(0, 0.3, V)),
+                         c=f32(rng.normal(0, 0.3, H)))
+
+    def stack(sizes, visible):
+        cfg = DBNConfig(layer_sizes=list(sizes[1:]), visible=visible, batch_size=10)
+        return [(params(v, h), cfg.rbm_config(l, v))
+                for l, (v, h) in enumerate(zip(sizes, sizes[1:]))]
+
+    layers = stack((40, 24, 12), "bernoulli")
+    x = (rng.random((30, 40)) < 0.4).astype(np.float32)
+    y = rng.integers(0, 3, 30)
+    y_semi = np.where(rng.random(30) < 0.5, -1, y)
+    towers = {"ge": stack((40, 24, 12), "gaussian"), "meth": stack((20, 10), "gaussian")}
+    joint = (params(22, 16), RBMConfig(n_visible=22, n_hidden=16, batch_size=10))
+    mods = {"ge": rng.normal(size=(30, 40)).astype(np.float32),
+            "meth": rng.normal(size=(30, 20)).astype(np.float32)}
+    kw = dict(epochs=2, batch_size=10)
+    calls = {
+        "finetune_stack": lambda: finetune.finetune_stack(layers, x, y, 3, **kw, draws=draws),
+        "autoencoder_stack": lambda: autoencoder.finetune_autoencoder_stack(layers, x, **kw),
+        "label_top": lambda: labeled.fit_label_top(layers, x, y_semi, 3, n_hidden=9, k=2,
+                                                   momentum=0.5, **kw, draws=draws),
+        "updown_stack": lambda: updown.finetune_updown_stack(layers, x, lr=0.05, **kw,
+                                                             draws=draws),
+        "updown_labeled": lambda: updown.finetune_updown_labeled(
+            layers, params(15, 7), x, y_semi, 3, lr=0.05, **kw, draws=draws),
+        "finetune_mdbn": lambda: finetune.finetune_mdbn(towers, joint, mods, y, 3, **kw,
+                                                        draws=draws),
+        "autoencoder_mdbn": lambda: autoencoder.finetune_autoencoder_mdbn(towers, joint, mods,
+                                                                          **kw),
+        "updown_mdbn": lambda: updown.finetune_updown_mdbn(towers, joint, mods, lr=0.05, **kw,
+                                                           draws=draws),
+        "updown_mdbn_labeled": lambda: updown.finetune_updown_mdbn_labeled(
+            towers, joint, params(19, 8), mods, y_semi, 3, lr=0.05, **kw, draws=draws),
+    }
+
+    def flat(obj):
+        if isinstance(obj, RBMParams):
+            return list(obj.as_dict().values())
+        if isinstance(obj, dict):
+            return [t for k in obj for t in flat(obj[k])]
+        if isinstance(obj, (list, tuple)):
+            return [t for o in obj for t in flat(o)]
+        if torch.is_tensor(obj):
+            return [obj]
+        return [torch.tensor(obj, dtype=torch.float32)]  # a loss: on the host
+
+    return flat(calls[name]())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FT_TRAINERS)
+def test_phase2_trainer_on_card_matches_cpu(cuda, name):
+    assert not torch.backends.cuda.matmul.allow_tf32
+    draws = {"steps": [[{} for _ in range(3)] for _ in range(2)]}
+    want = _ft_call(name, torch.device("cpu"), draws)
+    got = _ft_call(name, cuda, draws)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dim() == 0 or g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), w, **TOL)

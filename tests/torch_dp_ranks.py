@@ -65,3 +65,82 @@ def run_rank(rank: int, world: int, port: int, out: str, cfg, data, uniforms,
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def finetune_runs(mesh, batch_size: int) -> dict:
+    """Every phase-2 trainer (``mdbn_tpu_torch/train/{finetune,autoencoder,
+    labeled,updown}.py``) on fixed weights and data made from a seed, each
+    with its own seeded generator, under ``mesh`` (None: one device). Each
+    rank of a mesh takes its rows of every minibatch and draws the whole
+    minibatch's values, so the results must equal the single-device run's."""
+    import numpy as np
+
+    from mdbn_tpu_torch.config import DBNConfig, RBMConfig
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.train import autoencoder, finetune, labeled, updown
+
+    rng = np.random.default_rng(0)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
+
+    def params(V, H):
+        return RBMParams(W=f32(rng.normal(0, 0.5, (V, H))), b=f32(rng.normal(0, 0.3, V)),
+                         c=f32(rng.normal(0, 0.3, H)))
+
+    def stack(sizes, visible):
+        cfg = DBNConfig(layer_sizes=list(sizes[1:]), visible=visible, batch_size=batch_size)
+        return [(params(v, h), cfg.rbm_config(l, v))
+                for l, (v, h) in enumerate(zip(sizes, sizes[1:]))]
+
+    n = 3 * batch_size
+    layers = stack((12, 8, 6), "bernoulli")
+    x = (rng.random((n, 12)) < 0.4).astype(np.float32)
+    y = rng.integers(0, 3, n)
+    y_semi = np.where(rng.random(n) < 0.5, -1, y)
+    towers = {"ge": stack((12, 8, 6), "gaussian"), "meth": stack((10, 5), "gaussian")}
+    joint = (params(11, 7), RBMConfig(n_visible=11, n_hidden=7, batch_size=batch_size))
+    mods = {"ge": rng.normal(size=(n, 12)).astype(np.float32),
+            "meth": rng.normal(size=(n, 10)).astype(np.float32)}
+    kw = dict(epochs=2, batch_size=batch_size, mesh=mesh)
+    runs = {
+        "classifier": finetune.finetune_stack(layers, x, y, 3, seed=1, **kw),
+        "autoencoder": autoencoder.finetune_autoencoder_stack(layers, x, **kw),
+        "label_top": labeled.fit_label_top(layers, x, y_semi, 3, n_hidden=9, k=2,
+                                           momentum=0.5, seed=2, **kw),
+        "updown": updown.finetune_updown_stack(layers, x, lr=0.05, seed=3, **kw),
+        "updown_labeled": updown.finetune_updown_labeled(layers, params(9, 7), x, y_semi, 3,
+                                                         lr=0.05, seed=4, **kw),
+        "classifier_mdbn": finetune.finetune_mdbn(towers, joint, mods, y, 3, seed=5, **kw),
+        "autoencoder_mdbn": autoencoder.finetune_autoencoder_mdbn(towers, joint, mods, **kw),
+        "updown_mdbn": updown.finetune_updown_mdbn(towers, joint, mods, lr=0.05, seed=6, **kw),
+        "updown_mdbn_labeled": updown.finetune_updown_mdbn_labeled(
+            towers, joint, params(10, 8), mods, y_semi, 3, lr=0.05, seed=7, **kw),
+    }
+    return {name: _flat(r) for name, r in runs.items()}
+
+
+def _flat(obj) -> list:
+    """The tensors and floats of a trainer's result, in a fixed order."""
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+
+    if isinstance(obj, RBMParams):
+        return list(obj.as_dict().values())
+    if isinstance(obj, dict):
+        return [x for k in obj for x in _flat(obj[k])]
+    if isinstance(obj, (list, tuple)):
+        return [x for o in obj for x in _flat(o)]
+    return [obj]
+
+
+def run_finetune_rank(rank: int, world: int, port: int, out: str, batch_sizes) -> None:
+    """``finetune_runs`` at each of ``batch_sizes`` on a mesh of ``world``
+    gloo ranks; writes ``<out>/finetune<r>.pt``."""
+    from mdbn_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh(world, backend="gloo")
+        torch.save({b: finetune_runs(mesh, b) for b in batch_sizes},
+                   os.path.join(out, f"finetune{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
