@@ -8,8 +8,8 @@ cd_train_wide.cu, cd_train_resident.cu (its plain variant, its estimator
 modes without and with a tempering ladder: three libraries),
 cd_train_wide_modes.cu, cd_grads.cu and cd_grads_wide.cu, each at float32
 and bfloat16 storage, in parallel) and
-runs twenty-seven phases, one line each (25, 26 and 27 run after 4, 23 and
-24 after 5):
+runs twenty-eight phases, one line each (25 to 28 run after 4, 23 and 24
+after 5):
 
 1. device: torch and CUDA versions, the card's name and power limit, build time,
    and each compiled function's registers, stack and spill bytes (ptxas -v);
@@ -175,6 +175,22 @@ runs twenty-seven phases, one line each (25, 26 and 27 run after 4, 23 and
     reconstruct and generate bit for bit; one epoch of each mode at 784 ->
     500 -> 500 (mnist_like, 2000 rows, batch 20) timed with CUDA events, and
     the card's busy share over one up-down epoch from a torch.profiler trace.
+28. ais: AIS on the card (no kernel of its own: eager PyTorch, float32, TF32
+    off). c1, c2 and c3 trained as committed (the resident kernel, by the
+    counters); c1's log-likelihood at the CLI's defaults (1,000 rows, 256
+    chains, 1,000 betas) and its SMC bracket (resample init, resample_ess
+    0.5), c2's log-likelihood, c3's DBN bound and, after labeled up-down,
+    its labeled bound, all finite; the anneal's tensors and recorded draws on
+    the card; the anneals (plain, SMC, Gaussian, labeled) at 10 betas under
+    torch.cuda.set_sync_debug_mode("error"); the card against the CPU's
+    replay of its recorded draws at c1's width (32 chains, 100 betas: the
+    chains whose states agree at 1e-4, log Z too where none parted, and the
+    95% t-intervals of five seeds on each device overlapping); 12x8 within
+    0.15 of exact enumeration; c1's default anneal timed plain and SMC, and
+    the card's busy share over one from a torch.profiler trace; the CLI's
+    ais block on c1 (then --load), c3 and c3 after labeled up-down (then
+    --load), each record with the reference's keys; one training with
+    runtime profile on writes a trace holding the kernel's launch.
 
 Then a JSON line describing the kernels, and last
 {"ok": true, "device": ...}. Exits non-zero, printing no result, when there
@@ -205,6 +221,8 @@ C3 = os.path.join(HERE, "configs", "c3_dbn_3layer.json")
 # recovered to FT_ACC_MIN by the label modes
 FT_MODES = ("classifier", "autoencoder", "label_top", "updown", "updown_labeled")
 FT_EPOCHS, FT_RTOL, FT_ATOL, FT_ACC_MIN = 10, 1e-4, 1e-4, 0.9
+AIS_CARD_RTOL = 1e-4  # the card's anneal against the CPU's replay of its draws
+AIS_EXACT_TOL = 0.15  # tests/test_ais.py: |AIS - exact| at 12x8, 256 chains, 2,000 betas
 C5_ARI_MIN = 0.99  # c5's kmeans record against its planted clusters
 C5_LOGRANK_P = 9.0e-20  # GRADED_RUNS.md: the same planted times on the same partition
 K300 = 300  # Gibbs steps past the 255 the Philox counter word once held
@@ -2505,6 +2523,35 @@ def run_analysis_cli(smi) -> int:
     return launches
 
 
+def busy_share(fn, unprofiled_ms: float | None = None) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall time on the card (CUDA
+    events), the kernels' device time and their share of the wall time. The
+    profiler slows the host, so ``unprofiled_ms``, the same call's time
+    without it, gives the kernels' share of that time too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    busy_us = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if us > 0 and ev.self_cpu_time_total == 0:  # kernels: device time, no CPU time
+            busy_us += us
+    wall_us = start.elapsed_time(end) * 1e3
+    out = {"wall_ms": wall_us / 1e3, "kernel_ms": busy_us / 1e3,
+           "busy_share": busy_us / wall_us if wall_us else None}
+    if unprofiled_ms:
+        out["unprofiled_ms"] = unprofiled_ms
+        out["busy_share_unprofiled"] = busy_us / 1e3 / unprofiled_ms
+    return out
+
+
 def _ft_mode(model, mode: str, x, y, n_classes: int, epochs: int, draws=None) -> list:
     """One phase-2 mode through the model's own method; its history. For
     updown_labeled a label top is fitted first where there is none (same
@@ -2586,7 +2633,6 @@ def run_finetune_phase(dev, smi) -> int:
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from mdbn_tpu_torch import DBN, MDBN
     from mdbn_tpu_torch.config import DBNConfig, MDBNConfig, load_config
@@ -2736,25 +2782,222 @@ def run_finetune_phase(dev, smi) -> int:
             lambda m=m, mode=mode: _ft_mode(m, mode, xm, ym, cm, 1), 3) * 1e3}
     m = copy.deepcopy(big)
     m.finetune_updown(xm, epochs=1)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        m.finetune_updown(xm, epochs=1)
-        end.record()
-        torch.cuda.synchronize()
-    busy_us = 0.0
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if us > 0 and ev.self_cpu_time_total == 0:  # kernels: device time, no CPU time
-            busy_us += us
-    wall_us = start.elapsed_time(end) * 1e3
-    timing["updown_profiled"] = {"wall_ms": wall_us / 1e3, "kernel_ms": busy_us / 1e3,
-                                 "busy_share": busy_us / wall_us if wall_us else None}
+    timing["updown_profiled"] = busy_share(lambda: m.finetune_updown(xm, epochs=1))
     phase("finetune", epochs=FT_EPOCHS, runs=out, cli=cli, card_vs_cpu_max_abs_err=errs,
           autoencoder_weights_past_tolerance=off, rtol=FT_RTOL, atol=FT_ATOL, save_load_identical_bits=True,
           timing_784_500_500=timing, seconds=round(time.perf_counter() - t0, 3),
           nvidia_smi=smi)
+    return launches
+
+
+def _t_interval(xs) -> tuple:
+    """The 95% t-interval of the mean of five values (t(0.975, 4) = 2.776)."""
+    import numpy as np
+
+    xs = np.asarray(xs, np.float64)
+    half = 2.776 * xs.std(ddof=1) / np.sqrt(len(xs))
+    return float(xs.mean() - half), float(xs.mean() + half)
+
+
+def run_ais_phase(dev, smi) -> int:
+    """The ais phase (28): AIS on the card, eager PyTorch (the reference has
+    no kernel here). (a) c1, c2 and c3 trained as committed (their layers on
+    the kernel select_kernel names, by the counters); (b) through the API at
+    their full widths: c1's log-likelihood at the CLI's defaults (1,000 rows,
+    256 chains, 1,000 betas, 1 sweep, uniform) and its bracket (resample
+    init, resample_ess 0.5), c2's log-likelihood, c3's DBN bound, and after
+    labeled up-down (FT_EPOCHS of the label top, then of up-down) its labeled
+    bound: every value finite, every anneal tensor and recorded draw on the
+    card; (c) the anneals (plain, SMC, Gaussian, labeled) at 10 betas under
+    torch.cuda.set_sync_debug_mode("error"): no synchronising call; (d) the
+    card against the CPU at c1's width, 32 chains, 100 betas: the card's
+    draws recorded and replayed on the CPU (TF32 off), the chains whose
+    final states agree held at AIS_CARD_RTOL, log Z too where none parted,
+    and over five seeds each on its own generator the card's and the CPU's
+    95% t-intervals overlapping; (e) 12x8 against exact enumeration; (f) c1's
+    default anneal, plain and SMC, timed with CUDA events, and the card's
+    busy share over one anneal from a torch.profiler trace; (g) the CLI's ais
+    block: c1 (then under --load), c3, c3 after labeled up-down (then under
+    --load); (h) one training with runtime profile on writes its trace.
+    Returns the resident kernel's launches (the pretraining and the CLI
+    runs)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mdbn_tpu_torch import DBN, RBM
+    from mdbn_tpu_torch.analysis import ais as A
+    from mdbn_tpu_torch.config import TrainRuntimeConfig, load_config
+    from mdbn_tpu_torch.convert import params_from_numpy
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
+    from mdbn_tpu_torch.run import build_data
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the anneal's matmuls must be full f32")
+    t0 = time.perf_counter()
+    launches, runs = 0, {}
+    # (a) c1, c2, c3 as committed
+    models = {}
+    for name, path, cls in (("c1", C1, RBM), ("c2", C2, RBM), ("c3", C3, DBN)):
+        exp = load_config(path)
+        x, y, _ = build_data(exp["data"])
+        x = x[exp["modality"]] if "modality" in exp else x
+        zero_train_counts()
+        t = time.perf_counter()
+        model = cls(exp["model"], device=dev).train(x)
+        rbms = model.layers if cls is DBN else [model]
+        kernels = [K.select_kernel(r.cfg, R.device_limits(r.cfg, dev)) for r in rbms]
+        counts = check_counts(f"{name}_pretrain", {k: kernels.count(k) for k in set(kernels)})
+        launches += counts.get("cd_train_resident", 0)
+        models[name] = (model, x, None if y is None else np.asarray(y))
+        runs[name] = {"pretrain_s": round(time.perf_counter() - t, 3), "launches": counts}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, round(time.perf_counter() - t, 3)
+
+    # (b) the API at full width
+    c1, x1, _ = models["c1"]
+    c2, x2, _ = models["c2"]
+    c3, x3, y3 = models["c3"]
+    x1k = x1[:1000]
+    api = {}
+    api["c1_log_likelihood"] = timed(lambda: A.log_likelihood(c1.params, c1.cfg, x1k))
+    api["c1_bracket_smc"] = timed(lambda: A.log_z_bracket(c1.params, c1.cfg, x1k,
+                                                          init="resample", resample_ess=0.5))
+    api["c2_log_likelihood"] = timed(lambda: A.log_likelihood(c2.params, c2.cfg, x2))
+    stack = [(r.params, r.cfg) for r in c3.layers]
+    api["c3_dbn_bound"] = timed(lambda: A.dbn_log_likelihood_bound(stack, x3))
+    lab = copy.deepcopy(c3)
+    n_classes = int(y3.max()) + 1
+    lab.fit_label_top(x3, y3, n_classes, epochs=FT_EPOCHS)
+    lab.finetune_updown_labeled(x3, y3, epochs=FT_EPOCHS)
+    top, C = lab._label_top
+    lab_stack = [(r.params, r.cfg) for r in lab.layers]
+    api["c3_labeled_bound"] = timed(lambda: A.labeled_dbn_log_likelihood_bound(
+        lab_stack, top, C, x3, gen=lab._gen))
+    for name, (rec, sec) in api.items():
+        if not all(np.isfinite(v) for v in rec.values()):
+            raise AssertionError(f"ais {name}: not finite: {rec}")
+        api[name] = {"seconds": sec, **rec}
+    # placement: every anneal tensor and every recorded draw on the card
+    a1 = A.base_rate_biases(torch.as_tensor(x1k, device=dev))
+    draws = {}
+    out = A._ais_forward_bernoulli(c1.params, a1, 32, 20, 1, "uniform", 0.5,
+                                   generator=torch.Generator(device=dev).manual_seed(0),
+                                   draws=draws)
+    placed = list(out) + [draws["init"]] + [u for st in draws["steps"] for u in st.values()]
+    off = [tuple(t.shape) for t in placed if t.device.type != "cuda"]
+    if off or a1.device.type != "cuda":
+        raise AssertionError(f"ais: anneal tensors off the card: {off}")
+    # (c) no synchronising call inside the anneal
+    b2 = torch.as_tensor(x2, device=dev).mean(0)
+    a_lab = torch.cat([A.base_rate_biases(torch.rand(50, top.W.shape[0] - C, device=dev)),
+                       torch.zeros(C, device=dev)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for ess in (0.0, 0.5):
+            A.ais_log_z(c1.params, a1, 0, 256, 10, resample_ess=ess)
+            A.ais_log_z_gaussian(c2.params, b2, 0, 256, 10, resample_ess=ess)
+        A.ais_log_z_labeled(top, a_lab, top.W.shape[0] - C, 0, 256, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # (d) the card against the CPU at c1's width
+    draws = {}
+    lz_g, lw_g, v_g, _ = A._ais_forward_bernoulli(
+        c1.params, a1, 32, 100, 1, "uniform", generator=torch.Generator(device=dev).manual_seed(5),
+        draws=draws)
+    cpu_params = c1.params.map(lambda t: t.cpu())
+    lz_c, lw_c, v_c, _ = A._ais_forward_bernoulli(cpu_params, a1.cpu(), 32, 100, 1, "uniform",
+                                                  generator=None, draws=draws)
+    agree = (v_g.cpu() == v_c).all(dim=1)
+    parted = int((~agree).sum())
+    if parted > 3:
+        raise AssertionError(f"ais card vs CPU: {parted} of 32 chains parted")
+    torch.testing.assert_close(lw_g.cpu()[agree], lw_c[agree], rtol=AIS_CARD_RTOL,
+                               atol=AIS_CARD_RTOL)
+    if parted == 0 and abs(float(lz_g) - float(lz_c)) > AIS_CARD_RTOL * abs(float(lz_c)):
+        raise AssertionError(f"ais card vs CPU: log Z {float(lz_g)} vs {float(lz_c)}")
+    seeds = {"cuda": [], "cpu": []}
+    for seed in range(5):
+        seeds["cuda"].append(float(A.ais_log_z(c1.params, a1, seed, 32, 100)[0]))
+        seeds["cpu"].append(float(A.ais_log_z(cpu_params, a1.cpu(), seed, 32, 100)[0]))
+    ci = {k: _t_interval(v) for k, v in seeds.items()}
+    if ci["cuda"][0] > ci["cpu"][1] or ci["cpu"][0] > ci["cuda"][1]:
+        raise AssertionError(f"ais card vs CPU: the 95% t-intervals do not overlap: {ci}")
+    card_vs_cpu = {"chains": 32, "betas": 100, "chains_parted": parted,
+                   "log_z_card": float(lz_g), "log_z_cpu": float(lz_c),
+                   "logw_max_abs_err_agreeing": float((lw_g.cpu() - lw_c)[agree].abs().max()),
+                   "rtol": AIS_CARD_RTOL, "log_z_5_seeds": seeds, "t_intervals_95": ci}
+    # (e) against exact enumeration at 12x8
+    rng = np.random.default_rng(0)
+    small = params_from_numpy({"W": (rng.standard_normal((12, 8)) * 0.5).astype(np.float32),
+                               "b": (rng.standard_normal(12) * 0.2).astype(np.float32),
+                               "c": (rng.standard_normal(8) * 0.2).astype(np.float32)},
+                              device=dev)
+    exact = A.exact_log_z(small)
+    est = float(A.ais_log_z(small, torch.zeros(12, device=dev), 1, 256, 2000)[0])
+    if abs(est - exact) >= AIS_EXACT_TOL:
+        raise AssertionError(f"ais 12x8: {est} vs exact {exact}")
+    # (f) c1's default anneal timed, plain and SMC; the busy share
+    timing = {}
+    for name, ess in (("plain", 0.0), ("smc_0.5", 0.5)):
+        fn = lambda ess=ess: A.ais_log_z(c1.params, a1, 0, 256, 1000, resample_ess=ess)  # noqa: E731
+        timing[name] = {"ms": time_runs(fn, 2) * 1e3, "n_resamples": int(
+            A._ais_forward_bernoulli(c1.params, a1, 256, 1000, 1, "uniform", ess,
+                                     generator=torch.Generator(device=dev).manual_seed(0))[3])}
+    timing["plain_profiled"] = busy_share(lambda: A.ais_log_z(c1.params, a1, 0, 256, 1000),
+                                          timing["plain"]["ms"])
+    # (g) the CLI's ais block
+    cli = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ais_") as tmp:
+        for name, path, extra, argv in (
+                ("c1", C1, {}, ["--save", os.path.join(tmp, "c1")]),
+                ("c1_load", C1, {}, ["--load", os.path.join(tmp, "c1")]),
+                ("c3", C3, {}, []),
+                ("c3_updown_labeled", C3, {"finetune": {"mode": "updown_labeled"}},
+                 ["--save", os.path.join(tmp, "c3l")]),
+                ("c3_labeled_load", C3, {}, ["--load", os.path.join(tmp, "c3l")])):
+            cfg_path = os.path.join(tmp, f"{name}.json")
+            with open(cfg_path, "w") as f:
+                json.dump(dict(json.load(open(path)), analysis={"ais": True}, **extra), f)
+            zero_train_counts()
+            t = time.perf_counter()
+            recs = _cli(["--config", cfg_path] + argv)
+            counts = train_counts()
+            launches += counts["cd_train_resident"]
+            (rec,) = [r for r in recs if r["kind"] == "ais"]
+            keys = ({"log_z", "mean_log_likelihood", "logw_std"} if name.startswith("c1")
+                    else {"log_z_top", "mean_log_likelihood_bound", "logw_std", "mc_std"})
+            if set(rec) != {"kind", "n_rows"} | keys or not all(
+                    np.isfinite(rec[k]) for k in keys):
+                raise AssertionError(f"ais CLI {name}: record {rec}")
+            cli[name] = {"seconds": round(time.perf_counter() - t, 3), "launches": counts,
+                         "record": rec}
+        # (h) a training run traced by torch.profiler
+        prof_dir = os.path.join(tmp, "profile")
+        zero_train_counts()
+        RBM(c1.cfg.replace(epochs=1), device=dev).train(
+            x1, runtime=TrainRuntimeConfig(profile=True, profile_dir=prof_dir))
+        launches += train_counts()["cd_train_resident"]
+        traces = [f for f in os.listdir(prof_dir) if f.endswith(".pt.trace.json")]
+        with open(os.path.join(prof_dir, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        if len(traces) != 1 or not any("cd_train" in k for k in kernels):
+            raise AssertionError(f"profile: traces {traces}, kernels {sorted(set(kernels))}")
+        profile_trace = {"files": len(traces), "events": len(events),
+                         "kernel_events": len(kernels)}
+    phase("ais", runs=runs, api=api, sync_debug_mode="error: no synchronising call at 10 betas",
+          card_vs_cpu=card_vs_cpu, exact_12x8={"ais": est, "exact": exact, "tol": AIS_EXACT_TOL},
+          timing_c1_default_anneal=timing, cli=cli, profile_trace=profile_trace,
+          seconds=round(time.perf_counter() - t0, 3), nvidia_smi=smi)
     return launches
 
 
@@ -2957,8 +3200,10 @@ def run() -> int:
     run_k300(dev, smi)
     # 27. the phase-2 trainers (their pretraining on the resident kernel)
     ft_launches = run_finetune_phase(dev, smi)
+    # 28. AIS after training (its pretraining on the resident kernel)
+    ais_launches = run_ais_phase(dev, smi)
     resident_main = (c1_counts["cd_train_resident"] + c4_counts["cd_train_resident"]
-                     + cli_launches + ft_launches)
+                     + cli_launches + ft_launches + ais_launches)
 
     # 5. timing at c1's shape: one epoch (100 updates) per call
     st = init_train_state(c1, device=dev)

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import tempfile
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -281,7 +283,10 @@ class TrainRuntimeConfig:
     data_parallel: bool = False
     mesh_axis: str = "dp"
     profile: bool = False
-    profile_dir: str = "/tmp/mdbn_tpu_profile"
+    # under the process's temporary directory (TMPDIR), as
+    # ``<tmp>/mdbn_tpu_profile``
+    profile_dir: str = field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "mdbn_tpu_profile"))
     debug_nans: bool = False
     checkpoint_dir: Optional[str] = None
     checkpoint_every_epochs: int = 0  # 0 = only at layer boundaries

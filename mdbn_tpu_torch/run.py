@@ -12,14 +12,17 @@ the "analysis" block runs after that and under ``--load``: k-means
 of the cohort's codes at a fixed k, by silhouette (``"auto"``) or by
 consensus PAC (``"consensus"``), the ARI against planted labels, a log-rank
 test and Cox regression across the clusters on planted or clinical survival,
-and leave-one-modality-out imputation (``"impute"``). Each record is printed
-as a JSON line and written to the ``--metrics`` file. Everything runs on the
-CUDA card unless ``--device cpu`` asks for the CPU. ``--dp N`` trains
+leave-one-modality-out imputation (``"impute"``) and the AIS likelihood
+(``"ais"``: an RBM's log-likelihood or its log Z bracket, a DBN's variational
+bound, the labeled bound after labeled up-down). Each record is printed as a
+JSON line and written to the ``--metrics`` file. Everything runs on the CUDA
+card unless ``--device cpu`` asks for the CPU. ``--dp N`` trains
 data-parallel over N ranks, one process each, under ``torchrun
 --nproc-per-node N`` (the "finetune" block too: each rank its rows of every
-minibatch); rank 0 writes the files and runs the analysis. The analysis
-block's ``ais`` and ``--tp`` raise an error that names the ROADMAP.md item
-porting them.
+minibatch); rank 0 writes the files and runs the analysis. ``--profile``
+writes a ``torch.profiler`` trace of each training run, ``--debug-nans``
+stops at the first non-finite parameter or error. Only ``--tp`` raises, naming
+the ROADMAP.md item that records it as not ported.
 """
 
 from __future__ import annotations
@@ -102,13 +105,6 @@ def build_data(spec: dict):
     raise ValueError(f"unknown data kind {kind!r}")
 
 
-def _check_sections(exp: dict) -> None:
-    """Raise for the config blocks that are not ported, before anything
-    trains."""
-    if (exp.get("analysis") or {}).get("ais"):
-        raise not_ported("the analysis 'ais' block (analysis/ais.py)", "10")
-
-
 def _emit(rec: dict, mw) -> None:
     """A record to the metrics file (rank 0's) and to stdout as a JSON line."""
     if mw is not None:
@@ -116,6 +112,7 @@ def _emit(rec: dict, mw) -> None:
     print(json.dumps(rec), flush=True)
 
 
+AIS_UP_PASSES = 32  # the DBN bounds' stochastic up-passes a row (the reference's default)
 FINETUNE_MODES = ("autoencoder", "classifier", "label_top", "updown", "updown_labeled")
 
 
@@ -224,11 +221,11 @@ def run_finetune(exp: dict, model, data, labels, mesh, mw) -> bool:
 
 
 class Analysis:
-    """The config's "analysis" block on a trained (or loaded) model: the
-    cohort's codes, k-means and its scores, survival across the clusters,
-    and imputation. Every computation runs on the model's device except the
-    survival statistics and the consensus cut, which run on the host as in
-    the JAX runner."""
+    """The config's "analysis" block on a trained (or loaded) model: the AIS
+    likelihood, imputation, the cohort's codes, k-means and its scores, and
+    survival across the clusters. Every computation runs on the model's
+    device except the survival statistics and the consensus cut, which run
+    on the host as in the JAX runner."""
 
     CHUNK_ROWS = 65536  # cohort rows transformed at once
 
@@ -253,20 +250,82 @@ class Analysis:
         return self._codes
 
     def run(self, model, mw) -> None:
-        """k-means (fixed k, "auto" or "consensus") with survival, and
-        imputation, as the block asks. Used after training and under
-        ``--load``."""
+        """The AIS likelihood, imputation, and k-means (fixed k, "auto" or
+        "consensus") with survival, as the block asks. Used after training
+        and under ``--load``."""
         a = self.analysis
         if not a:
             return
+        if a.get("ais"):
+            self.ais(model, mw)
         if a.get("impute"):
             self.impute(model, mw, a["impute"])
         if "kmeans" not in a:
-            if not a.get("impute"):
+            if not (a.get("ais") or a.get("impute")):
                 log.warning("config has an 'analysis' block without a 'kmeans', 'ais' or "
                             "'impute' key — nothing to run; keys seen: %s", sorted(a))
             return
         self.kmeans(model, mw)
+
+    def ais(self, model, mw) -> None:
+        """The AIS log-likelihood of the trained model on the first
+        "ais_samples" rows: an RBM's (``analysis/ais.py::log_likelihood``, or
+        under "ais_bracket" the bidirectional bracket on log Z), a DBN's
+        variational bound (its generative weights after up-down; the labeled
+        bound after labeled up-down, when every layer is directed), each on
+        the model's device. An MDBN has no single likelihood over the
+        multimodal join, and an autoencoder-fine-tuned model no longer
+        defines an energy model: both are skipped with a warning."""
+        from .analysis import ais as ais_mod
+
+        a = self.analysis
+        if isinstance(model, MDBN):
+            log.warning("'ais': true is only defined for RBM/DBN configs "
+                        "(no joint likelihood over the multimodal join)")
+            return
+        if getattr(model, "_decoder", None) is not None:
+            log.warning("'ais': true skipped — this model was autoencoder-fine-tuned; its "
+                        "weights no longer define a consistent RBM energy model to evaluate")
+            return
+        sample = self.data[:int(a.get("ais_samples", 1000))]
+        # anneal knobs (AIS.md: raise ais_betas first; "sm" concentrates
+        # resolution near beta=1)
+        kw = {"n_chains": int(a.get("ais_chains", 256)),
+              "n_betas": int(a.get("ais_betas", 1000)),
+              "n_sweeps": int(a.get("ais_sweeps", 1)),
+              "schedule": str(a.get("ais_schedule", "uniform"))}
+        # the ESS fraction in (0, 1) that triggers SMC resampling (0: off)
+        res_ess = float(a.get("ais_resample_ess", 0.0))
+        what = "AIS evaluation"
+        if isinstance(model, RBM):
+            if a.get("ais_bracket"):
+                out = ais_mod.log_z_bracket(
+                    model.params, model.cfg, sample, **kw,
+                    init=str(a.get("ais_init", "resample")),
+                    init_gibbs=int(a.get("ais_init_gibbs", 500)), resample_ess=res_ess)
+            else:
+                out = ais_mod.log_likelihood(model.params, model.cfg, sample, **kw,
+                                             resample_ess=res_ess)
+        else:
+            if a.get("ais_bracket"):
+                log.warning("'ais_bracket' is only defined for single-RBM configs; "
+                            "running the one-sided DBN bound")
+            gen = model._gen
+            layers = [(r.params, r.cfg) for r in model.layers]
+            what = f"AIS evaluation ({AIS_UP_PASSES} up-passes a row)"
+            if gen is not None and len(gen) == len(model.layers):
+                # labeled up-down made every stack layer directed; the
+                # undirected top is the label-top RBM, whose softmax label
+                # block the bound marginalises
+                top, n_classes = model._label_top
+                out = ais_mod.labeled_dbn_log_likelihood_bound(
+                    layers, top, n_classes, sample, **kw, n_samples=AIS_UP_PASSES, gen=gen)
+            else:
+                # after up-down the top-down terms use the untied generative weights
+                out = ais_mod.dbn_log_likelihood_bound(layers, sample, **kw,
+                                                       n_samples=AIS_UP_PASSES, gen=gen)
+        log.info("%s: %s", what, {k: round(v, 3) for k, v in out.items()})
+        _emit({"kind": "ais", "n_rows": int(len(sample)), **out}, mw)
 
     def impute(self, model, mw, spec) -> None:
         """Leave-one-modality-out imputation (MDBN only): {"holdout": "meth"}
@@ -405,6 +464,11 @@ def main(argv=None):
                     help="xla: eager PyTorch; pallas: the CUDA kernel")
     ap.add_argument("--metrics", default=None, help="JSONL metrics output path")
     ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--profile", action="store_true",
+                    help="write a torch.profiler trace of each training run to "
+                         "mdbn_tpu_profile under the temporary directory ($TMPDIR)")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="raise at the first non-finite parameter, velocity or error")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the model trains (default: the CUDA card)")
     ap.add_argument("--dp", type=int, default=0,
@@ -426,7 +490,6 @@ def main(argv=None):
     rank0 = mesh is None or mesh.rank == 0
 
     exp = load_config(args.config)
-    _check_sections(exp)
     model_cfg = exp["model"]
     data, labels, patient_ids = build_data(exp.get("data", {"kind": "mnist_like"}))
     if isinstance(data, dict) and "modality" in exp:
@@ -479,7 +542,8 @@ def main(argv=None):
             log.info("model saved to %s", args.save)
         return 0
 
-    runtime = TrainRuntimeConfig(checkpoint_dir=args.checkpoint_dir,
+    runtime = TrainRuntimeConfig(profile=args.profile, debug_nans=args.debug_nans,
+                                 checkpoint_dir=args.checkpoint_dir,
                                  # flat RBM runs checkpoint every epoch;
                                  # DBN/MDBN at layer boundaries
                                  checkpoint_every_epochs=1 if args.checkpoint_dir else 0)

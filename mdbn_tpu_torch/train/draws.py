@@ -57,6 +57,15 @@ class StepDraws:
         return self._take(name, lambda: torch.randn((self.batch, n), generator=self.gen,
                                                     device=self.device))
 
+    def gumbel(self, name: str, n: int) -> torch.Tensor:
+        """Standard Gumbel noise [batch, n], -log(-log u) of uniforms u in
+        [tiny, 1) (a resample's draw: it is injected as the noise itself)."""
+        def draw():
+            u = torch.rand((self.batch, n), generator=self.gen, device=self.device)
+            return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+        return self._take(name, draw)
+
     def bern(self, name: str, p: torch.Tensor) -> torch.Tensor:
         """A Bernoulli sample of the probabilities ``p`` [rows, n]."""
         return (self.uniform(name, p.shape[1]) < p).float()

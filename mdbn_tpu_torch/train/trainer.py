@@ -35,10 +35,19 @@ over strips of W, an all-gather of the factors, an update that forms the
 gradient from them). A mesh of one rank takes the single-device path.
 ``EpochMetrics.kernel`` names the kernel the route took (under an eager
 engine, the kernel whose plain version ran).
+
+``TrainRuntimeConfig.profile`` traces the run with ``torch.profiler`` (CPU
+and CUDA) into ``profile_dir``; ``debug_nans`` raises ``FloatingPointError``
+at the first epoch whose error, parameters or velocities are not finite,
+checked by a host read once an epoch (once after the launch on the fused
+path, as the reference checks only the outputs of its jitted calls). Neither
+sets any global state.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -82,13 +91,43 @@ def resolve_dp_engine(cfg: RBMConfig, device: torch.device) -> str:
     return "eager_dp"
 
 
-def _check_runtime(runtime: TrainRuntimeConfig) -> None:
-    # data_parallel has no effect, as in the JAX package: the mesh decides
-    not_ported = [name for name, on in (("profile", runtime.profile),
-                                        ("debug_nans", runtime.debug_nans)) if on]
-    if not_ported:
-        raise ValueError(f"TrainRuntimeConfig {not_ported} are not ported yet "
-                         "(ROADMAP.md Queue 1, item 4)")
+def _check_finite(state: TrainState, errs: torch.Tensor, first_epoch: int) -> None:
+    """``runtime.debug_nans``: raise FloatingPointError naming the epoch and
+    the tensor when an epoch's error (``errs``, one an epoch from
+    ``first_epoch``), a parameter or a velocity is not finite. A host read,
+    made only under the flag: once an epoch on the per-epoch path, once after
+    the launch on the fused one (whose kernel runs every epoch at once)."""
+    for i, e in enumerate(errs.tolist()):
+        if not math.isfinite(e):
+            raise FloatingPointError(f"debug_nans: the reconstruction error of epoch "
+                                     f"{first_epoch + i} is {e}")
+    for what, tensors in (("params", state.params), ("velocity", state.velocity)):
+        for name, t in tensors.as_dict().items():
+            if not bool(torch.isfinite(t).all()):
+                raise FloatingPointError(f"debug_nans: {what}.{name} is not finite after "
+                                         f"epoch {state.epoch - 1}")
+
+
+@contextlib.contextmanager
+def _profiled(runtime: TrainRuntimeConfig):
+    """``runtime.profile``: a torch.profiler trace of the CPU and, where
+    there is one, the CUDA card over the run, written to
+    ``runtime.profile_dir`` when the run ends (or fails), one file a run."""
+    if not runtime.profile:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(runtime.profile_dir))
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
 
 
 class EpochMetrics:
@@ -134,7 +173,6 @@ def train_rbm(
     the same arguments, and rank 0 alone writes checkpoints and metrics.
     """
     runtime = runtime or TrainRuntimeConfig()
-    _check_runtime(runtime)
     if state is None:
         state = init_train_state(cfg, device=device)
     dev = state.device
@@ -179,33 +217,38 @@ def train_rbm(
 
     metrics = EpochMetrics(engine, kernel)
     per_epoch = epoch_callback is not None or runtime.checkpoint_every_epochs > 0
-    if per_epoch:
-        ck_every = runtime.checkpoint_every_epochs
-        for ep in range(cfg.epochs):
+    with _profiled(runtime):
+        if per_epoch:
+            ck_every = runtime.checkpoint_every_epochs
+            for ep in range(cfg.epochs):
+                sync()
+                t0 = time.perf_counter()
+                state, errs = run_epochs(state, ep, ep + 1)
+                err = float(errs[0])
+                dt = time.perf_counter() - t0
+                if runtime.debug_nans:
+                    _check_finite(state, errs, ep)
+                metrics.errors.append(err)
+                metrics.wall_seconds.append(dt)
+                metrics.updates_per_sec.append(nb / dt if dt > 0 else float("inf"))
+                if epoch_callback is not None:
+                    epoch_callback(ep, err, state)
+                if (writes and runtime.checkpoint_dir and ck_every > 0
+                        and (ep + 1) % ck_every == 0):
+                    from ..checkpoint import save_state
+
+                    save_state(state, f"{runtime.checkpoint_dir}/epoch{ep + 1:05d}.pt")
+        else:
             sync()
             t0 = time.perf_counter()
-            state, errs = run_epochs(state, ep, ep + 1)
-            err = float(errs[0])
+            state, errs = run_epochs(state, 0, cfg.epochs)
+            metrics.errors = [float(e) for e in errs.tolist()]
             dt = time.perf_counter() - t0
-            metrics.errors.append(err)
-            metrics.wall_seconds.append(dt)
-            metrics.updates_per_sec.append(nb / dt if dt > 0 else float("inf"))
-            if epoch_callback is not None:
-                epoch_callback(ep, err, state)
-            if (writes and runtime.checkpoint_dir and ck_every > 0
-                    and (ep + 1) % ck_every == 0):
-                from ..checkpoint import save_state
-
-                save_state(state, f"{runtime.checkpoint_dir}/epoch{ep + 1:05d}.pt")
-    else:
-        sync()
-        t0 = time.perf_counter()
-        state, errs = run_epochs(state, 0, cfg.epochs)
-        metrics.errors = [float(e) for e in errs.tolist()]
-        dt = time.perf_counter() - t0
-        per = dt / cfg.epochs
-        metrics.wall_seconds = [per] * cfg.epochs
-        metrics.updates_per_sec = [nb / per if per > 0 else float("inf")] * cfg.epochs
+            if runtime.debug_nans:
+                _check_finite(state, errs, 0)
+            per = dt / cfg.epochs
+            metrics.wall_seconds = [per] * cfg.epochs
+            metrics.updates_per_sec = [nb / per if per > 0 else float("inf")] * cfg.epochs
     # runtime.metrics_path: stream per-epoch records for programmatic users
     if runtime.metrics_path and writes:
         from ..utils.metrics import MetricsWriter

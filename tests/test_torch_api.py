@@ -280,10 +280,13 @@ def test_cli_not_ported_sections_raise(tmp_path):
     cfg_path = str(tmp_path / "exp.json")
     base = {"model": RBMConfig(n_visible=16, n_hidden=4, epochs=1, batch_size=10),
             "data": {"kind": "mnist_like", "n_samples": 20, "n_features": 16, "seed": 0}}
-    for extra, item in (({"analysis": {"kmeans": 3, "ais": True}}, "item 10"),):
+    # the analysis block's "ais" is ported: it runs after training and writes its record
+    for extra in ({"analysis": {"kmeans": 3, "ais": True, "ais_chains": 8, "ais_betas": 10}},):
+        metrics = str(tmp_path / "ais.jsonl")
         save_config({**base, **extra}, cfg_path)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
-            main(["--config", cfg_path, "--device", "cpu"])
+        assert main(["--config", cfg_path, "--device", "cpu", "--metrics", metrics]) == 0
+        (rec,) = [r for r in map(json.loads, open(metrics)) if r["kind"] == "ais"]
+        assert rec["n_rows"] == 20 and np.isfinite(rec["mean_log_likelihood"])
     # the "finetune" block is ported: it runs after training and writes its record
     metrics = str(tmp_path / "ft.jsonl")
     save_config({**base, "model": DBNConfig(layer_sizes=[6, 4], epochs=1, batch_size=10),

@@ -9,7 +9,7 @@ its analysis block, on the CPU (``--device cpu``) at a tiny size.
   (planted) and from a clinical CSV with ``cox``; ``impute``; ``--load``;
 - the records: the same kinds and keys as the JAX package's runner prints
   for the same config (the values differ: each side trains its own model).
-  ``ais`` still raises naming its ROADMAP.md item (tests/test_torch_api.py);
+  ``ais`` has its own cases in tests/test_torch_ais.py;
 - the ``finetune`` block in each of its five modes on a DBN and an MDBN,
   after training and on a ``--load``-ed model, with the reference's record
   keys, and ``label_fraction`` with the reference's checks.

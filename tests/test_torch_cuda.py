@@ -1568,3 +1568,57 @@ def test_phase2_trainer_on_card_matches_cpu(cuda, name):
     for g, w in zip(got, want):
         assert g.dim() == 0 or g.device.type == "cuda"
         torch.testing.assert_close(g.cpu(), w, **TOL)
+
+
+AIS_PATHS = ("bernoulli", "bernoulli_smc", "gaussian_z_smc", "labeled")
+
+
+def _ais_inputs(path, device):
+    """A small model's parameters and base biases on ``device``."""
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+
+    rng = np.random.default_rng(3)
+    V = 12 if path != "labeled" else 8 + 3
+    p = {"W": (rng.standard_normal((V, 8)) * 0.8).astype(np.float32),
+         "b": (rng.standard_normal(V) * 0.2).astype(np.float32),
+         "c": (rng.standard_normal(8) * 0.2).astype(np.float32)}
+    if path.startswith("gaussian"):
+        p["z"] = (rng.standard_normal(V) * 0.3).astype(np.float32)
+    return RBMParams(**{k: torch.tensor(v, device=device) for k, v in p.items()}), \
+        torch.zeros(V, device=device)
+
+
+def _ais_call(path, params, base, draws):
+    """One AIS anneal of a small model: (log_z, logw)."""
+    from mdbn_tpu_torch.analysis import ais
+
+    ess = 0.9 if path.endswith("smc") else 0.0
+    kw = dict(seed=0, n_chains=32, n_betas=40, draws=draws)
+    if path == "labeled":
+        return ais.ais_log_z_labeled(params, base, 8, **kw)
+    if path.startswith("gaussian"):
+        return ais.ais_log_z_gaussian(params, base, resample_ess=ess, **kw)
+    return ais.ais_log_z(params, base, resample_ess=ess, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", AIS_PATHS)
+def test_ais_on_card_matches_cpu_without_sync(cuda, path):
+    """An anneal on the card issues no synchronising call (sync debug mode
+    "error"), keeps every tensor on the card, and equals the CPU's replay of
+    the draws it recorded."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    draws = {}
+    params, base = _ais_inputs(path, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = _ais_call(path, params, base, draws)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    recorded = [t for k, t in draws.items() if k != "steps"]
+    recorded += [t for st in draws["steps"] for t in st.values()]
+    assert all(t.device.type == "cuda" for t in list(got) + recorded)
+    want = _ais_call(path, *_ais_inputs(path, torch.device("cpu")), draws)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, **TOL)
