@@ -5,9 +5,9 @@
 
 Builds the CUDA kernels from mdbn_tpu_torch/csrc (nvcc, sm_90a: cd_train.cu,
 cd_train_wide.cu, cd_train_resident.cu (its plain variant, its estimator
-modes without and with a tempering ladder: three libraries),
-cd_train_wide_modes.cu, cd_grads.cu and cd_grads_wide.cu, each at float32
-and bfloat16 storage, in parallel) and
+modes without and with a tempering ladder, and the data-parallel step of
+each: six libraries), cd_train_wide_modes.cu, cd_grads.cu and
+cd_grads_wide.cu, each at float32 and bfloat16 storage, in parallel) and
 runs twenty-eight phases, one line each (25 to 28 run after 4, 23 and 24
 after 5):
 
@@ -64,48 +64,61 @@ after 5):
     each trace stamp), and the bound (what of W and its velocity the L2
     cannot hold moves once per update; the velocity is read only under
     momentum);
-12. the data-parallel path's per-step kernel (cd_grads.cu) against its plain
-    version on the same hardened draws, one step each, at full width: c1
-    (784x500, batch 20), c1's third shard of a 3-way split of 20 (7 rows, one
-    pad row masked, norm 20/3) with mse and with xent and sparsity, and c5's
-    tower recipe at c2's width (Gaussian 2000x400, PCD k=2, sparsity);
-    identical bits on grids of 1, 7 and 132 blocks; its time per launch, the
-    plain version's and the bound;
+12. the data-parallel path's per-step kernels, the resident kernel's step
+    variant (cd_train_resident.cu, the route select_dp_kernel gives where a
+    rank's tiles fit) and cd_grads.cu, each against their plain version on
+    the same hardened draws, one step each, at full width: c1 (784x500,
+    batch 20), c1's third shard of a 3-way split of 20 (7 rows, one pad row
+    masked, norm 20/3) with mse and with xent and sparsity, and c5's tower
+    recipe at c2's width (Gaussian 2000x400, PCD k=2, sparsity); identical
+    bits on grids of 1, 7 and 132 blocks (cd_grads.cu) and on two cluster
+    counts (the step variant); each one's device time per launch, the plain
+    version's and the bound;
 13. the update after the all-reduce (cd_grads.cu's second kernel) against its
     plain version on the summed statistics of 3 ranks, at c1's settings and at
     c5's tower recipe with momentum, decay and clipping: the same bits; its
     time per launch, the plain version's, one fused torch.optim.SGD step's
     (the same update, for comparison only) and the bound;
 14. dp_world1: train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh,
-    c1 for 10 epochs: 1000 launches of each kernel, the final error within
-    0.001 of 0.0744; then five epochs timed one at a time (ms each: their
-    spread);
+    c1 for 10 epochs as a captured epoch replayed (a CUDA graph of 100 x step
+    kernel, all-reduce, update kernel): 1000 launches of the step variant and
+    of the update kernel, none of cd_grads.cu's, the final error within 0.001
+    of 0.0744, the same bits as the eager loop of the same launches; then
+    ms an epoch captured and eager (a 21-epoch call against a 1-epoch call,
+    each way), five one-epoch calls one at a time, and the card's busy share
+    over a 21-epoch call's device time, each way (torch.profiler);
 15. dp_ranks: RBM.train with a mesh of 3 gloo ranks, one process each, all on
     the one card, c1 for 10 epochs: the engine is cuda_dp on every rank, 1000
-    launches of each kernel on each, the parameters bit-identical across
+    launches of the route's step kernel (the step variant: 7 rows a rank)
+    and of the update kernel on each, the parameters bit-identical across
     ranks, the error in the band; then 2 epochs on injected per-rank draws
     held against a replay in this process (per-shard plain step, mean,
     update) at rtol 2e-4 / atol 2e-6; then 2 epochs of PCD k=2, whose chain
     is gathered from the ranks and must agree on every rank;
 16. the data-parallel path in every mode (DP_MODES: pt5, enhanced, lv and
     pseudo of phase 6, lv with 3 rungs, c1 at bf16 storage and compute,
-    w20k_mom_bf16 of the wide slice): the step kernel against its plain version at full width,
+    w20k_mom_bf16 of the wide slice): the step kernels (cd_grads.cu, and the
+    step variant wherever its tiles fit: not at w20k_mom_bf16, nor pt3_lv's
+    whole batch) against their plain version at full width,
     the whole flat buffer (the enhanced gradient's mean sums and learned
     variance's raw z statistic included; at bf16 compute to one operand
     ulp, _stats_close) and the chain, on the whole batch and on the third
     shard of a 3-way split (7 rows, one pad row, norm 20/3); identical bits
-    on grids of 1, 7 and 132 blocks; its time per step, the plain version's
-    and the bound;
+    on grids of 1, 7 and 132 blocks and on two cluster counts; each step
+    kernel's time per step, the plain version's and the bound;
 17. the update kernel against its plain version on 3 ranks' summed
     statistics for lv, enhanced and the two bf16 rows: every elementwise
     result bit for bit, the enhanced gradient's b and c and learned
-    variance's z at the replay tolerance; the times;
+    variance's z at the replay tolerance; the times, and the enhanced
+    gradient's matvec pass (cd_enhance_kernel) on its own;
 18. dp_world1_modes: each mode for 10 epochs through
-    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh: the two
-    kernels of the route select_dp_kernel gives launched once a step and
-    the other route's never (w20k_mom_bf16 takes cd_grads_wide.cu), the
-    final error in the mode's PARITY.md band (pt3_lv, pseudo and bf16: the
-    monitor falls); five epochs timed one by one;
+    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh, captured
+    on the flat-buffer routes: the kernels of the route select_dp_kernel
+    gives launched once a step and the other routes' never (pt3_lv at
+    2000x200 fits no cluster and takes cd_grads.cu, w20k_mom_bf16
+    cd_grads_wide.cu, the others the step variant), the final error in the
+    mode's PARITY.md band (pt3_lv, pseudo and bf16: the monitor falls);
+    ms an epoch captured and eager, and the captured epochs' busy share;
 19. dp_ranks_modes: each mode but w20k_mom_bf16 (phase 22) over 3 gloo ranks
     through RBM.train(mesh=...) for 2 epochs: engine cuda_dp, the route's
     kernels launched, bit-identical parameters across ranks; then an
@@ -295,6 +308,7 @@ DP_MODE_BANDS = {**MODE_BANDS, "pt3_lv": None, "c1_bf16": None, "w20k_mom_bf16":
 DP_UPDATE_MODES = ("lv", "enhanced", "c1_bf16", "w20k_mom_bf16")
 DP_RANK_ROWS = 400  # rows each mode trains on over the 3 gloo ranks (20 steps an epoch)
 PSEUDO_BIT = 5
+STEP_KERNELS = ("cd_train_resident_kernel", "cd_grads_kernel")  # the DP step kernels' names
 
 
 def phase(name: str, **fields) -> None:
@@ -1212,71 +1226,111 @@ def _grads_state(cfg, dev, seed):
     return p, st.velocity, chain
 
 
+def step_cluster_counts(cfg, dev) -> list:
+    """The resident step variant's default cluster count for ``cfg`` and the
+    smallest that still holds its tiles, when there is one."""
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
+    from mdbn_tpu_torch.ops import cd_grads_resident_cuda as GR
+
+    smem, maxc = GR.step_limits(cfg, dev)
+    first = R.resident_tiles(cfg, smem, maxc).clusters
+    for g in range(1, first):
+        try:
+            R.resident_tiles(cfg, smem, maxc, clusters=g)
+        except ValueError:
+            continue
+        return [first, g]
+    return [first]
+
+
+def _same_steps(runs) -> bool:
+    """Whether every (grads, chain, err) of ``runs`` has the first's bits."""
+    import torch
+
+    return all(all(torch.equal(x, y) for x, y in zip(r[0].as_dict().values(),
+                                                     runs[0][0].as_dict().values()))
+               and torch.equal(r[1], runs[0][1]) and torch.equal(r[2], runs[0][2])
+               for r in runs[1:])
+
+
 def run_grads(dev, smi, c1, c1_data, ge):
-    """Phase 12: the per-step kernel against its plain version; its timing.
-    Returns (max abs diff, timing dict)."""
+    """Phase 12: the per-step kernels, the resident kernel's step variant and
+    cd_grads.cu, against their plain version; their timing. Returns
+    {kernel: (max abs diff, timing dict)}."""
     import torch
 
     from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_resident_cuda as GR
     from mdbn_tpu_torch.ops.cd_step import draw_uniforms
 
-    errs, grids = {}, {}
+    errs, grids, clusters = {}, {}, {}
+    steps = {"cd_grads": G.cd_grads_step, "cd_grads_resident": GR.cd_grads_resident_step}
     for n, (name, (cfg, v0, mask, norm)) in enumerate(grads_cases(dev, c1, c1_data, ge).items()):
         p, vel, chain = _grads_state(cfg, dev, n)
         u = draw_uniforms(cfg, cfg.batch_size, torch.Generator(device=dev).manual_seed(n))
         u = G.harden_step(cfg, p, chain, v0, u)
-        got = G.cd_grads_step(cfg, p, v0, chain, uniforms=u, mask=mask, norm=norm)
         want = G.cd_grads_step_plain(cfg, p, v0, chain, uniforms=u, mask=mask, norm=norm)
-        torch.cuda.synchronize()
-        diff = {}
-        for part, a, b in (("gW", got[0].W, want[0].W), ("gb", got[0].b, want[0].b),
-                           ("gc", got[0].c, want[0].c), ("err", got[2], want[2])):
-            if not bool(torch.isfinite(a).all()):
-                raise AssertionError(f"{name}: {part} is not finite")
-            torch.testing.assert_close(a, b, rtol=REPLAY_RTOL, atol=REPLAY_ATOL)
-            diff[part] = float((a - b).abs().max())
-        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)  # chain: the same samples
-        diff["chain"] = float((got[1] - want[1]).abs().max())
-        errs[name] = diff
-        if name in ("c1", "c1_rank2_of_3"):  # the kernel's own draws on several grids
+        for kernel, step in steps.items():
+            got = step(cfg, p, v0, chain, uniforms=u, mask=mask, norm=norm)
+            torch.cuda.synchronize()
+            diff = {}
+            for part, a, b in (("gW", got[0].W, want[0].W), ("gb", got[0].b, want[0].b),
+                               ("gc", got[0].c, want[0].c), ("err", got[2], want[2])):
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"{kernel} {name}: {part} is not finite")
+                torch.testing.assert_close(a, b, rtol=REPLAY_RTOL, atol=REPLAY_ATOL)
+                diff[part] = float((a - b).abs().max())
+            torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)  # the same samples
+            diff["chain"] = float((got[1] - want[1]).abs().max())
+            errs[f"{kernel}@{name}"] = diff
+        if name in ("c1", "c1_rank2_of_3"):  # the kernels' own draws on several grids
             runs = [G.cd_grads_step(cfg, p, v0, chain, seed=11, mask=mask, norm=norm, grid=g)
                     for g in (0,) + GRADS_GRIDS]
-            for r in runs[1:]:
-                if not (all(torch.equal(x, y) for x, y in zip(r[0].as_dict().values(),
-                                                              runs[0][0].as_dict().values()))
-                        and torch.equal(r[1], runs[0][1]) and torch.equal(r[2], runs[0][2])):
-                    raise AssertionError(f"{name}: the step depends on the grid")
+            if not _same_steps(runs):
+                raise AssertionError(f"{name}: the step depends on the grid")
             grids[name] = list(GRADS_GRIDS) + ["default"]
-    max_err = max(max(d.values()) for d in errs.values())
+            counts = step_cluster_counts(cfg, dev)
+            runs = [GR.cd_grads_resident_step(cfg, p, v0, chain, seed=11, mask=mask, norm=norm,
+                                              grid=g) for g in counts]
+            if len(counts) < 2 or not _same_steps(runs):
+                raise AssertionError(f"{name}: the step variant depends on the cluster count "
+                                     f"(counts {counts})")
+            clusters[name] = counts
+    max_err = {k: max(max(d.values()) for n, d in errs.items() if n.startswith(k + "@"))
+               for k in steps}
 
-    # timing at c1's shape: the kernel alone (its launch on fixed buffers),
-    # the wrapper, and the plain version; plain, kernel, kernel, plain
+    # timing at c1's shape: each kernel alone (its launch on fixed buffers),
+    # the wrappers, and the plain version; plain, kernels, kernels in
+    # reverse, plain; device time per launch from torch.profiler
     cfg, v0 = c1, c1_data[:20]
     p, _, chain = _grads_state(cfg, dev, 0)
-    kernel = G.step_launcher(cfg, p, v0, chain, seed=5)[0]
-
-    def wrapper():
-        G.cd_grads_step(cfg, p, v0, chain, seed=5)
+    launch = {"cd_grads": G.step_launcher(cfg, p, v0, chain, seed=5)[0],
+              "cd_grads_resident": GR.step_launcher(cfg, p, v0, chain, seed=5)[0]}
+    names = {"cd_grads": ("cd_grads_kernel",), "cd_grads_resident": ("cd_train_resident_kernel",)}
 
     def plain():
         G.cd_grads_step_plain(cfg, p, v0, chain, seed=5)
 
     t_plain1 = time_runs(plain, 50)
-    t_kernel1 = time_runs(kernel, 500)
-    t_kernel2 = time_runs(kernel, 500)
+    t_k = {k: [time_runs(launch[k], 500)] for k in steps}
+    for k in reversed(list(steps)):
+        t_k[k].append(time_runs(launch[k], 500))
     t_plain2 = time_runs(plain, 50)
-    t_wrapper = time_runs(wrapper, 500)
     bound_ms, bound_by = grads_bound(cfg)
-    timing = {"kernel_device_us": device_us(kernel, 200, ("cd_grads_kernel",)),
-              "kernel_us": min(t_kernel1, t_kernel2) * 1e6,
-              "kernel_us_calls": [t_kernel1 * 1e6, t_kernel2 * 1e6],
-              "wrapper_us": t_wrapper * 1e6, "plain_us": min(t_plain1, t_plain2) * 1e6,
-              "plain_us_calls": [t_plain1 * 1e6, t_plain2 * 1e6],
-              "bound_us": bound_ms * 1e3, "bound_by": bound_by}
+    timing = {}
+    for k, step in steps.items():
+        t_wrapper = time_runs(lambda: step(cfg, p, v0, chain, seed=5), 500)
+        timing[k] = {"kernel_device_us": device_us(launch[k], 200, names[k]),
+                     "kernel_us": min(t_k[k]) * 1e6, "kernel_us_calls": [t * 1e6 for t in t_k[k]],
+                     "wrapper_us": t_wrapper * 1e6, "plain_us": min(t_plain1, t_plain2) * 1e6,
+                     "plain_us_calls": [t_plain1 * 1e6, t_plain2 * 1e6],
+                     "bound_us": bound_ms * 1e3, "bound_by": bound_by}
     phase("kernel_vs_plain_grads", max_abs_diff=errs, rtol=REPLAY_RTOL, atol=REPLAY_ATOL,
           chain="identical samples", identical_bits_on_grids=grids,
-          timing_c1=timing, order="plain, kernel, kernel, plain", nvidia_smi=smi)
-    return max_err, timing
+          identical_bits_on_cluster_counts=clusters, timing_c1=timing,
+          order="plain, cd_grads, cd_grads_resident, cd_grads_resident, cd_grads, plain",
+          nvidia_smi=smi)
+    return {k: (max_err[k], timing[k]) for k in steps}
 
 
 def update_bound(cfg):
@@ -1376,33 +1430,49 @@ def run_update(dev, smi, c1):
 
 
 def zero_dp_launches() -> None:
-    """Sets the launch counts of the data-parallel kernels of both routes to 0."""
+    """Sets the launch counts of the data-parallel kernels of every route to 0."""
     from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_resident_cuda as GR
     from mdbn_tpu_torch.ops import cd_grads_wide_cuda as GW
 
-    G.cd_grads_launches = G.cd_update_launches = 0
+    G.cd_grads_launches = G.cd_update_launches = GR.cd_grads_resident_launches = 0
     GW.cd_wide_step_launches = GW.cd_wide_update_launches = 0
 
 
 def dp_launches() -> dict:
-    """{kernel: launches} of the data-parallel kernels of both routes since
+    """{kernel: launches} of the data-parallel kernels of every route since
     their counts were set to 0."""
     from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_resident_cuda as GR
     from mdbn_tpu_torch.ops import cd_grads_wide_cuda as GW
 
-    return {"cd_grads": G.cd_grads_launches, "cd_dp_update": G.cd_update_launches,
+    return {"cd_grads_resident": GR.cd_grads_resident_launches,
+            "cd_grads": G.cd_grads_launches, "cd_dp_update": G.cd_update_launches,
             "cd_grads_wide_step": GW.cd_wide_step_launches,
             "cd_grads_wide_update": GW.cd_wide_update_launches}
 
 
-def expected_dp_launches(cfg, steps: int) -> dict:
-    """The counts a data-parallel run of ``steps`` steps of ``cfg`` shows:
-    each kernel of the route select_dp_kernel gives once a step, the other
-    route's kernels never."""
-    from mdbn_tpu_torch.ops.cd_epoch_cuda import select_dp_kernel
+def dp_route(cfg, ndev: int = 1) -> str:
+    """The route select_dp_kernel gives ``cfg`` over ``ndev`` ranks on this
+    card (its limits for a rank's step)."""
+    import torch
 
-    wide = select_dp_kernel(cfg) == "cd_grads_wide"
-    return {"cd_grads": 0 if wide else steps, "cd_dp_update": 0 if wide else steps,
+    from mdbn_tpu_torch.ops.cd_epoch_cuda import select_dp_kernel
+    from mdbn_tpu_torch.ops.cd_grads_resident_cuda import step_limits
+
+    local = cfg.replace(batch_size=-(-cfg.batch_size // ndev))
+    return select_dp_kernel(cfg, ndev, step_limits(local, torch.device("cuda", 0)))
+
+
+def expected_dp_launches(cfg, steps: int, ndev: int = 1) -> dict:
+    """The counts a data-parallel run of ``steps`` steps of ``cfg`` over
+    ``ndev`` ranks shows: each kernel of the route select_dp_kernel gives
+    once a step, the other routes' kernels never."""
+    route = dp_route(cfg, ndev)
+    wide = route == "cd_grads_wide"
+    return {"cd_grads_resident": steps if route == "cd_grads_resident" else 0,
+            "cd_grads": steps if route == "cd_grads" else 0,
+            "cd_dp_update": 0 if wide else steps,
             "cd_grads_wide_step": steps if wide else 0,
             "cd_grads_wide_update": steps if wide else 0}
 
@@ -1415,7 +1485,6 @@ def _dp_rank(rank, world, port, out_dir, cfg, data, uniforms, inject_epochs):
     sys.path.insert(0, HERE)
     from mdbn_tpu_torch import RBM
     from mdbn_tpu_torch.core.state import init_train_state
-    from mdbn_tpu_torch.ops import cd_grads_cuda as G
     from mdbn_tpu_torch.parallel.dp import train_rbm_shard_map
     from mdbn_tpu_torch.parallel.mesh import make_mesh
 
@@ -1425,29 +1494,27 @@ def _dp_rank(rank, world, port, out_dir, cfg, data, uniforms, inject_epochs):
         mesh = make_mesh(world, backend="gloo")
         dev = torch.device("cuda", 0)
         data = torch.as_tensor(data, device=dev)
-        G.cd_grads_launches = G.cd_update_launches = 0
+        zero_dp_launches()
         t0 = time.perf_counter()
         rbm = RBM(cfg.replace(epochs=10), device=dev).train(data, mesh=mesh)
         torch.cuda.synchronize()
-        res = {"engine": rbm.metrics.engine,
-               "launches": [G.cd_grads_launches, G.cd_update_launches],
+        res = {"engine": rbm.metrics.engine, "kernel": rbm.metrics.kernel,
+               "launches": dp_launches(),
                "seconds": time.perf_counter() - t0, "history": rbm.history,
                "params": {k: v.cpu() for k, v in rbm.params.as_dict().items()},
                "mesh": [mesh.rank, mesh.size, str(mesh.device), mesh.backend]}
-        G.cd_grads_launches = G.cd_update_launches = 0
+        zero_dp_launches()
         st, errs = train_rbm_shard_map(init_train_state(cfg, device=dev), data, cfg, mesh,
                                        inject_epochs, pallas_step=True, uniforms=uniforms)
         torch.cuda.synchronize()
-        res["inject"] = {"launches": [G.cd_grads_launches, G.cd_update_launches],
-                         "errs": errs.cpu(),
+        res["inject"] = {"launches": dp_launches(), "errs": errs.cpu(),
                          "params": {k: v.cpu() for k, v in st.params.as_dict().items()},
                          "velocity": {k: v.cpu() for k, v in st.velocity.as_dict().items()}}
         # PCD, k = 2: each rank's chain rows stay with it; the result's chain is
         # gathered from all ranks (through the host under gloo)
-        G.cd_grads_launches = G.cd_update_launches = 0
+        zero_dp_launches()
         pcd = RBM(cfg.replace(persistent=True, k=2, epochs=2), device=dev).train(data, mesh=mesh)
-        res["pcd"] = {"engine": pcd.metrics.engine,
-                      "launches": [G.cd_grads_launches, G.cd_update_launches],
+        res["pcd"] = {"engine": pcd.metrics.engine, "launches": dp_launches(),
                       "history": pcd.history, "chain": pcd.state.chain_h.cpu(),
                       "W": pcd.params.W.cpu()}
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -1544,6 +1611,75 @@ def dp_replay(cfg, data, ndev, n_epochs, dev, seed):
     return uniforms, params, vel, torch.stack(errs)
 
 
+def device_busy(fn, first: tuple, epochs: int) -> dict:
+    """The card's busy share over the device time of one call of ``fn``
+    (``epochs`` epochs) under torch.profiler, from the start of the first
+    kernel whose name holds one of ``first`` (a step kernel: a capture, made
+    on the host before it, drops out) to the end of the last: the union of
+    the device activity inside that window over the window; and the window
+    an epoch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    start = min(e.time_range.start for e in evs if any(n in e.name for n in first))
+    spans = sorted((max(e.time_range.start, start), e.time_range.end) for e in evs
+                   if e.time_range.end > start)
+    busy, lo, hi = 0.0, None, None
+    for a, b in spans:  # the union of the intervals
+        if hi is None or a > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    window = max(b for _, b in spans) - start
+    return {"window_ms": window / 1e3, "window_ms_per_epoch": window / 1e3 / epochs,
+            "busy_ms": busy / 1e3, "busy_share": busy / window, "device_events": len(spans)}
+
+
+def dp_epoch_timing(st, data, cfg, mesh, nb, epochs: int = 21) -> dict:
+    """ms an epoch of train_rbm_shard_map(pallas_step=True) from ``st``,
+    captured and eager: a call of ``epochs`` epochs against a call of one,
+    each way, in turns (captured, eager, eager, captured; the capture and a
+    call's set-up drop out of the difference); five one-epoch calls of each
+    timed one at a time; the busy share over the device time of a call of
+    ``epochs`` epochs, each way (device_busy)."""
+    import torch
+
+    from mdbn_tpu_torch.parallel import dp
+
+    def call(n, capture=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp.train_rbm_shard_map(st, data, cfg, mesh, n, pallas_step=True, capture=capture)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    call(1), call(1, False)  # warm-up
+    per = {True: [], False: []}
+    for capture in (True, False, False, True):
+        one = call(1, capture)
+        per[capture].append((call(epochs, capture) - one) / (epochs - 1))
+    calls = {c: [call(1, c) for _ in range(5)] for c in (True, False)}
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    captured, eager = min(per[True]), min(per[False])
+    return {"epoch_ms_captured": captured, "epoch_ms_captured_runs": per[True],
+            "epoch_ms_eager": eager, "epoch_ms_eager_runs": per[False],
+            "step_us_captured": captured * 1e3 / nb, "step_us_eager": eager * 1e3 / nb,
+            "updates_per_s_captured": nb / captured * 1e3,
+            "one_epoch_call_ms": {"captured": calls[True], "eager": calls[False],
+                                  "captured_median": med(calls[True]),
+                                  "eager_median": med(calls[False])},
+            "busy_captured": device_busy(lambda: call(epochs), STEP_KERNELS, epochs),
+            "busy_eager": device_busy(lambda: call(epochs, False), STEP_KERNELS, epochs),
+            "order": "captured, eager, eager, captured"}
+
+
 def run_dp(dev, smi, c1, t_cd_train_ms):
     """Phases 14 and 15: the data-parallel path through its entry points.
     Returns {kernel: launches in dp_world1}."""
@@ -1554,7 +1690,6 @@ def run_dp(dev, smi, c1, t_cd_train_ms):
 
     from mdbn_tpu_torch.config import load_config
     from mdbn_tpu_torch.core.state import init_train_state
-    from mdbn_tpu_torch.ops import cd_grads_cuda as G
     from mdbn_tpu_torch.parallel import dp
     from mdbn_tpu_torch.parallel.mesh import _free_port, make_mesh
     from mdbn_tpu_torch.run import build_data
@@ -1564,37 +1699,39 @@ def run_dp(dev, smi, c1, t_cd_train_ms):
     cfg = c1.replace(engine="pallas")
     nb = data.shape[0] // cfg.batch_size
 
-    # 14. one rank, NCCL, through train_rbm_shard_map on the kernels
+    # 14. one rank, NCCL, through train_rbm_shard_map on the kernels: the
+    # captured epoch on the route's step kernel, then the eager loop of the
+    # same launches from the same state, which must give the same bits
     mesh = make_mesh(1, backend="nccl")
-    G.cd_grads_launches = G.cd_update_launches = 0
+    route = dp_route(cfg)
+    zero_dp_launches()
     t0 = time.perf_counter()
     st, errs = dp.train_rbm_shard_map(init_train_state(cfg, device=dev), data, cfg, mesh, 10,
                                       pallas_step=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"cd_grads": G.cd_grads_launches, "cd_dp_update": G.cd_update_launches}
+    launches = dp_launches()
     final = float(errs[-1])
-    if launches != {"cd_grads": 10 * nb, "cd_dp_update": 10 * nb}:
-        raise AssertionError(f"dp_world1: launches {launches}, expected {10 * nb} of each")
+    if route != "cd_grads_resident" or launches != expected_dp_launches(cfg, 10 * nb):
+        raise AssertionError(f"dp_world1: route {route}, launches {launches}, expected "
+                             f"{expected_dp_launches(cfg, 10 * nb)}")
     if abs(final - C1_FINAL_ERR) > C1_ERR_TOL:
         raise AssertionError(f"dp_world1: final error {final} not within {C1_ERR_TOL} of "
                              f"{C1_FINAL_ERR}")
-    # five epochs, one call each, timed one at a time (host clock around a
-    # synchronised call): their spread inside one run
-    epoch_ms = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dp.train_rbm_shard_map(st, data, cfg, mesh, 1, pallas_step=True)
-        torch.cuda.synchronize()
-        epoch_ms.append((time.perf_counter() - t0) * 1e3)
-    epoch_ms = epoch_ms[1:]  # the first is a warm-up
-    med = sorted(epoch_ms)[len(epoch_ms) // 2]
-    timing = {"epoch_ms": epoch_ms, "epoch_ms_median": med, "updates_per_s": nb / med * 1e3,
-              "step_us_median": med * 1e3 / nb, "cd_train_epoch_ms": t_cd_train_ms,
-              "vs_cd_train": med / t_cd_train_ms}
-    phase("dp_world1", launches=launches, first_err=float(errs[0]), final_err=final,
-          seconds=round(seconds, 3), nvidia_smi=smi, **timing)
+    eager, errs_e = dp.train_rbm_shard_map(init_train_state(cfg, device=dev), data, cfg, mesh,
+                                           10, pallas_step=True, capture=False)
+    torch.cuda.synchronize()
+    pairs = (list(zip(st.params.as_dict().values(), eager.params.as_dict().values()))
+             + list(zip(st.velocity.as_dict().values(), eager.velocity.as_dict().values()))
+             + [(errs, errs_e)])
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError("dp_world1: the captured epochs and the eager loop differ")
+    timing = dp_epoch_timing(st, data, cfg, mesh, nb)
+    timing.update(cd_train_epoch_ms=t_cd_train_ms,
+                  vs_cd_train=timing["epoch_ms_captured"] / t_cd_train_ms)
+    phase("dp_world1", route=route, launches=launches, first_err=float(errs[0]),
+          final_err=final, seconds=round(seconds, 3), captured_equals_eager="identical bits",
+          nvidia_smi=smi, **timing)
     dist.destroy_process_group()
 
     # 15. three ranks on the one card over gloo, one process each
@@ -1613,10 +1750,11 @@ def run_dp(dev, smi, c1, t_cd_train_ms):
         spawn_s = time.perf_counter() - t0
         got = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(DP_RANKS)]
     for r, g in enumerate(got):
-        if g["engine"] != "cuda_dp" or g["launches"] != [10 * nb] * 2:
-            raise AssertionError(f"dp_ranks rank {r}: engine {g['engine']}, "
-                                 f"{g['launches']} launches")
-        if g["inject"]["launches"] != [E_INJ * nb] * 2:
+        if (g["engine"] != "cuda_dp" or g["kernel"] != dp_route(cfg, DP_RANKS)
+                or g["launches"] != expected_dp_launches(cfg, 10 * nb, DP_RANKS)):
+            raise AssertionError(f"dp_ranks rank {r}: engine {g['engine']}, kernel "
+                                 f"{g['kernel']}, {g['launches']} launches")
+        if g["inject"]["launches"] != expected_dp_launches(cfg, E_INJ * nb, DP_RANKS):
             raise AssertionError(f"dp_ranks rank {r}: {g['inject']['launches']} launches in "
                                  "the injected run")
         for k, x in g["params"].items():
@@ -1628,7 +1766,9 @@ def run_dp(dev, smi, c1, t_cd_train_ms):
                     raise AssertionError(f"dp_ranks (injected): rank {r}'s {part} {k} differs")
     for r, g in enumerate(got):  # PCD: the gathered chain and W agree on every rank
         p = g["pcd"]
-        if (p["engine"] != "cuda_dp" or p["launches"] != [2 * nb] * 2
+        pcd_cfg = cfg.replace(persistent=True, k=2)
+        if (p["engine"] != "cuda_dp"
+                or p["launches"] != expected_dp_launches(pcd_cfg, 2 * nb, DP_RANKS)
                 or not torch.equal(p["chain"], got[0]["pcd"]["chain"])
                 or not torch.equal(p["W"], got[0]["pcd"]["W"])):
             raise AssertionError(f"dp_ranks (PCD) rank {r}: engine {p['engine']}, "
@@ -1650,7 +1790,8 @@ def run_dp(dev, smi, c1, t_cd_train_ms):
         torch.testing.assert_close(a, b.cpu(), rtol=DP_RTOL, atol=DP_ATOL)
         diff[name] = float((a - b.cpu()).abs().max())
     phase("dp_ranks", ranks=DP_RANKS, backend="gloo", mesh=[g["mesh"] for g in got],
-          engine=[g["engine"] for g in got], launches=[g["launches"] for g in got],
+          engine=[g["engine"] for g in got], kernel=got[0]["kernel"],
+          launches=[g["launches"] for g in got],
           first_err=hist[0], final_err=hist[-1],
           train_seconds=[round(g["seconds"], 3) for g in got], spawn_seconds=round(spawn_s, 3),
           identical_bits_across_ranks=True, injected_epochs=E_INJ,
@@ -1739,23 +1880,32 @@ def _stats_close(cfg, got, want) -> float:
 
 
 def run_grads_modes(dev, smi, modes):
-    """Phase 16: the step kernel against its plain version in each mode at
-    full width, on the whole batch and on the third shard of a 3-way split
-    (7 rows, the last a pad row, norm 20/3); the same bits on grids 1, 7 and
-    132; the kernel's, the plain version's and the bound's time per step.
-    Returns {mode: (max abs diff, timing)}."""
+    """Phase 16: the step kernels against their plain version in each mode
+    at full width, on the whole batch and on the third shard of a 3-way
+    split (7 rows, the last a pad row, norm 20/3): cd_grads.cu, and the
+    resident kernel's step variant wherever its tiles fit; the same bits on
+    grids 1, 7 and 132 (cd_grads.cu) and on two cluster counts (the step
+    variant); each kernel's, the plain version's and the bound's time per
+    step on the whole batch. Returns {kernel: {mode: (max abs diff,
+    timing)}}."""
     import torch
 
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
     from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_resident_cuda as GR
     from mdbn_tpu_torch.ops.cd_step import draw_pt_uniforms, draw_uniforms
 
-    out, errs = {}, {}
+    fits = lambda c: R.resident_tiles(c, *GR.step_limits(c, dev)).fits
+    kernels = {"cd_grads": (G.cd_grads_step, G.step_launcher, ("cd_grads_kernel",)),
+               "cd_grads_resident": (GR.cd_grads_resident_step, GR.step_launcher,
+                                     ("cd_train_resident_kernel",))}
+    out, errs, same = {k: {} for k in kernels}, {}, {}
     for n, (name, (cfg, data)) in enumerate(modes.items()):
         B = cfg.batch_size
         bit = PSEUDO_BIT if cfg.error_metric == "pseudo" else None
         mask = torch.tensor([1.0] * 6 + [0.0], device=dev)[:, None]
         shard = torch.cat([data[14:20], torch.zeros_like(data[:1])])
-        worst = 0.0
+        worst = {k: 0.0 for k in kernels}
         for case, (c, v0, m, norm) in (("whole", (cfg, data[:B], None, None)),
                                        ("rank2_of_3", (cfg.replace(batch_size=7), shard, mask,
                                                        B / 3))):
@@ -1764,47 +1914,68 @@ def run_grads_modes(dev, smi, modes):
             u = G.harden_step(c, p, chain, v0, draw(c, c.batch_size,
                                                     torch.Generator(device=dev).manual_seed(n)))
             kw = dict(mask=m, norm=norm, pseudo_bit=bit)
-            got, want = (torch.empty(G.flat_size(c), device=dev) for _ in range(2))
-            _, c_got, _ = G.cd_grads_step(c, p, v0, chain, uniforms=u, out=got, **kw)
+            want = torch.empty(G.flat_size(c), device=dev)
             _, c_want, _ = G.cd_grads_step_plain(c, p, v0, chain, uniforms=u, out=want, **kw)
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"{name}@{case}: the step's statistics are not finite")
-            errs[f"{name}@{case}"] = _stats_close(c, got, want)
-            torch.testing.assert_close(c_got, c_want, rtol=0, atol=0)  # the same samples
-            worst = max(worst, errs[f"{name}@{case}"])
-            if case == "rank2_of_3":  # the kernel's own draws on several grids
+            for k, (step, _, _) in kernels.items():
+                if k == "cd_grads_resident" and not fits(c):
+                    continue
+                got = torch.empty(G.flat_size(c), device=dev)
+                _, c_got, _ = step(c, p, v0, chain, uniforms=u, out=got, **kw)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{k} {name}@{case}: the step's statistics are not "
+                                         "finite")
+                errs[f"{k}:{name}@{case}"] = _stats_close(c, got, want)
+                torch.testing.assert_close(c_got, c_want, rtol=0, atol=0)  # the same samples
+                worst[k] = max(worst[k], errs[f"{k}:{name}@{case}"])
+            if case == "rank2_of_3":  # the kernels' own draws on several grids
                 runs = []
                 for g in (0,) + GRADS_GRIDS:
                     flat = torch.empty(G.flat_size(c), device=dev)
                     _, ch, _ = G.cd_grads_step(c, p, v0, chain, seed=11, out=flat, grid=g, **kw)
                     runs.append((flat, ch))
-                for flat, ch in runs[1:]:
-                    if not (torch.equal(flat, runs[0][0]) and torch.equal(ch, runs[0][1])):
-                        raise AssertionError(f"{name}: the step depends on the grid")
-        # timing on the whole batch: the launch alone and the plain version,
-        # plain, kernel, kernel, plain
+                if fits(c):
+                    counts = step_cluster_counts(c, dev)
+                    for g in counts:
+                        flat = torch.empty(G.flat_size(c), device=dev)
+                        _, ch, _ = GR.cd_grads_resident_step(c, p, v0, chain, seed=11, out=flat,
+                                                             grid=g, **kw)
+                        runs.append((flat, ch))
+                    same[name] = counts  # one count where only one holds the tiles (pt3_lv)
+                ref = runs[0], runs[len(GRADS_GRIDS) + 1] if fits(c) else None
+                for i, (flat, ch) in enumerate(runs):
+                    base = ref[0] if i <= len(GRADS_GRIDS) else ref[1]
+                    if not (torch.equal(flat, base[0]) and torch.equal(ch, base[1])):
+                        raise AssertionError(f"{name}: the step depends on the grid or the "
+                                             "cluster count")
+        # timing on the whole batch: each kernel's launch alone and the plain
+        # version: plain, kernels, kernels in reverse, plain
         p, chain = _mode_state(cfg, dev, 0)
         v0 = data[:B]
-        kernel = G.step_launcher(cfg, p, v0, chain, seed=5, pseudo_bit=bit)[0]
+        timed = [k for k in kernels if k == "cd_grads" or fits(cfg)]
+        launch = {k: kernels[k][1](cfg, p, v0, chain, seed=5, pseudo_bit=bit)[0] for k in timed}
 
         def plain(cfg=cfg, p=p, v0=v0, chain=chain, bit=bit):
             G.cd_grads_step_plain(cfg, p, v0, chain, seed=5, pseudo_bit=bit)
 
         t_plain1 = time_runs(plain, 10)
-        t_kernel1 = time_runs(kernel, 200)
-        t_kernel2 = time_runs(kernel, 200)
+        t_k = {k: [time_runs(launch[k], 200)] for k in timed}
+        for k in reversed(timed):
+            t_k[k].append(time_runs(launch[k], 200))
         t_plain2 = time_runs(plain, 10)
         bound_ms, bound_by = grads_bound(cfg)
-        out[name] = (worst, {"kernel_device_us": device_us(kernel, 100, ("cd_grads_kernel",)),
-                             "kernel_us": min(t_kernel1, t_kernel2) * 1e6,
-                             "kernel_us_calls": [t_kernel1 * 1e6, t_kernel2 * 1e6],
-                             "plain_us": min(t_plain1, t_plain2) * 1e6,
-                             "plain_us_calls": [t_plain1 * 1e6, t_plain2 * 1e6],
-                             "bound_us": bound_ms * 1e3, "bound_by": bound_by})
+        for k in timed:
+            out[k][name] = (worst[k], {
+                "kernel_device_us": device_us(launch[k], 100, kernels[k][2]),
+                "kernel_us": min(t_k[k]) * 1e6, "kernel_us_calls": [t * 1e6 for t in t_k[k]],
+                "plain_us": min(t_plain1, t_plain2) * 1e6,
+                "plain_us_calls": [t_plain1 * 1e6, t_plain2 * 1e6],
+                "bound_us": bound_ms * 1e3, "bound_by": bound_by})
     phase("kernel_vs_plain_grads_modes", max_abs_diff=errs, rtol=REPLAY_RTOL, atol=REPLAY_ATOL,
           chain="identical samples", identical_bits_on_grids=list(GRADS_GRIDS) + ["default"],
-          timing={k: v[1] for k, v in out.items()}, order="plain, kernel, kernel, plain",
+          identical_bits_on_cluster_counts=same,
+          timing={k: {m: v[1] for m, v in d.items()} for k, d in out.items()},
+          order="plain, cd_grads, cd_grads_resident, cd_grads_resident, cd_grads, plain",
           nvidia_smi=smi)
     return out
 
@@ -1866,8 +2037,13 @@ def run_update_modes(dev, smi, modes):
         t_kernel2 = time_runs(kernel, 300)
         t_plain2 = time_runs(plain, 50)
         bound_ms, bound_by = update_bound(cfg)
+        extra = {}
+        if cfg.gradient == "enhanced":  # the matvec pass and the update on their own
+            extra = {"enhance_device_us": device_us(kernel, 300, ("cd_enhance_kernel",)),
+                     "update_device_us": device_us(kernel, 300, ("cd_update_kernel",))}
         out[name] = (worst, {"kernel_device_us": device_us(
                                  kernel, 300, ("cd_update_kernel", "cd_enhance_kernel")),
+                             **extra,
                              "kernel_us": min(t_kernel1, t_kernel2) * 1e6,
                              "kernel_us_calls": [t_kernel1 * 1e6, t_kernel2 * 1e6],
                              "plain_us": min(t_plain1, t_plain2) * 1e6,
@@ -1882,10 +2058,13 @@ def run_update_modes(dev, smi, modes):
 
 def run_dp_world1_modes(dev, modes, names, phase_name):
     """Phase 18 (and 21's runs): each mode of ``names`` for 10 epochs through
-    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh: the two
-    kernels of the route select_dp_kernel gives launched once a step and the
-    other route's never, the final error in the mode's PARITY.md band (or,
-    without a band, below the first); then five epochs timed one by one.
+    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh (captured
+    on the flat-buffer routes): the kernels of the route select_dp_kernel
+    gives launched once a step and the other routes' never, the final error
+    in the mode's PARITY.md band (or, without a band, below the first); on
+    the flat-buffer routes the same bits as the eager loop from the same
+    state, ms an epoch captured and eager and the busy share
+    (dp_epoch_timing); on the W-blocked route five epochs timed one by one.
     Returns ({mode: {kernel: launches}}, {mode: run})."""
     import numpy as np
     import torch
@@ -1921,6 +2100,23 @@ def run_dp_world1_modes(dev, modes, names, phase_name):
             if band is not None and abs(hist[-1] - band[0]) > band[1]:
                 raise AssertionError(f"{phase_name} {name}: final error {hist[-1]} not within "
                                      f"{band[1]} of {band[0]}")
+            route = dp_route(cfg)
+            runs[name] = {"route": route, "first_err": hist[0], "final_err": hist[-1],
+                          "band": band, "steps_per_epoch": nb}
+            if route != "cd_grads_wide":  # captured: the eager loop's bits, both timed
+                eager, errs_e = dp.train_rbm_shard_map(init_train_state(cfg, device=dev), data,
+                                                       cfg, mesh, 10, pallas_step=True,
+                                                       capture=False)
+                torch.cuda.synchronize()
+                if not (all(torch.equal(a, b) for part in ("params", "velocity")
+                            for a, b in zip(getattr(st, part).as_dict().values(),
+                                            getattr(eager, part).as_dict().values()))
+                        and torch.equal(errs, errs_e)):
+                    raise AssertionError(f"{phase_name} {name}: the captured epochs and the "
+                                         "eager loop differ")
+                runs[name].update(captured_equals_eager="identical bits",
+                                  **dp_epoch_timing(st, data, cfg, mesh, nb))
+                continue
             epoch_ms = []
             for _ in range(6):  # the first is a warm-up
                 torch.cuda.synchronize()
@@ -1930,9 +2126,8 @@ def run_dp_world1_modes(dev, modes, names, phase_name):
                 epoch_ms.append((time.perf_counter() - t0) * 1e3)
             epoch_ms = epoch_ms[1:]
             med = sorted(epoch_ms)[len(epoch_ms) // 2]
-            runs[name] = {"first_err": hist[0], "final_err": hist[-1], "band": band,
-                          "steps_per_epoch": nb, "epoch_ms": epoch_ms, "epoch_ms_median": med,
-                          "step_us_median": med * 1e3 / nb}
+            runs[name].update(epoch_ms=epoch_ms, epoch_ms_median=med,
+                              step_us_median=med * 1e3 / nb)
     finally:
         dist.destroy_process_group()
     return launches, runs
@@ -2027,11 +2222,12 @@ def run_dp_ranks_modes(dev, smi, modes, names, phase_name):
         nb = data.shape[0] // cfg.batch_size
         r0 = got[0][name]
         for r, g in enumerate(x[name] for x in got):
-            if g["engine"] != "cuda_dp" or g["launches"] != expected_dp_launches(cfg, 2 * nb):
+            if (g["engine"] != "cuda_dp" or g["kernel"] != dp_route(cfg, DP_RANKS)
+                    or g["launches"] != expected_dp_launches(cfg, 2 * nb, DP_RANKS)):
                 raise AssertionError(f"{phase_name} {name} rank {r}: engine {g['engine']}, "
-                                     f"{g['launches']} launches")
+                                     f"kernel {g['kernel']}, {g['launches']} launches")
             if g["inject"]["launches"] != expected_dp_launches(
-                    cfg, 2 * (inj.shape[0] // cfg.batch_size)):
+                    cfg, 2 * (inj.shape[0] // cfg.batch_size), DP_RANKS):
                 raise AssertionError(f"{phase_name} {name} rank {r}: "
                                      f"{g['inject']['launches']} launches in the injected run")
             same = all(torch.equal(x, r0["params"][k]) for k, x in g["params"].items())
@@ -2361,14 +2557,26 @@ DP_MODE_REPLACES = {"pt5": 2760, "enhanced": 1535, "lv": 1542, "pt3_lv": 1542, "
 DP_UPDATE_REPLACES = {"lv": 1588, "enhanced": 1568, "c1_bf16": 1622, "w20k_mom_bf16": 1622}
 
 
+def enhance_bound(cfg) -> float:
+    """ms of the enhanced gradient's matvec pass at the memory rate: the
+    flat sums it reads (gW, gb, gc and the mean sums, f32) once and its
+    shares written once (csrc/cd_grads.cu's cd_enhance_scratch_floats); its
+    4 V H operations at the f32 peak take less."""
+    from mdbn_tpu_torch._build import load_library
+    from mdbn_tpu_torch.ops.cd_grads_cuda import flat_size
+
+    lib = load_library("cd_grads", cfg.param_dtype).lib
+    shares = lib.cd_enhance_scratch_floats(cfg.n_visible, cfg.n_hidden)
+    return 4.0 * (flat_size(cfg) + shares) / PEAK_BYTES_PER_S * 1e3
+
+
 def run_dp_modes(dev, smi, c1, c1_data, ge) -> list:
     """Phases 16-22, the data-parallel path in every mode and the W-blocked
     kernel's data-parallel mode; returns their entries of the kernel line.
-    Phases 16 and 17 call cd_grads.cu at w20k_mom_bf16 too (the old route of
-    that row, for comparison); from phase 18 on each row takes the route
-    select_dp_kernel gives, and the kernel line counts the launches there."""
-    from mdbn_tpu_torch.ops.cd_epoch_cuda import select_dp_kernel
-
+    Phase 16 calls cd_grads.cu at every row (the old route of the rows the
+    step variant takes, and of w20k_mom_bf16, for comparison); from phase 18
+    on each row takes the route select_dp_kernel gives, and the kernel line
+    counts the launches there."""
     modes = dp_mode_configs(dev, c1, c1_data, ge)
     grads = run_grads_modes(dev, smi, modes)
     updates = run_update_modes(dev, smi, modes)
@@ -2381,22 +2589,29 @@ def run_dp_modes(dev, smi, c1, c1_data, ge) -> list:
     wide_launches = run_wide_dp_world1(dev, smi, modes)
     run_dp_ranks_modes(dev, smi, modes, WIDE_DP_RANK_ROWS, "dp_ranks_wide")
     entries = []
+    sources = {"cd_grads": "mdbn_tpu_torch/csrc/cd_grads.cu",
+               "cd_grads_resident": "mdbn_tpu_torch/csrc/cd_train_resident.cu"}
     for name in DP_MODES:
-        if select_dp_kernel(modes[name][0]) != "cd_grads":
+        route = runs[name]["route"]
+        if route not in sources:
             continue  # its launches are the W-blocked DP kernels' (below)
-        err, t = grads[name]
+        err, t = grads[route][name]
         entries.append({
-            "name": f"cd_grads[{name}]", "route": "cuda",
-            "source": "mdbn_tpu_torch/csrc/cd_grads.cu",
+            "name": f"{route}[{name}]", "route": "cuda", "source": sources[route],
             "replaces": f"mdbn_tpu/ops/cd_epoch_pallas.py:{DP_MODE_REPLACES[name]}",
-            "launches": launches[name]["cd_grads"], "max_abs_err": err,
+            "launches": launches[name][route], "max_abs_err": err,
             "ms": t["kernel_device_us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"], "library_ms": None,
             "ms_per": f"one step of {name} on the whole batch"})
     for name in DP_UPDATE_MODES:
-        if select_dp_kernel(modes[name][0]) != "cd_grads":
+        if runs[name]["route"] not in sources:
             continue
         err, t = updates[name]
+        extra = {}
+        if "enhance_device_us" in t:  # the matvec pass, launched before the update
+            extra = {"enhance_ms": t["enhance_device_us"] / 1e3,
+                     "enhance_bound_ms": enhance_bound(modes[name][0]),
+                     "update_alone_ms": t["update_device_us"] / 1e3}
         entries.append({
             "name": f"cd_dp_update[{name}]", "route": "cuda",
             "source": "mdbn_tpu_torch/csrc/cd_grads.cu",
@@ -2404,7 +2619,7 @@ def run_dp_modes(dev, smi, c1, c1_data, ge) -> list:
             "launches": launches[name]["cd_dp_update"], "max_abs_err": err,
             "ms": t["kernel_device_us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"], "library_ms": None,
-            "ms_per": f"one update of {name} after the all-reduce"})
+            "ms_per": f"one update of {name} after the all-reduce", **extra})
     for name in WIDE_DP_ROWS:
         step_err, update_err, t = wide[name]
         for kernel, err, what in (
@@ -3253,18 +3468,23 @@ def run() -> int:
         "ms_per": f"one epoch at c1's shape ({nb} updates), called directly; launches: "
                   "its runs through the API on the main path"}]
     entries += resident_entries + mode_entries + wide_entries
-    grads_err, grads_t = run_grads(dev, smi, c1, c1_data, ge)
+    grads = run_grads(dev, smi, c1, c1_data, ge)
     update_err, update_t = run_update(dev, smi, c1)
     dp_launches = run_dp(dev, smi, c1, t_kernel * 1e3)
     dp_mode_entries = run_dp_modes(dev, smi, c1, c1_data, ge)
+    # c1's step on the route dp_world1 takes (the step variant; cd_grads.cu's
+    # own entry is pt3_lv's, the mode on its route, below)
+    grads_err, grads_t = grads["cd_grads_resident"]
     entries.append({
-        "name": "cd_grads", "route": "cuda", "source": "mdbn_tpu_torch/csrc/cd_grads.cu",
+        "name": "cd_grads_resident", "route": "cuda",
+        "source": "mdbn_tpu_torch/csrc/cd_train_resident.cu",
         "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:3184",
-        "launches": dp_launches["cd_grads"],
+        "launches": dp_launches["cd_grads_resident"],
         "max_abs_err": grads_err, "ms": grads_t["kernel_device_us"] / 1e3,
         "plain_ms": grads_t["plain_us"] / 1e3, "bound_ms": grads_t["bound_us"] / 1e3,
         "bound_by": grads_t["bound_by"], "library_ms": None,
-        "ms_per": "one step at c1's shape (784x500, batch 20, CD-1)"})
+        "ms_per": "one step at c1's shape (784x500, batch 20, CD-1); cd_grads.cu's "
+                  f"{grads['cd_grads'][1]['kernel_device_us'] / 1e3} ms in the same run"})
     entries.append({
         "name": "cd_dp_update", "route": "cuda", "source": "mdbn_tpu_torch/csrc/cd_grads.cu",
         "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:3039",

@@ -5,7 +5,8 @@ storage type (``-DMDBN_STORE_BF16=0|1``: float32 or bfloat16 parameters, see
 ``csrc/cd_common.cuh``) into a shared library of its own with a plain C
 interface, loaded with ``ctypes``; the resident kernel's estimator modes are
 libraries of their own from the same source (``VARIANTS``: without and with
-a tempering ladder), so its three variants compile in parallel. The build
+a tempering ladder), and so is its data-parallel step in each of the three
+(``cd_grads_resident*``), so its six variants compile in parallel. The build
 happens at first use (never at import, so the package imports on machines
 without a GPU or ``nvcc``) into
 ``mdbn_tpu_torch/_build/<key>/``, where the key hashes the sources and the
@@ -39,11 +40,19 @@ KERNELS = {"cd_train": ("float32", "bfloat16"), "cd_train_wide": ("float32", "bf
            "cd_train_resident_modes": ("float32", "bfloat16"),
            "cd_train_resident_ladder": ("float32", "bfloat16"),
            "cd_train_wide_modes": ("float32", "bfloat16"),
-           "cd_grads": ("float32", "bfloat16"), "cd_grads_wide": ("float32", "bfloat16")}
+           "cd_grads": ("float32", "bfloat16"), "cd_grads_wide": ("float32", "bfloat16"),
+           "cd_grads_resident": ("float32", "bfloat16"),
+           "cd_grads_resident_modes": ("float32", "bfloat16"),
+           "cd_grads_resident_ladder": ("float32", "bfloat16")}
 
 # a library built from another kernel's source, with its flags
 VARIANTS = {"cd_train_resident_modes": ("cd_train_resident", ["-DMDBN_RESIDENT_MODES=1"]),
-            "cd_train_resident_ladder": ("cd_train_resident", ["-DMDBN_RESIDENT_MODES=2"])}
+            "cd_train_resident_ladder": ("cd_train_resident", ["-DMDBN_RESIDENT_MODES=2"]),
+            "cd_grads_resident": ("cd_train_resident", ["-DMDBN_RESIDENT_STEP=1"]),
+            "cd_grads_resident_modes": ("cd_train_resident", ["-DMDBN_RESIDENT_MODES=1",
+                                                              "-DMDBN_RESIDENT_STEP=1"]),
+            "cd_grads_resident_ladder": ("cd_train_resident", ["-DMDBN_RESIDENT_MODES=2",
+                                                               "-DMDBN_RESIDENT_STEP=1"])}
 
 
 @dataclass
@@ -193,22 +202,37 @@ def _declare_cd_train_resident(lib: ctypes.CDLL) -> None:
     lib.cd_train_resident_limits.restype = _I
 
 
+def _declare_cd_grads_resident(lib: ctypes.CDLL) -> None:
+    _declare_cd_train_resident(lib)
+    lib.cd_grads_resident_step.argtypes = (
+        [_P] * 17  # data, tab, mask, u_h0, u_h, u_v, u_swap, betas, W, b, c, z, chain_in,
+                   # out, chain_out, scratch, trace
+        + [_I] * 7  # V, H, B, M, k, flags, bit
+        + [_F] * 3  # inv_norm, sparsity_target, sparsity_cost
+        + _TAIL)  # the tail's grid: clusters
+    lib.cd_grads_resident_step.restype = _I
+
+
 def _declare_cd_grads(lib: ctypes.CDLL) -> None:
     lib.cd_grads_step.argtypes = (
-        [_P] * 15  # v0, mask, u_h0, u_h, u_v, u_swap, betas, W, b, c, z, chain_in, out,
+        [_P] * 16  # v0, tab, mask, u_h0, u_h, u_v, u_swap, betas, W, b, c, z, chain_in, out,
                    # chain_out, scratch
         + [_I] * 7  # V, H, B, M, k, flags, bit
         + [_F] * 3  # inv_norm, sparsity_target, sparsity_cost
         + _TAIL)
     lib.cd_grads_step.restype = _I
     lib.cd_update_step.argtypes = (
-        [_P] * 11  # sums, W, b, c, z, vW, vb, vc, vz, err, bias_e
+        [_P] * 12  # sums, W, b, c, z, vW, vb, vc, vz, err, part, mom
         + [_I] * 3  # V, H, flags
         + [_F] * 8  # scale, lr, lr_z, momentum, l2, grad_clip, sparsity_target/cost
         + [_I, _P])  # device, stream
     lib.cd_update_step.restype = _I
     lib.cd_grads_scratch_floats.argtypes = [_I] * 5  # V, H, B, M, flags
     lib.cd_grads_scratch_floats.restype = ctypes.c_longlong
+    lib.cd_enhance_scratch_floats.argtypes = [_I] * 2  # V, H
+    lib.cd_enhance_scratch_floats.restype = ctypes.c_longlong
+    lib.cd_grads_prepare.argtypes = [_I]  # device
+    lib.cd_grads_prepare.restype = _I
     _declare_error_string(lib, "cd_grads_error_string")
 
 
@@ -236,4 +260,7 @@ _DECLARE = {"cd_train": _declare_cd_train, "cd_train_wide": _declare_cd_train_wi
             "cd_train_resident_modes": _declare_cd_train_resident,
             "cd_train_resident_ladder": _declare_cd_train_resident,
             "cd_train_wide_modes": _declare_cd_train_wide_modes,
-            "cd_grads": _declare_cd_grads, "cd_grads_wide": _declare_cd_grads_wide}
+            "cd_grads": _declare_cd_grads, "cd_grads_wide": _declare_cd_grads_wide,
+            "cd_grads_resident": _declare_cd_grads_resident,
+            "cd_grads_resident_modes": _declare_cd_grads_resident,
+            "cd_grads_resident_ladder": _declare_cd_grads_resident}

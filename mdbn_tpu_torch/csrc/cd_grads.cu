@@ -70,7 +70,9 @@
 //
 // Design now: one cooperative launch per step (grid no larger than the
 // co-resident block count, one block per SM by default), cooperative_groups
-// grid sync between phases. The product, pseudo and swap phases are
+// grid sync between phases (a run whose tiles fit the shared memory of
+// thread-block clusters takes csrc/cd_train_resident.cu's step variant
+// instead: ops/cd_epoch_cuda.py::select_dp_kernel). The product, pseudo and swap phases are
 // cd_train.cu's (cd_phases.cuh): the same tiles and the same order of sums.
 // The monitor's row sums ride as extra units of the first hidden phase
 // (v1mean is ready by then; the pseudo monitor's in the first visible phase,
@@ -79,9 +81,9 @@
 // the 2B rows in row order; the vector statistics take one warp per element
 // with a fixed butterfly. No atomics: the bits do not depend on the grid.
 // kModes: tempering, learned variance, the enhanced sums and pseudo are
-// compiled in; the plain CD/PCD step leaves them out. Later: capture a whole
-// epoch in a CUDA graph, or fold the all-reduce into the kernel (the TPU's
-// DP mega-kernel).
+// compiled in; the plain CD/PCD step leaves them out. A captured epoch
+// (parallel/dp.py) passes `tab`, a device row of {minibatch, seed, pseudo
+// bit} that the kernel reads at entry, so one graph serves every epoch.
 
 #include "cd_phases.cuh"
 
@@ -90,7 +92,8 @@ namespace {
 constexpr int kMasked = 8192;  // a row mask is given (the other bits: cd_common.cuh)
 
 struct Args {
-  const Store* v0;        // [B, V]
+  const Store* v0;        // [B, V] (with tab: the minibatches [*, B, V] it indexes)
+  const long long* tab;   // optional [3]: the step's minibatch, seed and pseudo bit
   const float* mask;      // kMasked: [B] of 0/1
   const float* u_h0;      // inject: [B, H]
   const float* u_h;       // inject: [k, CR, H]
@@ -252,6 +255,11 @@ __device__ void grads_phase(const Args& a, float* smem, const Split& s) {
 template <bool kBf, bool kModes>
 __global__ void __launch_bounds__(kThreads, 1) cd_grads_kernel(Args a) {
   __shared__ float smem[kSmemFloats];  // 36 KB: staged row tiles + partial sums
+  if (a.tab) {  // a captured step: its minibatch, seed and bit from device memory
+    a.v0 += a.tab[0] * a.B * a.V;
+    a.seed = static_cast<unsigned long long>(a.tab[1]);
+    a.bit = static_cast<int>(a.tab[2]);
+  }
   cg::grid_group grid = cg::this_grid();
   const Split s;
   const bool inject = a.flags & kInject;
@@ -322,13 +330,15 @@ __global__ void __launch_bounds__(kThreads, 1) cd_grads_kernel(Args a) {
 // storage the velocity rounds once into Store and the parameter is old +
 // rounded velocity, rounded once (cd_common.cuh). The enhanced gradient's
 // two matvecs sum over all of gW_e, so they run first, as a kernel of their
-// own (cd_enhance_kernel): gb_e takes one warp per row of gW_e, gc_e one
-// block per 32 columns with its warps over the rows, each in a fixed order,
-// so every rank gets the same bits; gW_e is formed again, with the same
-// rounding, where W is updated. Bound by bytes: it reads the sums, W, b, c
-// and their velocities once and writes the parameters and velocities once
-// (c1: 7.8 MB, 2.3 us at 3.35 TB/s; the enhanced pass reads gW's sums once
-// more); one element per thread, grid-stride.
+// own (cd_enhance_kernel, below): tiles of gW_e over every SM, each element
+// formed once for both sums, the tiles' shares in fixed order, so every rank
+// gets the same bits; the update adds the shares in tile order where it
+// updates b and c, and forms gW_e again, with the same rounding, where W is
+// updated. Bound by bytes: it reads the sums, W, b, c and their velocities
+// once and writes the parameters and velocities once (c1: 7.8 MB, 2.3 us at
+// 3.35 TB/s; the enhanced pass reads gW's sums once more); one element per
+// thread, grid-stride. The momentum comes from device memory when `mom` is
+// given (a captured epoch's), else from `m`.
 struct UpdateArgs {
   const float* sums;  // the flat statistics (ops/cd_grads_cuda.py::flat_size) summed over ranks
   Store* W;           // [V, H], in place
@@ -339,8 +349,9 @@ struct UpdateArgs {
   Store* vb;
   Store* vc;
   Store* vz;
-  float* err;     // [1]: the step's mean monitor
-  float* bias_e;  // enhanced: [V + H] gb_e, gc_e (cd_enhance_kernel's output)
+  float* err;         // [1]: the step's mean monitor
+  float* part;        // enhanced: cd_enhance_kernel's shares (enh_tiling: [ncb, V], [nrb, H])
+  const float* mom;   // optional [1]: the momentum, read in place of m
   long long nW, n_flat;
   int V, H, flags;
   float scale, lr, lr_z, m, l2, grad_clip, sparsity_target, sparsity_cost;
@@ -365,53 +376,77 @@ __device__ __forceinline__ float enhanced_w(const UpdateArgs& a, int q, int j) {
 }
 
 __device__ __forceinline__ void update_one(const UpdateArgs& a, Store* p, Store* vel, float g,
-                                           float lr, bool decay) {
+                                           float m, float lr, bool decay) {
   if (a.flags & kClip) g = fminf(fmaxf(g, -a.grad_clip), a.grad_clip);
   const float old = ld(p);
   if (decay && a.l2 != 0.0f) g = __fsub_rn(g, __fmul_rn(a.l2, old));
-  const float nv = round_store(__fadd_rn(__fmul_rn(a.m, ld(vel)), __fmul_rn(lr, g)));
+  const float nv = round_store(__fadd_rn(__fmul_rn(m, ld(vel)), __fmul_rn(lr, g)));
   st(vel, nv);
   st(p, __fadd_rn(old, nv));
 }
 
-// gb_e and gc_e into bias_e. Blocks [0, ceil(V / kWarps)): one warp per row q
-// of gW_e, lanes over the columns, fixed butterfly. The next ceil(H / 32)
-// blocks: 32 columns each (lane = column), warp w over the rows w, w +
-// kWarps, ..., the warps' partial sums added in warp order. The products'
-// operands round to bf16 under bf16 compute (core.rbm_math.enhance_grads).
+// The enhanced gradient's matvecs gW_e lam (for gb_e) and gW_e^T mu (for
+// gc_e), spread over the card. gW_e is cut into tiles of kEnhCols columns
+// and `rows` rows (enh_tiling, from V and H alone: about kEnhTiles tiles),
+// one block each, so every element is formed once and feeds both sums.
+// Thread (group g, column c) walks the tile's rows g, g + kEnhGroups, ... in
+// order: its column's share of gW_e^T mu, and each row's share of gW_e lam
+// over the tile's columns (a fixed butterfly in each of the row's two warps,
+// then the two in order). Out: part[cb * V + q] the share of tile column cb
+// in row q, part[ncb * V + rb * H + j] the share of tile row rb in column j
+// (the row groups in order); cd_update_kernel adds them in tile order. The
+// products' operands round to bf16 under bf16 compute
+// (core.rbm_math.enhance_grads). Replaces a pass of 15 us at c1 whose column
+// sums ran on ceil(H / 32) blocks, each warp one dependent load at a time.
+constexpr int kEnhCols = 64, kEnhGroups = kThreads / kEnhCols;
+constexpr int kEnhTiles = 128, kEnhMaxRowTiles = 32, kEnhMaxRows = 4096;
+
+struct EnhTiling {
+  int ncb, nrb, rows;  // tile columns, tile rows, rows of a tile
+};
+
+__host__ __device__ inline EnhTiling enh_tiling(int V, int H) {
+  EnhTiling t;
+  t.ncb = (H + kEnhCols - 1) / kEnhCols;
+  int nrb = kEnhTiles / t.ncb;
+  nrb = nrb < 1 ? 1 : nrb > kEnhMaxRowTiles ? kEnhMaxRowTiles : nrb;
+  t.rows = (V + nrb - 1) / nrb;
+  if (t.rows > kEnhMaxRows) t.rows = kEnhMaxRows;  // the row shares fit 32 KB
+  t.nrb = (V + t.rows - 1) / t.rows;
+  return t;
+}
+
 template <bool kBf>
 __global__ void __launch_bounds__(kThreads) cd_enhance_kernel(UpdateArgs a) {
-  __shared__ float part[kWarps][32];
+  extern __shared__ float esm[];  // [rows][2] the row shares of the tile's halves; [groups][cols]
   const int V = a.V, H = a.H;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nbw = (V + kWarps - 1) / kWarps;
+  const EnhTiling et = enh_tiling(V, H);
+  const int cb = blockIdx.x % et.ncb, rb = blockIdx.x / et.ncb;
+  const int c = threadIdx.x % kEnhCols, grp = threadIdx.x / kEnhCols;
+  const int lane = threadIdx.x & 31, half = (threadIdx.x >> 5) & 1;
+  const int j = cb * kEnhCols + c, q0 = rb * et.rows, nq = min(et.rows, V - q0);
   const long long x = off_extra(a);
-  if (static_cast<int>(blockIdx.x) < nbw) {
-    const int q = blockIdx.x * kWarps + warp;
-    if (q >= V) return;
-    float acc = 0.0f;
-    for (int j = lane; j < H; j += 32)
-      acc = fmaf(op<kBf>(enhanced_w(a, q, j)), op<kBf>(sum_at(a, x + V + j)), acc);
-    acc = warp_sum(acc);
-    if (lane == 0) a.bias_e[q] = __fsub_rn(sum_at(a, a.nW + q), acc);
-    return;
-  }
-  const int j = (blockIdx.x - nbw) * 32 + lane;
+  const bool col = j < H;
+  const float lam_j = col ? op<kBf>(sum_at(a, x + V + j)) : 0.0f;
+  float* rs = esm;
+  float* cs = esm + 2 * et.rows;
   float acc = 0.0f;
-  if (j < H) {
-    for (int q = warp; q < V; q += kWarps)
-      acc = fmaf(op<kBf>(enhanced_w(a, q, j)), op<kBf>(sum_at(a, x + q)), acc);
+  for (int qq = grp; qq < nq; qq += kEnhGroups) {  // the same rows in every lane of a warp
+    const int q = q0 + qq;
+    const float ge = col ? op<kBf>(enhanced_w(a, q, j)) : 0.0f;
+    acc = fmaf(ge, op<kBf>(sum_at(a, x + q)), acc);
+    const float r = warp_sum(ge * lam_j);
+    if (lane == 0) rs[qq * 2 + half] = r;
   }
-  part[warp][lane] = acc;
+  cs[grp * kEnhCols + c] = acc;
   __syncthreads();
-  if (warp != 0 || j >= H) return;
-  float tot = 0.0f;
-  for (int w = 0; w < kWarps; ++w) tot += part[w][lane];
-  float g = __fsub_rn(sum_at(a, a.nW + a.V + j), tot);
-  if (a.flags & kSparsity)
-    g = __fadd_rn(g, __fmul_rn(a.sparsity_cost,
-                               __fsub_rn(a.sparsity_target, sum_at(a, x + V + H + j))));
-  a.bias_e[V + j] = g;
+  for (int qq = threadIdx.x; qq < nq; qq += kThreads)
+    a.part[static_cast<size_t>(cb) * V + q0 + qq] = rs[qq * 2] + rs[qq * 2 + 1];
+  if (grp == 0 && col) {
+    float tot = 0.0f;
+    for (int g = 0; g < kEnhGroups; ++g) tot += cs[g * kEnhCols + c];
+    a.part[static_cast<size_t>(et.ncb) * V + static_cast<size_t>(rb) * H + j] = tot;
+  }
 }
 
 // kModes: learned variance and the enhanced gradient are compiled in; the
@@ -420,23 +455,48 @@ template <bool kModes>
 __global__ void __launch_bounds__(kThreads) cd_update_kernel(UpdateArgs a) {
   const bool lv = kModes && (a.flags & kLearnVar), enh = kModes && (a.flags & kEnhanced);
   const long long nb = a.nW + a.V, nc = nb + a.H, n = nc + (lv ? a.V : 0);
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * kThreads) {
+  const float m = a.mom ? __ldg(a.mom) : a.m;
+  const EnhTiling et = enh_tiling(a.V, a.H);
+  // the vector elements (b, c, z) on the first threads, then W from the next
+  // whole warp on (so a warp's W elements stay aligned): the vector sums (the
+  // enhanced gradient's shares) then overlap W's elements instead of trailing
+  const long long nvec = n - a.nW, wbase = (nvec + 31) / 32 * 32;
+  for (long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       t < wbase + a.nW; t += static_cast<long long>(gridDim.x) * kThreads) {
+    if (t >= nvec && t < wbase) continue;
+    const long long i = t < nvec ? a.nW + t : t - wbase;
     if (i < a.nW) {
       const float g = enh ? enhanced_w(a, static_cast<int>(i / a.H), static_cast<int>(i % a.H))
                           : sum_at(a, i);
-      update_one(a, a.W + i, a.vW + i, g, a.lr, true);
+      update_one(a, a.W + i, a.vW + i, g, m, a.lr, true);
     } else if (i < nb) {
       const long long q = i - a.nW;
-      update_one(a, a.b + q, a.vb + q, enh ? a.bias_e[q] : sum_at(a, i), a.lr, false);
+      float g = sum_at(a, i);
+      if (enh) {  // gb_e = gb - gW_e lam: the tile columns' shares in order
+        float tot = 0.0f;
+        for (int cb = 0; cb < et.ncb; ++cb) tot += a.part[cb * static_cast<long long>(a.V) + q];
+        g = __fsub_rn(g, tot);
+      }
+      update_one(a, a.b + q, a.vb + q, g, m, a.lr, false);
     } else if (i < nc) {
       const long long j = i - nb;
-      update_one(a, a.c + j, a.vc + j, enh ? a.bias_e[a.V + j] : sum_at(a, i), a.lr, false);
+      float g = sum_at(a, i);
+      if (enh) {  // gc_e = gc - gW_e^T mu: the tile rows' shares in order; the sparsity term
+        const float* p = a.part + et.ncb * static_cast<long long>(a.V) + j;
+        float tot = 0.0f;
+        for (int rb = 0; rb < et.nrb; ++rb) tot += p[rb * static_cast<long long>(a.H)];
+        g = __fsub_rn(g, tot);
+        if (a.flags & kSparsity)
+          g = __fadd_rn(g, __fmul_rn(a.sparsity_cost,
+                                     __fsub_rn(a.sparsity_target,
+                                               sum_at(a, off_extra(a) + a.V + a.H + j))));
+      }
+      update_one(a, a.c + j, a.vc + j, g, m, a.lr, false);
     } else {
       const long long q = i - nc;
       float g = __fmul_rn(expf(-ld(a.z + q)), sum_at(a, i));
       if (!(a.flags & kSampleVisible)) g = __fsub_rn(g, 0.5f);
-      update_one(a, a.z + q, a.vz + q, g, a.lr_z, false);
+      update_one(a, a.z + q, a.vz + q, g, m, a.lr_z, false);
     }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *a.err = sum_at(a, a.n_flat - 1);
@@ -479,6 +539,32 @@ const void* step_variant(int v) {
   }
 }
 
+// The device's SM count and each step variant's co-resident blocks per SM,
+// asked once per device (before a launch is captured in a CUDA graph, which
+// must make no such request: cd_grads_prepare).
+constexpr int kMaxDevices = 64;
+int g_nsm[kMaxDevices], g_per_sm[kMaxDevices][4];
+
+cudaError_t device_info(int device) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (g_nsm[device] != 0) return cudaSuccess;
+  cudaError_t err = cudaSuccess;
+  int coop = 0, n = 0;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device)) != cudaSuccess)
+    return err;
+  if (!coop) return cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  for (int v = 0; v < 4; ++v) {
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&g_per_sm[device][v],
+                                                              step_variant(v), kThreads, 0)) !=
+        cudaSuccess)
+      return err;
+  }
+  g_nsm[device] = n;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -488,44 +574,24 @@ extern "C" {
 // per SM. Returns a cudaError_t (0 on success); a grid larger than the
 // co-resident block count returns cudaErrorCooperativeLaunchTooLarge without
 // launching.
-int cd_grads_step(const Store* v0, const float* mask, const float* u_h0, const float* u_h,
-                  const float* u_v, const float* u_swap, const float* betas, const Store* W,
-                  const Store* b, const Store* c, const Store* z, const Store* chain_in,
-                  float* out, Store* chain_out, float* scratch, int V, int H, int B, int M,
-                  int k, int flags, int bit, float inv_norm, float sparsity_target,
-                  float sparsity_cost, unsigned long long seed, int device, int grid,
-                  void* stream) {
-  // the device's SM count and each variant's co-resident blocks per SM, asked once
-  static int nsm[64] = {0}, per_sm[64][4] = {{0}};
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+int cd_grads_step(const Store* v0, const long long* tab, const float* mask, const float* u_h0,
+                  const float* u_h, const float* u_v, const float* u_swap, const float* betas,
+                  const Store* W, const Store* b, const Store* c, const Store* z,
+                  const Store* chain_in, float* out, Store* chain_out, float* scratch, int V,
+                  int H, int B, int M, int k, int flags, int bit, float inv_norm,
+                  float sparsity_target, float sparsity_cost, unsigned long long seed,
+                  int device, int grid, void* stream) {
   cudaError_t err_ = cudaSetDevice(device);
   if (err_ != cudaSuccess) return err_;
+  if ((err_ = device_info(device)) != cudaSuccess) return err_;
   const bool modes = flags & (kTempering | kEnhanced | kLearnVar | kPseudo);
   const int variant = ((flags & kBf16) ? 2 : 0) + (modes ? 1 : 0);
-  if (nsm[device] == 0) {
-    int coop = 0;
-    if ((err_ = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device)) !=
-        cudaSuccess)
-      return err_;
-    if (!coop) return cudaErrorNotSupported;
-    int n = 0;
-    if ((err_ = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)) !=
-        cudaSuccess)
-      return err_;
-    for (int v = 0; v < 4; ++v) {
-      if ((err_ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[device][v],
-                                                                step_variant(v), kThreads,
-                                                                0)) != cudaSuccess)
-        return err_;
-    }
-    nsm[device] = n;
-  }
-  if (grid <= 0) grid = nsm[device];
-  if (grid > per_sm[device][variant] * nsm[device]) return cudaErrorCooperativeLaunchTooLarge;
+  if (grid <= 0) grid = g_nsm[device];
+  if (grid > g_per_sm[device][variant] * g_nsm[device]) return cudaErrorCooperativeLaunchTooLarge;
 
   const long long nW = static_cast<long long>(V) * H;
   Args a;
-  a.v0 = v0; a.mask = mask; a.u_h0 = u_h0; a.u_h = u_h; a.u_v = u_v; a.u_swap = u_swap;
+  a.v0 = v0; a.tab = tab; a.mask = mask; a.u_h0 = u_h0; a.u_h = u_h; a.u_v = u_v; a.u_swap = u_swap;
   a.betas = betas; a.W = W; a.b = b; a.c = c; a.z = z; a.chain_in = chain_in;
   a.chain = chain_out;
   a.gW = out; a.gb = out + nW; a.gc = out + nW + V;
@@ -549,26 +615,23 @@ int cd_grads_step(const Store* v0, const float* mask, const float* u_h0, const f
 }
 
 // Launches the update on `stream`: under the enhanced gradient first
-// cd_enhance_kernel (into bias_e, V + H floats), then one thread per element
-// of W, b, c (and z), at most 8 blocks per SM. Returns a cudaError_t (0 on
-// success).
+// cd_enhance_kernel (its shares into `part`, cd_enhance_scratch_floats),
+// then one thread per element of W, b, c (and z), at most 8 blocks per SM.
+// `mom`: the momentum in device memory, or null to take m. Returns a
+// cudaError_t (0 on success).
 int cd_update_step(const float* sums, Store* W, Store* b, Store* c, Store* z, Store* vW,
-                   Store* vb, Store* vc, Store* vz, float* err, float* bias_e, int V, int H,
-                   int flags, float scale, float lr, float lr_z, float m, float l2,
+                   Store* vb, Store* vc, Store* vz, float* err, float* part, const float* mom,
+                   int V, int H, int flags, float scale, float lr, float lr_z, float m, float l2,
                    float grad_clip, float sparsity_target, float sparsity_cost, int device,
                    void* stream) {
-  static int nsm[64] = {0};
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   cudaError_t err_ = cudaSetDevice(device);
   if (err_ != cudaSuccess) return err_;
-  if (nsm[device] == 0 &&
-      (err_ = cudaDeviceGetAttribute(&nsm[device], cudaDevAttrMultiProcessorCount, device)) !=
-          cudaSuccess)
-    return err_;
+  if ((err_ = device_info(device)) != cudaSuccess) return err_;
+  const int nsm = g_nsm[device];
   const bool lv = flags & kLearnVar, enh = flags & kEnhanced;
   UpdateArgs a;
   a.sums = sums; a.W = W; a.b = b; a.c = c; a.z = z;
-  a.vW = vW; a.vb = vb; a.vc = vc; a.vz = vz; a.err = err; a.bias_e = bias_e;
+  a.vW = vW; a.vb = vb; a.vc = vc; a.vz = vz; a.err = err; a.part = part; a.mom = mom;
   a.nW = static_cast<long long>(V) * H;
   a.n_flat = a.nW + V + H + (lv ? V : 0) + (enh ? V + 2 * H : 0) + 1;
   a.V = V; a.H = H; a.flags = flags;
@@ -576,21 +639,35 @@ int cd_update_step(const float* sums, Store* W, Store* b, Store* c, Store* z, St
   a.sparsity_target = sparsity_target; a.sparsity_cost = sparsity_cost;
   cudaStream_t st_ = static_cast<cudaStream_t>(stream);
   if (enh) {
-    const int blocks = (V + kWarps - 1) / kWarps + (H + 31) / 32;
+    const EnhTiling et = enh_tiling(V, H);
+    const size_t smem = (2 * static_cast<size_t>(et.rows) + kEnhGroups * kEnhCols) * sizeof(float);
     if (flags & kBf16)
-      cd_enhance_kernel<true><<<blocks, kThreads, 0, st_>>>(a);
+      cd_enhance_kernel<true><<<et.ncb * et.nrb, kThreads, smem, st_>>>(a);
     else
-      cd_enhance_kernel<false><<<blocks, kThreads, 0, st_>>>(a);
+      cd_enhance_kernel<false><<<et.ncb * et.nrb, kThreads, smem, st_>>>(a);
     if ((err_ = cudaGetLastError()) != cudaSuccess) return err_;
   }
   const long long n = a.nW + V + H + (lv ? V : 0);
   const long long blocks = (n + kThreads - 1) / kThreads;
-  const int grid = static_cast<int>(blocks < 8LL * nsm[device] ? blocks : 8LL * nsm[device]);
+  const int grid = static_cast<int>(blocks < 8LL * nsm ? blocks : 8LL * nsm);
   if (lv || enh)
     cd_update_kernel<true><<<grid, kThreads, 0, st_>>>(a);
   else
     cd_update_kernel<false><<<grid, kThreads, 0, st_>>>(a);
   return cudaGetLastError();
+}
+
+// Asks the device what the launches need (device_info) ahead of them, as a
+// launch captured in a CUDA graph must ask nothing. Returns a cudaError_t.
+int cd_grads_prepare(int device) {
+  cudaError_t err = cudaSetDevice(device);
+  return err != cudaSuccess ? err : device_info(device);
+}
+
+// Floats of the enhanced gradient's shares (cd_update_step's `part`).
+long long cd_enhance_scratch_floats(int V, int H) {
+  const EnhTiling et = enh_tiling(V, H);
+  return static_cast<long long>(et.ncb) * V + static_cast<long long>(et.nrb) * H;
 }
 
 // Scratch floats the wrapper allocates for one step.

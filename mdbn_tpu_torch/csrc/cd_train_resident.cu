@@ -117,6 +117,30 @@
 //   shared memory after the first cluster barrier (before W changes) and
 //   writes the monitor's strip sum in place of the reconstruction's. +0.
 //
+// The data-parallel step (kStep, a library of its own: -DMDBN_RESIDENT_STEP=1,
+// one per kModes variant). Replaces mdbn_tpu/ops/cd_epoch_pallas.py::
+// _cd_grads_kernel (:3184) and the step of the TPU's DP mega-kernel in every
+// estimator mode, as csrc/cd_grads.cu does (its header says what the step
+// computes: one CD-k / PCD step of a rank's rows into the flat statistics
+// buffer that parallel/dp.py all-reduces, with the row mask and norm of a
+// shard, learned variance's raw z statistic and the enhanced gradient's mean
+// sums; the same Philox keying, update 0 under the step's seed, and inject
+// layouts). It is this kernel's single update with no update phase: W (and
+// z), b and c change between launches, so each block loads its tiles from
+// device memory at entry (W with cp.async) and keeps no velocity; then the
+// hidden and visible phases as above (k + 1 tile barriers, k cluster
+// barriers, the modes' own), and in place of the update each block writes
+// its tile of gW, rank 0 its strips' gb (mu, gz) and cluster 0 its tile's gc
+// (lam, h0) straight into the flat buffer: every sum in the order the tiling
+// fixes, no atomics, so the bits do not depend on the cluster count. The
+// barrier counters and the monitor's strip sums are scratch kept between
+// launches: after its last barrier each block counts itself out, and the last
+// one (a device-scope counter, the threadfence-reduction pattern) adds the
+// strip sums in strip order into err and sets the counters back to zero. A
+// captured epoch (parallel/dp.py) passes `tab`, a device row of {minibatch,
+// seed, pseudo bit} that the kernel reads at entry, so one graph serves
+// every epoch.
+//
 // The optional trace stamps, on block (0, 0)'s clock, the start of each
 // step of an update: per hidden phase its products, its tile barrier and its
 // sums; per visible phase its products, its cluster barrier and its sums; a
@@ -279,8 +303,24 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
 
 namespace {
 
+// The data-parallel step's arguments (Args::st; the training run leaves them
+// unused): the flat buffer's parts (ops/cd_grads_cuda.py::flat_views), the
+// row mask, the chain out, the departure counter and the optional table row.
+struct StepArgs {
+  const long long* tab;  // optional [3]: the step's minibatch, seed and pseudo bit
+  const float* mask;     // optional [B] of 0/1: pad rows enter no statistic
+  float *gW, *gb, *gc;   // [V, H], [V], [H]
+  float* gz;             // learned variance: [V] the raw z statistic
+  float *mu, *lam, *h0m; // enhanced: [V], [H], [H]
+  float* err;            // [1]
+  Store* chain_out;      // PCD: [CR, H]
+  unsigned* dep;         // blocks past their last barrier (scratch, zero between launches)
+  float inv_norm;
+  int bit;
+};
+
 struct Args {
-  const Store* data;    // [n_rows, V]
+  const Store* data;    // [n_rows, V] (the step: its minibatches [*, B, V])
   const int* order;     // [E, nb]
   const float* u_h0;    // inject: [E, nb, B, H]
   const float* u_h;     // inject: [E, nb, k, CR, H]
@@ -305,11 +345,21 @@ struct Args {
   Layout L;
   int clusters;
   ModeArgs md;          // the estimator modes (kModes)
+  StepArgs st;          // the data-parallel step (kStep)
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+// Four elements of Store at once (16 bytes of f32, 8 of bf16; both addresses
+// aligned to that).
+__device__ __forceinline__ void cp_async_quad(Store* dst, const Store* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (sizeof(Store) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -499,8 +549,9 @@ __device__ __forceinline__ float block_total(float x, float* red) {
 // kModes: 0 the plain variant, which leaves the estimator modes out (and
 // with them their registers and branches); 1 the modes without a tempering
 // ladder; 2 with one (the ladder's exchanges weigh on the registers of every
-// phase, so the other modes do without them).
-template <bool kBf, int kModes>
+// phase, so the other modes do without them). kStep: the data-parallel step
+// (one update's phases into the flat statistics buffer, no update).
+template <bool kBf, int kModes, bool kStep>
 __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -526,6 +577,11 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
   const bool enh = kAny && (a.flags & kEnhanced);
   const bool pseudo = kAny && (a.flags & kPseudo);
   const int M = kLadder ? a.md.M : 1, CR = kLadder ? a.md.CR : B;  // rungs, chain rows
+  // the step: its minibatch, seed and pseudo bit from the table row when given
+  const long long* tab = kStep ? a.st.tab : nullptr;
+  const unsigned long long seed = tab ? static_cast<unsigned long long>(tab[1]) : a.seed;
+  const float* rmask = kStep ? a.st.mask : nullptr;
+  auto mrow = [&](int r) { return rmask ? __ldg(rmask + r) : 1.0f; };  // a row's mask
   Store* c_s = reinterpret_cast<Store*>(smem + L.c);
   Store* vc_s = reinterpret_cast<Store*>(smem + L.vc);
   float* h0p = reinterpret_cast<float*>(smem + L.h0p);
@@ -591,43 +647,49 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
   for (int x = tid; x < L.total / 16; x += kRThreads)
     reinterpret_cast<uint4*>(smem)[x] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
-  // the W and vW tiles with cp.async, all in flight at once (4-byte words:
-  // bf16 pairs where H and the tile's columns are even, else plain copies)
+  // the W and vW tiles with cp.async, all in flight at once: four elements
+  // a copy where H and the tile's columns are multiples of 4 (the tile's rows
+  // and columns then start on whole copies), else 4-byte words (bf16 pairs
+  // where H and the tile's columns are even), else plain copies
+  const bool quads = H % 4 == 0 && nj % 4 == 0;
   const bool words = sizeof(Store) == 4 || (H % 2 == 0 && nj % 2 == 0);
-  const int per = words ? 4 / static_cast<int>(sizeof(Store)) : 1;  // elements a copy
+  const int per = quads ? 4 : words ? 4 / static_cast<int>(sizeof(Store)) : 1;  // a copy's
   const int njw = nj / per;
   for (int i = 0; i < mine; ++i) {
     const int q0 = q0_of(i), nq = nq_of(i);
     for (int idx = tid; idx < nq * njw; idx += kRThreads) {
       const int q = idx / njw, jj = per * (idx - q * njw);
       const size_t gi = static_cast<size_t>(q0 + q) * H + j0 + jj;
-      if (words) {
+      if (quads) {
+        cp_async_quad(Wt(i) + q * ldw + jj, a.W + gi);
+        if (!kStep) cp_async_quad(vWt(i) + q * ldw + jj, a.vW + gi);
+      } else if (words) {
         cp_async4(Wt(i) + q * ldw + jj, a.W + gi);
-        cp_async4(vWt(i) + q * ldw + jj, a.vW + gi);
+        if (!kStep) cp_async4(vWt(i) + q * ldw + jj, a.vW + gi);
       } else {
         Wt(i)[q * ldw + jj] = a.W[gi];
-        vWt(i)[q * ldw + jj] = a.vW[gi];
+        if (!kStep) vWt(i)[q * ldw + jj] = a.vW[gi];
       }
     }
     for (int q = tid; q < nq; q += kRThreads) {
       bt(i)[q] = a.b[q0 + q];
-      vbt(i)[q] = a.vb[q0 + q];
+      if (!kStep) vbt(i)[q] = a.vb[q0 + q];
       if (lv) {
         zt(i)[q] = a.md.z[q0 + q];
-        vzt(i)[q] = a.md.vz[q0 + q];
+        if (!kStep) vzt(i)[q] = a.md.vz[q0 + q];
       }
     }
   }
   for (int jj = tid; jj < nj; jj += kRThreads) {
     c_s[jj] = a.c[j0 + jj];
-    vc_s[jj] = a.vc[j0 + jj];
+    if (!kStep) vc_s[jj] = a.vc[j0 + jj];
   }
   if (persistent)
     for (int idx = tid; idx < CR * nj; idx += kRThreads) {
       const int r = idx / nj, jj = idx - r * nj;
       hcur[r * th + jj] = ld(a.chain + static_cast<size_t>(r) * H + j0 + jj);
     }
-  stage_batch(a.order[0], 0);
+  stage_batch(kStep ? (tab ? static_cast<int>(tab[0]) : 0) : a.order[0], 0);
   cp_async_wait_all();
   __syncthreads();
 
@@ -765,7 +827,7 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
     for (int idx = tid; !ladder && idx < rows * nj; idx += kRThreads) {
       const int r = idx / nj, jj = idx - r * nj;
       ud[r * th + jj] = u_inj ? u_inj[static_cast<size_t>(r) * H + j0 + jj]
-                              : draw_uniform(a.seed, upd, kind, t, r, j0 + jj);
+                              : draw_uniform(seed, upd, kind, t, r, j0 + jj);
     }
     tile_wait(a.bar + rank, ++nbar * static_cast<unsigned>(G));
     mark();
@@ -792,7 +854,7 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
           if (jj >= nj) break;
           const float pr = sigmoidf(beta * (sv[i] + ld(c_s + jj)));
           const float uu = u_inj ? u_inj[static_cast<size_t>(r) * H + j0 + jj]
-                                 : draw_uniform(a.seed, upd, kind, t, r, j0 + jj);
+                                 : draw_uniform(seed, upd, kind, t, r, j0 + jj);
           __stcg(xp + o + i, pr);
           __stcg(xs + o + i, uu < pr ? 1.0f : 0.0f);
         }
@@ -890,6 +952,97 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
     }
   };
 
+  // the step (kStep): the statistics into the flat buffer in place of the
+  // update. gW of each unit of the block's tiles (4 strip rows x 64 columns,
+  // as the update's), its rows summed in order; rank 0's blocks the strips'
+  // gb (mu, gz), cluster 0's the tile's gc (lam, h0), a thread an element on
+  // the last threads, rows in order. Masked rows (and their precision-scaled
+  // visibles) count zero; rung 0 of a ladder, before its swaps
+  auto step_stats = [&](int pv) {
+    const float inv = a.st.inv_norm;
+    for (int i = 0; i < mine; ++i) {
+      const int nq = nq_of(i), q0 = q0_of(i);
+      const Store* v0 = v0t(i, pv);
+      const float* vs = vst(i);
+      const int ncg = cdiv(nj, 64), nq4 = cdiv(nq, 4);
+      for (int unit = warp; unit < nq4 * ncg; unit += kRWarps) {
+        const int cg = unit % ncg, qb = 4 * (unit / ncg), jl = cg * 64 + lane;
+        const bool two = cg * 64 + 32 < nj;  // the warp's second 32 columns exist
+        float pos[2][4], neg[2][4];
+#pragma unroll
+        for (int qi = 0; qi < 4; ++qi) pos[0][qi] = pos[1][qi] = neg[0][qi] = neg[1][qi] = 0.0f;
+        float s4[4] = {1.0f, 1.0f, 1.0f, 1.0f};  // learned variance: s of the unit's rows
+        if (lv) load4(st_lv(i) + qb, s4);
+#pragma unroll 4
+        for (int r = 0; r < B; ++r) {
+          const float mr = mrow(r);
+          const float hp0 = op<kBf>(h0p[r * th + jl]), hm0 = op<kBf>(hmean[r * th + jl]);
+          const float hp1 = two ? op<kBf>(h0p[r * th + jl + 32]) : 0.0f;
+          const float hm1 = two ? op<kBf>(hmean[r * th + jl + 32]) : 0.0f;
+          float xv[4], sv[4];
+          load4(v0 + r * tv + qb, xv);
+          load4(vs + r * tv + qb, sv);
+#pragma unroll
+          for (int qi = 0; qi < 4; ++qi) {
+            const float xo = op<kBf>(xv[qi] * mr * s4[qi]);
+            const float so = op<kBf>(sv[qi] * mr * s4[qi]);
+            pos[0][qi] = fmaf(xo, hp0, pos[0][qi]);
+            neg[0][qi] = fmaf(so, hm0, neg[0][qi]);
+            pos[1][qi] = fmaf(xo, hp1, pos[1][qi]);
+            neg[1][qi] = fmaf(so, hm1, neg[1][qi]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int jj = jl + 32 * c;
+          if (jj >= nj) break;
+#pragma unroll
+          for (int qi = 0; qi < 4; ++qi) {
+            if (qb + qi >= nq) break;
+            a.st.gW[static_cast<size_t>(q0 + qb + qi) * H + j0 + jj] =
+                (pos[c][qi] - neg[c][qi]) * inv;
+          }
+        }
+      }
+      // gb (mu, gz) on the threads after gc's (the last ones, whose warps hold
+      // the fewest gW units): (rev - nj) mod kRThreads, as the update's b
+      const int rev = kRThreads - 1 - tid;
+      for (int q = ((rev - nj) % kRThreads + kRThreads) % kRThreads; rank == 0 && q < nq;
+           q += kRThreads) {
+        const float sq = lv ? st_lv(i)[q] : 1.0f;
+        float d = 0.0f, sm = 0.0f, az = 0.0f;
+        for (int r = 0; r < B; ++r) {
+          const float mr = mrow(r);
+          const float x = ld(v0 + r * tv + q) * mr, y = vs[r * tv + q] * mr;
+          d += x * sq - y * sq;
+          sm += x + y;
+          if (lv) az += vsst(i)[r * tv + q] * mr;  // A_data - A_model of the row
+        }
+        a.st.gb[q0 + q] = d * inv;
+        if (enh) a.st.mu[q0 + q] = 0.5f * sm * inv;
+        if (lv) a.st.gz[q0 + q] = az * inv;
+      }
+    }
+    for (int jj = kRThreads - 1 - tid; g == 0 && jj < nj; jj += kRThreads) {
+      float d = 0.0f, on = 0.0f, sn = 0.0f;
+      for (int r = 0; r < B; ++r) {
+        const float mr = mrow(r);
+        const float x = h0p[r * th + jj] * mr, y = hmean[r * th + jj] * mr;
+        d += x - y;
+        on += x;
+        sn += y;
+      }
+      float gc = d * inv;
+      if (enh) {
+        a.st.lam[j0 + jj] = 0.5f * (on + sn) * inv;
+        a.st.h0m[j0 + jj] = on * inv;
+      } else if (a.flags & kSparsity) {
+        gc = gc + a.sparsity_cost * (a.sparsity_target - on * inv);
+      }
+      a.st.gc[j0 + jj] = gc;
+    }
+  };
+
   for (int e = 0; e < a.E; ++e) {
     const int abs_epoch = a.start_epoch + e;
     const float m = ((a.flags & kMomentumSchedule) && abs_epoch < a.switch_epoch)
@@ -901,7 +1054,8 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
       const unsigned upd = static_cast<unsigned>(abs_epoch) * static_cast<unsigned>(a.nb) +
                            static_cast<unsigned>(ib);
       const size_t ei = static_cast<size_t>(u);
-      const int bit = static_cast<int>((static_cast<long long>(abs_epoch) * a.nb + ib) % V);
+      const int bit = kStep ? (tab ? static_cast<int>(tab[2]) : a.st.bit)
+                            : static_cast<int>((static_cast<long long>(abs_epoch) * a.nb + ib) % V);
       stamp = (a.trace && lead && tid == 0) ? a.trace + ei * nstamp : nullptr;
       if (lv) {  // this update's s = e^{-z} and sigma = e^{z/2}, from the strip's z
         for (int i = 0; i < mine; ++i)
@@ -944,8 +1098,8 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
             for (int idx = tid; idx < CR * nq; idx += kRThreads) {
               const int r = idx / nq, q = idx - r * nq;
               vs[r * tv + q] = uv ? uv[static_cast<size_t>(r) * V + q0 + q]
-                               : gaussian ? draw_normal(a.seed, upd, kDrawV, t, r, q0 + q)
-                                          : draw_uniform(a.seed, upd, kDrawV, t, r, q0 + q);
+                               : gaussian ? draw_normal(seed, upd, kDrawV, t, r, q0 + q)
+                                          : draw_uniform(seed, upd, kDrawV, t, r, q0 + q);
             }
           }
         }
@@ -964,7 +1118,8 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
             for (int c = 0; c < T.ranks; ++c)
               acc += cluster.map_shared_rank(f32at(L.psh) + (u & 1) * B, c)[r];
             const float delta = 1.0f - 2.0f * ld(v0t(i, pv) + r * tv + qb);
-            x += static_cast<float>(V) * softplusf(delta * ld(bt(i) + qb) + acc);
+            const float term = static_cast<float>(V) * softplusf(delta * ld(bt(i) + qb) + acc);
+            x += kStep ? mrow(r) * term : term;
           }
           const float tot = block_total(x, red);
           if (tid == 0) __stcg(a.mon + (u & 1) * S + si, tot);
@@ -1001,7 +1156,9 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
                 const float pre = sv[ii] + ld(bs + qi);
                 if (row >= CR) {  // the data chain's reconstruction: the monitor
                   const float y = gaussian ? pre : sigmoidf(pre);
-                  err = monitor_term(ld(v0 + (row - CR) * tv + qi), y, xent, err);
+                  const float x = ld(v0 + (row - CR) * tv + qi);
+                  err = kStep ? err + mrow(row - CR) * monitor_term(x, y, xent, 0.0f)
+                              : monitor_term(x, y, xent, err);
                   continue;
                 }
                 const float mean = gaussian ? pre : sigmoidf(beta * pre);
@@ -1009,8 +1166,8 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
                 if (sample_v) {
                   const int q = q0 + qi;
                   const float d = uv ? uv[static_cast<size_t>(row) * V + q]
-                                  : gaussian ? draw_normal(a.seed, upd, kDrawV, t, row, q)
-                                             : draw_uniform(a.seed, upd, kDrawV, t, row, q);
+                                  : gaussian ? draw_normal(seed, upd, kDrawV, t, row, q)
+                                             : draw_uniform(seed, upd, kDrawV, t, row, q);
                   float nz = d / sqrtf(beta);  // Gaussian noise: variance sigma^2 / beta
                   if (lv) nz = nz * sg[qi];
                   sample = gaussian ? mean + nz : (d < mean ? 1.0f : 0.0f);
@@ -1107,7 +1264,8 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
               if (monitor) {
                 const float p2 = sv2[ii] + bq;
                 const float y = recon ? (gaussian ? p2 : sigmoidf(p2)) : mean;
-                err = monitor_term(ld(v0 + o + ii), y, xent, err);
+                err = kStep ? err + mrow(r) * monitor_term(ld(v0 + o + ii), y, xent, 0.0f)
+                            : monitor_term(ld(v0 + o + ii), y, xent, err);
               }
             }
           }
@@ -1193,15 +1351,22 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
         for (int r = tid; r < CR; r += kRThreads)  // in rank order
           chs[r] = ordered_sum(a.md.ch_part + r, CR, T.ranks);
         __syncthreads();
-        ladder_swaps(a.md.betas, a.md.u_swap, M, NT, B, a.flags, a.seed, lp, chs,
+        ladder_swaps(a.md.betas, a.md.u_swap, M, NT, B, a.flags, seed, lp, chs,
                      reinterpret_cast<int*>(smem + L.acc), hcur, th, nj, upd, ei);
       }
 
       // update: W and vW tiles, b and vb of each strip, c and vc (b and c on
       // the last threads, whose warps hold the fewest W units). Enhanced: the
       // statistics of the recombination first; b and c wait for the shares
-      // of the other ranks and strips (enhanced_b, enhanced_c)
+      // of the other ranks and strips (enhanced_b, enhanced_c). The step
+      // writes its statistics instead
       mark();
+      if constexpr (kStep) {
+        step_stats(pv);
+        __syncthreads();
+        mark();
+        continue;
+      }
       const int rev = kRThreads - 1 - tid;
       if (enh) {
         for (int jj = tid; jj < nj; jj += kRThreads) {
@@ -1353,6 +1518,37 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
     }
   }
 
+  if constexpr (kStep) {
+    if (g == 0 && persistent)  // the chain out
+      for (int idx = tid; idx < CR * nj; idx += kRThreads) {
+        const int r = idx / nj, jj = idx - r * nj;
+        st(a.st.chain_out + static_cast<size_t>(r) * H + j0 + jj, hcur[r * th + jj]);
+      }
+    __threadfence();  // the monitor's strip sums, before this block counts itself out
+    cluster.sync();   // no block leaves while another may still read its shared memory
+    if (tid == 0) {
+      const unsigned nblocks = gridDim.x;
+      if (atomicAdd(a.st.dep, 1u) == nblocks - 1) {
+        // the last block: every block is past its last barrier. The monitor
+        // in strip order (the strip sums zeroed for the next launch), and the
+        // barrier counters back to zero
+        __threadfence();
+        float tot = 0.0f;
+        for (int s = 0; s < S; ++s) {
+          tot += __ldcg(a.mon + s);
+          __stcg(a.mon + s, 0.0f);
+        }
+        const float inv = a.st.inv_norm;
+        *a.st.err = pseudo ? tot * inv
+                    : xent ? -tot * inv
+                           : tot * inv * (1.0f / static_cast<float>(V));
+        for (int c = 0; c < T.ranks + (pt ? 1 : 0); ++c) __stcg(a.bar + c, 0u);
+        __stcg(a.st.dep, 0u);
+        __threadfence();
+      }
+    }
+    return;
+  }
   if (enh) {
     // the last update's monitor, gc_e and gb_e: one more barrier of each kind
     tile_arrive(a.bar + rank);
@@ -1402,16 +1598,21 @@ __global__ void __launch_bounds__(kRThreads, 1) cd_train_resident_kernel(Args a)
 
 // A library holds one variant, chosen when the file is compiled:
 // -DMDBN_RESIDENT_MODES=0 the plain estimator, 1 the estimator modes without
-// a tempering ladder, 2 with one (kModes; _build.py builds all three, in
-// parallel).
+// a tempering ladder, 2 with one (kModes); -DMDBN_RESIDENT_STEP=1 the
+// data-parallel step of that variant instead of the training run (kStep).
+// _build.py builds all six, in parallel.
 #ifndef MDBN_RESIDENT_MODES
 #define MDBN_RESIDENT_MODES 0
 #endif
+#ifndef MDBN_RESIDENT_STEP
+#define MDBN_RESIDENT_STEP 0
+#endif
 constexpr int kLibModes = MDBN_RESIDENT_MODES;
+constexpr bool kLibStep = MDBN_RESIDENT_STEP;
 
 const void* kernel_fn(bool bf) {
-  return bf ? reinterpret_cast<const void*>(&cd_train_resident_kernel<true, kLibModes>)
-            : reinterpret_cast<const void*>(&cd_train_resident_kernel<false, kLibModes>);
+  return bf ? reinterpret_cast<const void*>(&cd_train_resident_kernel<true, kLibModes, kLibStep>)
+            : reinterpret_cast<const void*>(&cd_train_resident_kernel<false, kLibModes, kLibStep>);
 }
 
 // Lets the kernel ask for up to the card's opt-in shared memory (once per
@@ -1460,8 +1661,8 @@ cudaError_t max_clusters(bool bf, int device, int ranks, int optin, int* out) {
 // monitor's strip sums [2, S], the barrier counters [ranks] (tempering: + 1,
 // every block's); tempering's log p* terms [S, CR, NT], c.h shares [ranks,
 // CR] and the ladder's hidden exchange [2, CR, ranks * th]; the enhanced
-// gradient's gW_e^T mu shares [S, ranks * th]. A buffer of a mode that is
-// off takes none.
+// gradient's gW_e^T mu shares [S, ranks * th]; the step's departure
+// counter. A buffer of a mode that is off takes none.
 long long carve_scratch(Args& a, float* base, const Tiling& t, int B, int M, int flags) {
   const bool pt = flags & kTempering;
   const long long CR = pt ? static_cast<long long>(M) * B : B;
@@ -1485,6 +1686,7 @@ long long carve_scratch(Args& a, float* base, const Tiling& t, int B, int M, int
   a.md.ch_part = take16(pt ? t.ranks * CR : 0);
   a.md.pc = take16((flags & kEnhanced) ? t.nstrip * Hp : 0);
   a.md.hx = take16(pt ? 2 * CR * Hp : 0);
+  a.st.dep = reinterpret_cast<unsigned*>(take(kLibStep ? 1 : 0));
   return n;
 }
 
@@ -1509,12 +1711,18 @@ int cd_train_resident_smem_bytes(int V, int H, int B, int M, int flags, int ns) 
 }
 
 // out = {opt-in shared memory per block, clusters of this tiling's ranks
-// that fit the card at once}. Returns a cudaError_t.
+// that fit the card at once}. Sets both compute types' kernels up for
+// launch (the attribute and the cluster count, asked once), so a launch
+// after this call makes no such request (as a launch captured in a CUDA
+// graph must not). Returns a cudaError_t.
 int cd_train_resident_limits(int V, int H, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                     device)) != cudaSuccess)
+    return err;
+  int other = 0;
+  if ((err = max_clusters(true, device, tiling(V, H).ranks, out[0], &other)) != cudaSuccess)
     return err;
   return max_clusters(false, device, tiling(V, H).ranks, out[0], &out[1]);
 }
@@ -1545,7 +1753,7 @@ int cd_train_resident_run(const Store* data, const int* order, const float* u_h0
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const bool modes = flags & kModeFlags, pt = flags & kTempering;
-  if ((pt && M < 2) || (pt ? 2 : modes ? 1 : 0) != kLibModes)
+  if (kLibStep || (pt && M < 2) || (pt ? 2 : modes ? 1 : 0) != kLibModes)
     return cudaErrorInvalidValue;
   const bool bf = flags & kBf16;
   const Tiling t = tiling(V, H);
@@ -1582,6 +1790,98 @@ int cd_train_resident_run(const Store* data, const int* order, const float* u_h0
   a.md.CR = pt ? M * B : B;
   a.md.NT = pt ? ((flags & kGaussian) ? 1 : M) : 0;
   a.md.lr_z = lr_z;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * t.ranks);
+  cfg.blockDim = dim3(kRThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = t.ranks;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;  // every block resident at once
+  attrs[1].val.cooperative = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 2;
+  void* params[] = {&a};
+  if ((err = cudaLaunchKernelExC(&cfg, kernel_fn(bf), params)) != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Launches one data-parallel step on `stream` (a library built with
+// -DMDBN_RESIDENT_STEP=1): `clusters` clusters as cd_train_resident_run
+// takes them; the statistics into the flat buffer `out`
+// (ops/cd_grads_cuda.py::flat_size), the PCD chain into chain_out. data:
+// the step's rows [B, V], or with `tab` ({minibatch, seed, pseudo bit} in
+// device memory, read at entry) the minibatches [*, B, V] it indexes; seed
+// and bit are used without `tab`. mask: [B] of 0/1 or null. `scratch`
+// (cd_train_resident_scratch_floats) is zero before the first launch and
+// left zero by each. Returns a cudaError_t (0 on success), as
+// cd_train_resident_run; a library of the training run returns
+// cudaErrorInvalidValue without launching.
+int cd_grads_resident_step(const Store* data, const long long* tab, const float* mask,
+                           const float* u_h0, const float* u_h, const float* u_v,
+                           const float* u_swap, const float* betas, const Store* W,
+                           const Store* b, const Store* c, const Store* z,
+                           const Store* chain_in, float* out, Store* chain_out, float* scratch,
+                           unsigned long long* trace, int V, int H, int B, int M, int k,
+                           int flags, int bit, float inv_norm, float sparsity_target,
+                           float sparsity_cost, unsigned long long seed, int device,
+                           int clusters, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const bool modes = flags & kModeFlags, pt = flags & kTempering;
+  if (!kLibStep || (pt && M < 2) || (pt ? 2 : modes ? 1 : 0) != kLibModes)
+    return cudaErrorInvalidValue;
+  const bool bf = flags & kBf16;
+  const Tiling t = tiling(V, H);
+  static int optin[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (optin[device] == 0 &&
+      (err = cudaDeviceGetAttribute(&optin[device], cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                    device)) != cudaSuccess)
+    return err;
+  int maxc = 0;
+  if ((err = max_clusters(bf, device, t.ranks, optin[device], &maxc)) != cudaSuccess) return err;
+  if (clusters <= 0) {
+    const int per = cdiv(t.nstrip, maxc > 0 ? maxc : 1);
+    clusters = cdiv(t.nstrip, per);
+  }
+  if (clusters > maxc || clusters > t.nstrip) return cudaErrorCooperativeLaunchTooLarge;
+  const int ns = cdiv(t.nstrip, clusters);
+  const Layout L = layout(t, B, (flags & kPersistent) ? 2 : 1, ns, static_cast<int>(sizeof(Store)),
+                          flags, M);
+  if (L.total > optin[device]) return cudaErrorInvalidValue;
+  const int smem = L.total > kMinSmem ? L.total
+                                      : (kMinSmem < optin[device] ? kMinSmem : optin[device]);
+
+  const long long nW = static_cast<long long>(V) * H;
+  Args a = {};
+  a.data = data; a.u_h0 = u_h0; a.u_h = u_h; a.u_v = u_v;
+  a.W = const_cast<Store*>(W); a.b = const_cast<Store*>(b); a.c = const_cast<Store*>(c);
+  a.chain = const_cast<Store*>(chain_in);
+  carve_scratch(a, scratch, t, B, M, flags);
+  a.trace = trace;
+  a.V = V; a.H = H; a.B = B; a.nb = 1; a.E = 1; a.k = k;
+  a.start_epoch = 0; a.switch_epoch = 0; a.flags = flags;
+  a.sparsity_target = sparsity_target; a.sparsity_cost = sparsity_cost; a.seed = seed;
+  a.t = t; a.L = L; a.clusters = clusters;
+  a.md.u_swap = u_swap; a.md.betas = betas; a.md.z = const_cast<Store*>(z);
+  a.md.M = pt ? M : 1;
+  a.md.CR = pt ? M * B : B;
+  a.md.NT = pt ? ((flags & kGaussian) ? 1 : M) : 0;
+  a.st.tab = tab; a.st.mask = mask;
+  a.st.gW = out; a.st.gb = out + nW; a.st.gc = out + nW + V;
+  float* extra = out + nW + V + H;
+  a.st.gz = (flags & kLearnVar) ? extra : nullptr;
+  a.st.mu = (flags & kEnhanced) ? extra : nullptr;
+  a.st.lam = (flags & kEnhanced) ? extra + V : nullptr;
+  a.st.h0m = (flags & kEnhanced) ? extra + V + H : nullptr;
+  a.st.err = extra + ((flags & kLearnVar) ? V : 0) + ((flags & kEnhanced) ? V + 2 * H : 0);
+  a.st.chain_out = chain_out;
+  a.st.inv_norm = inv_norm; a.st.bit = bit;
 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(clusters * t.ranks);

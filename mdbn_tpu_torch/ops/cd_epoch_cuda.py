@@ -181,13 +181,23 @@ def kernel_run(kernel: str) -> Callable:
 WIDE_DP_MIN_VISIBLE = 4096
 
 
-def select_dp_kernel(cfg: RBMConfig) -> str:
-    """The kernels a data-parallel run of ``cfg`` takes: "cd_grads_wide" when
-    the config lies in the W-blocked kernel's scope and is at least
-    ``WIDE_DP_MIN_VISIBLE`` wide, else "cd_grads". Decided from the config
-    alone."""
-    wide = wide_unsupported(cfg) is None and cfg.n_visible >= WIDE_DP_MIN_VISIBLE
-    return "cd_grads_wide" if wide else "cd_grads"
+def select_dp_kernel(cfg: RBMConfig, ndev: int = 1,
+                     limits: Optional[Tuple[int, int]] = None) -> str:
+    """The kernels a data-parallel run of ``cfg`` over ``ndev`` ranks takes:
+    "cd_grads_wide" when the config lies in the W-blocked kernel's scope and
+    is at least ``WIDE_DP_MIN_VISIBLE`` wide; else "cd_grads_resident" (the
+    resident kernel's step variant, csrc/cd_train_resident.cu) when the
+    tiles of a rank's step (``batch_size`` = the rank's rows,
+    ``parallel.dp.local_batch``) fit a card with ``limits``
+    (``ops.cd_epoch_resident_cuda.device_limits``; None: an H100's), under
+    any estimator mode; else "cd_grads" (csrc/cd_grads.cu). Decided from the
+    config, the rank count and those two numbers."""
+    from .cd_epoch_resident_cuda import resident_admits
+
+    if wide_unsupported(cfg) is None and cfg.n_visible >= WIDE_DP_MIN_VISIBLE:
+        return "cd_grads_wide"
+    local = cfg.replace(batch_size=-(-cfg.batch_size // ndev))
+    return "cd_grads_resident" if resident_admits(local, limits) else "cd_grads"
 
 
 def trace_phases(cfg: RBMConfig) -> List[str]:

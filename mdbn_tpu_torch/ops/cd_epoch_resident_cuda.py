@@ -197,15 +197,16 @@ def resident_admits(cfg: RBMConfig, limits: Optional[Tuple[int, int]] = None) ->
     return resident_tiles(cfg, smem, maxc).fits
 
 
-def device_limits(cfg: RBMConfig, device: torch.device) -> Tuple[int, int]:
+def device_limits(cfg: RBMConfig, device: torch.device,
+                  library: Optional[str] = None) -> Tuple[int, int]:
     """(opt-in shared memory of a block, clusters of ``cfg``'s tiling that
-    the card holds at once), asked of ``device``; builds the kernels at
-    first use."""
+    the card holds at once), asked of ``device`` through ``library`` (None:
+    ``resident_library(cfg)``); builds the kernels at first use."""
     import ctypes
 
     from .._build import load_library
 
-    lib = load_library(resident_library(cfg), cfg.param_dtype).lib
+    lib = load_library(library or resident_library(cfg), cfg.param_dtype).lib
     out = (ctypes.c_int * 2)()
     index = device.index if device.index is not None else torch.cuda.current_device()
     rc = lib.cd_train_resident_limits(cfg.n_visible, cfg.n_hidden, index, out)

@@ -7,7 +7,10 @@ the enhanced gradient, the pseudo-likelihood monitor) and at both storage
 dtypes: the per-shard step of the data-parallel path (``parallel.dp``),
 which all-reduces the statistics outside the kernel and then applies the
 update. ``cd_grads_step`` wraps the hand-written kernel ``csrc/cd_grads.cu``
-(one cooperative launch per step); ``cd_grads_step_plain`` is the same
+(one cooperative launch per step; a run whose tiles fit thread-block
+clusters takes ``ops.cd_grads_resident_cuda.cd_grads_resident_step``, the
+resident kernel's step variant, instead: ``ops.cd_epoch_cuda.select_dp_kernel``);
+``cd_grads_step_plain`` is the same
 function in plain PyTorch, the core's masked ``cd_step_stats`` /
 ``pt_step_stats`` in their ``split`` form. Both take
 
@@ -171,24 +174,23 @@ def _device_index(device: torch.device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
-def step_launcher(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor, chain: torch.Tensor,
-                  *, seed: Optional[int] = None,
-                  uniforms: Optional[Dict[str, torch.Tensor]] = None,
-                  mask: Optional[torch.Tensor] = None, norm: Optional[float] = None,
-                  out: Optional[torch.Tensor] = None, grid: int = 0,
-                  pseudo_bit: Optional[int] = None,
-                  ) -> Tuple[Callable[[], None], RBMParams, torch.Tensor, torch.Tensor]:
-    """Checks a step's CUDA inputs and allocates its outputs: returns
-    (launch, grads, new_chain, err), where ``launch()`` launches the kernel
-    once into those outputs on the current stream, raises RuntimeError when
-    the launch fails, and counts nothing (``cd_grads_step`` counts;
-    chip_smoke.py times ``launch`` alone). Raises ValueError for a config or
-    input the kernel does not take."""
-    _check_pseudo(cfg, pseudo_bit)
+def step_inputs(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor, chain: torch.Tensor,
+                uniforms: Optional[Dict[str, torch.Tensor]], mask: Optional[torch.Tensor],
+                seed: Optional[int], tab: Optional[torch.Tensor]):
+    """A step's CUDA inputs checked (device, dtype, shape) for the step
+    kernels of both routes: (v0, W, b, c, z, chain, mask, draws {h0, h, v,
+    swap}, flags, betas). With ``tab`` (a CUDA int64 tensor of 3: the
+    minibatch, seed and pseudo bit the kernel reads at entry) ``v0`` holds
+    the minibatches [n, B, V] it indexes. Raises ValueError for a config or
+    input the kernels do not take."""
     device, f32, sdt = v0.device, torch.float32, torch_dtype(cfg.param_dtype)
     B, V, H, k, M = cfg.batch_size, cfg.n_visible, cfg.n_hidden, cfg.k, cfg.pt_temps
     CR = B * M
-    v0 = _on_device(v0, "v0", (B, V), device, sdt)
+    if tab is not None:
+        tab = _on_device(tab, "tab", (3,), device, torch.int64)
+        v0 = _on_device(v0, "v0", (v0.shape[0], B, V), device, sdt)
+    else:
+        v0 = _on_device(v0, "v0", (B, V), device, sdt)
     W = _on_device(params.W, "W", (V, H), device, sdt)
     b = _on_device(params.b, "b", (V,), device, sdt)
     c = _on_device(params.c, "c", (H,), device, sdt)
@@ -199,42 +201,106 @@ def step_launcher(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor, chain: to
         z = _on_device(params.z, "z", (V,), device, sdt)
     chain = _on_device(chain, "chain", (CR, H), device, sdt)
     flags = kernel_flags(cfg)
-    u_h0 = u_h = u_v = u_swap = None
+    u = dict.fromkeys(("h0", "h", "v", "swap"))
     if uniforms is not None:
         flags |= _F_INJECT
-        u_h0 = _draw(uniforms, "h0", (B, H), device)
-        u_h = _draw(uniforms, "h", (k, CR, H), device)
+        u["h0"] = _draw(uniforms, "h0", (B, H), device)
+        u["h"] = _draw(uniforms, "h", (k, CR, H), device)
         if cfg.resolved_sample_visible:
-            u_v = _draw(uniforms, "v" if cfg.visible == "bernoulli" else "noise",
-                        (k, CR, V), device)
+            u["v"] = _draw(uniforms, "v" if cfg.visible == "bernoulli" else "noise",
+                           (k, CR, V), device)
         if M > 1:
-            u_swap = _draw(uniforms, "swap", (2, (M - 1) * B), device)
-    elif seed is None:
+            u["swap"] = _draw(uniforms, "swap", (2, (M - 1) * B), device)
+    elif seed is None and tab is None:
         raise ValueError("a step without injected uniforms needs a seed")
     if mask is not None:
         flags |= _F_MASK
         mask = _on_device(mask, "mask", (B, 1), device, f32)
     betas = pt_betas(cfg, device) if M > 1 else None
+    return v0, W, b, c, z, chain, mask, u, flags, betas, tab
+
+
+def step_outputs(cfg: RBMConfig, device: torch.device, out: Optional[torch.Tensor],
+                 chain_out: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, chain_out): the flat buffer and the chain out, checked, or new."""
+    sdt, CR, H = torch_dtype(cfg.param_dtype), cfg.batch_size * cfg.pt_temps, cfg.n_hidden
+    if out is None:
+        out = torch.empty(flat_size(cfg), dtype=torch.float32, device=device)
+    elif not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    out = _on_device(out, "out", (flat_size(cfg),), device, torch.float32)
+    if chain_out is None:
+        chain_out = torch.empty((CR, H), dtype=sdt, device=device)
+    elif not chain_out.is_contiguous():
+        raise ValueError("chain_out must be contiguous")
+    return out, _on_device(chain_out, "chain_out", (CR, H), device, sdt)
+
+
+def prepare(cfg: RBMConfig, device: torch.device) -> None:
+    """Asks ``device`` what the step and update kernels' launches need (the
+    SM count, each step variant's co-resident blocks), ahead of them: a
+    launch captured in a CUDA graph must ask nothing. Builds the kernels at
+    first use."""
+    from .._build import load_library
+
+    lib = load_library("cd_grads", cfg.param_dtype).lib
+    rc = lib.cd_grads_prepare(_device_index(device))
+    if rc != 0:
+        raise RuntimeError(f"cd_grads prepare: cudaError {rc} "
+                           f"({lib.cd_grads_error_string(rc).decode()})")
+
+
+def step_scratch(cfg: RBMConfig, device: torch.device) -> torch.Tensor:
+    """A scratch buffer for the steps of ``cfg`` (``step_launcher``'s)."""
+    from .._build import load_library
+
+    lib = load_library("cd_grads", cfg.param_dtype).lib
+    n = lib.cd_grads_scratch_floats(cfg.n_visible, cfg.n_hidden, cfg.batch_size, cfg.pt_temps,
+                                    kernel_flags(cfg))
+    return torch.empty(int(n), dtype=torch.float32, device=device)
+
+
+def step_launcher(cfg: RBMConfig, params: RBMParams, v0: torch.Tensor, chain: torch.Tensor,
+                  *, seed: Optional[int] = None,
+                  uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                  mask: Optional[torch.Tensor] = None, norm: Optional[float] = None,
+                  out: Optional[torch.Tensor] = None, grid: int = 0,
+                  pseudo_bit: Optional[int] = None, tab: Optional[torch.Tensor] = None,
+                  chain_out: Optional[torch.Tensor] = None,
+                  scratch: Optional[torch.Tensor] = None,
+                  ) -> Tuple[Callable[[], None], RBMParams, torch.Tensor, torch.Tensor]:
+    """Checks a step's CUDA inputs and allocates its outputs: returns
+    (launch, grads, new_chain, err), where ``launch()`` launches the kernel
+    once into those outputs on the current stream of this call, raises
+    RuntimeError when the launch fails, and counts nothing (``cd_grads_step``
+    counts; chip_smoke.py times ``launch`` alone). ``tab``: see
+    ``step_inputs`` (a captured epoch's step; ``seed`` and ``pseudo_bit`` are
+    then read from it). ``chain_out``: the buffer of the chain out (else a
+    new one); ``scratch``: ``step_scratch``'s buffer, which steps launched
+    one after the other on a stream may share (else a new one). Raises
+    ValueError for a config or input the kernel does not take."""
+    _check_pseudo(cfg, pseudo_bit if tab is None else 0)
+    device, f32 = v0.device, torch.float32
+    B, V, H, k, M = cfg.batch_size, cfg.n_visible, cfg.n_hidden, cfg.k, cfg.pt_temps
+    v0, W, b, c, z, chain, mask, u, flags, betas, tab = step_inputs(
+        cfg, params, v0, chain, uniforms, mask, seed, tab)
 
     from .._build import load_library  # builds the kernels at first use
 
     lib = load_library("cd_grads", cfg.param_dtype).lib
-    if out is None:
-        out = torch.empty(flat_size(cfg), dtype=f32, device=device)
-    elif not out.is_contiguous():
-        raise ValueError("out must be contiguous")
-    out = _on_device(out, "out", (flat_size(cfg),), device, f32)
-    new_chain = torch.empty((CR, H), dtype=sdt, device=device)
-    scratch = torch.empty(int(lib.cd_grads_scratch_floats(V, H, B, M, flags)), dtype=f32,
-                          device=device)
-    args = (ptr(v0), ptr(mask), ptr(u_h0), ptr(u_h), ptr(u_v), ptr(u_swap), ptr(betas), ptr(W),
-            ptr(b), ptr(c), ptr(z), ptr(chain), ptr(out), ptr(new_chain), ptr(scratch), V, H, B,
-            M, k, flags, pseudo_bit if pseudo_bit is not None else -1,
+    out, new_chain = step_outputs(cfg, device, out, chain_out)
+    n = int(lib.cd_grads_scratch_floats(V, H, B, M, flags))
+    if scratch is None:
+        scratch = torch.empty(n, dtype=f32, device=device)
+    scratch = _on_device(scratch, "scratch", (n,), device, f32)
+    args = (ptr(v0), ptr(tab), ptr(mask), ptr(u["h0"]), ptr(u["h"]), ptr(u["v"]), ptr(u["swap"]),
+            ptr(betas), ptr(W), ptr(b), ptr(c), ptr(z), ptr(chain), ptr(out), ptr(new_chain),
+            ptr(scratch), V, H, B, M, k, flags, pseudo_bit if pseudo_bit is not None else -1,
             1.0 / float(norm if norm is not None else B),
             cfg.sparsity_target if cfg.sparsity_target is not None else 0.0,
             cfg.sparsity_cost, (seed or 0) % 2 ** 64, _device_index(device), grid,
             torch.cuda.current_stream(device).cuda_stream)
-    keep = (v0, W, b, c, z, chain, mask, u_h0, u_h, u_v, u_swap, betas, out, new_chain, scratch)
+    keep = (v0, W, b, c, z, chain, mask, u, betas, tab, out, new_chain, scratch)
 
     def launch(keep=keep) -> None:  # keep: the buffers the pointers point into
         rc = lib.cd_grads_step(*args)
@@ -286,14 +352,33 @@ def cd_update_plain(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
     return params, velocity, err
 
 
+def enhance_shares(cfg: RBMConfig, device: torch.device) -> torch.Tensor:
+    """The enhanced gradient's matvec shares of an update of ``cfg``
+    (``cd_enhance_kernel``'s output, ``update_launcher``'s ``shares``)."""
+    from .._build import load_library
+
+    lib = load_library("cd_grads", cfg.param_dtype).lib
+    n = lib.cd_enhance_scratch_floats(cfg.n_visible, cfg.n_hidden)
+    return torch.empty(int(n), dtype=torch.float32, device=device)
+
+
 def update_launcher(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
-                    sums: torch.Tensor, scale: float, epoch: int
+                    sums: torch.Tensor, scale: float, epoch: int,
+                    momentum: Optional[torch.Tensor] = None,
+                    err: Optional[torch.Tensor] = None,
+                    shares: Optional[torch.Tensor] = None,
                     ) -> Tuple[Callable[[], None], torch.Tensor]:
     """Checks an update's CUDA inputs: returns (launch, err), where
-    ``launch()`` runs the update once on the current stream (W, b, c, z and
-    their velocities in place; under the enhanced gradient after its matvec
-    pass), raises RuntimeError when a launch fails, and counts nothing.
-    Raises ValueError for a config or input the kernel does not take."""
+    ``launch()`` runs the update once on the current stream of this call (W,
+    b, c, z and their velocities in place; under the enhanced gradient after
+    its matvec pass), raises RuntimeError when a launch fails, and counts
+    nothing. ``momentum``: a CUDA float32 tensor of 1 that the kernel reads
+    in place of ``epoch``'s momentum (a captured epoch's); ``err``: a CUDA
+    float32 tensor of 1 to write the step's error into (else a new one);
+    ``shares``: the enhanced gradient's matvec shares (``enhance_shares``),
+    which updates launched one after the other on a stream may share (else
+    a new one). Raises ValueError for a config or input the kernel does not
+    take."""
     device, f32, sdt = sums.device, torch.float32, torch_dtype(cfg.param_dtype)
     V, H = cfg.n_visible, cfg.n_hidden
     names = (("W", (V, H)), ("b", (V,)), ("c", (H,))) + ((("z", (V,)),) if cfg.learn_variance
@@ -312,18 +397,27 @@ def update_launcher(cfg: RBMConfig, params: RBMParams, velocity: RBMParams,
     from .._build import load_library  # builds the kernels at first use
 
     lib = load_library("cd_grads", cfg.param_dtype).lib
-    err = torch.empty(1, dtype=f32, device=device)
-    bias_e = torch.empty(V + H, dtype=f32, device=device) if cfg.gradient == "enhanced" else None
+    err = (torch.empty(1, dtype=f32, device=device) if err is None
+           else _on_device(err, "err", (1,), device, f32))
+    if momentum is not None:
+        momentum = _on_device(momentum, "momentum", (1,), device, f32)
+    if cfg.gradient != "enhanced":
+        shares = None
+    elif shares is None:
+        shares = enhance_shares(cfg, device)
+    else:
+        shares = _on_device(shares, "shares", (int(lib.cd_enhance_scratch_floats(V, H)),),
+                            device, f32)
     args = (ptr(sums), *[ptr(state.get((part, n))) for part in ("params", "velocity")
                          for n in ("W", "b", "c", "z")],
-            ptr(err), ptr(bias_e), V, H, kernel_flags(cfg), scale, cfg.lr,
+            ptr(err), ptr(shares), ptr(momentum), V, H, kernel_flags(cfg), scale, cfg.lr,
             cfg.lr if cfg.lr_variance is None else cfg.lr_variance,
             resolve_momentum(cfg, epoch), cfg.l2,
             cfg.grad_clip if cfg.grad_clip is not None else 0.0,
             cfg.sparsity_target if cfg.sparsity_target is not None else 0.0, cfg.sparsity_cost,
             _device_index(device), torch.cuda.current_stream(device).cuda_stream)
 
-    def launch(keep=(sums, bias_e, err, state)) -> None:  # keep: what the pointers point into
+    def launch(keep=(sums, shares, momentum, err, state)) -> None:  # what the pointers point into
         rc = lib.cd_update_step(*args)
         if rc != 0:
             raise RuntimeError(f"cd_update kernel launch failed: cudaError {rc} "

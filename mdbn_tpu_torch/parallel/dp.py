@@ -17,7 +17,23 @@ size, gives every rank the global-batch statistics, even when B does not
 divide. Every rank then finishes and applies the same update to the same
 sums: the update kernel (``ops.cd_grads_cuda.cd_update``) under
 ``pallas_step``, its plain version (``cd_update_plain``: the core's
-``finish_grads`` and ``apply_update``) otherwise. Under tempering each rank
+``finish_grads`` and ``apply_update``) otherwise. The step kernel is the
+resident kernel's step variant (``ops.cd_grads_resident_cuda``, route
+"cd_grads_resident") where a rank's tiles fit thread-block clusters, else
+``csrc/cd_grads.cu`` (route "cd_grads"): ``ops.cd_epoch_cuda.select_dp_kernel``
+decides from the config, the rank count and the card's limits.
+
+On those two routes a seeded run on the kernels builds one epoch's
+launchers once a call (``EpochSteps``: ``nb`` x step kernel, all-reduce of
+the flat buffer, update kernels); what changes from step to step or epoch
+to epoch reaches the kernels through device memory (``epoch_tables``: each
+step's minibatch, seed and pseudo bit, the epoch's momentum; the PCD chain
+in two buffers by the step's parity, ``chain_parity``; each step's error
+into a buffer of ``nb``). Over NCCL the epoch is captured once as a CUDA
+graph and replayed every epoch (a capture that fails raises); over gloo,
+which routes CUDA tensors through the host, or with ``capture=False``, the
+same launches run one at a time. Injected runs, the plain versions and the
+W-blocked route run the eager loop of wrapper calls. Under tempering each rank
 carries its rows' whole ladders, so the sweeps and the swap rounds stay on
 the rank and only rung 0's statistics cross; the pseudo-likelihood monitor
 is a masked per-shard sum on the single-device bit schedule. Collectives run
@@ -47,10 +63,15 @@ import torch
 import torch.distributed as dist
 
 from ..config import RBMConfig
+from ..core.rbm_math import resolve_momentum
 from ..core.state import TrainState
+from ..ops import cd_grads_cuda as G
+from ..ops import cd_grads_resident_cuda as R
 from ..ops.cd_epoch_cuda import batch_order, select_dp_kernel
+from ..ops.cd_epoch_resident_cuda import device_limits
 from ..ops.cd_grads_cuda import (cd_grads_step, cd_grads_step_plain, cd_update,
                                  cd_update_plain, flat_size)
+from ..ops.cd_grads_resident_cuda import cd_grads_resident_step
 from ..ops.cd_grads_wide_cuda import (cd_wide_step, cd_wide_step_plain, cd_wide_update,
                                       cd_wide_update_plain, wide_factor_size)
 from .mesh import Mesh
@@ -111,6 +132,142 @@ def gather_factors(gathered: torch.Tensor, mine: torch.Tensor, mesh: Mesh) -> No
     gathered.copy_(host)
 
 
+def epoch_tables(cfg: RBMConfig, order: List[List[int]], seeds: List[List[int]], rank: int,
+                 start_epoch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A captured run's device tables, on the CPU: (tab [E, nb, 3] int64,
+    momentum [E] float32). Step i of epoch e trains on minibatch
+    ``order[e][i]`` under seed ``fold_in(seeds[e][i], rank)`` (its 64 bits
+    as an int64) and the pseudo-likelihood monitor flips bit ``(epoch * nb
+    + i) % V``, epoch = start_epoch + e; the epoch's momentum is
+    ``resolve_momentum(cfg, epoch)``: what the eager loop passes step by
+    step."""
+    V, rows, mom = cfg.n_visible, [], []
+    for e, steps in enumerate(order):
+        epoch, nb = start_epoch + e, len(steps)
+        for i, j in enumerate(steps):
+            seed = fold_in(seeds[e][i], rank)
+            rows.append((j, seed - (1 << 64) if seed >= 1 << 63 else seed, (epoch * nb + i) % V))
+        mom.append(resolve_momentum(cfg, epoch))
+    E = len(order)
+    return (torch.tensor(rows, dtype=torch.int64).reshape(E, -1, 3),
+            torch.tensor(mom, dtype=torch.float32))
+
+
+def chain_parity(nb: int) -> Tuple[List[Tuple[int, int]], bool]:
+    """(slots, copy_back) of a captured epoch's chain buffers: step i reads
+    buffer ``slots[i][0]`` and writes ``slots[i][1]`` (i % 2 and (i + 1) %
+    2); after an odd ``nb`` the chain lies in buffer 1, and ``copy_back``
+    says the graph ends by copying it into buffer 0, where every epoch
+    starts."""
+    return [(i % 2, (i + 1) % 2) for i in range(nb)], nb % 2 == 1
+
+
+class EpochSteps:
+    """One epoch of a rank's data-parallel steps on the kernels of ``route``
+    ("cd_grads_resident" or "cd_grads"), their launchers built once: per
+    step the step kernel (its minibatch of ``my`` [nb, B, V], seed and
+    pseudo bit from row i of ``tab``), the all-reduce of the flat buffer
+    over the process group and the update kernels (the momentum from
+    ``mom``, the step's error into ``errs[i]``), updating ``params`` and
+    ``velocity`` in place; ``chain`` (the rank's chain rows) is buffer 0 of
+    the chain (``chain_parity``); the launches share one scratch buffer. With
+    ``capture`` (NCCL) the epoch is
+    captured once as a CUDA graph, the kernels set up and the collective
+    warmed up on the capture stream first, and ``run`` replays it; a capture
+    that fails raises. Without, ``run`` launches the same kernels one at a
+    time on the current stream (gloo routes CUDA tensors through the host,
+    which a graph cannot hold)."""
+
+    def __init__(self, route: str, cfg: RBMConfig, local_cfg: RBMConfig, params, velocity,
+                 my: torch.Tensor, chain: torch.Tensor, mask: Optional[torch.Tensor],
+                 norm: float, scale: float, capture: bool):
+        dev, nb = my.device, my.shape[0]
+        self.route, self.nb, self.persistent = route, nb, cfg.persistent
+        self.tab = torch.zeros((nb, 3), dtype=torch.int64, device=dev)
+        self.mom = torch.zeros(1, dtype=torch.float32, device=dev)
+        self.errs = torch.zeros(nb, dtype=torch.float32, device=dev)
+        self.flat = torch.empty(flat_size(cfg), dtype=torch.float32, device=dev)
+        self.chains = [chain, torch.empty_like(chain)]
+        slots, self.copy_back = chain_parity(nb)
+        if route == "cd_grads_resident":
+            R.step_limits(local_cfg, dev)  # the step kernels set up: no request in a capture
+            kw = dict(scratch=R.step_scratch(local_cfg, dev))
+            make_step = R.step_launcher
+        elif route == "cd_grads":
+            G.prepare(local_cfg, dev)
+            kw = dict(scratch=G.step_scratch(local_cfg, dev))
+            make_step = G.step_launcher
+        else:
+            raise ValueError(f"no epoch of kernel launchers on the {route!r} route")
+        G.prepare(cfg, dev)
+        pseudo = 0 if cfg.error_metric == "pseudo" else None
+        stream = torch.cuda.Stream(dev) if capture else torch.cuda.current_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):  # the launchers launch on this stream
+            self.steps = [make_step(local_cfg, params, my, self.chains[src], mask=mask,
+                                    norm=norm, out=self.flat, pseudo_bit=pseudo,
+                                    tab=self.tab[i], chain_out=self.chains[dst], **kw)[0]
+                          for i, (src, dst) in enumerate(slots)]
+            shares = G.enhance_shares(cfg, dev) if cfg.gradient == "enhanced" else None
+            self.updates = [G.update_launcher(cfg, params, velocity, self.flat, scale, 0,
+                                              momentum=self.mom, err=self.errs[i:i + 1],
+                                              shares=shares)[0]
+                            for i in range(nb)]
+            self.graph = None
+            if capture:
+                dist.all_reduce(self.flat, op=dist.ReduceOp.SUM)  # the collective's warm-up
+                stream.synchronize()
+                self.graph = torch.cuda.CUDAGraph()
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self._launch()
+                finally:
+                    self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def _launch(self, count: bool = False) -> None:
+        """The epoch's launches on the current stream (``count``: each adds
+        one to its kernel's count as it launches)."""
+        for step, update in zip(self.steps, self.updates):
+            step()
+            if count:
+                _count_step(self.route, 1)
+            dist.all_reduce(self.flat, op=dist.ReduceOp.SUM)
+            update()
+            if count:
+                G.cd_update_launches += 1
+        if self.persistent and self.copy_back:
+            self.chains[0].copy_(self.chains[1])
+
+    @property
+    def chain(self) -> torch.Tensor:
+        """The rank's chain rows after the last epoch."""
+        return self.chains[0]
+
+    def run(self, tab: torch.Tensor, mom: torch.Tensor) -> torch.Tensor:
+        """One epoch: the table rows ``tab`` [nb, 3] and momentum ``mom`` [1]
+        (device tensors) copied in, then the graph replayed (it launches each
+        kernel nb times, counted here) or the launches made one at a time, on
+        the current stream; returns the epoch's mean error (a device
+        scalar)."""
+        self.tab.copy_(tab)
+        self.mom.copy_(mom)
+        if self.graph is None:
+            self._launch(count=True)
+        else:
+            self.graph.replay()
+            _count_step(self.route, self.nb)
+            G.cd_update_launches += self.nb
+        return self.errs.mean()
+
+
+def _count_step(route: str, n: int) -> None:
+    if route == "cd_grads_resident":
+        R.cd_grads_resident_launches += n
+    else:
+        G.cd_grads_launches += n
+
+
 def world_scale(ndev: int) -> float:
     """1 / ndev rounded to float32: the factor of the all-reduced sums."""
     return float(torch.tensor(1.0 / ndev, dtype=torch.float32))
@@ -119,7 +276,7 @@ def world_scale(ndev: int) -> float:
 def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, mesh: Mesh,
                         n_epochs: int, pallas_step: bool = False,
                         uniforms: Optional[Dict[str, torch.Tensor]] = None,
-                        ) -> Tuple[TrainState, torch.Tensor]:
+                        capture: bool = True) -> Tuple[TrainState, torch.Tensor]:
     """Run ``n_epochs`` epochs of CD-k/PCD (or PT-PCD) data-parallel over
     ``mesh``; every rank calls it with the same state and data. Returns
     (state, per-epoch errors [n_epochs]), the same on every rank; the state's
@@ -134,7 +291,10 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
     ``(epoch * nb + step) % V``, as the single-device run does. ``uniforms``:
     per-step, per-rank draws {name: [n_epochs, nb, ndev, ...]}, each step's
     [...] in the layout of ``ops.cd_step.draw_uniforms`` (``draw_pt_uniforms``
-    under tempering) at ``local_b`` rows, for exact tests."""
+    under tempering) at ``local_b`` rows, for exact tests. ``capture``: a
+    seeded run on the kernels of the "cd_grads_resident" or "cd_grads" route
+    over NCCL runs as a captured epoch (``EpochSteps``), replayed every
+    epoch; False launches the same kernels one at a time."""
     B, V = cfg.batch_size, cfg.n_visible
     nb = data.shape[0] // B
     if nb == 0:
@@ -163,7 +323,11 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
     # this call's own parameters and velocities: the update kernels write in place
     params, velocity = state.params.map(torch.clone), state.velocity.map(torch.clone)
     scale = world_scale(ndev)
-    if select_dp_kernel(cfg) == "cd_grads_wide":  # the W-blocked kernel's DP mode
+    on_card = pallas_step and dev.type == "cuda"
+    route = select_dp_kernel(cfg, ndev, (device_limits(local_cfg, dev, R.step_library(local_cfg))
+                                         if on_card else None))
+    epoch_steps = None
+    if route == "cd_grads_wide":  # the W-blocked kernel's DP mode
         slot_bytes = wide_factor_size(local_cfg)
         gathered = torch.zeros(ndev * slot_bytes, dtype=torch.uint8, device=dev)
         mine = gathered[rank * slot_bytes:(rank + 1) * slot_bytes]
@@ -177,9 +341,13 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
             gather_factors(gathered, mine, mesh)
             return (*wide_update(cfg, params, velocity, batches[j, :B], gathered, ndev, scale,
                                  epoch), new_chain)
+    elif on_card and uniforms is None:
+        epoch_steps = EpochSteps(route, cfg, local_cfg, params, velocity, my, chain, mask, norm,
+                                 scale, capture and mesh.backend == "nccl")
     else:
         flat = torch.empty(flat_size(cfg), dtype=torch.float32, device=dev)
-        step = cd_grads_step if pallas_step else cd_grads_step_plain
+        kernel_step = cd_grads_resident_step if route == "cd_grads_resident" else cd_grads_step
+        step = kernel_step if pallas_step else cd_grads_step_plain
         update = cd_update if pallas_step else cd_update_plain
         pseudo = cfg.error_metric == "pseudo"
 
@@ -190,15 +358,21 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
             dist.all_reduce(flat, op=dist.ReduceOp.SUM)
             return (*update(cfg, params, velocity, flat, scale, epoch), new_chain)
     errs: List[torch.Tensor] = []
-    for e in range(n_epochs):
-        epoch = state.epoch + e
-        step_errs = []
-        for i, j in enumerate(order[e]):
-            u = None if uniforms is None else {name: x[e, i] for name, x in uniforms.items()}
-            seed = None if seeds is None else fold_in(seeds[e][i], rank)
-            params, velocity, err, chain = exchange(params, velocity, chain, j, u, seed, epoch, i)
-            step_errs.append(err)
-        errs.append(torch.stack(step_errs).mean())
+    if epoch_steps is not None:
+        tab, mom = (t.to(dev) for t in epoch_tables(cfg, order, seeds, rank, state.epoch))
+        errs = [epoch_steps.run(tab[e], mom[e:e + 1]) for e in range(n_epochs)]
+        chain = epoch_steps.chain
+    else:
+        for e in range(n_epochs):
+            epoch = state.epoch + e
+            step_errs = []
+            for i, j in enumerate(order[e]):
+                u = None if uniforms is None else {name: x[e, i] for name, x in uniforms.items()}
+                seed = None if seeds is None else fold_in(seeds[e][i], rank)
+                params, velocity, err, chain = exchange(params, velocity, chain, j, u, seed,
+                                                        epoch, i)
+                step_errs.append(err)
+            errs.append(torch.stack(step_errs).mean())
     new_chain = (_gather_chain(cfg, chain, mesh, local_b).to(state.chain_h.dtype)
                  if persistent else state.chain_h)
     return (TrainState(params, velocity, new_chain, state.generator, state.epoch + n_epochs),

@@ -38,16 +38,18 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def make_mesh(n_devices: Optional[int] = None, backend: Optional[str] = None) -> Mesh:
+def make_mesh(n_devices: Optional[int] = None, backend: Optional[str] = None,
+              device: Optional[torch.device | str] = None) -> Mesh:
     """This rank's view of a data-parallel mesh of ``n_devices`` ranks.
 
     Joins the default process group when one exists, or starts it from the
     ``torchrun`` environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT); a
     mesh of one rank outside ``torchrun`` starts a group of its own on a free
-    localhost port. ``backend`` defaults to "nccl" when every rank has a card
-    of its own and "gloo" without CUDA; ranks that share one card must ask for
-    "gloo" (NCCL refuses two ranks on one device). The rank's device is card
-    ``LOCAL_RANK`` modulo the card count, or the CPU without CUDA."""
+    localhost port. The rank's device is card ``LOCAL_RANK`` modulo the card
+    count; without a card it raises, unless ``device`` asks for the CPU
+    ("cpu"). ``backend`` defaults to "gloo" on the CPU
+    and "nccl" when every rank has a card of its own; ranks that share one
+    card must ask for "gloo" (NCCL refuses two ranks on one device)."""
     if dist.is_initialized():
         size = dist.get_world_size()
     elif all(name in os.environ for name in TORCHRUN_ENV):
@@ -61,17 +63,21 @@ def make_mesh(n_devices: Optional[int] = None, backend: Optional[str] = None) ->
             "torch.distributed.init_process_group in each rank first")
     if n_devices is not None and n_devices != size:
         raise ValueError(f"asked for a mesh of {n_devices} ranks, the process group has {size}")
-    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if backend not in (None, "nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    cards = 0 if on_cpu else torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if not on_cpu and cards == 0:
+        raise RuntimeError("no CUDA device found; a mesh's ranks run on the card unless "
+                           "asked for the CPU: pass device=\"cpu\" (or --device cpu to the CLI)")
     if backend is None:
-        if cards == 0:
+        if on_cpu:
             backend = "gloo"
         elif cards >= size:
             backend = "nccl"
         else:
             raise ValueError(f"{size} ranks share {cards} card(s): NCCL refuses two ranks on "
                              "one device; pass backend='gloo'")
-    if backend not in ("nccl", "gloo"):
-        raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
     if backend == "nccl" and cards < size:
         raise ValueError(f"backend 'nccl' needs a card per rank: {size} ranks, {cards} "
                          "card(s); ranks that share a card take backend='gloo'")
@@ -85,7 +91,7 @@ def make_mesh(n_devices: Optional[int] = None, backend: Optional[str] = None) ->
         raise ValueError(f"the process group runs {dist.get_backend()!r}, asked for {backend!r}")
     rank = dist.get_rank()
     local = int(os.environ.get("LOCAL_RANK", rank))
-    device = torch.device("cuda", local % cards) if cards else torch.device("cpu")
+    dev = torch.device("cpu") if on_cpu else torch.device("cuda", local % cards)
     if backend == "nccl":
-        torch.cuda.set_device(device)
-    return Mesh(rank=rank, size=size, device=device, backend=backend)
+        torch.cuda.set_device(dev)
+    return Mesh(rank=rank, size=size, device=dev, backend=backend)

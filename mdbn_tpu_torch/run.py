@@ -450,10 +450,8 @@ def _dp_mesh(n: int, device: str):
                            f"--config <config> --dp {n}` (WORLD_SIZE is "
                            f"{os.environ.get('WORLD_SIZE')!r})")
     cards = torch.cuda.device_count() if device == "cuda" else 0
-    mesh = make_mesh(n, backend="nccl" if cards >= n else "gloo")
-    if device == "cpu":
-        return dataclasses.replace(mesh, device=torch.device("cpu"))
-    return mesh
+    return make_mesh(n, backend="nccl" if cards >= n else "gloo",
+                     device="cpu" if device == "cpu" else None)
 
 
 def main(argv=None):

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from ..config import RBMConfig
 from ..core.rbm_math import RBMParams
+from ..core.state import default_device
 from ..ops.sample import down_pass
 from ..ops.transform import stack_transform
 from .draws import (GUMBEL_LOW, StepDraws, generator_for, softmax_sample, step_draws,
@@ -151,9 +152,9 @@ def fit_label_top(layers: Layers, data, labels, n_classes: int, n_hidden: int = 
     from ..parallel.dp import all_reduce_sums
 
     labels, semi = _validate_partial_labels(labels, n_classes)
-    if device is None:  # the stack's, else the data's or the resumed top's
+    if device is None:  # the stack's, else the data's or the resumed top's, else the card
         device = (layers[0][0].W.device if layers else data.device if torch.is_tensor(data)
-                  else params.W.device if params is not None else torch.device("cpu"))
+                  else params.W.device if params is not None else default_device())
     device = torch.device(device)
     x = _rows(data, device)
     codes = stack_transform(list(layers), x).float() if layers else x

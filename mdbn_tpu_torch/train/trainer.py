@@ -27,12 +27,15 @@ Under a data-parallel ``mesh`` of more than one rank
 the DP kernels (``engine="pallas"`` or ``"auto"`` on CUDA, in every estimator
 mode, at both storage dtypes and at any k),
 ``"eager_dp"`` on their plain versions (``"xla"``, or the CPU). Which DP
-kernels, ``ops.cd_epoch_cuda.select_dp_kernel`` decides from the config:
-``csrc/cd_grads.cu`` (a step into a flat buffer, an all-reduce, an
-elementwise update), or for a run inside the W-blocked kernel's scope at
-least ``WIDE_DP_MIN_VISIBLE`` wide ``csrc/cd_grads_wide.cu`` (a step split
-over strips of W, an all-gather of the factors, an update that forms the
-gradient from them). A mesh of one rank takes the single-device path.
+kernels, ``ops.cd_epoch_cuda.select_dp_kernel`` decides from the config,
+the rank count and the card's limits: the resident kernel's step variant
+(``csrc/cd_train_resident.cu``, "cd_grads_resident") where a rank's tiles
+fit thread-block clusters, else ``csrc/cd_grads.cu`` (each a step into a
+flat buffer, an all-reduce, an elementwise update; over NCCL one epoch
+captured as a CUDA graph and replayed), or for a run inside the W-blocked
+kernel's scope at least ``WIDE_DP_MIN_VISIBLE`` wide
+``csrc/cd_grads_wide.cu`` (a step split over strips of W, an all-gather of
+the factors, an update that forms the gradient from them). A mesh of one rank takes the single-device path.
 ``EpochMetrics.kernel`` names the kernel the route took (under an eager
 engine, the kernel whose plain version ran).
 
@@ -79,8 +82,9 @@ def resolve_dp_engine(cfg: RBMConfig, device: torch.device) -> str:
     rank uses: "cuda_dp" or "eager_dp". On CUDA, ``"pallas"`` and ``"auto"``
     run the DP kernels, which take every config; "eager_dp" is ``"xla"``, or
     the CPU. Either engine takes the
-    route ``ops.cd_epoch_cuda.select_dp_kernel`` gives: ``csrc/cd_grads.cu``
-    (the step's statistics, an all-reduce, the update), or for a wide run in
+    route ``ops.cd_epoch_cuda.select_dp_kernel`` gives: the resident
+    kernel's step variant or ``csrc/cd_grads.cu`` (the step's statistics, an
+    all-reduce, the update), or for a wide run in
     the W-blocked kernel's scope ``csrc/cd_grads_wide.cu`` (the step's
     factors, an all-gather, the update that forms the gradient from them)."""
     if cfg.engine != "xla" and device.type == "cuda":
@@ -133,7 +137,8 @@ def _profiled(runtime: TrainRuntimeConfig):
 class EpochMetrics:
     """Per-epoch errors and rates of a run, its engine, and the kernel its
     route took ("cd_train_resident", "cd_train", "cd_train_wide",
-    "cd_train_wide_modes", "cd_grads" or "cd_grads_wide"; under an eager
+    "cd_train_wide_modes", "cd_grads_resident", "cd_grads" or
+    "cd_grads_wide"; under an eager
     engine, the kernel whose plain version ran: "cd_train", whose plain
     version is also the resident kernel's and the wide modes kernel's)."""
 
@@ -181,7 +186,14 @@ def train_rbm(
     if dp and mesh.backend == "nccl" and dev != mesh.device:
         raise ValueError(f"the model lies on {dev}, this rank's card is {mesh.device}")
     if dp:
-        kernel = cd_epoch_cuda.select_dp_kernel(cfg)
+        limits = None
+        if engine == "cuda_dp":  # the card's limits for a rank's step
+            from ..ops.cd_epoch_resident_cuda import device_limits
+            from ..ops.cd_grads_resident_cuda import step_library
+
+            local = cfg.replace(batch_size=-(-cfg.batch_size // mesh.size))
+            limits = device_limits(local, dev, step_library(local))
+        kernel = cd_epoch_cuda.select_dp_kernel(cfg, mesh.size, limits)
     elif engine == "cuda":
         from ..ops.cd_epoch_resident_cuda import device_limits
 

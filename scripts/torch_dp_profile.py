@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
 """Where a step of the data-parallel path goes, on one card.
 
-    python3 scripts/torch_dp_profile.py [--epochs 5] [--out profile_out]
+    python3 scripts/torch_dp_profile.py [--epochs 20] [--eager] [--out profile_out]
 
 Runs c1 (configs/c1_bernoulli_rbm_mnist.json: 784x500, batch 20, CD-1, 100
 steps per epoch) through ``parallel.dp.train_rbm_shard_map(pallas_step=True)``
-on a one-rank NCCL mesh, the program of chip_smoke.py's dp_world1 phase:
+on a one-rank NCCL mesh, the program of chip_smoke.py's dp_world1 phase: by
+default as a captured epoch (one CUDA graph of the epoch's steps, captured
+once a call and replayed every epoch), with ``--eager`` as the eager loop of
+the same launches:
 
-- times ``--epochs`` epochs one call at a time after a warm-up epoch: host
-  clock around each synchronised call, and CUDA events; with the host's load
-  average and the CPU cores this process may use, before and after;
-- takes one torch.profiler trace (CPU and CUDA activity) of one more epoch:
-  the device time of each kernel summed over the epoch, the device's busy
-  and idle shares of the epoch's wall time, and the host time of the ops
-  each step calls.
+- times calls of one epoch and of ``--epochs`` + 1 epochs, each three times:
+  host clock around each synchronised call; the difference over
+  ``--epochs`` is the time of an epoch past a call's fixed work (the
+  capture among it); with the host's load average and the CPU cores this
+  process may use, before and after;
+- takes one torch.profiler trace (CPU and CUDA activity) of the longer
+  call: the device time of each kernel a step; the device's busy share over
+  the call's device time from the first step kernel's start (a capture,
+  made on the host before it, drops out) to the last kernel's end (the union
+  of the device activity over that window), and over the whole call's wall
+  time; the host time of its ops;
+- runs the step kernel once more alone with its trace stamps: the median
+  time of each step of its phases (ops.cd_epoch_resident_cuda's
+  resident_trace_phases; the update's stamp marks the statistics).
 
 Prints one JSON line with the card's name and power limit; writes the
-profiler's tables to ``<out>/dp_profile.txt`` and its trace to
+profiler's tables to ``<out>/dp_profile.txt`` and the longer call's trace to
 ``<out>/dp_profile_trace.json``. Needs one CUDA device.
 """
 
@@ -34,7 +44,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--epochs", type=int, default=5)
+    ap.add_argument("--epochs", type=int, default=20)
+    ap.add_argument("--eager", action="store_true", help="the eager loop, not the captured epoch")
     ap.add_argument("--out", default=os.path.join(HERE, "profile_out"))
     args = ap.parse_args()
     import torch
@@ -47,6 +58,9 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from mdbn_tpu_torch.config import load_config
     from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_epoch_resident_cuda as R
+    from mdbn_tpu_torch.ops import cd_grads_resident_cuda as GR
+    from mdbn_tpu_torch.ops.cd_epoch_cuda import select_dp_kernel
     from mdbn_tpu_torch.parallel.dp import train_rbm_shard_map
     from mdbn_tpu_torch.parallel.mesh import make_mesh
     from mdbn_tpu_torch.run import build_data
@@ -58,39 +72,50 @@ def main() -> int:
     cfg = exp["model"].replace(engine="pallas")
     data = torch.as_tensor(build_data(exp["data"])[0], device=dev)
     nb = data.shape[0] // cfg.batch_size
+    route = select_dp_kernel(cfg, 1, GR.step_limits(cfg, dev))
     mesh = make_mesh(1, backend="nccl")
     st = init_train_state(cfg, device=dev)
-    epoch = lambda: train_rbm_shard_map(st, data, cfg, mesh, 1, pallas_step=True)
-    epoch()  # warm-up: builds the kernels, starts NCCL
-    torch.cuda.synchronize()
-    load_before = os.getloadavg()
-    host_ms, event_ms = [], []
-    for _ in range(args.epochs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        epoch()
-        end.record()
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        event_ms.append(start.elapsed_time(end))
-    load_after = os.getloadavg()
+    capture = not args.eager
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def call(n: int) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        epoch()
+        train_rbm_shard_map(st, data, cfg, mesh, n, pallas_step=True, capture=capture)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
+        return (time.perf_counter() - t0) * 1e3
+
+    call(1)  # warm-up: builds the kernels, starts NCCL
+    load_before = os.getloadavg()
+    short_ms, long_ms = [], []
+    for _ in range(3):
+        short_ms.append(call(1))
+        long_ms.append(call(args.epochs + 1))
+    load_after = os.getloadavg()
+    epoch_ms = [(b - a) / args.epochs for a, b in zip(short_ms, long_ms)]
 
     def dev_us(e) -> float:
         return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_ms = call(args.epochs + 1)
+    events = prof.key_averages()
     # device kernels: events with device time and no CPU time of their own
     kernels = {e.key: dev_us(e) for e in events if dev_us(e) > 0 and e.self_cpu_time_total == 0}
-    busy = sum(kernels.values())
+    per_step = {k: v / ((args.epochs + 1) * nb) for k, v in kernels.items()}
+    dev_evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    start = min(e.time_range.start for e in dev_evs
+                if any(n in e.name for n in ("cd_train_resident_kernel", "cd_grads_kernel")))
+    spans = sorted((max(e.time_range.start, start), e.time_range.end) for e in dev_evs
+                   if e.time_range.end > start)
+    busy, lo, hi = 0.0, None, None
+    for a, b in spans:  # the union of the device intervals
+        if hi is None or a > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    window_us = max(b for _, b in spans) - start
     host_ops = {e.key: float(e.cpu_time_total) for e in events
                 if e.cpu_time_total > 0 and e.key.startswith(("c10d::", "nccl:", "aten::",
                                                               "cuda"))}
@@ -100,18 +125,37 @@ def main() -> int:
         f.write(events.table(sort_by="self_cpu_time_total", row_limit=40) + "\n")
         f.write(events.table(sort_by="self_device_time_total", row_limit=20) + "\n")
     prof.export_chrome_trace(os.path.join(args.out, "dp_profile_trace.json"))
+
+    # the step kernel's own clock: the median of each step of its phases
+    phases = None
+    if route == "cd_grads_resident":
+        p, v0 = st.params, data[:cfg.batch_size]
+        trace = torch.zeros((1, 1, R.resident_trace_len(cfg)), dtype=torch.int64, device=dev)
+        launch = GR.step_launcher(cfg, p, v0, st.chain_h, seed=5, trace=trace)[0]
+        steps = []
+        for _ in range(50):
+            launch()
+            torch.cuda.synchronize()
+            steps.append((trace[0, 0, 1:] - trace[0, 0, :-1]).double() / 1e3)
+        med = torch.stack(steps).median(0).values.tolist()
+        phases = dict(zip(R.resident_trace_phases(cfg), med))
+        phases["total"] = sum(med)
     dist.destroy_process_group()
     print(json.dumps({
-        "nvidia_smi": smi, "torch": torch.__version__, "steps_per_epoch": nb,
-        "epoch_ms_host": host_ms, "epoch_ms_events": event_ms,
+        "nvidia_smi": smi, "torch": torch.__version__, "route": route, "captured": capture,
+        "steps_per_epoch": nb, "one_epoch_call_ms": short_ms,
+        f"{args.epochs + 1}_epoch_call_ms": long_ms, "epoch_ms": epoch_ms,
+        "step_us": [e * 1e3 / nb for e in epoch_ms],
         "loadavg_before": load_before, "loadavg_after": load_after,
         "cpu_cores_usable": len(os.sched_getaffinity(0)), "cpu_count": os.cpu_count(),
-        "profiled_epoch_wall_us": wall_us, "profiled_step_wall_us": wall_us / nb,
-        "device_busy_us": busy, "device_busy_share": busy / wall_us,
-        "device_idle_share": 1.0 - busy / wall_us,
-        "kernel_device_us_per_step": {k: v / nb for k, v in kernels.items()},
-        "kernel_share_of_wall": {k: v / wall_us for k, v in kernels.items()},
-        "host_op_us_per_step (inclusive)": {k: v / nb for k, v in top_host.items()},
+        "profiled_call_wall_ms": wall_ms, "device_window_ms": window_us / 1e3,
+        "device_window_ms_per_epoch": window_us / 1e3 / (args.epochs + 1),
+        "device_busy_share": busy / window_us,
+        "device_busy_share_whole_call": sum(kernels.values()) / (wall_ms * 1e3),
+        "kernel_device_us_per_step": per_step,
+        "host_op_us_per_step (inclusive)": {k: v / ((args.epochs + 1) * nb)
+                                            for k, v in top_host.items()},
+        "step_kernel_phase_us": phases,
     }))
     return 0
 

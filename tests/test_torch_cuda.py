@@ -13,8 +13,9 @@ The estimator modes (tempering, enhanced gradient, learned variance, the
 pseudo-likelihood monitor) are held the same way, and so are the W-blocked
 kernel (csrc/cd_train_wide.cu) against its own plain version, the resident
 kernel (csrc/cd_train_resident.cu) against cd_train_run_plain, and the
-data-parallel path's per-step kernel (csrc/cd_grads.cu) one step at a time,
-with a one-rank NCCL mesh through its entry points. At bf16
+data-parallel path's per-step kernels (csrc/cd_grads.cu and the resident
+kernel's step variant) one step at a time, with a one-rank NCCL mesh through
+its entry points (the captured epoch against the eager loop, bit for bit). At bf16
 storage both sides round one float32 result into bf16, so they agree except
 where the two results straddle a rounding boundary; over the 12 updates of a
 run such an ulp can carry on, so stored bf16 values are held to two ulps
@@ -849,6 +850,7 @@ def test_dp_one_rank_nccl(cuda):
 
     from mdbn_tpu_torch import RBM
     from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_resident_cuda as GR
     from mdbn_tpu_torch.parallel.dp import train_rbm_shard_map
     from mdbn_tpu_torch.parallel.mesh import make_mesh
 
@@ -860,16 +862,224 @@ def test_dp_one_rank_nccl(cuda):
         rbm = RBM(cfg, device=cuda).train(data, mesh=mesh)
         assert rbm.metrics.engine == "cuda"
         du = {k: x[:, :, None] for k, x in u.items()}
-        before = (G.cd_grads_launches, G.cd_update_launches)
+        assert K.select_dp_kernel(cfg) == "cd_grads_resident"
+        before = (GR.cd_grads_resident_launches, G.cd_update_launches, G.cd_grads_launches)
         a, ea = train_rbm_shard_map(st, data, cfg, mesh, 2, pallas_step=True, uniforms=du)
         torch.cuda.synchronize()
-        assert (G.cd_grads_launches, G.cd_update_launches) == (before[0] + 12, before[1] + 12)
+        assert (GR.cd_grads_resident_launches, G.cd_update_launches, G.cd_grads_launches) == (
+            before[0] + 12, before[1] + 12, before[2])
         assert torch.equal(st.params.W, init_train_state(cfg, device=cuda).params.W)
         b, eb = train_rbm_shard_map(st, data, cfg, mesh, 2, pallas_step=False, uniforms=du)
         for x, y in ((a.params.W, b.params.W), (a.params.c, b.params.c),
                      (a.velocity.W, b.velocity.W), (ea, eb)):
             torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-6)
         torch.testing.assert_close(a.chain_h, b.chain_h, rtol=0, atol=0)
+    finally:
+        dist.destroy_process_group()
+
+
+# the resident kernel's step variant (csrc/cd_train_resident.cu, kStep), the
+# data-parallel step of a run whose tiles fit thread-block clusters: the same
+# function as cd_grads.cu's step, against the same plain version
+def _resident_clusters(cfg):
+    """The default cluster count and the fewest that hold the tiles."""
+    fits = [c for c in range(1, R.resident_tiles(cfg).strips + 1)
+            if c <= R.H100_MAX_CLUSTERS[R.resident_tiles(cfg).ranks]
+            and R.smem_bytes(cfg, -(-R.resident_tiles(cfg).strips // c))
+            <= R.H100_SMEM_PER_BLOCK]
+    return [0, fits[0]] if fits else [0]
+
+
+def _flat_close(cfg, got, want):
+    """The step's flat buffers: REPLAY_TOL at float32 compute; at bf16 compute
+    an operand the two compute in float32 in other orders can round to the
+    neighbouring bf16 value, so each part is held to one operand ulp (2^-7 of
+    each value plus 2^-8 of the part's largest) + the replay atol."""
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+
+    if cfg.compute_dtype != "bfloat16":
+        torch.testing.assert_close(got, want, **REPLAY_TOL)
+        return
+
+    def parts(flat):
+        grads, sums, err = G.flat_views(cfg, flat)
+        return (list(grads.as_dict().values())
+                + ([sums.mu, sums.lam, sums.h0] if sums is not None else []) + [err.reshape(1)])
+
+    for a, b in zip(parts(got), parts(want)):
+        tol = 2.0 ** -7 * b.abs() + 2.0 ** -8 * b.abs().max() + REPLAY_TOL["atol"]
+        assert bool(((a - b).abs() <= tol).all()), float((a - b).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GRADS_CASES))
+def test_dp_resident_step_matches_plain(cuda, name):
+    """At chip_smoke.py's phase-12 shapes, hardened draws: the statistics at
+    REPLAY_TOL, the same chain; one launch counted, none of cd_grads.cu's;
+    the kernel's own draws give the same bits on two cluster counts."""
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_resident_cuda as GR
+
+    cfg, norm = GRADS_CASES[name]
+    assert K.select_dp_kernel(cfg) == "cd_grads_resident"
+    p, v0, chain, mask, u = _grads_inputs(cfg, norm, cuda)
+    before = (GR.cd_grads_resident_launches, G.cd_grads_launches)
+    got = GR.cd_grads_resident_step(cfg, p, v0, chain, uniforms=u, mask=mask, norm=norm)
+    torch.cuda.synchronize()
+    assert (GR.cd_grads_resident_launches, G.cd_grads_launches) == (before[0] + 1, before[1])
+    want = G.cd_grads_step_plain(cfg, p, v0, chain, uniforms=u, mask=mask, norm=norm)
+    for a, b in ((got[0].W, want[0].W), (got[0].b, want[0].b), (got[0].c, want[0].c),
+                 (got[2], want[2])):
+        torch.testing.assert_close(a, b, **REPLAY_TOL)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    if not cfg.persistent:
+        assert got[1] is chain  # CD: the chain passes through
+    runs = [GR.cd_grads_resident_step(cfg, p, v0, chain, seed=3, mask=mask, norm=norm, grid=g)
+            for g in _resident_clusters(cfg)]
+    for r in runs[1:]:
+        for a, b in zip(r[0].as_dict().values(), runs[0][0].as_dict().values()):
+            assert torch.equal(a, b)
+        assert torch.equal(r[1], runs[0][1]) and torch.equal(r[2], runs[0][2])
+    assert len(runs) == 2 and bool(torch.isfinite(runs[0][0].W).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GRADS_MODES))
+def test_dp_resident_step_modes_match_plain(cuda, name):
+    """Every mode of GRADS_MODES on a 7-row shard with a pad row: the whole
+    flat buffer (the enhanced sums and the raw z statistic included) against
+    plain (_flat_close), the same chain, the same bits on two cluster counts
+    and on a third launch sharing their scratch (its barrier counters and
+    monitor sums left zero by each launch)."""
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_resident_cuda as GR
+
+    cfg = GRADS_MODES[name]
+    assert K.select_dp_kernel(cfg.replace(batch_size=20), 3) == "cd_grads_resident"
+    p, v0, chain, mask, u = _mode_inputs(cfg, cuda)
+    bit = 5 if cfg.error_metric == "pseudo" else None
+    kw = dict(mask=mask, norm=20 / 3, pseudo_bit=bit)
+    got, want = (torch.full((G.flat_size(cfg),), float("nan"), device=cuda) for _ in range(2))
+    _, c_got, _ = GR.cd_grads_resident_step(cfg, p, v0, chain, uniforms=u, out=got, **kw)
+    _, c_want, _ = G.cd_grads_step_plain(cfg, p, v0, chain, uniforms=u, out=want, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _flat_close(cfg, got, want)
+    assert c_got.dtype == chain.dtype
+    torch.testing.assert_close(c_got, c_want, rtol=0, atol=0)
+    scratch = GR.step_scratch(cfg, cuda)
+    runs = []
+    for g in _resident_clusters(cfg) + [0]:
+        flat = torch.empty(G.flat_size(cfg), device=cuda)
+        launch, _, ch, _ = GR.step_launcher(cfg, p, v0, chain, seed=3, out=flat, grid=g,
+                                            scratch=scratch, **kw)
+        launch()
+        runs.append((flat, ch))
+    torch.cuda.synchronize()
+    for flat, ch in runs[1:]:
+        assert torch.equal(flat, runs[0][0]) and torch.equal(ch, runs[0][1])
+
+
+# the enhanced gradient's matvec pass (cd_enhance_kernel) spread over the card:
+# the update after it against cd_update_plain on 3 ranks' sums, W, vW and the
+# elementwise parts bit for bit, b and c (the matvecs, summed in another order)
+# at REPLAY_TOL; at c1's width and at 2000x200 (several tile rows and columns)
+ENHANCE_CASES = {
+    "c1": RBMConfig(**C1, gradient="enhanced", momentum=0.5),
+    "2000x200-sparsity": RBMConfig(n_visible=2000, n_hidden=200, visible="gaussian", lr=0.005,
+                                   batch_size=20, gradient="enhanced", sparsity_target=0.1,
+                                   sparsity_cost=0.5),
+    "c1-bf16": RBMConfig(**C1, gradient="enhanced", **BF16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ENHANCE_CASES))
+def test_enhance_pass_matches_plain(cuda, name):
+    from mdbn_tpu_torch.core.rbm_math import RBMParams
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.parallel.dp import world_scale
+
+    cfg = ENHANCE_CASES[name]
+    sdt = torch_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    rand = lambda *shape: (0.1 * torch.randn(shape, generator=gen, device=cuda)).to(sdt)
+    V, H = cfg.n_visible, cfg.n_hidden
+    p = RBMParams(W=rand(V, H), b=rand(V), c=rand(H))
+    vel = RBMParams(W=rand(V, H), b=rand(V), c=rand(H))
+    sums = 3 * 0.1 * torch.randn(G.flat_size(cfg), generator=gen, device=cuda)
+    want = G.cd_update_plain(cfg, p, vel, sums, world_scale(3), 0)
+    got = G.cd_update(cfg, p.map(torch.clone), vel.map(torch.clone), sums, world_scale(3), 0)
+    again = G.cd_update(cfg, p.map(torch.clone), vel.map(torch.clone), sums, world_scale(3), 0)
+    torch.cuda.synchronize()
+    bf = cfg.compute_dtype == "bfloat16"
+    for i in (0, 1):
+        for n, a in got[i].as_dict().items():
+            b = getattr(want[i], n)
+            assert torch.equal(a, getattr(again[i], n))  # the same bits on every launch
+            if n in ("b", "c"):
+                if bf:
+                    _close_bf16(a, b, atol=REPLAY_TOL["atol"])
+                else:
+                    torch.testing.assert_close(a.float(), b.float(), **REPLAY_TOL)
+            else:
+                assert torch.equal(a, b), (i, n)
+
+
+# a captured epoch (parallel.dp.EpochSteps) on one NCCL rank against the eager
+# loop of the same launches on the same seeds: bit for bit, on both routes
+# (the resident step; c1 at batch 65, past the resident fit, on cd_grads.cu),
+# with an odd and an even count of steps, the momentum switch and the pseudo
+# monitor's bit schedule crossing epochs
+CAPTURE_CASES = {
+    "cd1-nb5": (RBMConfig(**SMALL, lr=0.1), 5),
+    "pcd-k2-momentum-switch-nb3": (RBMConfig(**SMALL, lr=0.1, k=2, persistent=True,
+                                             momentum=0.9, initial_momentum=0.5,
+                                             momentum_switch_epoch=1), 3),
+    "pt3-nb4": (RBMConfig(**SMALL, lr=0.1, persistent=True, pt_temps=3, pt_beta_min=0.3), 4),
+    "enhanced-pseudo-nb3": (RBMConfig(**SMALL, lr=0.1, gradient="enhanced",
+                                      error_metric="pseudo", momentum=0.5), 3),
+    "lv-bf16-nb3": (RBMConfig(**SMALL, visible="gaussian", lr=0.005, learn_variance=True,
+                              **BF16), 3),
+    "c1-b65-cd_grads-nb3": (RBMConfig(**{**C1, "batch_size": 65}, persistent=True,
+                                      momentum=0.5), 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CAPTURE_CASES))
+def test_dp_captured_epoch_equals_eager(cuda, name):
+    import torch.distributed as dist
+
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_resident_cuda as GR
+    from mdbn_tpu_torch.parallel import dp
+    from mdbn_tpu_torch.parallel.mesh import make_mesh
+
+    cfg, nb = CAPTURE_CASES[name]
+    route = "cd_grads" if "cd_grads" in name else "cd_grads_resident"
+    assert K.select_dp_kernel(cfg) == route
+    _, data, _, _ = _inputs(cfg, cuda, E=3, nb=nb)
+    mesh = make_mesh(1, backend="nccl")
+    try:
+        counts = lambda: (GR.cd_grads_resident_launches, G.cd_grads_launches,
+                          G.cd_update_launches)
+        runs = []
+        for capture in (True, False):  # each from the same state and generator
+            before = counts()
+            s2, errs = dp.train_rbm_shard_map(init_train_state(cfg, device=cuda), data, cfg,
+                                              mesh, 3, pallas_step=True, capture=capture)
+            torch.cuda.synchronize()
+            steps = 3 * nb
+            assert [a - b for a, b in zip(counts(), before)] == (
+                [steps, 0, steps] if route == "cd_grads_resident" else [0, steps, steps])
+            runs.append((s2, errs))
+        (a, ea), (b, eb) = runs
+        for x, y in zip(list(a.params.as_dict().values()) + list(a.velocity.as_dict().values()),
+                        list(b.params.as_dict().values()) + list(b.velocity.as_dict().values())):
+            assert torch.equal(x, y)
+        assert torch.equal(a.chain_h, b.chain_h) and torch.equal(ea, eb)
+        assert bool(torch.isfinite(ea).all()) and a.epoch == b.epoch == 3
     finally:
         dist.destroy_process_group()
 

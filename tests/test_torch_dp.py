@@ -332,7 +332,7 @@ def test_default_device_is_the_card(monkeypatch):
 def one_rank():
     import torch.distributed as dist
 
-    mesh = make_mesh(1, backend="gloo")
+    mesh = make_mesh(1, backend="gloo", device="cpu")
     yield mesh
     dist.destroy_process_group()
 

@@ -148,7 +148,7 @@ def test_dp_wide_ranks_match_jax_replay(name, tmp_path):
     fields, ndev, B = RANK_CASES[name]
     kw = dict(SMALL, batch_size=B, **fields)
     jc, tc = both(**kw)
-    assert K.wide_unsupported(tc) is None and K.select_dp_kernel(tc) == "cd_grads"
+    assert K.wide_unsupported(tc) is None and K.select_dp_kernel(tc) == "cd_grads_resident"
     each = tc.param_dtype == "bfloat16"  # one update at a time
     lb = -(-B // ndev)
     E, nb = (3, 1) if each else (2, 2)
@@ -198,15 +198,16 @@ def test_dp_wide_ranks_match_jax_replay(name, tmp_path):
 
 def test_select_dp_kernel_at_the_threshold(monkeypatch):
     """From WIDE_DP_MIN_VISIBLE columns on, a run in the W-blocked kernel's
-    scope takes cd_grads_wide; one column fewer takes cd_grads; the single-
-    device rule is not changed by it."""
+    scope takes cd_grads_wide; one column fewer takes the step kernel whose
+    tiles fit (the resident kernel's step variant at these shapes); the
+    single-device rule is not changed by it."""
     base = RBMConfig(n_visible=8, n_hidden=16, visible="gaussian")
     at = K.WIDE_DP_MIN_VISIBLE
     assert K.select_dp_kernel(base.replace(n_visible=at)) == "cd_grads_wide"
-    assert K.select_dp_kernel(base.replace(n_visible=at - 1)) == "cd_grads"
+    assert K.select_dp_kernel(base.replace(n_visible=at - 1)) == "cd_grads_resident"
     monkeypatch.setattr(K, "WIDE_DP_MIN_VISIBLE", 32)
     assert K.select_dp_kernel(base.replace(n_visible=32)) == "cd_grads_wide"
-    assert K.select_dp_kernel(base.replace(n_visible=31)) == "cd_grads"
+    assert K.select_dp_kernel(base.replace(n_visible=31)) == "cd_grads_resident"
     assert K.select_kernel(base.replace(n_visible=32)) == "cd_train_resident"
 
 
@@ -221,9 +222,10 @@ OUTSIDE = {"sampled visibles": dict(sample_visible=True),
 
 @pytest.mark.parametrize("name", list(OUTSIDE))
 def test_select_dp_kernel_outside_the_scope(name):
-    """A config outside the W-blocked kernel's scope takes cd_grads at any
-    width, and the W-blocked DP step refuses it; k 300 lies inside it and
-    takes cd_grads_wide as k 1 does."""
+    """A config outside the W-blocked kernel's scope takes a step kernel of
+    the flat-buffer routes at any width (the resident kernel's step variant
+    where its tiles fit, as at this width), and the W-blocked DP step
+    refuses it; k 300 lies inside it and takes cd_grads_wide as k 1 does."""
     cfg = RBMConfig(n_visible=K.WIDE_DP_MIN_VISIBLE, n_hidden=16, visible="gaussian",
                     batch_size=5).replace(**OUTSIDE[name])
     if name == "Philox":
@@ -231,7 +233,7 @@ def test_select_dp_kernel_outside_the_scope(name):
         assert K.select_dp_kernel(cfg) == "cd_grads_wide"
         return
     assert K.wide_unsupported(cfg) is not None
-    assert K.select_dp_kernel(cfg) == "cd_grads"
+    assert K.select_dp_kernel(cfg) == "cd_grads_resident"
     st = init_train_state(cfg, device="cpu")
     with pytest.raises(ValueError, match=name.split()[0]):
         W.cd_wide_step_plain(cfg, st.params, torch.zeros((5, cfg.n_visible)), st.chain_h, seed=1)
@@ -259,7 +261,7 @@ def test_wide_kernels_refuse_cpu_tensors(monkeypatch):
 def one_rank():
     import torch.distributed as dist
 
-    mesh = make_mesh(1, backend="gloo")
+    mesh = make_mesh(1, backend="gloo", device="cpu")
     yield mesh
     dist.destroy_process_group()
 

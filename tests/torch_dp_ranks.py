@@ -37,7 +37,7 @@ def run_rank(rank: int, world: int, port: int, out: str, cfg, data, uniforms,
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=60))
     try:
-        mesh = make_mesh(world, backend="gloo")
+        mesh = make_mesh(world, backend="gloo", device="cpu")
         res = {"mesh": (mesh.rank, mesh.size, str(mesh.device), mesh.backend)}
         for pallas_step in pallas_steps:
             st, states = init_train_state(cfg, device="cpu"), []
@@ -139,7 +139,7 @@ def run_finetune_rank(rank: int, world: int, port: int, out: str, batch_sizes) -
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=60))
     try:
-        mesh = make_mesh(world, backend="gloo")
+        mesh = make_mesh(world, backend="gloo", device="cpu")
         torch.save({b: finetune_runs(mesh, b) for b in batch_sizes},
                    os.path.join(out, f"finetune{rank}.pt"))
     finally:
