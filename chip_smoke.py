@@ -113,29 +113,38 @@ after 5):
     gradient's matvec pass (cd_enhance_kernel) on its own;
 18. dp_world1_modes: each mode for 10 epochs through
     train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh, captured
-    on the flat-buffer routes: the kernels of the route select_dp_kernel
+    on every route: the kernels of the route select_dp_kernel
     gives launched once a step and the other routes' never (pt3_lv at
     2000x200 fits no cluster and takes cd_grads.cu, w20k_mom_bf16
     cd_grads_wide.cu, the others the step variant), the final error in the
     mode's PARITY.md band (pt3_lv, pseudo and bf16: the monitor falls);
-    ms an epoch captured and eager, and the captured epochs' busy share;
+    the eager loop's bits, ms an epoch captured and eager, and the busy
+    share;
 19. dp_ranks_modes: each mode but w20k_mom_bf16 (phase 22) over 3 gloo ranks
     through RBM.train(mesh=...) for 2 epochs: engine cuda_dp, the route's
     kernels launched, bit-identical parameters across ranks; then an
     injected run held against a replay in this process (float32: 2 epochs
     at rtol 2e-4 / atol 2e-6; bf16: one update at a time, one ulp);
 20. kernel_vs_plain_wide_dp: the W-blocked kernel's data-parallel mode
-    (cd_grads_wide.cu) at w20k, w20k_mom_bf16, w28k and w40k_bf16: the step
-    against its plain version on the whole batch and on a 7-row shard with a
-    pad row, the update on 3 ranks' gathered slots, identical bits on grids
-    1, 7 and 132; device time per launch of both kernels (and of the step on
-    a shard of B / 4 rows), their plain versions' and bounds; cd_grads.cu's
-    step and update at the same shapes; the bytes a rank sends on each route;
+    (cd_grads_wide.cu, its update in cd_wide_update.cuh) at w20k,
+    w20k_mom_bf16, w28k and w40k_bf16: the step against its plain version on
+    the whole batch and on a 7-row shard with a pad row; the update on 3
+    ranks' gathered slots (uneven) and 4 ranks' (even), at the row's
+    momentum and under a schedule from 0 (m = 0 on the velocity variant,
+    then 0.5); identical bits and monitor on grids 1, 7, 132 and the
+    default; device time per launch of both kernels (and of the step on a
+    shard of B / 4 rows), their plain versions', bounds, the update's
+    library form (one addmm into the velocity, then W += vW) and its trace;
+    cd_grads.cu's step and update at the same shapes; the bytes a rank sends
+    on each route;
 21. dp_world1_wide: the same rows for 10 epochs through
-    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh: the
-    cd_grads_wide kernels once a step, cd_grads never, the monitor falls;
-    then three updates one at a time against cd_train_wide.cu on the same
-    injected draws (whether the bits match);
+    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh, each
+    epoch a replayed CUDA graph (step, all-gather, update, nb times): the
+    cd_grads_wide kernels once a step, cd_grads never, the monitor falls, the
+    eager loop's bits, ms an epoch captured and eager and the busy share (at
+    least 90% captured); w20k_mom_bf16 across a momentum switch from 0,
+    captured against eager; then three updates one at a time against
+    cd_train_wide.cu on the same injected draws (whether the bits match);
 22. dp_ranks_wide: w20k_mom_bf16 over 3 gloo ranks through
     RBM.train(mesh=...): the cd_grads_wide kernels launched, bit-identical
     parameters across ranks, an injected run against the W-blocked route's
@@ -308,7 +317,8 @@ DP_MODE_BANDS = {**MODE_BANDS, "pt3_lv": None, "c1_bf16": None, "w20k_mom_bf16":
 DP_UPDATE_MODES = ("lv", "enhanced", "c1_bf16", "w20k_mom_bf16")
 DP_RANK_ROWS = 400  # rows each mode trains on over the 3 gloo ranks (20 steps an epoch)
 PSEUDO_BIT = 5
-STEP_KERNELS = ("cd_train_resident_kernel", "cd_grads_kernel")  # the DP step kernels' names
+STEP_KERNELS = ("cd_train_resident_kernel", "cd_grads_kernel",
+                "cd_wide_step_kernel")  # the DP step kernels' names
 
 
 def phase(name: str, **fields) -> None:
@@ -572,17 +582,24 @@ def time_runs(fn, reps: int) -> float:
 # kernels line
 PROFILER_MISSES: list = []
 PROFILER_TRIES = 3
+# device_us sessions in which the profiler saw fewer (or more) events of the
+# named kernels than the calls launched; the time is per event seen
+PROFILER_SHORT: list = []
 
 
 def device_us(fn, reps: int, names=None) -> float:
     """Device time per call of ``fn`` in us: torch.profiler's CUDA activity
-    over ``reps`` calls after one warm-up call, summed over the kernels whose
-    name contains one of ``names`` (None: every kernel). A loop of launches
-    timed with CUDA events measures the host's launch rate instead whenever
-    the host takes longer per launch than the kernel runs. The profiler now
-    and then reports no CUDA activity for a session; such a session is
-    profiled again, and after PROFILER_TRIES empty sessions the calls are
-    timed by ``queued_device_us`` (recorded in PROFILER_MISSES)."""
+    over ``reps`` calls after one warm-up call. With ``names``, each named
+    kernel (a kernel whose name contains the name) launched once a call,
+    its time per event seen, summed over the names seen: a session in a long
+    process can drop events (recorded in PROFILER_SHORT), so a total over
+    the calls reads low. Without, every kernel's device time over ``reps``.
+    A loop of launches timed with CUDA events measures the host's launch
+    rate instead whenever the host takes longer per launch than the kernel
+    runs. The profiler now and then reports no CUDA activity for a session;
+    such a session is profiled again, and after PROFILER_TRIES empty
+    sessions the calls are timed by ``queued_device_us`` (recorded in
+    PROFILER_MISSES)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -593,18 +610,25 @@ def device_us(fn, reps: int, names=None) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total, seen = 0.0, 0
+        keys = list(names) if names is not None else [None]
+        total, seen = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0)
         for ev in prof.key_averages():
             us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-            if names is None:  # the kernels: device time and no CPU time of their own
-                take = us > 0 and ev.self_cpu_time_total == 0
-            else:
-                take = any(n in ev.key for n in names)
-            if take and ev.count:
-                total += us
-                seen += ev.count
-        if seen:
-            return total / reps
+            if not ev.count:
+                continue
+            for n in keys:
+                # None: the kernels, device time and no CPU time of their own
+                if (us > 0 and ev.self_cpu_time_total == 0) if n is None else n in ev.key:
+                    total[n] += us
+                    seen[n] += ev.count
+                    break
+        if names is None and seen[None]:
+            return total[None] / reps
+        if names is not None and any(seen.values()):
+            short = {n: c for n, c in seen.items() if c and c != reps}
+            if short:
+                PROFILER_SHORT.append({"names": list(names), "events": short, "launched": reps})
+            return sum(total[n] / seen[n] for n in names if seen[n])
     us, queued = queued_device_us(fn, reps)
     PROFILER_MISSES.append({"names": list(names or ["any"]), "sessions": PROFILER_TRIES,
                             "events_us": us, "back_to_back": queued})
@@ -2058,14 +2082,13 @@ def run_update_modes(dev, smi, modes):
 
 def run_dp_world1_modes(dev, modes, names, phase_name):
     """Phase 18 (and 21's runs): each mode of ``names`` for 10 epochs through
-    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh (captured
-    on the flat-buffer routes): the kernels of the route select_dp_kernel
-    gives launched once a step and the other routes' never, the final error
-    in the mode's PARITY.md band (or, without a band, below the first); on
-    the flat-buffer routes the same bits as the eager loop from the same
-    state, ms an epoch captured and eager and the busy share
-    (dp_epoch_timing); on the W-blocked route five epochs timed one by one.
-    Returns ({mode: {kernel: launches}}, {mode: run})."""
+    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh (captured,
+    on every route): the kernels of the route select_dp_kernel gives
+    launched once a step and the other routes' never, the final error in the
+    mode's PARITY.md band (or, without a band, below the first); the same
+    bits as the eager loop from the same state, ms an epoch captured and
+    eager and the busy share (dp_epoch_timing). Returns ({mode: {kernel:
+    launches}}, {mode: run})."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2103,34 +2126,34 @@ def run_dp_world1_modes(dev, modes, names, phase_name):
             route = dp_route(cfg)
             runs[name] = {"route": route, "first_err": hist[0], "final_err": hist[-1],
                           "band": band, "steps_per_epoch": nb}
-            if route != "cd_grads_wide":  # captured: the eager loop's bits, both timed
-                eager, errs_e = dp.train_rbm_shard_map(init_train_state(cfg, device=dev), data,
-                                                       cfg, mesh, 10, pallas_step=True,
-                                                       capture=False)
-                torch.cuda.synchronize()
-                if not (all(torch.equal(a, b) for part in ("params", "velocity")
-                            for a, b in zip(getattr(st, part).as_dict().values(),
-                                            getattr(eager, part).as_dict().values()))
-                        and torch.equal(errs, errs_e)):
-                    raise AssertionError(f"{phase_name} {name}: the captured epochs and the "
-                                         "eager loop differ")
-                runs[name].update(captured_equals_eager="identical bits",
-                                  **dp_epoch_timing(st, data, cfg, mesh, nb))
-                continue
-            epoch_ms = []
-            for _ in range(6):  # the first is a warm-up
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                dp.train_rbm_shard_map(st, data, cfg, mesh, 1, pallas_step=True)
-                torch.cuda.synchronize()
-                epoch_ms.append((time.perf_counter() - t0) * 1e3)
-            epoch_ms = epoch_ms[1:]
-            med = sorted(epoch_ms)[len(epoch_ms) // 2]
-            runs[name].update(epoch_ms=epoch_ms, epoch_ms_median=med,
-                              step_us_median=med * 1e3 / nb)
+            # captured: the eager loop's bits, both timed
+            _captured_equals_eager(cfg, data, mesh, dev, 10, (st, errs), f"{phase_name} {name}")
+            runs[name].update(captured_equals_eager="identical bits",
+                              **dp_epoch_timing(st, data, cfg, mesh, nb))
     finally:
         dist.destroy_process_group()
     return launches, runs
+
+
+def _captured_equals_eager(cfg, data, mesh, dev, epochs, captured, what):
+    """Assert that ``captured`` = (state, errors), train_rbm_shard_map's
+    captured run of ``epochs`` epochs from a fresh state, has the bits of
+    the eager loop of the same launches (capture=False) from the same
+    state."""
+    import torch
+
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.parallel import dp
+
+    st, errs = captured
+    eager, errs_e = dp.train_rbm_shard_map(init_train_state(cfg, device=dev), data, cfg, mesh,
+                                           epochs, pallas_step=True, capture=False)
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for part in ("params", "velocity")
+                for a, b in zip(getattr(st, part).as_dict().values(),
+                                getattr(eager, part).as_dict().values()))
+            and torch.equal(st.chain_h, eager.chain_h) and torch.equal(errs, errs_e)):
+        raise AssertionError(f"{what}: the captured epochs and the eager loop differ")
 
 
 def _dp_modes_rank(rank, world, port, out_dir, runs):
@@ -2379,16 +2402,65 @@ def _params_close(cfg, got, want) -> float:
     return worst
 
 
+def _wide_gathered(cfg, data, p, chain, gen, ndev, dev):
+    """ndev ranks' slots of the first minibatch from plain steps on random
+    draws, in rank order: the update's gathered input."""
+    import torch
+
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as GW
+    from mdbn_tpu_torch.ops.cd_step import draw_uniforms
+
+    B = cfg.batch_size
+    lb = -(-B // ndev)
+    local = cfg.replace(batch_size=lb)
+    nbytes = GW.wide_factor_size(local)
+    gathered = torch.zeros(ndev * nbytes, dtype=torch.uint8, device=dev)
+    for d in range(ndev):
+        GW.cd_wide_step_plain(local, p, _shard(data[:B], d, lb)[0], chain[:lb],
+                              uniforms=draw_uniforms(local, lb, gen),
+                              n_valid=min(lb, B - d * lb), norm=B / ndev,
+                              out=gathered[d * nbytes:(d + 1) * nbytes])
+    return gathered
+
+
+def wide_update_library_us(cfg, p, vel, v0, gathered, ndev) -> float:
+    """Device us of the W-blocked update's nearest library form (timed for
+    comparison only): gW by one torch.addmm of the gathered operands [v0;
+    vs]^T [h0p; -hmean] into the velocity (momentum 0.5, lr / B), then W +=
+    vW, at the storage dtype; the operands assembled before the timing."""
+    import torch
+
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as GW
+
+    B = cfg.batch_size
+    views = GW.gathered_views(cfg.replace(batch_size=-(-B // ndev)), gathered, ndev)
+    sdt = p.W.dtype
+    X = torch.cat([v0[:B], torch.cat([v[0] for v in views])[:B]]).to(sdt)
+    Y = torch.cat([torch.cat([v[1][0] for v in views])[:B],
+                   torch.cat([v[1][1] for v in views])[:B]]).to(sdt)
+    W, vW = p.W.clone(), vel.W.clone()
+
+    def library():
+        vW.addmm_(X.t(), Y, beta=0.5, alpha=cfg.lr / B)
+        W.add_(vW)
+
+    return device_us(library, 30)
+
+
 def run_wide_dp_kernels(dev, smi, modes):
     """Phase 20: both W-blocked DP kernels against their plain versions at
     full width (WIDE_DP_ROWS): the step on the whole batch and on the third
     shard of a 3-way split (7 rows, one pad row, norm 20/3), same bits on
-    grids 1, 7, 132; the update on 3 ranks' gathered slots, same bits on
-    those grids. Their device times per launch (torch.profiler), the plain
-    versions' and the bounds; the step also on a shard of B / 4 rows; the
-    old route's step and update (csrc/cd_grads.cu) at the same shapes for
-    comparison, and the bytes a rank sends on each route. Returns {row:
-    (step err, update err, timing)}."""
+    grids 1, 7, 132; the update (csrc/cd_wide_update.cuh) on 3 ranks'
+    gathered slots (uneven) and on 4 ranks' (even), at the row's momentum and
+    under a schedule from 0 to 0.5 (epoch 0: m = 0 on the velocity variant;
+    epoch 1: m = 0.5), same bits and the same monitor on grids 1, 7, 132 and
+    the default. Their device times per launch (torch.profiler), the plain
+    versions' and the bounds, the update's library form and its trace (block
+    0's phases); the step also on a shard of B / 4 rows; the old route's step
+    and update (csrc/cd_grads.cu) at the same shapes for comparison, and the
+    bytes a rank sends on each route. Returns {row: (step err, update err,
+    timing)}."""
     import torch
 
     from mdbn_tpu_torch.core.rbm_math import RBMParams
@@ -2425,30 +2497,38 @@ def run_wide_dp_kernels(dev, smi, modes):
                 for slot, ch in runs[1:]:
                     if not (torch.equal(slot, runs[0][0]) and torch.equal(ch, runs[0][1])):
                         raise AssertionError(f"{name}: the W-blocked DP step depends on the grid")
-        # the update on 3 ranks' slots of the first minibatch, from plain steps
+        # the update on 3 ranks' slots of the first minibatch (and 4 ranks'),
+        # from plain steps, at the row's momentum and under a schedule from 0
         local = cfg.replace(batch_size=lb)
         p, chain = _mode_state(local, dev, n)
         rand = lambda *shape: (1e-3 * torch.randn(shape, generator=gen, device=dev)).to(sdt)
         vel = RBMParams(W=rand(*p.W.shape), b=rand(*p.b.shape), c=rand(*p.c.shape))
-        nbytes = GW.wide_factor_size(local)
-        gathered = torch.zeros(DP_RANKS * nbytes, dtype=torch.uint8, device=dev)
-        for d in range(DP_RANKS):
-            GW.cd_wide_step_plain(local, p, _shard(data[:B], d, lb)[0], chain,
-                                  uniforms=draw_uniforms(local, lb, gen),
-                                  n_valid=min(lb, B - d * lb), norm=B / DP_RANKS,
-                                  out=gathered[d * nbytes:(d + 1) * nbytes])
-        want = GW.cd_wide_update_plain(cfg, p, vel, data[:B], gathered, DP_RANKS, scale, 0)
-        runs = [GW.cd_wide_update(cfg, p.map(torch.clone), vel.map(torch.clone), data[:B],
-                                  gathered, DP_RANKS, scale, 0, grid=g)
-                for g in (0,) + GRADS_GRIDS]
-        torch.cuda.synchronize()
-        for r in runs[1:]:
-            if not all(torch.equal(x, y) for i in (0, 1) for x, y in
-                       zip(r[i].as_dict().values(), runs[0][i].as_dict().values())):
-                raise AssertionError(f"{name}: the W-blocked DP update depends on the grid")
-        if not torch.equal(runs[0][2], want[2]):
-            raise AssertionError(f"{name}: the update's monitor differs from the plain version's")
-        errs[f"{name}@update"] = update_err = _params_close(cfg, runs[0], want)
+        gathered = _wide_gathered(cfg, data, p, chain, gen, DP_RANKS, dev)
+        even = _wide_gathered(cfg, data, p, chain, gen, WIDE_DP_SHARD_RANKS, dev)
+        sched = cfg.replace(initial_momentum=0.0, momentum=0.5, momentum_switch_epoch=1)
+        update_err = 0.0
+        for case, (c, ranks, slots, epoch) in {
+                "3_ranks": (cfg, DP_RANKS, gathered, 0),
+                f"{WIDE_DP_SHARD_RANKS}_ranks": (cfg, WIDE_DP_SHARD_RANKS, even, 0),
+                "schedule_m0": (sched, DP_RANKS, gathered, 0),
+                "schedule_m0.5": (sched, DP_RANKS, gathered, 1)}.items():
+            sc = world_scale(ranks)
+            want = GW.cd_wide_update_plain(c, p, vel, data[:B], slots, ranks, sc, epoch)
+            runs = [GW.cd_wide_update(c, p.map(torch.clone), vel.map(torch.clone), data[:B],
+                                      slots, ranks, sc, epoch, grid=g)
+                    for g in (0,) + GRADS_GRIDS]
+            torch.cuda.synchronize()
+            for r in runs[1:]:
+                if not (all(torch.equal(x, y) for i in (0, 1) for x, y in
+                            zip(r[i].as_dict().values(), runs[0][i].as_dict().values()))
+                        and torch.equal(r[2], runs[0][2])):
+                    raise AssertionError(f"{name} {case}: the W-blocked DP update depends on "
+                                         "the grid")
+            if not torch.equal(runs[0][2], want[2]):
+                raise AssertionError(f"{name} {case}: the update's monitor differs from the "
+                                     "plain version's")
+            errs[f"{name}@update_{case}"] = _params_close(c, runs[0], want)
+            update_err = max(update_err, errs[f"{name}@update_{case}"])
 
         # timing: the launches alone on fixed buffers, the plain versions;
         # plain, kernel, kernel, plain; then device time by torch.profiler
@@ -2477,6 +2557,11 @@ def run_wide_dp_kernels(dev, smi, modes):
         s4_ms, s4_by = wide_step_bound(c4)
         u_ms, u_by = wide_update_bound(cfg, DP_RANKS)
         local4 = cfg.replace(batch_size=-(-B // WIDE_DP_SHARD_RANKS))
+        nbytes = GW.wide_factor_size(cfg.replace(batch_size=lb))
+        trace = torch.zeros(len(GW.UPDATE_TRACE), dtype=torch.int64, device=dev)
+        GW.update_launcher(cfg, pu, vu, v0, gathered, DP_RANKS, scale, 0, trace=trace)[0]()
+        torch.cuda.synchronize()
+        tr = dict(zip(GW.UPDATE_TRACE, trace.tolist()))
         out[name] = (step_err, update_err, {
             "step_device_us": device_us(step, 30, ("cd_wide_step_kernel",)),
             "step_us_calls": [t[1] * 1e6, t[2] * 1e6],
@@ -2489,6 +2574,13 @@ def run_wide_dp_kernels(dev, smi, modes):
             "update_us_calls": [t[5] * 1e6, t[6] * 1e6],
             "update_plain_us": min(t[4], t[7]) * 1e6, "update_bound_us": u_ms * 1e3,
             "update_bound_by": u_by,
+            "update_library_us": wide_update_library_us(cfg, p, vel, v0, gathered, DP_RANKS),
+            "update_plan": GW.update_plan(cfg)._asdict(),
+            "update_trace_us": {  # block 0's, one launch
+                "y_staged": (tr["y_staged"] - tr["entry"]) / 1e3,
+                "ring_wait": tr["ring_wait_ns"] / 1e3, "sums": tr["sums_ns"] / 1e3,
+                "update": tr["update_ns"] / 1e3, "c_after": (tr["exit"] - tr["tiles_done"]) / 1e3,
+                "total": (tr["exit"] - tr["entry"]) / 1e3, "tiles": tr["tiles"]},
             "cd_grads_step_device_us": device_us(old_step, 30, ("cd_grads_kernel",)),
             "cd_grads_update_device_us": device_us(old_update, 30, ("cd_update_kernel",)),
             "bytes_sent_per_rank": {
@@ -2503,14 +2595,21 @@ def run_wide_dp_kernels(dev, smi, modes):
     return out
 
 
+WIDE_DP_BUSY = 0.9  # the least busy share of a captured W-blocked DP epoch's device time
+
+
 def run_wide_dp_world1(dev, smi, modes):
     """Phase 21: each row of WIDE_DP_ROWS for 10 epochs through
-    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh (the
-    cd_grads_wide kernels once a step, cd_grads never; the monitor falls;
-    five epochs timed), then WIDE_DP_REPLAYED updates one at a time against
-    the single-device W-blocked kernel (cd_train_wide.cu) on the same
-    injected draws: whether the bits match, and the largest difference.
-    Returns {row: {kernel: launches}}."""
+    train_rbm_shard_map(pallas_step=True) on a one-rank NCCL mesh, as a
+    captured epoch replayed (a CUDA graph of nb x step, all-gather, update):
+    the cd_grads_wide kernels nb times an epoch, cd_grads never; the monitor
+    falls; the eager loop's bits; ms an epoch captured and eager and the busy
+    share (at least WIDE_DP_BUSY captured); w20k_mom_bf16 under a momentum
+    schedule switching from 0 to 0.5 between epochs, captured against eager
+    over 3 epochs; then WIDE_DP_REPLAYED updates one at a time against the
+    single-device W-blocked kernel (cd_train_wide.cu) on the same injected
+    draws: whether the bits match (the update sums in another order), and
+    the largest difference. Returns {row: {kernel: launches}}."""
     import torch
     import torch.distributed as dist
 
@@ -2520,9 +2619,28 @@ def run_wide_dp_world1(dev, smi, modes):
     from mdbn_tpu_torch.parallel.mesh import make_mesh
 
     launches, runs = run_dp_world1_modes(dev, modes, WIDE_DP_ROWS, "dp_world1_wide")
+    for name in WIDE_DP_ROWS:
+        busy = runs[name]["busy_captured"]["busy_share"]
+        if busy < WIDE_DP_BUSY:
+            raise AssertionError(f"dp_world1_wide {name}: the card busy {busy:.3f} of a "
+                                 f"captured epoch's device time, under {WIDE_DP_BUSY}")
     one = torch.zeros((1, 1), dtype=torch.int32)
     mesh = make_mesh(1, backend="nccl")
     try:
+        cfg, data = modes["w20k_mom_bf16"]
+        cfg = cfg.replace(engine="pallas", initial_momentum=0.0, momentum=0.5,
+                          momentum_switch_epoch=1)
+        zero_dp_launches()
+        captured = dp.train_rbm_shard_map(init_train_state(cfg, device=dev), data, cfg, mesh, 3,
+                                          pallas_step=True)
+        torch.cuda.synchronize()
+        nb = data.shape[0] // cfg.batch_size
+        if dp_launches() != expected_dp_launches(cfg, 3 * nb):
+            raise AssertionError(f"dp_world1_wide momentum switch: launches {dp_launches()}")
+        _captured_equals_eager(cfg, data, mesh, dev, 3, captured, "dp_world1_wide switch")
+        switch = {"row": "w20k_mom_bf16", "initial_momentum": 0.0, "momentum": 0.5,
+                  "momentum_switch_epoch": 1, "epochs": 3,
+                  "captured_equals_eager": "identical bits", "errors": captured[1].tolist()}
         for name in WIDE_DP_ROWS:
             cfg, data = modes[name]
             cfg = cfg.replace(engine="pallas")
@@ -2548,7 +2666,8 @@ def run_wide_dp_world1(dev, smi, modes):
                                               "max_abs_diff": worst}
     finally:
         dist.destroy_process_group()
-    phase("dp_world1_wide", launches=launches, runs=runs, nvidia_smi=smi)
+    phase("dp_world1_wide", launches=launches, runs=runs, momentum_switch=switch,
+          busy_at_least=WIDE_DP_BUSY, nvidia_smi=smi)
     return launches
 
 
@@ -2622,18 +2741,20 @@ def run_dp_modes(dev, smi, c1, c1_data, ge) -> list:
             "ms_per": f"one update of {name} after the all-reduce", **extra})
     for name in WIDE_DP_ROWS:
         step_err, update_err, t = wide[name]
-        for kernel, err, what in (
-                ("step", step_err, f"one step of {name} on the whole batch (one rank)"),
-                ("update", update_err, f"one update of {name} over {DP_RANKS} ranks' slots")):
+        for kernel, err, what, source, replaces, library in (
+                ("step", step_err, f"one step of {name} on the whole batch (one rank)",
+                 "mdbn_tpu_torch/csrc/cd_grads_wide.cu", 1981, None),
+                ("update", update_err, f"one update of {name} over {DP_RANKS} ranks' slots",
+                 "mdbn_tpu_torch/csrc/cd_wide_update.cuh", 2298,
+                 t["update_library_us"] / 1e3)):
             entries.append({
-                "name": f"cd_grads_wide_{kernel}[{name}]", "route": "cuda",
-                "source": "mdbn_tpu_torch/csrc/cd_grads_wide.cu",
-                "replaces": "mdbn_tpu/ops/cd_epoch_pallas.py:1981",
+                "name": f"cd_grads_wide_{kernel}[{name}]", "route": "cuda", "source": source,
+                "replaces": f"mdbn_tpu/ops/cd_epoch_pallas.py:{replaces}",
                 "launches": wide_launches[name][f"cd_grads_wide_{kernel}"],
                 "max_abs_err": err, "ms": t[f"{kernel}_device_us"] / 1e3,
                 "plain_ms": t[f"{kernel}_plain_us"] / 1e3,
                 "bound_ms": t[f"{kernel}_bound_us"] / 1e3, "bound_by": t[f"{kernel}_bound_by"],
-                "library_ms": None, "ms_per": what})
+                "library_ms": library, "ms_per": what})
     return entries
 
 
@@ -3496,7 +3617,7 @@ def run() -> int:
                   "mega-kernel's update, its exchange an NCCL all-reduce between launches)"})
     entries += dp_mode_entries
     phase("device_timing", method="torch.profiler", profiler_tries=PROFILER_TRIES,
-          timed_by_queued_events=PROFILER_MISSES)
+          timed_by_queued_events=PROFILER_MISSES, events_short=PROFILER_SHORT)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -238,17 +238,23 @@ def _declare_cd_grads(lib: ctypes.CDLL) -> None:
 
 def _declare_cd_grads_wide(lib: ctypes.CDLL) -> None:
     lib.cd_wide_step.argtypes = (
-        [_P] * 10  # v0, u_h0, u_h, W, b, c, chain_in, chain_out, slot, scratch
+        [_P] * 11  # v0, tab, u_h0, u_h, W, b, c, chain_in, chain_out, slot, scratch
         + [_I] * 6  # V, H, B, k, flags, nvalid
         + [_F]  # inv_norm
         + _TAIL)
     lib.cd_wide_step.restype = _I
     lib.cd_wide_update.argtypes = (
-        [_P] * 9  # v0, gathered, W, b, c, vW, vb, vc, err
-        + [_I] * 6  # V, H, R, lb, ndev, flags
+        [_P, _P, ctypes.c_longlong]  # v0, tab, v0_stride
+        + [_P] * 10  # gathered, W, b, c, vW, vb, vc, err, mom, trace
+        + [_I] * 7  # V, H, R, lb, ndev, flags, vel
         + [_F] * 7  # scale, lr, momentum, l2, grad_clip, sparsity_target/cost
         + [_I, _I, _P])  # device, grid, stream
     lib.cd_wide_update.restype = _I
+    lib.cd_wide_prepare.argtypes = [_I] * 7  # V, H, B, R, flags, vel, device
+    lib.cd_wide_prepare.restype = _I
+    lib.cd_wide_update_plan.argtypes = [_I] * 8 + [_P]  # V, H, R, flags, vel, aligned, limit,
+    # per_sm, out[7]
+    lib.cd_wide_update_plan.restype = None
     for name in ("cd_wide_slot_bytes", "cd_wide_scratch_floats"):
         getattr(lib, name).argtypes = [_I] * 3  # V, H, B
         getattr(lib, name).restype = ctypes.c_longlong

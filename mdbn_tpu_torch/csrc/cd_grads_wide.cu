@@ -27,40 +27,43 @@
 //   update: over the R = global-batch rows of the gathered slots in rank
 //           order (row r of rank d is global row d B + r), with v0 read from
 //           the global minibatch (every rank holds the data, so it does not
-//           cross the wire):
-//           gW = (sum_r v0_r^T h0p_r - vs_r^T hmean_r) / R, gb = sum_r (v0_r -
-//           vs_r) / R, gc = sum_r (h0p_r - hmean_r) / R [+ cost (target -
-//           sum_r h0p_r / R)]; clip, L2, momentum, rounded once into Store
-//           (cd_train_wide.cu's update_phase, the same code); err = the sum of
-//           the slots' errs in rank order times 1 / ranks. Pad rows are the
-//           last rows of the last ranks, so the first R rows are the real ones.
+//           cross the wire): gW = (sum_r v0_r^T h0p_r - vs_r^T hmean_r) / R,
+//           gb = sum_r (v0_r - vs_r) / R, gc = sum_r (h0p_r - hmean_r) / R [+
+//           cost (target - sum_r h0p_r / R)]; clip, L2, momentum, rounded once
+//           into Store; err = the sum of the slots' errs in rank order times
+//           1 / ranks. Pad rows are the last rows of the last ranks, so the
+//           first R rows are the real ones.
 // Every rank runs the update on the same bytes, so every rank's W, b, c and
-// velocities keep the same bits. One rank is the single-device W-blocked
-// update: the same phases on the same rows.
+// velocities keep the same bits.
 //
 // Draws: Philox keyed by the wrapper's seed with update counter 0 (the
 // data-parallel path derives a seed per step and rank), or injected u_h0
-// [B, H], u_h [k, B, H] (ops/cd_step.draw_uniforms).
+// [B, H], u_h [k, B, H] (ops/cd_step.draw_uniforms). A captured epoch
+// (parallel/dp.py::EpochSteps) hands the step `tab`, a device row of
+// {minibatch, seed, .}: it reads its minibatch of the minibatches it is
+// given and its seed there; the update reads its minibatch from the same
+// row and its momentum from device memory.
 //
 // What bounds it on an H100 at 20000x400 bf16 over 4 ranks (B 5 a rank):
 // the step reads W three times (16 MB bf16, which the 50 MB L2 can hold
 // after the first pass) and writes 216 KB of factors; the update reads and
 // writes W and its velocity once (64 MB, 19 us) and reads every rank's
-// factors. Both are far from their bounds at this batch: the step is 3 + 3k
-// dependent phases with a grid barrier after each (cd_train_wide.cu's
-// products), the update cd_train_wide.cu's update phase.
+// factors. The step is 3 + 3k dependent phases with a grid barrier after
+// each (cd_train_wide.cu's products); the update streams W near the memory
+// rate (csrc/cd_wide_update.cuh).
 //
 // Design: the step is one cooperative launch (grid barriers between its
 // phases); the monitor's row sums ride as extra units of the first Gibbs
-// step's x W pass, and block 0 adds them after the last phase. The update is
-// an ordinary launch: its W units and its c warps are independent of one
-// another. Both run cd_train_wide.cu's phases with their launch setup: one
-// 256-thread block an SM, dynamic shared memory sized by wide_plan (the
-// update stages every rank's h0p and hmean once where they fit). Nothing is
-// atomic and the unit order is fixed, so grids 1, 7, 132 and the default
-// give the same bits.
+// step's x W pass, and block 0 adds them after the last phase. It runs
+// cd_train_wide.cu's phases with their launch setup: one 256-thread block an
+// SM, dynamic shared memory sized by wide_plan. The update is an ordinary
+// launch of its own design (csrc/cd_wide_update.cuh: a ring of W tiles by
+// cp.async, gW on mma.sync at bf16 compute, the update on the sums in
+// registers). Nothing is atomic and every sum's order is fixed, so grids 1,
+// 7, 132 and the default give the same bits.
 
 #include "cd_wide_phases.cuh"
+#include "cd_wide_update.cuh"
 
 namespace {
 
@@ -82,7 +85,8 @@ __host__ __device__ inline Slot slot_layout(int V, int H, int B) {
 }
 
 struct StepArgs {
-  const Store* v0;        // [B, V] the shard
+  const Store* v0;        // [B, V] the shard (with tab: the shards [*, B, V] it indexes)
+  const long long* tab;   // optional [3]: the step's minibatch and seed
   const float* u_h0;      // inject: [B, H]
   const float* u_h;       // inject: [k, B, H]
   const Store* W;         // [V, H]
@@ -106,16 +110,27 @@ struct StepArgs {
   unsigned long long seed;
 };
 
-template <bool kBf>
-__global__ void __launch_bounds__(kThreads, 1)
-    cd_wide_step_kernel(const __grid_constant__ StepArgs a) {
+// What hidden_reduce_phase reads of its arguments: a captured step hands it
+// these, its seed from the table, so that the other phases read the kernel's
+// parameter itself (a patched copy of it in local memory slowed the step).
+struct ReduceArgs {
+  int B, H, NS;
+  float* part;
+  const Store* c;
+  unsigned long long seed;
+};
+
+// The step's phases on v0, the hidden phases reading their arguments from ra
+// (a: the step's arguments, or ReduceArgs).
+template <bool kBf, class RA>
+__device__ __forceinline__ void step_phases(const StepArgs& a, const Store* v0, const RA& ra) {
   cg::grid_group grid = cg::this_grid();
   const bool inject = a.flags & kInject;
   const bool persistent = a.flags & kPersistent;
   const size_t bh = static_cast<size_t>(a.B) * a.H;
-  xw_partial_phase<kBf>(a, a.v0, Monitor{});
+  xw_partial_phase<kBf>(a, v0, Monitor{});
   grid.sync();
-  hidden_reduce_phase(a, a.h0p, a.h0s, inject ? a.u_h0 : nullptr, 0u, kDrawH0, 0, a.hmat,
+  hidden_reduce_phase(ra, a.h0p, a.h0s, inject ? a.u_h0 : nullptr, 0u, kDrawH0, 0, a.hmat,
                       1.0f, a.nvalid);
   grid.sync();
   Store* hdst = persistent ? a.chain : a.hbuf;
@@ -123,11 +138,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const Store* hsrc = t > 0 ? hdst : (persistent ? a.chain_in : a.h0s);
     visible_phase<kBf>(a, hsrc, (t == 0 && persistent) ? a.h0s : nullptr, t);
     grid.sync();
-    xw_partial_phase<kBf>(a, a.vs,
-                          t == 0 ? Monitor{a.v0, a.v1mean, a.rowerr, a.B} : Monitor{});
+    xw_partial_phase<kBf>(a, a.vs, t == 0 ? Monitor{v0, a.v1mean, a.rowerr, a.B} : Monitor{});
     grid.sync();
     const bool last = t == a.k - 1;
-    hidden_reduce_phase(a, a.hmean, hdst, inject ? a.u_h + t * bh : nullptr, 0u, kDrawH, t,
+    hidden_reduce_phase(ra, a.hmean, hdst, inject ? a.u_h + t * bh : nullptr, 0u, kDrawH, t,
                         last ? a.hmat + bh : nullptr, -1.0f, a.nvalid);
     if (!last) grid.sync();
   }
@@ -141,63 +155,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Every rank's rows of the gather buffer, in rank order: row r is row
-// r % lb of rank r / lb; v0 comes from the global minibatch. The accessors
-// are BatchRows' (cd_wide_phases.cuh).
-struct GatheredRows {
-  static constexpr bool kContiguousH = false;
-  const Store* x0;           // [>= R, V] the global minibatch
-  const unsigned char* buf;  // [ndev, slot.bytes]
-  Slot slot;
-  int lb, V, H;
-  __device__ __forceinline__ const unsigned char* at(int r, int& rr) const {
-    const int d = r / lb;
-    rr = r - d * lb;
-    return buf + d * slot.bytes;
-  }
-  __device__ __forceinline__ unsigned v0_bits(int r, int q) const {
-    return raw_bits(x0 + static_cast<size_t>(r) * V + q);
-  }
-  __device__ __forceinline__ unsigned vs_bits(int r, int q) const {
-    int rr;
-    const Store* x = reinterpret_cast<const Store*>(at(r, rr) + slot.vs);
-    return raw_bits(x + static_cast<size_t>(rr) * V + q);
-  }
-  __device__ __forceinline__ float v0_of(unsigned x) const { return from_raw<Store>(x); }
-  __device__ __forceinline__ float vs_of(unsigned x) const { return from_raw<Store>(x); }
-  __device__ __forceinline__ float hp(int r, int j) const {
-    int rr;
-    return reinterpret_cast<const float*>(at(r, rr) + slot.h)[rr * H + j];
-  }
-  __device__ __forceinline__ float hm(int r, int j) const {
-    int rr;
-    return -reinterpret_cast<const float*>(at(r, rr) + slot.h)[(lb + rr) * H + j];
-  }
-};
-
-struct UpdateArgs {
-  Store* W;      // [V, H], in place
-  Store* b;      // [V]
-  Store* c;      // [H]
-  Store* vW;     // velocities, in place
-  Store* vb;
-  Store* vc;
-  float* err;    // [1]: the update's mean monitor
-  int V, H, R, ndev, flags;
-  int hstaged, strip_rows, wtiles;  // the WidePlan
-  float lr, m, scale, l2, grad_clip, sparsity_target, sparsity_cost;
-};
-
-template <bool kBf>
+// kTab: a captured step, its minibatch and seed from the table row a.tab
+// (a kernel of its own, so the other one keeps the code it had without it).
+template <bool kBf, bool kTab>
 __global__ void __launch_bounds__(kThreads, 1)
-    cd_wide_update_kernel(const __grid_constant__ UpdateArgs a,
-                          const __grid_constant__ GatheredRows rows) {
-  update_phase<kBf>(a, rows, a.R, a.m, Monitor{});
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    float tot = 0.0f;
-    for (int d = 0; d < a.ndev; ++d)
-      tot += *reinterpret_cast<const float*>(rows.buf + d * rows.slot.bytes + rows.slot.err);
-    *a.err = tot * a.scale;
+    cd_wide_step_kernel(const __grid_constant__ StepArgs a) {
+  if constexpr (kTab) {
+    const ReduceArgs ra{a.B, a.H, a.NS, a.part, a.c, static_cast<unsigned long long>(a.tab[1])};
+    step_phases<kBf>(a, a.v0 + a.tab[0] * a.B * a.V, ra);
+  } else {
+    step_phases<kBf>(a, a.v0, a);
   }
 }
 
@@ -222,49 +189,81 @@ long long carve_scratch(StepArgs& a, float* base, int V, int H, int B) {
   return n;
 }
 
-const void* step_variant(bool bf) {
-  return bf ? reinterpret_cast<const void*>(&cd_wide_step_kernel<true>)
-            : reinterpret_cast<const void*>(&cd_wide_step_kernel<false>);
-}
 
-const void* update_variant(bool bf) {
-  return bf ? reinterpret_cast<const void*>(&cd_wide_update_kernel<true>)
-            : reinterpret_cast<const void*>(&cd_wide_update_kernel<false>);
-}
+// The kernels' variants: (bf16 compute) + 2 (table) the step; 4 + (bf16
+// compute) * 2 + (momentum) the update.
+constexpr int kVariants = 8;
 
-// The SM count of `device` and its opt-in shared memory a block, asked once
-// per device.
-cudaError_t device_info(int device, int* nsm, int* optin) {
-  static int cached_nsm[64] = {0}, cached_optin[64] = {0};
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (cached_nsm[device] == 0) {
-    int coop = 0, n = 0, o = 0;
-    if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device)) !=
-        cudaSuccess)
-      return err;
-    if (!coop) return cudaErrorNotSupported;
-    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)) !=
-        cudaSuccess)
-      return err;
-    if ((err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
-        cudaSuccess)
-      return err;
-    cached_optin[device] = o;
-    cached_nsm[device] = n;
+const void* variant_fn(int v) {
+  switch (v) {
+    case 0: return reinterpret_cast<const void*>(&cd_wide_step_kernel<false, false>);
+    case 1: return reinterpret_cast<const void*>(&cd_wide_step_kernel<true, false>);
+    case 2: return reinterpret_cast<const void*>(&cd_wide_step_kernel<false, true>);
+    case 3: return reinterpret_cast<const void*>(&cd_wide_step_kernel<true, true>);
+    case 4: return reinterpret_cast<const void*>(&cd_wide_update_kernel<false, false>);
+    case 5: return reinterpret_cast<const void*>(&cd_wide_update_kernel<false, true>);
+    case 6: return reinterpret_cast<const void*>(&cd_wide_update_kernel<true, false>);
+    default: return reinterpret_cast<const void*>(&cd_wide_update_kernel<true, true>);
   }
-  *nsm = cached_nsm[device];
-  *optin = cached_optin[device];
+}
+
+int step_variant(int flags, bool tab) { return ((flags & kBf16) ? 1 : 0) + (tab ? 2 : 0); }
+int update_variant(int flags, bool vel) { return 4 + ((flags & kBf16) ? 2 : 0) + (vel ? 1 : 0); }
+
+// The SM count and opt-in shared memory a block of each device, and each
+// variant's dynamic shared memory as last set with its co-resident blocks per
+// SM there: asked once per device and size, ahead of a launch captured in a
+// CUDA graph, which must ask nothing (cd_wide_prepare).
+constexpr int kMaxDevices = 64;
+int g_nsm[kMaxDevices], g_optin[kMaxDevices], g_per_sm[kMaxDevices];
+int g_bytes[kMaxDevices][kVariants], g_co[kMaxDevices][kVariants];
+
+cudaError_t device_info(int device) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || g_nsm[device] != 0) return err;
+  int coop = 0, n = 0, o = 0;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device)) != cudaSuccess)
+    return err;
+  if (!coop) return cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&g_per_sm[device], cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                    device)) != cudaSuccess)
+    return err;
+  g_optin[device] = o;
+  g_nsm[device] = n;
   return cudaSuccess;
 }
 
-// Sets `fn`'s dynamic shared memory to `bytes` and gives its co-resident
-// blocks per SM.
-cudaError_t prepare(const void* fn, int bytes, int* per_sm) {
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kThreads, bytes);
+// Sets variant v's dynamic shared memory to `bytes` where it was last set to
+// another size, and gives its co-resident blocks per SM.
+cudaError_t prepare_variant(int device, int v, int bytes, int* co) {
+  if (g_bytes[device][v] != bytes) {
+    const void* fn = variant_fn(v);
+    cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&g_co[device][v], fn, kThreads, bytes);
+    if (err != cudaSuccess) return err;
+    g_bytes[device][v] = bytes;
+  }
+  *co = g_co[device][v];
+  return cudaSuccess;
+}
+
+bool on16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+WidePlan step_plan(int H, int B, int flags, int optin) {
+  return wide_plan(H, (flags & kPersistent) ? 2 * B : B, true, 0, false, optin);
+}
+
+// The update's plan: its pointers aligned as the ring's copies need them.
+UpdatePlan plan_for(int V, int H, int R, int flags, bool vel, bool aligned, int optin,
+                    int per_sm) {
+  return update_plan(V, H, R, flags & kBf16, vel, aligned, optin, per_sm);
 }
 
 }  // namespace
@@ -272,28 +271,30 @@ cudaError_t prepare(const void* fn, int bytes, int* per_sm) {
 extern "C" {
 
 // Launches one step on `stream`, writing the rank's slot (`slot`, bytes of
-// cd_wide_slot_bytes(V, H, B)) and, under PCD, chain_out. grid <= 0 picks
-// one block per SM. Returns a cudaError_t (0 on success); a grid larger than
-// the co-resident block count returns cudaErrorCooperativeLaunchTooLarge
-// without launching.
-int cd_wide_step(const Store* v0, const float* u_h0, const float* u_h, const Store* W,
-                 const Store* b, const Store* c, const Store* chain_in, Store* chain_out,
-                 unsigned char* slot, float* scratch, int V, int H, int B, int k, int flags,
-                 int nvalid, float inv_norm, unsigned long long seed, int device, int grid,
-                 void* stream) {
-  int nsm = 0, optin = 0, co = 0;
-  cudaError_t err = device_info(device, &nsm, &optin);
+// cd_wide_slot_bytes(V, H, B)) and, under PCD, chain_out. With `tab` (a
+// device row {minibatch, seed, .}) v0 holds the shards [*, B, V] it indexes
+// and the seed is read there. grid <= 0 picks one block per SM. Returns a
+// cudaError_t (0 on success); a grid larger than the co-resident block count
+// returns cudaErrorCooperativeLaunchTooLarge without launching.
+int cd_wide_step(const Store* v0, const long long* tab, const float* u_h0, const float* u_h,
+                 const Store* W, const Store* b, const Store* c, const Store* chain_in,
+                 Store* chain_out, unsigned char* slot, float* scratch, int V, int H, int B, int k,
+                 int flags, int nvalid, float inv_norm, unsigned long long seed, int device,
+                 int grid, void* stream) {
+  int co = 0;
+  cudaError_t err = device_info(device);
   if (err != cudaSuccess) return err;
-  const WidePlan plan = wide_plan(H, (flags & kPersistent) ? 2 * B : B, true, 0, false, optin);
+  const WidePlan plan = step_plan(H, B, flags, g_optin[device]);
   if (!plan.ok) return cudaErrorInvalidValue;
-  const bool bf = flags & kBf16;
-  if ((err = prepare(step_variant(bf), plan.smem_bytes, &co)) != cudaSuccess) return err;
+  const int v = step_variant(flags, tab);
+  if ((err = prepare_variant(device, v, plan.smem_bytes, &co)) != cudaSuccess) return err;
+  const int nsm = g_nsm[device];
   if (grid <= 0) grid = nsm;
   if (grid < 1 || grid > co * nsm) return cudaErrorCooperativeLaunchTooLarge;
 
   const Slot sl = slot_layout(V, H, B);
   StepArgs a;
-  a.v0 = v0; a.u_h0 = u_h0; a.u_h = u_h; a.W = W; a.b = b; a.c = c;
+  a.v0 = v0; a.tab = tab; a.u_h0 = u_h0; a.u_h = u_h; a.W = W; a.b = b; a.c = c;
   a.chain_in = chain_in; a.chain = chain_out;
   a.vs = reinterpret_cast<Store*>(slot + sl.vs);
   a.hmat = reinterpret_cast<float*>(slot + sl.h);
@@ -304,7 +305,7 @@ int cd_wide_step(const Store* v0, const float* u_h0, const float* u_h, const Sto
   a.vis_rows = plan.vis_rows; a.vis_window = plan.vis_window; a.hstride = plan.hstride;
 
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(step_variant(bf), dim3(grid), dim3(kThreads), params,
+  err = cudaLaunchCooperativeKernel(variant_fn(v), dim3(grid), dim3(kThreads), params,
                                     plan.smem_bytes, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -312,37 +313,72 @@ int cd_wide_step(const Store* v0, const float* u_h0, const float* u_h, const Sto
 
 // Launches the update on `stream` over the gathered slots of ndev ranks of
 // lb rows each (`gathered`, ndev * cd_wide_slot_bytes(V, H, lb) bytes), the
-// first R rows in rank order, with v0 [R, V] the global minibatch: W, b, c
-// and their velocities change in place, err [1] gets the update's monitor.
-// grid <= 0 picks one block per SM. Returns a cudaError_t (0 on success).
-int cd_wide_update(const Store* v0, const unsigned char* gathered, Store* W, Store* b, Store* c,
-                   Store* vW, Store* vb, Store* vc, float* err, int V, int H, int R, int lb,
-                   int ndev, int flags, float scale, float lr, float m, float l2,
-                   float grad_clip, float sparsity_target, float sparsity_cost, int device,
-                   int grid, void* stream) {
-  int nsm = 0, optin = 0, co = 0;
-  cudaError_t e = device_info(device, &nsm, &optin);
+// first R rows in rank order, with v0 [R, V] the global minibatch (with
+// `tab`: v0 + tab[0] * v0_stride): W, b, c and their velocities change in
+// place, err [1] gets the update's monitor. `mom`: the momentum in device
+// memory, or null to take m; vel: the variant that reads the old velocity
+// (momentum anywhere in the run: at m = 0 it gives the other's values).
+// `trace`: null or the kernel's 8 stamps. grid <= 0 picks one block per SM
+// (two of 128 threads where the plan takes them).
+// Returns a cudaError_t (0 on success).
+int cd_wide_update(const Store* v0, const long long* tab, long long v0_stride,
+                   const unsigned char* gathered, Store* W, Store* b, Store* c, Store* vW,
+                   Store* vb, Store* vc, float* err, const float* mom,
+                   unsigned long long* trace, int V, int H, int R, int lb, int ndev, int flags,
+                   int vel, float scale, float lr, float m, float l2, float grad_clip,
+                   float sparsity_target, float sparsity_cost, int device, int grid,
+                   void* stream) {
+  int co = 0;
+  cudaError_t e = device_info(device);
   if (e != cudaSuccess) return e;
-  const WidePlan plan = wide_plan(H, 0, false, R, m != 0.0f, optin);
+  const bool aligned = on16(v0) && on16(gathered) && on16(W) && on16(vW) &&
+                       (v0_stride * static_cast<long long>(sizeof(Store))) % 16 == 0;
+  const UpdatePlan plan =
+      plan_for(V, H, R, flags, vel, aligned, g_optin[device], g_per_sm[device]);
   if (!plan.ok) return cudaErrorInvalidValue;
-  const bool bf = flags & kBf16;
-  if ((e = prepare(update_variant(bf), plan.smem_bytes, &co)) != cudaSuccess) return e;
-  if (grid <= 0) grid = nsm;
+  const int v = update_variant(flags, vel);
+  if ((e = prepare_variant(device, v, plan.smem_bytes, &co)) != cudaSuccess) return e;
+  if (grid <= 0) grid = g_nsm[device] * (kThreads / plan.threads);
   UpdateArgs a;
   a.W = W; a.b = b; a.c = c; a.vW = vW; a.vb = vb; a.vc = vc; a.err = err;
-  a.V = V; a.H = H; a.R = R; a.ndev = ndev; a.flags = flags;
+  a.v0 = v0; a.tab = tab; a.v0_stride = v0_stride; a.mom = mom; a.trace = trace;
+  a.V = V; a.H = H; a.R = R; a.ndev = ndev; a.flags = flags; a.plan = plan;
   a.lr = lr; a.m = m; a.scale = scale; a.l2 = l2; a.grad_clip = grad_clip;
   a.sparsity_target = sparsity_target; a.sparsity_cost = sparsity_cost;
-  a.hstaged = plan.hstaged; a.strip_rows = plan.strip_rows; a.wtiles = plan.wtiles;
-  GatheredRows rows;
-  rows.x0 = v0; rows.buf = gathered; rows.slot = slot_layout(V, H, lb);
-  rows.lb = lb; rows.V = V; rows.H = H;
-  cudaStream_t st_ = static_cast<cudaStream_t>(stream);
-  if (bf)
-    cd_wide_update_kernel<true><<<grid, kThreads, plan.smem_bytes, st_>>>(a, rows);
-  else
-    cd_wide_update_kernel<false><<<grid, kThreads, plan.smem_bytes, st_>>>(a, rows);
+  const Slot sl = slot_layout(V, H, lb);
+  Gathered g;
+  g.buf = gathered; g.slot_bytes = sl.bytes; g.vs = sl.vs; g.h = sl.h; g.err = sl.err;
+  g.lb = lb;
+  void* params[] = {&a, &g};
+  e = cudaLaunchKernel(variant_fn(v), dim3(grid), dim3(plan.threads), params, plan.smem_bytes,
+                       static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// Sets up the step's and the update's launches of a run ahead of them (a
+// launch captured in a CUDA graph must ask the device nothing): B the rank's
+// rows, R the global batch. Returns a cudaError_t.
+int cd_wide_prepare(int V, int H, int B, int R, int flags, int vel, int device) {
+  int co = 0;
+  cudaError_t e = device_info(device);
+  if (e != cudaSuccess) return e;
+  const WidePlan sp = step_plan(H, B, flags, g_optin[device]);
+  const UpdatePlan up = plan_for(V, H, R, flags, vel, true, g_optin[device], g_per_sm[device]);
+  if (!sp.ok || !up.ok) return cudaErrorInvalidValue;
+  for (int tab = 0; tab < 2; ++tab)
+    if ((e = prepare_variant(device, step_variant(flags, tab), sp.smem_bytes, &co)) != cudaSuccess)
+      return e;
+  return prepare_variant(device, update_variant(flags, vel), up.smem_bytes, &co);
+}
+
+// The update's plan (ops/cd_grads_wide_cuda.py::update_plan): out[7] =
+// threads, stages, resident, kp, kc, smem_bytes, ok.
+void cd_wide_update_plan(int V, int H, int R, int flags, int vel, int aligned, int limit,
+                         int per_sm, int* out) {
+  const UpdatePlan p = plan_for(V, H, R, flags, vel, aligned, limit, per_sm);
+  const int v[7] = {p.threads, p.stages, p.resident, p.kp, p.kc, p.smem_bytes, p.ok};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
 }
 
 // Bytes of one rank's slot of B rows (ops/cd_grads_wide_cuda.py::wide_factor_size).

@@ -23,17 +23,17 @@ resident kernel's step variant (``ops.cd_grads_resident_cuda``, route
 ``csrc/cd_grads.cu`` (route "cd_grads"): ``ops.cd_epoch_cuda.select_dp_kernel``
 decides from the config, the rank count and the card's limits.
 
-On those two routes a seeded run on the kernels builds one epoch's
-launchers once a call (``EpochSteps``: ``nb`` x step kernel, all-reduce of
-the flat buffer, update kernels); what changes from step to step or epoch
-to epoch reaches the kernels through device memory (``epoch_tables``: each
-step's minibatch, seed and pseudo bit, the epoch's momentum; the PCD chain
-in two buffers by the step's parity, ``chain_parity``; each step's error
-into a buffer of ``nb``). Over NCCL the epoch is captured once as a CUDA
-graph and replayed every epoch (a capture that fails raises); over gloo,
-which routes CUDA tensors through the host, or with ``capture=False``, the
-same launches run one at a time. Injected runs, the plain versions and the
-W-blocked route run the eager loop of wrapper calls. Under tempering each rank
+On every route a seeded run on the kernels builds one epoch's launchers
+once a call (``EpochSteps``: ``nb`` x step kernel, the collective, update
+kernels); what changes from step to step or epoch to epoch reaches the
+kernels through device memory (``epoch_tables``: each step's minibatch,
+seed and pseudo bit, the epoch's momentum; the PCD chain in two buffers by
+the step's parity, ``chain_parity``; each step's error into a buffer of
+``nb``). Over NCCL the epoch is captured once as a CUDA graph and replayed
+every epoch (a capture that fails raises); over gloo, which routes CUDA
+tensors through the host, or with ``capture=False``, the same launches run
+one at a time. Injected runs and the plain versions run the eager loop of
+wrapper calls. Under tempering each rank
 carries its rows' whole ladders, so the sweeps and the swap rounds stay on
 the rank and only rung 0's statistics cross; the pseudo-likelihood monitor
 is a masked per-shard sum on the single-device bit schedule. Collectives run
@@ -52,7 +52,8 @@ fills every slot (through the host under gloo), and every rank runs the
 update (``cd_wide_update``, or ``cd_wide_update_plain``) on the same bytes,
 reading v0 from the global minibatch it holds. ``pallas_step`` chooses only
 between the kernels and their plain versions, so the CPU runs the same
-exchange on the plain versions.
+exchange on the plain versions; its captured epoch gathers the slots with
+``all_gather_into_tensor`` inside the graph.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ from ..core.rbm_math import resolve_momentum
 from ..core.state import TrainState
 from ..ops import cd_grads_cuda as G
 from ..ops import cd_grads_resident_cuda as R
+from ..ops import cd_grads_wide_cuda as GW
 from ..ops.cd_epoch_cuda import batch_order, select_dp_kernel
 from ..ops.cd_epoch_resident_cuda import device_limits
 from ..ops.cd_grads_cuda import (cd_grads_step, cd_grads_step_plain, cd_update,
@@ -163,59 +165,80 @@ def chain_parity(nb: int) -> Tuple[List[Tuple[int, int]], bool]:
 
 
 class EpochSteps:
-    """One epoch of a rank's data-parallel steps on the kernels of ``route``
-    ("cd_grads_resident" or "cd_grads"), their launchers built once: per
-    step the step kernel (its minibatch of ``my`` [nb, B, V], seed and
-    pseudo bit from row i of ``tab``), the all-reduce of the flat buffer
-    over the process group and the update kernels (the momentum from
-    ``mom``, the step's error into ``errs[i]``), updating ``params`` and
+    """One epoch of a rank's data-parallel steps on the kernels of ``route``,
+    their launchers built once: per step the step kernel (its minibatch of
+    ``my`` [nb, B, V], seed and pseudo bit from row i of ``tab``), the
+    collective over the process group and the update kernels (the momentum
+    from ``mom``, the step's error into ``errs[i]``), updating ``params`` and
     ``velocity`` in place; ``chain`` (the rank's chain rows) is buffer 0 of
-    the chain (``chain_parity``); the launches share one scratch buffer. With
-    ``capture`` (NCCL) the epoch is
-    captured once as a CUDA graph, the kernels set up and the collective
-    warmed up on the capture stream first, and ``run`` replays it; a capture
-    that fails raises. Without, ``run`` launches the same kernels one at a
-    time on the current stream (gloo routes CUDA tensors through the host,
-    which a graph cannot hold)."""
+    the chain (``chain_parity``); the steps share one scratch buffer. On the
+    flat-buffer routes ("cd_grads_resident", "cd_grads") the collective is
+    the all-reduce of the flat buffer; on "cd_grads_wide" the all-gather of
+    the rank's slot into one gather buffer (``gather_factors``), the update
+    reading its global minibatch of ``batches`` [nb, rows, V] from the same
+    row. With ``capture`` (NCCL) the epoch is captured once as a CUDA graph,
+    the kernels set up and the collective warmed up on the capture stream
+    first, and ``run`` replays it; a capture that fails raises. Without,
+    ``run`` launches the same kernels one at a time on the current stream
+    (gloo routes CUDA tensors through the host, which a graph cannot hold)."""
 
     def __init__(self, route: str, cfg: RBMConfig, local_cfg: RBMConfig, params, velocity,
                  my: torch.Tensor, chain: torch.Tensor, mask: Optional[torch.Tensor],
-                 norm: float, scale: float, capture: bool):
+                 norm: float, scale: float, capture: bool, mesh: Optional[Mesh] = None,
+                 batches: Optional[torch.Tensor] = None):
         dev, nb = my.device, my.shape[0]
-        self.route, self.nb, self.persistent = route, nb, cfg.persistent
+        self.route, self.nb, self.persistent, self.mesh = route, nb, cfg.persistent, mesh
         self.tab = torch.zeros((nb, 3), dtype=torch.int64, device=dev)
         self.mom = torch.zeros(1, dtype=torch.float32, device=dev)
         self.errs = torch.zeros(nb, dtype=torch.float32, device=dev)
-        self.flat = torch.empty(flat_size(cfg), dtype=torch.float32, device=dev)
         self.chains = [chain, torch.empty_like(chain)]
         slots, self.copy_back = chain_parity(nb)
-        if route == "cd_grads_resident":
+        wide = route == "cd_grads_wide"
+        if wide:
+            ndev, rank = mesh.size, mesh.rank
+            GW.prepare(cfg, ndev, dev)  # the kernels set up: no request in a capture
+            n = GW.wide_factor_size(local_cfg)
+            self.gathered = torch.zeros(ndev * n, dtype=torch.uint8, device=dev)
+            self.mine = self.gathered[rank * n:(rank + 1) * n]
+            lb = local_cfg.batch_size
+            kw = dict(scratch=GW.step_scratch(local_cfg, dev), out=self.mine,
+                      n_valid=min(lb, max(0, cfg.batch_size - rank * lb)))
+            make_step = GW.step_launcher
+        elif route == "cd_grads_resident":
             R.step_limits(local_cfg, dev)  # the step kernels set up: no request in a capture
-            kw = dict(scratch=R.step_scratch(local_cfg, dev))
+            kw = dict(scratch=R.step_scratch(local_cfg, dev), mask=mask, out=None)
             make_step = R.step_launcher
         elif route == "cd_grads":
             G.prepare(local_cfg, dev)
-            kw = dict(scratch=G.step_scratch(local_cfg, dev))
+            kw = dict(scratch=G.step_scratch(local_cfg, dev), mask=mask, out=None)
             make_step = G.step_launcher
         else:
             raise ValueError(f"no epoch of kernel launchers on the {route!r} route")
-        G.prepare(cfg, dev)
-        pseudo = 0 if cfg.error_metric == "pseudo" else None
+        if not wide:
+            G.prepare(cfg, dev)
+            self.flat = kw["out"] = torch.empty(flat_size(cfg), dtype=torch.float32, device=dev)
+            if cfg.error_metric == "pseudo":
+                kw["pseudo_bit"] = 0
         stream = torch.cuda.Stream(dev) if capture else torch.cuda.current_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):  # the launchers launch on this stream
-            self.steps = [make_step(local_cfg, params, my, self.chains[src], mask=mask,
-                                    norm=norm, out=self.flat, pseudo_bit=pseudo,
+            self.steps = [make_step(local_cfg, params, my, self.chains[src], norm=norm,
                                     tab=self.tab[i], chain_out=self.chains[dst], **kw)[0]
                           for i, (src, dst) in enumerate(slots)]
-            shares = G.enhance_shares(cfg, dev) if cfg.gradient == "enhanced" else None
-            self.updates = [G.update_launcher(cfg, params, velocity, self.flat, scale, 0,
-                                              momentum=self.mom, err=self.errs[i:i + 1],
-                                              shares=shares)[0]
-                            for i in range(nb)]
+            if wide:
+                self.updates = [GW.update_launcher(cfg, params, velocity, batches, self.gathered,
+                                                   mesh.size, scale, 0, tab=self.tab[i],
+                                                   momentum=self.mom, err=self.errs[i:i + 1])[0]
+                                for i in range(nb)]
+            else:
+                shares = G.enhance_shares(cfg, dev) if cfg.gradient == "enhanced" else None
+                self.updates = [G.update_launcher(cfg, params, velocity, self.flat, scale, 0,
+                                                  momentum=self.mom, err=self.errs[i:i + 1],
+                                                  shares=shares)[0]
+                                for i in range(nb)]
             self.graph = None
             if capture:
-                dist.all_reduce(self.flat, op=dist.ReduceOp.SUM)  # the collective's warm-up
+                self._collective()  # the collective's warm-up
                 stream.synchronize()
                 self.graph = torch.cuda.CUDAGraph()
                 self.graph.capture_begin(capture_error_mode="thread_local")
@@ -225,17 +248,23 @@ class EpochSteps:
                     self.graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(stream)
 
+    def _collective(self) -> None:
+        if self.route == "cd_grads_wide":
+            gather_factors(self.gathered, self.mine, self.mesh)
+        else:
+            dist.all_reduce(self.flat, op=dist.ReduceOp.SUM)
+
     def _launch(self, count: bool = False) -> None:
         """The epoch's launches on the current stream (``count``: each adds
         one to its kernel's count as it launches)."""
         for step, update in zip(self.steps, self.updates):
             step()
             if count:
-                _count_step(self.route, 1)
-            dist.all_reduce(self.flat, op=dist.ReduceOp.SUM)
+                _count(self.route, 1)
+            self._collective()
             update()
             if count:
-                G.cd_update_launches += 1
+                _count(self.route, 1, update=True)
         if self.persistent and self.copy_back:
             self.chains[0].copy_(self.chains[1])
 
@@ -256,13 +285,22 @@ class EpochSteps:
             self._launch(count=True)
         else:
             self.graph.replay()
-            _count_step(self.route, self.nb)
-            G.cd_update_launches += self.nb
+            _count(self.route, self.nb)
+            _count(self.route, self.nb, update=True)
         return self.errs.mean()
 
 
-def _count_step(route: str, n: int) -> None:
-    if route == "cd_grads_resident":
+def _count(route: str, n: int, update: bool = False) -> None:
+    """Adds n launches to the step kernel's count of ``route``, or to its
+    update kernel's."""
+    if route == "cd_grads_wide":
+        if update:
+            GW.cd_wide_update_launches += n
+        else:
+            GW.cd_wide_step_launches += n
+    elif update:
+        G.cd_update_launches += n
+    elif route == "cd_grads_resident":
         R.cd_grads_resident_launches += n
     else:
         G.cd_grads_launches += n
@@ -292,9 +330,9 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
     per-step, per-rank draws {name: [n_epochs, nb, ndev, ...]}, each step's
     [...] in the layout of ``ops.cd_step.draw_uniforms`` (``draw_pt_uniforms``
     under tempering) at ``local_b`` rows, for exact tests. ``capture``: a
-    seeded run on the kernels of the "cd_grads_resident" or "cd_grads" route
-    over NCCL runs as a captured epoch (``EpochSteps``), replayed every
-    epoch; False launches the same kernels one at a time."""
+    seeded run on the kernels over NCCL runs as a captured epoch
+    (``EpochSteps``), replayed every epoch; False launches the same kernels
+    one at a time."""
     B, V = cfg.batch_size, cfg.n_visible
     nb = data.shape[0] // B
     if nb == 0:
@@ -327,7 +365,10 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
     route = select_dp_kernel(cfg, ndev, (device_limits(local_cfg, dev, R.step_library(local_cfg))
                                          if on_card else None))
     epoch_steps = None
-    if route == "cd_grads_wide":  # the W-blocked kernel's DP mode
+    if on_card and uniforms is None:
+        epoch_steps = EpochSteps(route, cfg, local_cfg, params, velocity, my, chain, mask, norm,
+                                 scale, capture and mesh.backend == "nccl", mesh, batches)
+    elif route == "cd_grads_wide":  # the W-blocked kernel's DP mode
         slot_bytes = wide_factor_size(local_cfg)
         gathered = torch.zeros(ndev * slot_bytes, dtype=torch.uint8, device=dev)
         mine = gathered[rank * slot_bytes:(rank + 1) * slot_bytes]
@@ -341,9 +382,6 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
             gather_factors(gathered, mine, mesh)
             return (*wide_update(cfg, params, velocity, batches[j, :B], gathered, ndev, scale,
                                  epoch), new_chain)
-    elif on_card and uniforms is None:
-        epoch_steps = EpochSteps(route, cfg, local_cfg, params, velocity, my, chain, mask, norm,
-                                 scale, capture and mesh.backend == "nccl")
     else:
         flat = torch.empty(flat_size(cfg), dtype=torch.float32, device=dev)
         kernel_step = cd_grads_resident_step if route == "cd_grads_resident" else cd_grads_step

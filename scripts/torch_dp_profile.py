@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where a step of the data-parallel path goes, on one card.
 
-    python3 scripts/torch_dp_profile.py [--epochs 20] [--eager] [--out profile_out]
+    python3 scripts/torch_dp_profile.py [--epochs 20] [--eager] [--wide ROW] [--out profile_out]
 
 Runs c1 (configs/c1_bernoulli_rbm_mnist.json: 784x500, batch 20, CD-1, 100
 steps per epoch) through ``parallel.dp.train_rbm_shard_map(pallas_step=True)``
-on a one-rank NCCL mesh, the program of chip_smoke.py's dp_world1 phase: by
-default as a captured epoch (one CUDA graph of the epoch's steps, captured
-once a call and replayed every epoch), with ``--eager`` as the eager loop of
-the same launches:
+on a one-rank NCCL mesh, the program of chip_smoke.py's dp_world1 phase, or
+with ``--wide ROW`` one of chip_smoke.py's W-blocked DP rows (w20k,
+w20k_mom_bf16, w28k, w40k_bf16: step, all-gather, update) as its phase 21
+runs it: by default as a captured epoch (one CUDA graph of the epoch's
+steps, captured once a call and replayed every epoch), with ``--eager`` as
+the eager loop of the same launches:
 
 - times calls of one epoch and of ``--epochs`` + 1 epochs, each three times:
   host clock around each synchronised call; the difference over
@@ -23,7 +25,10 @@ the same launches:
   time; the host time of its ops;
 - runs the step kernel once more alone with its trace stamps: the median
   time of each step of its phases (ops.cd_epoch_resident_cuda's
-  resident_trace_phases; the update's stamp marks the statistics).
+  resident_trace_phases; the update's stamp marks the statistics); on the
+  W-blocked route the update kernel instead (ops.cd_grads_wide_cuda's
+  UPDATE_TRACE, block 0's: Y staged, then summed over its tiles the wait for
+  the ring, the sums and the update, then c).
 
 Prints one JSON line with the card's name and power limit; writes the
 profiler's tables to ``<out>/dp_profile.txt`` and the longer call's trace to
@@ -46,6 +51,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--eager", action="store_true", help="the eager loop, not the captured epoch")
+    ap.add_argument("--wide", choices=("w20k", "w20k_mom_bf16", "w28k", "w40k_bf16"),
+                    help="a W-blocked DP row of chip_smoke.py instead of c1")
     ap.add_argument("--out", default=os.path.join(HERE, "profile_out"))
     args = ap.parse_args()
     import torch
@@ -68,9 +75,15 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    exp = load_config(os.path.join(HERE, "configs", "c1_bernoulli_rbm_mnist.json"))
-    cfg = exp["model"].replace(engine="pallas")
-    data = torch.as_tensor(build_data(exp["data"])[0], device=dev)
+    if args.wide:
+        from chip_smoke import wide_row
+
+        cfg, data = wide_row(args.wide, dev)
+        cfg = cfg.replace(engine="pallas")
+    else:
+        exp = load_config(os.path.join(HERE, "configs", "c1_bernoulli_rbm_mnist.json"))
+        cfg = exp["model"].replace(engine="pallas")
+        data = torch.as_tensor(build_data(exp["data"])[0], device=dev)
     nb = data.shape[0] // cfg.batch_size
     route = select_dp_kernel(cfg, 1, GR.step_limits(cfg, dev))
     mesh = make_mesh(1, backend="nccl")
@@ -104,7 +117,8 @@ def main() -> int:
     per_step = {k: v / ((args.epochs + 1) * nb) for k, v in kernels.items()}
     dev_evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     start = min(e.time_range.start for e in dev_evs
-                if any(n in e.name for n in ("cd_train_resident_kernel", "cd_grads_kernel")))
+                if any(n in e.name for n in ("cd_train_resident_kernel", "cd_grads_kernel",
+                                              "cd_wide_step_kernel")))
     spans = sorted((max(e.time_range.start, start), e.time_range.end) for e in dev_evs
                    if e.time_range.end > start)
     busy, lo, hi = 0.0, None, None
@@ -140,6 +154,24 @@ def main() -> int:
         med = torch.stack(steps).median(0).values.tolist()
         phases = dict(zip(R.resident_trace_phases(cfg), med))
         phases["total"] = sum(med)
+    elif route == "cd_grads_wide":  # the update's phases on one rank's slot of a step
+        from mdbn_tpu_torch.ops import cd_grads_wide_cuda as GW
+
+        p, vel = st.params.map(torch.clone), st.velocity.map(torch.clone)
+        v0 = data[:cfg.batch_size]
+        slot, _ = GW.cd_wide_step(cfg, p, v0, st.chain_h, seed=5)
+        trace = torch.zeros(len(GW.UPDATE_TRACE), dtype=torch.int64, device=dev)
+        launch = GW.update_launcher(cfg, p, vel, v0, slot, 1, 1.0, 0, trace=trace)[0]
+        steps = []
+        for _ in range(50):
+            launch()
+            torch.cuda.synchronize()
+            t = dict(zip(GW.UPDATE_TRACE, trace.double().tolist()))
+            steps.append([t["y_staged"] - t["entry"], t["ring_wait_ns"], t["sums_ns"],
+                          t["update_ns"], t["exit"] - t["tiles_done"], t["exit"] - t["entry"]])
+        med = torch.tensor(steps).median(0).values.div(1e3).tolist()
+        phases = dict(zip(("y_staged", "ring_wait", "sums", "update", "c_after", "total"), med))
+        phases["tiles_of_block_0"] = int(t["tiles"])
     dist.destroy_process_group()
     print(json.dumps({
         "nvidia_smi": smi, "torch": torch.__version__, "route": route, "captured": capture,
@@ -155,7 +187,8 @@ def main() -> int:
         "kernel_device_us_per_step": per_step,
         "host_op_us_per_step (inclusive)": {k: v / ((args.epochs + 1) * nb)
                                             for k, v in top_host.items()},
-        "step_kernel_phase_us": phases,
+        ("update_kernel_phase_us" if route == "cd_grads_wide" else "step_kernel_phase_us"):
+            phases,
     }))
     return 0
 

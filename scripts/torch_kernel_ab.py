@@ -33,9 +33,10 @@ of the directly called kernel and of the selected one, from a fixed state
 with the kernel's own draws from a fixed seed, so the summary says whether
 the two checkouts' kernels give the same bits (``identical_bits``; for the
 selected kernel, at the shapes where both checkouts select the same one),
-and after the W-blocked update alone (csrc/cd_grads_wide.cu's update kernel,
-which runs cd_train_wide.cu's update phase, over 3 ranks' gathered factors
-made from a seed at w20k's and w20k_mom_bf16's shapes: ``update_identical_bits``),
+and after the W-blocked update alone (csrc/cd_grads_wide.cu's update kernel
+over 3 ranks' gathered factors made from a seed at w20k's and w20k_mom_bf16's
+shapes: ``update_identical_bits``; it and the W-blocked DP step timed at the
+four W-blocked rows with CUDA events, ``dp_update_us``, ``dp_step_us``),
 and after the data-parallel kernels (``dp_identical_bits``): csrc/cd_grads.cu's
 step (its flat buffer and chain, from a seed) and its update (on 3 ranks' sums
 made from a seed) at c1, c5_tower and the four estimator modes, and
@@ -150,10 +151,12 @@ def _selected(K, cfg, dev):
 UPDATE_ROWS = ("w20k", "w20k_mom_bf16")  # the W-blocked update alone, bits
 
 
-def update_bits(cfg, dev) -> str:
-    """sha256 of the parameters and velocities after one W-blocked update
-    (ops.cd_grads_wide_cuda.cd_wide_update) over 3 ranks' gathered factors
-    and a minibatch made from a seed."""
+DP_UPDATE_ROWS = ("w20k", "w20k_mom_bf16", "w28k", "w40k_bf16")  # the W-blocked DP kernels, timed
+
+
+def _update_inputs(cfg, dev):
+    """(params, velocity, gathered, v0): 3 ranks' gathered factors, a state and
+    a minibatch made from a seed, for the W-blocked update."""
     import torch
 
     from mdbn_tpu_torch.core.rbm_math import RBMParams, torch_dtype
@@ -175,8 +178,39 @@ def update_bits(cfg, dev) -> str:
         hmat[1, :nv] = -torch.rand((nv, H), generator=gen, device=dev)
         err.copy_(rand(1).abs())
     v0 = (10.0 * rand(B, V)).to(sdt)
-    got = W.cd_wide_update(cfg, p, vel, v0, gathered, ndev, 1.0 / ndev, 0)
+    return p, vel, gathered, v0
+
+
+def update_bits(cfg, dev) -> str:
+    """sha256 of the parameters and velocities after one W-blocked update
+    (ops.cd_grads_wide_cuda.cd_wide_update) over 3 ranks' gathered factors
+    and a minibatch made from a seed."""
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+
+    p, vel, gathered, v0 = _update_inputs(cfg, dev)
+    got = W.cd_wide_update(cfg, p, vel, v0, gathered, 3, 1.0 / 3, 0)
     return digest([*got[0].as_dict().values(), *got[1].as_dict().values()])
+
+
+def update_us(cfg, dev, reps: int) -> float:
+    """us per launch of the W-blocked update kernel on those inputs (CUDA
+    events: the kernel runs far longer than the host takes to launch it)."""
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+
+    p, vel, gathered, v0 = _update_inputs(cfg, dev)
+    launch = W.update_launcher(cfg, p, vel, v0, gathered, 3, 1.0 / 3, 0)[0]
+    return _time_ms(launch, 5 * reps) * 1e3
+
+
+def step_us(cfg, data, dev, reps: int) -> float:
+    """us per launch of the W-blocked DP step kernel on the whole first
+    minibatch with seeded draws (CUDA events, as update_us)."""
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+
+    st = init_train_state(cfg, device=dev)
+    launch = W.step_launcher(cfg, st.params, data[:cfg.batch_size], st.chain_h, seed=5)[0]
+    return _time_ms(launch, 5 * reps) * 1e3
 
 
 DP_ROWS = ("c1", "c5_tower", "pt5", "enhanced", "lv", "pseudo")  # cd_grads.cu's bits
@@ -250,6 +284,9 @@ def child(root: str, reps: int) -> dict:
         out[f"{name}_ms_per_epoch"] = _time_ms(run, reps)
         if name in UPDATE_ROWS:
             out[f"{name}_update_bits"] = update_bits(cfg, dev)
+        if name in DP_UPDATE_ROWS:
+            out[f"{name}_dp_update_us"] = update_us(cfg, dev, reps)
+            out[f"{name}_dp_step_us"] = step_us(cfg, data, dev, reps)
         if name in DP_ROWS + WIDE_DP_ROWS:
             for part, h in dp_bits(cfg, data, dev, name in WIDE_DP_ROWS).items():
                 out[f"{name}_dp_{part}_bits"] = h
@@ -401,6 +438,10 @@ def main() -> int:
         for name in SHAPES:
             summary[f"{side}_{name}_ms_per_epoch_best"] = min(
                 r[f"{name}_ms_per_epoch"] for r in runs if r["side"] == side)
+        for name in DP_UPDATE_ROWS:
+            for kernel in ("update", "step"):
+                summary[f"{side}_{name}_dp_{kernel}_us_best"] = min(
+                    r[f"{name}_dp_{kernel}_us"] for r in runs if r["side"] == side)
         for name in SELECTED:
             summary[f"{side}_{name}_selected"] = runs[0 if side == "base" else 1][
                 f"{name}_selected"]
@@ -411,7 +452,7 @@ def main() -> int:
     summary["update_identical_bits"] = {name: len({r[f"{name}_update_bits"] for r in runs}) == 1
                                         for name in UPDATE_ROWS}
     summary["dp_identical_bits"] = {key[:-len("_bits")]: len({r[key] for r in runs}) == 1
-                                    for key in runs[0] if "_dp_" in key}
+                                    for key in runs[0] if "_dp_" in key and key.endswith("_bits")}
     summary["selected_identical_bits"] = {
         name: len({r[f"{name}_selected_bits"] for r in runs}) == 1 for name in SELECTED
         if len({r[f"{name}_selected"] for r in runs}) == 1}

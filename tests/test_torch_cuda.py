@@ -326,10 +326,12 @@ def test_wide_launch_plan_matches_the_library(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["three-strips-batch-40", "bf16-pcd-momentum"])
 def test_wide_dp_one_rank_equals_the_single_device_kernel(cuda, monkeypatch, name):
-    """The W-blocked DP step and update (csrc/cd_grads_wide.cu) run
-    cd_train_wide.cu's phases: on a one-rank NCCL mesh, three updates one at a
-    time give the single-device kernel's parameters and velocities bit for
-    bit on the same injected draws."""
+    """The W-blocked DP step runs cd_train_wide.cu's phases and the update
+    its own design (csrc/cd_wide_update.cuh: gW's sums in another order): on
+    a one-rank NCCL mesh, three updates one at a time give the single-device
+    kernel's parameters and velocities on the same injected draws, float32
+    at REPLAY_TOL, bf16 a velocity to one ulp and a parameter to its
+    velocity's ulp and one of its own."""
     import torch.distributed as dist
 
     from mdbn_tpu_torch.core.state import TrainState
@@ -353,10 +355,9 @@ def test_wide_dp_one_rank_equals_the_single_device_kernel(cuda, monkeypatch, nam
                 TrainState(st.params, st.velocity, st.chain_h, st.generator, t), batch, cfg,
                 mesh, 1, pallas_step=True, uniforms={k: x[:, :, None] for k, x in u.items()})
             torch.cuda.synchronize()
-            for part in (0, 1):
-                for x, y in zip(single[part].as_dict().values(),
-                                (st.params, st.velocity)[part].as_dict().values()):
-                    assert torch.equal(x, y)
+            for n in ("W", "b", "c"):
+                _wide_update_close(getattr(st.params, n), getattr(st.velocity, n),
+                                   getattr(single[0], n), getattr(single[1], n))
             torch.testing.assert_close(errs, single[3], **REPLAY_TOL)
     finally:
         dist.destroy_process_group()
@@ -1213,6 +1214,21 @@ def _wide_dp_gathered(cfg, ndev, device, seed=0):
     return state(), state(), (10.0 * rand(B, V)).to(sdt), gathered
 
 
+def _wide_update_close(gp, gv, wp, wv):
+    """An update's parameter gp and velocity gv against wp, wv: float32 at
+    REPLAY_TOL; bf16 a velocity to one ulp, a parameter to its velocity's ulp
+    and one of its own."""
+    assert gp.dtype == wp.dtype
+    if gp.dtype == torch.bfloat16:
+        _close_bf16(gv, wv)
+        a, b = gp.float(), wp.float()
+        big = torch.maximum(a.abs(), b.abs()) + torch.maximum(gv.float().abs(), wv.float().abs())
+        assert bool(((a - b).abs() <= 2.0 ** -7 * big + 1e-6).all())
+    else:
+        torch.testing.assert_close(gv, wv, **REPLAY_TOL)
+        torch.testing.assert_close(gp, wp, **REPLAY_TOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(WIDE_DP_UPDATES))
 def test_wide_dp_update_matches_plain(cuda, name):
@@ -1240,18 +1256,77 @@ def test_wide_dp_update_matches_plain(cuda, name):
         got = runs[0]
         assert torch.equal(got[2], want[2])
         for n in ("W", "b", "c"):
-            gp, gv = getattr(got[0], n), getattr(got[1], n)
-            wp, wv = getattr(want[0], n), getattr(want[1], n)
-            assert gp.dtype == wp.dtype
-            if gp.dtype == torch.bfloat16:
-                _close_bf16(gv, wv)
-                a, b = gp.float(), wp.float()
-                big = torch.maximum(a.abs(), b.abs()) + torch.maximum(gv.float().abs(),
-                                                                      wv.float().abs())
-                assert bool(((a - b).abs() <= 2.0 ** -7 * big + 1e-6).all())
-            else:
-                torch.testing.assert_close(gv, wv, **REPLAY_TOL)
-                torch.testing.assert_close(gp, wp, **REPLAY_TOL)
+            _wide_update_close(getattr(got[0], n), getattr(got[1], n), getattr(want[0], n),
+                               getattr(want[1], n))
+
+
+# the redesigned update (csrc/cd_wide_update.cuh) at wide shapes, each plan of
+# update_plan: Y resident with X and W tiles in the ring (the fast path, f32
+# FFMA and bf16 mma.sync), in K chunks (f32 at H 1000 under momentum; B 300 at
+# H 1000 bf16; V not 4-aligned at f32; H not 8-aligned at bf16), two passes of
+# units (H past 1024 at bf16, past 512 at f32); each over an even (4) and an
+# uneven (3) split, at momentum 0 and under a schedule from 0 (epoch 0: m = 0
+# on the velocity variant) to 0.5 (epoch 5)
+_WIDE = dict(visible="gaussian", lr=0.005, sample_visible=False, l2=1e-4, grad_clip=0.5)
+WIDE_DP_PLANS = {  # name: (config, expected resident)
+    "f32-h400": (RBMConfig(n_visible=2000, n_hidden=400, batch_size=20, **_WIDE), 1),
+    "f32-h400-schedule": (RBMConfig(n_visible=2000, n_hidden=400, batch_size=20,
+                                    initial_momentum=0.0, momentum=0.5, **_WIDE), 1),
+    "bf16-h400-schedule": (RBMConfig(n_visible=2000, n_hidden=400, batch_size=20,
+                                     initial_momentum=0.0, momentum=0.5, **_WIDE, **BF16), 1),
+    "bf16-h1000": (RBMConfig(n_visible=1000, n_hidden=1000, batch_size=20, **_WIDE, **BF16), 1),
+    "f32-h1000-schedule-chunked": (RBMConfig(n_visible=1000, n_hidden=1000, batch_size=20,
+                                             initial_momentum=0.0, momentum=0.5, **_WIDE), 0),
+    "bf16-h1000-b300-chunked": (RBMConfig(n_visible=600, n_hidden=1000, batch_size=300,
+                                          momentum=0.5, **_WIDE, **BF16), 0),
+    "f32-v1001-chunked": (RBMConfig(n_visible=1001, n_hidden=130, batch_size=20,
+                                    momentum=0.5, **_WIDE), 0),
+    "bf16-h1100-two-passes-chunked": (RBMConfig(n_visible=512, n_hidden=1100, batch_size=12,
+                                                momentum=0.5, **_WIDE, **BF16), 0),
+    "bf16-h1104-two-passes": (RBMConfig(n_visible=512, n_hidden=1104, batch_size=12,
+                                        momentum=0.5, **_WIDE, **BF16), 1),
+    "f32-h600-two-passes": (RBMConfig(n_visible=500, n_hidden=600, batch_size=12, **_WIDE), 1),
+    "f32-store-bf16-compute": (RBMConfig(n_visible=1000, n_hidden=300, batch_size=20,
+                                         momentum=0.5, compute_dtype="bfloat16", **_WIDE), 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndev", [3, 4])
+@pytest.mark.parametrize("name", list(WIDE_DP_PLANS))
+def test_wide_dp_update_plans_match_plain(cuda, name, ndev):
+    """Every plan of the update against the plain version over an uneven and
+    an even split, at epochs 0 and 5; the same bits on grids 1, 7, 132 and
+    the default, the monitor's bits, and the wrapper's plan equal to the
+    library's."""
+    import ctypes
+
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+    from mdbn_tpu_torch.parallel.dp import world_scale
+
+    cfg, resident = WIDE_DP_PLANS[name]
+    plan = W.update_plan(cfg)
+    assert plan.ok and int(plan.resident) == resident, plan
+    out = (ctypes.c_int * 7)()
+    lib = W._library(cfg)
+    lib.cd_wide_update_plan(cfg.n_visible, cfg.n_hidden, cfg.batch_size, K.kernel_flags(cfg),
+                            int(W.velocity_variant(cfg)), 1, R.H100_SMEM_PER_BLOCK,
+                            W.H100_SMEM_PER_SM, out)
+    assert tuple(out) == plan.as_tuple()
+    p, vel, v0, gathered = _wide_dp_gathered(cfg, ndev, cuda, seed=ndev)
+    for epoch in (0, 5):
+        want = W.cd_wide_update_plain(cfg, p, vel, v0, gathered, ndev, world_scale(ndev), epoch)
+        runs = [W.cd_wide_update(cfg, p.map(torch.clone), vel.map(torch.clone), v0, gathered,
+                                 ndev, world_scale(ndev), epoch, grid=g) for g in (0, 1, 7, 132)]
+        torch.cuda.synchronize()
+        for r in runs[1:]:
+            for i in (0, 1):
+                for a, b in zip(r[i].as_dict().values(), runs[0][i].as_dict().values()):
+                    assert torch.equal(a, b)
+        assert torch.equal(runs[0][2], want[2])
+        for n in ("W", "b", "c"):
+            _wide_update_close(getattr(runs[0][0], n), getattr(runs[0][1], n),
+                               getattr(want[0], n), getattr(want[1], n))
 
 
 @pytest.mark.cuda
@@ -1290,6 +1365,79 @@ def test_wide_dp_one_rank_nccl(cuda, monkeypatch):
             torch.testing.assert_close(x, z, rtol=2e-4, atol=2e-6)
         torch.testing.assert_close(a.chain_h, b.chain_h, rtol=0, atol=0)
         torch.testing.assert_close(a.chain_h, chain, rtol=0, atol=0)
+    finally:
+        dist.destroy_process_group()
+
+
+# the W-blocked route's captured epoch (parallel.dp.EpochSteps: step, all-gather,
+# update from device table rows) on one NCCL rank against the same launches one
+# at a time and against the kernel wrappers called step by step on the table's
+# seeds: bit for bit, at odd and even nb, with a momentum schedule switching
+# from 0 between epochs, PCD and bf16
+WIDE_CAPTURE_CASES = {
+    "cd1-nb4": (RBMConfig(**SMALL, visible="gaussian", lr=0.01, **MEANFIELD), 4),
+    "pcd-k2-switch-from-0-nb3": (RBMConfig(**SMALL, lr=0.1, k=2, persistent=True,
+                                           initial_momentum=0.0, momentum=0.5,
+                                           momentum_switch_epoch=1, **MEANFIELD), 3),
+    "bf16-pcd-momentum-nb3": (RBMConfig(**SMALL, lr=0.1, persistent=True, momentum=0.5,
+                                        **MEANFIELD, **BF16), 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WIDE_CAPTURE_CASES))
+def test_wide_dp_captured_epoch_equals_eager(cuda, monkeypatch, name):
+    import torch.distributed as dist
+
+    from mdbn_tpu_torch.ops import cd_grads_cuda as G
+    from mdbn_tpu_torch.ops import cd_grads_wide_cuda as W
+    from mdbn_tpu_torch.parallel import dp
+    from mdbn_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(K, "WIDE_DP_MIN_VISIBLE", 32)
+    cfg, nb = WIDE_CAPTURE_CASES[name]
+    cfg = cfg.replace(engine="pallas")
+    assert K.select_dp_kernel(cfg) == "cd_grads_wide"
+    E, B = 3, cfg.batch_size
+    _, data, _, _ = _inputs(cfg, cuda, E=E, nb=nb, wide=True)
+    mesh = make_mesh(1, backend="nccl")
+    try:
+        counts = lambda: (W.cd_wide_step_launches, W.cd_wide_update_launches,
+                          G.cd_grads_launches, G.cd_update_launches)
+        runs = []
+        for capture in (True, False):  # each from the same state and generator
+            before = counts()
+            s2, errs = dp.train_rbm_shard_map(init_train_state(cfg, device=cuda), data, cfg,
+                                              mesh, E, pallas_step=True, capture=capture)
+            torch.cuda.synchronize()
+            assert [a - b for a, b in zip(counts(), before)] == [E * nb, E * nb, 0, 0]
+            runs.append((s2, errs))
+        # the wrappers step by step on the seeds and minibatches of the tables
+        st = init_train_state(cfg, device=cuda)
+        order = K.batch_order(cfg, nb, E, st.generator).tolist()
+        seeds = torch.randint(0, 2 ** 62, (E, nb), generator=st.generator).tolist()
+        params, vel = st.params.map(torch.clone), st.velocity.map(torch.clone)
+        chain, errs_w = st.chain_h.clone(), []
+        batches = data[:nb * B].reshape(nb, B, -1)
+        for e in range(E):
+            step_errs = []
+            for i, j in enumerate(order[e]):
+                slot, chain = W.cd_wide_step(cfg, params, batches[j], chain,
+                                             seed=dp.fold_in(seeds[e][i], 0), norm=float(B))
+                params, vel, err = W.cd_wide_update(cfg, params, vel, batches[j], slot, 1,
+                                                    1.0, e)
+                step_errs.append(err)
+            errs_w.append(torch.stack(step_errs).mean())
+        torch.cuda.synchronize()
+        (a, ea), (b, eb) = runs
+        state = lambda p, v: list(p.as_dict().values()) + list(v.as_dict().values())
+        for other, other_errs in (((b.params, b.velocity), eb),
+                                  ((params, vel), torch.stack(errs_w))):
+            for x, y in zip(state(a.params, a.velocity), state(*other)):
+                assert torch.equal(x, y)
+            assert torch.equal(ea, other_errs)
+        assert torch.equal(a.chain_h, b.chain_h) and torch.equal(a.chain_h, chain)
+        assert bool(torch.isfinite(ea).all()) and a.epoch == b.epoch == E
     finally:
         dist.destroy_process_group()
 

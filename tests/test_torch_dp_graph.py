@@ -8,9 +8,11 @@
 - The captured epoch's device tables (``parallel.dp.epoch_tables``: each
   step's minibatch, seed and pseudo bit, the epoch's momentum) equal what the
   eager loop passes step by step, recorded from a run on a one-rank gloo
-  mesh; the chain's two buffers (``chain_parity``) hand each step the last
+  mesh, on the flat-buffer routes and on the W-blocked route (forced at
+  these widths by lowering ``WIDE_DP_MIN_VISIBLE``) across a momentum
+  switch; the chain's two buffers (``chain_parity``) hand each step the last
   one's chain at odd and even ``nb``; a run asked to capture off the card
-  takes the eager loop.
+  takes the eager loop, on either route.
 - The repairs: ``fit_label_top`` with nothing that names a device, and
   ``make_mesh`` without a card, raise unless asked for the CPU; the CLI's
   ``--dp`` hands ``--device`` to ``make_mesh``.
@@ -190,6 +192,67 @@ def test_capture_off_the_card_runs_the_eager_loop(one_rank):
     runs = [dp.train_rbm_shard_map(init_train_state(cfg, device="cpu"), data, cfg, one_rank, 2,
                                    pallas_step=True, capture=c) for c in (True, False)]
     for a, b in zip(runs[0][0].params.as_dict().values(), runs[1][0].params.as_dict().values()):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][0].chain_h, runs[1][0].chain_h)
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+WIDE = RBMConfig(n_visible=32, n_hidden=16, batch_size=4, persistent=True, k=1,
+                 visible="gaussian", sample_visible=False, shuffle=True, momentum=0.5,
+                 initial_momentum=0.0, momentum_switch_epoch=3, lr=0.02)
+
+
+def test_wide_epoch_tables_equal_what_the_eager_loop_passes(one_rank, monkeypatch):
+    """The W-blocked route's captured epoch reads from the same tables: the
+    step's minibatch and seed, the update's minibatch (the same row) and the
+    epoch's momentum, here across a switch from 0, equal what the eager loop
+    passes to the step and the update."""
+    monkeypatch.setattr(K, "WIDE_DP_MIN_VISIBLE", 32)
+    cfg = WIDE
+    assert K.select_dp_kernel(cfg) == "cd_grads_wide"
+    nb, E, B = 3, 2, cfg.batch_size
+    data = torch.randn((nb * B, cfg.n_visible), generator=torch.Generator().manual_seed(5))
+    state = init_train_state(cfg, device="cpu")
+    state = dp.TrainState(state.params, state.velocity, state.chain_h, state.generator, 2)
+    gen = torch.Generator().set_state(state.generator.get_state())
+    steps, updates = [], []
+    step, update = dp.cd_wide_step_plain, dp.cd_wide_update_plain
+    which = lambda v0: [k for k in range(nb) if torch.equal(v0, data[k * B:(k + 1) * B])][0]
+
+    def record_step(cfg_, params, v0, chain, **kw):
+        steps.append((which(v0), kw["seed"]))
+        return step(cfg_, params, v0, chain, **kw)
+
+    def record_update(cfg_, params, velocity, v0, gathered, ndev, scale, epoch):
+        updates.append((which(v0), epoch))
+        return update(cfg_, params, velocity, v0, gathered, ndev, scale, epoch)
+
+    monkeypatch.setattr(dp, "cd_wide_step_plain", record_step)
+    monkeypatch.setattr(dp, "cd_wide_update_plain", record_update)
+    dp.train_rbm_shard_map(state, data, cfg, one_rank, E)
+    order = K.batch_order(cfg, nb, E, gen).tolist()
+    seeds = torch.randint(0, 2 ** 62, (E, nb), generator=gen).tolist()
+    tab, mom = dp.epoch_tables(cfg, order, seeds, 0, state.epoch)
+    int64 = lambda s: s - (1 << 64) if s >= 1 << 63 else s
+    assert len(steps) == len(updates) == E * nb
+    for n, ((j, seed), (ju, epoch)) in enumerate(zip(steps, updates)):
+        e, i = divmod(n, nb)
+        assert tab[e, i, :2].tolist() == [j, int64(seed)] and ju == j
+        assert float(mom[e]) == float(np.float32(resolve_momentum(cfg, epoch)))
+    assert mom.tolist() == [0.0, 0.5]
+
+
+def test_wide_capture_off_the_card_runs_the_eager_loop(one_rank, monkeypatch):
+    """On the W-blocked route too, capture=True changes nothing off the card:
+    the run is the eager loop's, bit for bit."""
+    monkeypatch.setattr(K, "WIDE_DP_MIN_VISIBLE", 32)
+    data = torch.randn((12, 32), generator=torch.Generator().manual_seed(6))
+    runs = [dp.train_rbm_shard_map(init_train_state(WIDE, device="cpu"), data, WIDE, one_rank,
+                                   2, capture=c) for c in (True, False)]
+    for a, b in zip(list(runs[0][0].params.as_dict().values())
+                    + list(runs[0][0].velocity.as_dict().values()),
+                    list(runs[1][0].params.as_dict().values())
+                    + list(runs[1][0].velocity.as_dict().values())):
         assert torch.equal(a, b)
     assert torch.equal(runs[0][0].chain_h, runs[1][0].chain_h)
     assert torch.equal(runs[0][1], runs[1][1])

@@ -18,7 +18,13 @@ tests/test_pallas_dp_wb.py:40-55 forces the reference's W-blocked tier.
   negative-phase visibles rounded through bf16, as the W-blocked kernel keeps
   them.
 - The admission rule ``select_dp_kernel``, the kernels' refusal of CPU
-  tensors, and a one-rank mesh against the single-device W-blocked run.
+  tensors, and a one-rank mesh against the single-device W-blocked run, also
+  across a momentum switch from 0 (the captured epoch's update reads the
+  momentum from the device and keeps the velocity variant of the config).
+- The redesigned update's launch plan (``update_plan``, mirrored from
+  csrc/cd_wide_update.cuh) at chip_smoke.py's four W-blocked DP rows over 1-8
+  ranks: the fast plan inside an H100's 232,448 bytes; its fallbacks on a
+  smaller block.
 
 CPU only, seconds each.
 """
@@ -287,3 +293,82 @@ def test_one_rank_wide_route_equals_single_device(one_rank, monkeypatch):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
     _, metrics = train_rbm(data, cfg, mesh=one_rank, device="cpu")
     assert (metrics.engine, metrics.kernel) == ("eager", "cd_train")
+
+
+def test_one_rank_wide_route_across_a_momentum_switch(one_rank, monkeypatch):
+    """A momentum schedule from 0 that switches between epochs: the one-rank
+    W-blocked DP route is the single-device W-blocked run on the same draws;
+    the update's velocity variant comes from the config (a momentum of the
+    run is not 0), as a captured epoch needs."""
+    monkeypatch.setattr(K, "WIDE_DP_MIN_VISIBLE", 32)
+    cfg = RBMConfig(n_visible=32, n_hidden=16, batch_size=6, k=1, visible="gaussian",
+                    sample_visible=False, initial_momentum=0.0, momentum=0.5,
+                    momentum_switch_epoch=1, lr=0.05, l2=1e-3)
+    assert W.velocity_variant(cfg) and not W.velocity_variant(cfg.replace(momentum=0.0))
+    data = torch.as_tensor(mnist_like(12, n_features=32, seed=4))
+    u = K.draw_uniform_blocks(cfg, torch.Generator().manual_seed(5), 2, 2)
+    st, errs = dp.train_rbm_shard_map(init_train_state(cfg, device="cpu"), data, cfg, one_rank,
+                                      2, uniforms={k: x[:, :, None] for k, x in u.items()})
+    st1 = init_train_state(cfg, device="cpu")
+    order = K.batch_order(cfg, 2, 2, st1.generator)
+    p, v, _, errs1 = cd_train_wide_run_plain(cfg, st1.params, st1.velocity, st1.chain_h, data,
+                                             order, 0, u)
+    for a, b in ((st.params.W, p.W), (st.params.b, p.b), (st.velocity.W, v.W), (errs, errs1)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+# chip_smoke.py's WIDE_DP_ROWS (scripts/bench_wide.py's shapes, batch 20)
+_ROW = dict(visible="gaussian", lr=0.001, batch_size=20)
+WIDE_DP_ROWS = {"w20k": RBMConfig(n_visible=20000, n_hidden=400, **_ROW),
+                "w20k_mom_bf16": RBMConfig(n_visible=20000, n_hidden=400, momentum=0.5,
+                                           **_ROW, **BF16),
+                "w28k": RBMConfig(n_visible=28000, n_hidden=400, **_ROW),
+                "w40k_bf16": RBMConfig(n_visible=40000, n_hidden=1000, **_ROW, **BF16)}
+
+
+@pytest.mark.parametrize("name", list(WIDE_DP_ROWS))
+def test_update_plan_fits_an_h100_at_every_row(name):
+    """The update's fast plan at each row and at 1-8 ranks (R, the global
+    batch, is 20 whatever the split): Y staged once a block, a ring of 2-4
+    stages of X's and W's tiles (and vW's under momentum), inside 232,448
+    bytes a block and an SM's 233,472 for its blocks; the step's plan of each
+    split fits too."""
+    from mdbn_tpu_torch.ops.cd_epoch_wide_cuda import wide_launch_plan
+
+    cfg = WIDE_DP_ROWS[name]
+    for ndev in range(1, 9):
+        plan = W.update_plan(cfg)
+        assert plan.ok and plan.resident and 2 <= plan.stages <= 4, plan
+        assert plan.smem_bytes * (256 // plan.threads) <= 233472 - 1024 * (256 // plan.threads)
+        assert plan.smem_bytes <= 232448 and plan.kc == plan.kp
+        assert plan.kp == (48 if cfg.compute_dtype == "bfloat16" else 40)
+        local = cfg.replace(batch_size=-(-cfg.batch_size // ndev))
+        assert wide_launch_plan(local).ok
+    assert W.velocity_variant(cfg) == (name == "w20k_mom_bf16")
+
+
+def test_update_plan_fallbacks():
+    """Two blocks of 128 threads an SM where Y and two stages fit half of it
+    (w20k_mom_bf16), else one of 256 threads; on a smaller block the plan
+    drops stages, then stages Y and X by chunks of K, smaller chunks as the
+    block shrinks; where no chunk fits there is no plan. Rows of X (V) or of
+    W (H) not whole 16-byte pieces at the storage width take the chunks
+    too."""
+    mom = WIDE_DP_ROWS["w20k_mom_bf16"]
+    two = W.update_plan(mom)
+    assert (two.threads, two.stages) == (128, 2) and two.smem_bytes <= 233472 // 2 - 1024
+    one = W.update_plan(mom, smem_per_sm=150_000)
+    fewer = W.update_plan(mom, 100_000, smem_per_sm=150_000)
+    assert (one.threads, one.stages) == (256, 4) and (fewer.threads, fewer.stages) == (256, 2)
+    cfg = WIDE_DP_ROWS["w40k_bf16"]
+    assert (W.update_plan(cfg).threads, W.update_plan(cfg).stages) == (256, 4)
+    whole = W.update_plan(cfg, 120_000)
+    assert not whole.resident and whole.ok and whole.kc == whole.kp
+    assert whole.smem_bytes <= 120_000
+    chunked = W.update_plan(cfg, 60_000)
+    assert not chunked.resident and chunked.ok and chunked.kc % 16 == 0
+    assert chunked.kc < chunked.kp and chunked.smem_bytes <= 60_000
+    assert not W.update_plan(cfg, 1000).ok
+    for odd in (cfg.replace(n_visible=40001), cfg.replace(n_hidden=1004)):
+        plan = W.update_plan(odd)
+        assert plan.ok and not plan.resident and plan.kc == plan.kp, odd
