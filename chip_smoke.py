@@ -8,8 +8,8 @@ cd_train_wide.cu, cd_train_resident.cu (its plain variant, its estimator
 modes without and with a tempering ladder, and the data-parallel step of
 each: six libraries), cd_train_wide_modes.cu, cd_grads.cu and
 cd_grads_wide.cu, each at float32 and bfloat16 storage, in parallel) and
-runs twenty-eight phases, one line each (25 to 28 run after 4, 23 and 24
-after 5):
+runs twenty-nine phases, one line each (25 to 28 run after 4, 23 and 24
+after 5, 29 last):
 
 1. device: torch and CUDA versions, the card's name and power limit, build time,
    and each compiled function's registers, stack and spill bytes (ptxas -v);
@@ -213,6 +213,24 @@ after 5):
     ais block on c1 (then --load), c3 and c3 after labeled up-down (then
     --load), each record with the reference's keys; one training with
     runtime profile on writes a trace holding the kernel's launch.
+29. dp_tp_ranks: the dp x tp mesh (parallel.mesh.make_mesh_2d, 2 x 2: 4 gloo
+    ranks, one process each, all on the one card), the tensor-parallel route
+    (parallel.tp, no kernel of its own: the eager engine with W, c and the
+    chain split over the hidden units, the tp row's all-reduces of the sums
+    over hidden units, the dp column's of the statistics). c1 for 10 epochs
+    through RBM.train(mesh=...): engine eager_tp on every rank, no kernel
+    counter moved, the same whole state on every rank (the gather checks
+    that the dp replicas of each shard hold the same bits), the final error
+    within 0.001 of the single-device eager run on the card and of 0.0744;
+    w20k for 2 epochs on hardened injected draws against the single-device
+    eager run on the same draws at rtol 1e-4 / atol 1e-5; the same mesh
+    through the CLI (torchrun --nproc-per-node 4, --dp 2 --tp 2, 2 epochs);
+    ms an epoch of the tp route at c1 and w20k (CUDA events over a 2-epoch
+    call, less its gather of the state; the better of two calls; rank 0's
+    and each rank's) and the share of it in the tp and dp collectives
+    (parallel.tp.CollectiveTimer), beside the single-device eager run's and
+    the kernel's (train_rbm, 10 epochs against 1, the least of three
+    pairs).
 
 Then a JSON line describing the kernels, and last
 {"ok": true, "device": ...}. Exits non-zero, printing no result, when there
@@ -316,6 +334,14 @@ DP_MODES = ("pt5", "enhanced", "lv", "pt3_lv", "pseudo", "c1_bf16", "w20k_mom_bf
 DP_MODE_BANDS = {**MODE_BANDS, "pt3_lv": None, "c1_bf16": None, "w20k_mom_bf16": None}
 DP_UPDATE_MODES = ("lv", "enhanced", "c1_bf16", "w20k_mom_bf16")
 DP_RANK_ROWS = 400  # rows each mode trains on over the 3 gloo ranks (20 steps an epoch)
+# The dp x tp mesh (phase 29): 4 gloo ranks on the one card as a 2 x 2 grid
+# (NCCL refuses two ranks on one device). A tp run is the single-device eager
+# run up to the order of the sums, held at the tolerance of
+# tests/test_distributed.py:140-151; c1's final error within TP_ERR_TOL of the
+# single-device eager run's.
+DP_TP, DP_TP_LIMIT_S = (2, 2), 600.0
+TP_TOL = dict(rtol=1e-4, atol=1e-5)
+TP_ERR_TOL, TP_W20K_EPOCHS, TP_EPOCHS_TIMED, SINGLE_EPOCHS_TIMED = 0.001, 2, 2, 10
 PSEUDO_BIT = 5
 STEP_KERNELS = ("cd_train_resident_kernel", "cd_grads_kernel",
                 "cd_wide_step_kernel")  # the DP step kernels' names
@@ -2758,6 +2784,232 @@ def run_dp_modes(dev, smi, c1, c1_data, ge) -> list:
     return entries
 
 
+def _tp_rank(rank, world, port, out_dir, c1, c1_train, w20k, w20k_data, w20k_uniforms):
+    """One rank of phase 29, in a process of its own on the one card: c1
+    through RBM.train with the dp x tp mesh, w20k through train_rbm on the
+    injected draws, then ms an epoch of the tp route at both widths (CUDA
+    events) and the collectives' share of a timed call."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from mdbn_tpu_torch import RBM
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.parallel.mesh import make_mesh_2d
+    from mdbn_tpu_torch.parallel.tp import CollectiveTimer, train_rbm_tp
+    from mdbn_tpu_torch.train.trainer import train_rbm
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh_2d(*DP_TP, backend="gloo")
+        dev = torch.device("cuda", 0)
+        c1_data = torch.as_tensor(c1_train, device=dev)
+        w_data = w20k_data.to(dev)
+        res = {"mesh": [mesh.rank, mesh.size, mesh.dp, mesh.tp, mesh.dp_rank, mesh.tp_rank,
+                        str(mesh.device), mesh.backend]}
+
+        def counts():
+            return {**train_counts(), **dp_launches()}
+
+        def zero():
+            zero_train_counts()
+            zero_dp_launches()
+
+        # the main path: c1 through RBM.train with the mesh, the counts set to
+        # 0 just before and read just after
+        zero()
+        t0 = time.perf_counter()
+        rbm = RBM(c1.replace(epochs=10), device=dev).train(c1_data, mesh=mesh)
+        torch.cuda.synchronize()
+        res["c1"] = {"engine": rbm.metrics.engine, "kernel": rbm.metrics.kernel,
+                     "launches": counts(), "seconds": time.perf_counter() - t0,
+                     "history": rbm.history,
+                     "params": {k: v.cpu() for k, v in rbm.params.as_dict().items()}}
+        zero()
+        st, m = train_rbm(w_data, w20k.replace(epochs=TP_W20K_EPOCHS), mesh=mesh,
+                          uniforms={k: u.to(dev) for k, u in w20k_uniforms.items()})
+        torch.cuda.synchronize()
+        res["w20k"] = {"engine": m.engine, "kernel": m.kernel, "launches": counts(),
+                       "errors": m.errors,
+                       "params": {k: v.cpu() for k, v in st.params.as_dict().items()}}
+
+        # ms an epoch: a call of TP_EPOCHS_TIMED epochs (CUDA events), less
+        # the gather of the state at its end (its host time by the timer);
+        # the collectives' share of the rest. Twice each.
+        timing = {}  # each width warmed up by its run above
+        for name, cfg, data in (("c1", c1, c1_data), ("w20k", w20k, w_data)):
+            runs = []
+            for _ in range(2):
+                st = init_train_state(cfg, device=dev)  # made outside the timing
+                timer = CollectiveTimer(dev)
+                dist.barrier()
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                train_rbm_tp(st, data, cfg, mesh, TP_EPOCHS_TIMED, timer=timer)
+                end.record()
+                torch.cuda.synchronize()
+                call = start.elapsed_time(end)
+                ms = {k: v * 1e3 for k, v in timer.seconds.items()}
+                loop = call - ms["gather"]
+                runs.append({"call_ms": call, "collective_ms": ms, "collectives": timer.calls,
+                             "epoch_ms": loop / TP_EPOCHS_TIMED,
+                             "collective_share": (ms["tp"] + ms.get("dp", 0.0)) / loop})
+            best = min(runs, key=lambda r: r["epoch_ms"])
+            timing[name] = {"epoch_ms": best["epoch_ms"],
+                            "collective_share": best["collective_share"], "runs": runs}
+        res["timing"] = timing
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_dp_tp(dev, smi, c1) -> None:
+    """Phase 29, dp_tp_ranks: the dp x tp mesh (DP_TP, 4 gloo ranks on the one
+    card), the tensor-parallel route (no kernel of its own: the eager engine
+    with W, c and the chain split over the hidden units). c1 for 10 epochs
+    through RBM.train(mesh=...): engine eager_tp on every rank, no kernel
+    counter moved, the same whole state on every rank (and inside the run
+    the dp replicas of each shard and the replicated b the same bits: the
+    gather checks them), the final error within TP_ERR_TOL of the
+    single-device eager run on the card and within C1_ERR_TOL of 0.0744;
+    w20k for TP_W20K_EPOCHS epochs on hardened injected draws against the
+    single-device eager run on the same draws at TP_TOL; the same mesh
+    through the CLI (torchrun, --dp 2 --tp 2); ms an epoch of the tp route,
+    the single-device eager run and the kernel run at c1 and w20k (CUDA
+    events), and the collectives' share of the tp route's time."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from mdbn_tpu_torch import RBM
+    from mdbn_tpu_torch.config import load_config
+    from mdbn_tpu_torch.core.state import init_train_state
+    from mdbn_tpu_torch.ops import cd_epoch_cuda as K
+    from mdbn_tpu_torch.parallel.mesh import _free_port
+    from mdbn_tpu_torch.run import build_data
+    from mdbn_tpu_torch.train.trainer import train_rbm
+
+    c1_train, _, _ = build_data(load_config(C1)["data"])
+    w20k, w_data = wide_row("w20k", dev)
+    nb = w_data.shape[0] // w20k.batch_size
+    st = init_train_state(w20k, device=dev)
+    u = K.draw_uniform_blocks(w20k, torch.Generator(device=dev).manual_seed(29), TP_W20K_EPOCHS,
+                              nb)
+    hard = K.harden_uniform_blocks(w20k, st.params, st.velocity, st.chain_h, w_data, u,
+                                   TP_W20K_EPOCHS)
+    # the single-device eager runs on the card the tp route is held against
+    eager_c1 = RBM(c1.replace(epochs=10, engine="xla"), device=dev).train(c1_train)
+    eager_w, eager_wm = train_rbm(w_data, w20k.replace(epochs=TP_W20K_EPOCHS, engine="xla"),
+                                  uniforms=hard, device=dev)
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        world = DP_TP[0] * DP_TP[1]
+        ranks = mp.spawn(_tp_rank, args=(world, _free_port(), out, c1, c1_train, w20k,
+                                         w_data.cpu(), {k: x.cpu() for k, x in hard.items()}),
+                         nprocs=world, join=False)
+        while not ranks.join(timeout=1.0):  # a failed rank raises here, the others stopped
+            if time.perf_counter() - t0 > DP_TP_LIMIT_S:
+                for proc in ranks.processes:
+                    proc.kill()
+                raise AssertionError(f"dp_tp_ranks: the ranks did not finish in "
+                                     f"{DP_TP_LIMIT_S} s")
+        spawn_s = time.perf_counter() - t0
+        got = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(world)]
+    tp = DP_TP[1]
+    want_mesh = [[r, world, DP_TP[0], tp, r // tp, r % tp, "cuda:0", "gloo"]
+                 for r in range(world)]
+    if [g["mesh"] for g in got] != want_mesh:
+        raise AssertionError(f"dp_tp_ranks: meshes {[g['mesh'] for g in got]}")
+    for r, g in enumerate(got):
+        for run in ("c1", "w20k"):
+            x = g[run]
+            if (x["engine"], x["kernel"]) != ("eager_tp", None) or any(x["launches"].values()):
+                raise AssertionError(f"dp_tp_ranks rank {r} ({run}): engine {x['engine']}, "
+                                     f"kernel {x['kernel']}, launches {x['launches']}")
+            for k, v in x["params"].items():
+                if not torch.equal(v, got[0][run]["params"][k]):
+                    raise AssertionError(f"dp_tp_ranks ({run}): rank {r}'s {k} differs")
+    hist, eager_hist = got[0]["c1"]["history"], eager_c1.history
+    if (len(hist) != 10 or not all(np.isfinite(hist))
+            or abs(hist[-1] - eager_hist[-1]) > TP_ERR_TOL
+            or abs(hist[-1] - C1_FINAL_ERR) > C1_ERR_TOL):
+        raise AssertionError(f"dp_tp_ranks: c1's final error {hist[-1]}, the single-device "
+                             f"eager run's {eager_hist[-1]}, the band {C1_FINAL_ERR}")
+    diff = {}
+    w = got[0]["w20k"]
+    for name, a, b in (("W", w["params"]["W"], eager_w.params.W),
+                       ("b", w["params"]["b"], eager_w.params.b),
+                       ("c", w["params"]["c"], eager_w.params.c),
+                       ("errors", torch.tensor(w["errors"]), torch.tensor(eager_wm.errors))):
+        torch.testing.assert_close(a, b.cpu(), **TP_TOL)
+        diff[name] = float((a - b.cpu()).abs().max())
+    # the CLI: torchrun, --dp 2 --tp 2 on the one card (gloo)
+    with tempfile.TemporaryDirectory() as out:
+        metrics = os.path.join(out, "m.jsonl")
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             str(world), "-m", "mdbn_tpu_torch.run", "--config", C1, "--dp", str(DP_TP[0]),
+             "--tp", str(tp), "--epochs", "2", "--metrics", metrics],
+            cwd=HERE, capture_output=True, text=True, timeout=DP_TP_LIMIT_S)
+        cli_s = time.perf_counter() - t0
+        if cli.returncode != 0:
+            raise AssertionError(f"dp_tp_ranks: the CLI exited {cli.returncode}: "
+                                 f"{cli.stderr[-2000:]}")
+        recs = [json.loads(line) for line in open(metrics)]
+    if ([(x["engine"], x["kernel"]) for x in recs] != [("eager_tp", None)] * 2
+            or not recs[-1]["recon_error"] < recs[0]["recon_error"]):
+        raise AssertionError(f"dp_tp_ranks: the CLI's records {recs}")
+
+    # single-device ms an epoch at the same configs: the eager engine and the
+    # kernel select_kernel names, a SINGLE_EPOCHS_TIMED-epoch call of train_rbm
+    # against a 1-epoch call (CUDA events; the state made outside the timing),
+    # the least of three such pairs
+    def epoch_ms(cfg, data):
+        st = init_train_state(cfg, device=dev)
+
+        def call(n):
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            train_rbm(data, cfg.replace(epochs=n), state=st)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end)
+
+        call(1)
+        return min((call(SINGLE_EPOCHS_TIMED) - call(1)) / (SINGLE_EPOCHS_TIMED - 1)
+                   for _ in range(3))
+
+    c1_dev = torch.as_tensor(c1_train, device=dev)
+    timing = {}
+    for name, cfg, data in (("c1", c1, c1_dev), ("w20k", w20k, w_data)):
+        t = got[0]["timing"][name]
+        zero_train_counts()
+        kernel_ms = epoch_ms(cfg.replace(engine="pallas"), data)
+        kernel = [k for k, n in train_counts().items() if n]
+        timing[name] = {"tp_epoch_ms": t["epoch_ms"],
+                        "tp_epoch_ms_by_rank": [g["timing"][name]["epoch_ms"] for g in got],
+                        "tp_collective_share": t["collective_share"], "tp_runs": t["runs"],
+                        "eager_epoch_ms": epoch_ms(cfg.replace(engine="xla"), data),
+                        "kernel_epoch_ms": kernel_ms, "kernel": kernel}
+    phase("dp_tp_ranks", mesh=list(DP_TP), ranks=world, backend="gloo",
+          engine=[g["c1"]["engine"] for g in got], kernel=got[0]["c1"]["kernel"],
+          launches=[g["c1"]["launches"] for g in got], first_err=hist[0], final_err=hist[-1],
+          eager_final_err=eager_hist[-1], train_seconds=[round(g["c1"]["seconds"], 3)
+                                                        for g in got],
+          spawn_seconds=round(spawn_s, 3), identical_state_across_ranks=True,
+          w20k_epochs=TP_W20K_EPOCHS, w20k_vs_eager_max_abs_diff=diff, **TP_TOL,
+          cli={"records": len(recs), "errors": [x["recon_error"] for x in recs],
+               "seconds": round(cli_s, 3)},
+          epochs_timed={"tp": TP_EPOCHS_TIMED, "single_device": SINGLE_EPOCHS_TIMED},
+          timing=timing, nvidia_smi=smi,
+          nccl="not measured: NCCL refuses two ranks on one device")
+
+
 def _cli(argv) -> list:
     """``mdbn_tpu_torch.run.main(argv)`` in this process; the JSON records it
     prints (its stdout is kept out of the smoke's)."""
@@ -3616,6 +3868,8 @@ def run() -> int:
         "ms_per": "one update after the all-reduce at c1's shape (784x500, the DP "
                   "mega-kernel's update, its exchange an NCCL all-reduce between launches)"})
     entries += dp_mode_entries
+    # 29. the dp x tp mesh: the tensor-parallel route (no kernel of its own)
+    run_dp_tp(dev, smi, c1)
     phase("device_timing", method="torch.profiler", profiler_tries=PROFILER_TRIES,
           timed_by_queued_events=PROFILER_MISSES, events_short=PROFILER_SHORT)
     print(json.dumps({"kernels": entries}))

@@ -12,6 +12,12 @@ Matmul precision (``_dot``): ``compute_dtype="float32"`` with
 "fast" allows TF32 on the GPU; ``compute_dtype="bfloat16"`` rounds both
 operands to bf16 and accumulates in fp32 (the product of two bf16 values is
 exact in fp32).
+
+Tensor parallelism (``parallel/tp.py``): a rank may hold only some of the
+hidden units (its columns of W, its entries of c). The few sums over hidden
+units then take the optional handle ``tp`` and call ``_tp_sum``, which
+all-reduces a partial sum over the tensor-parallel group; without a handle
+every function computes exactly what it did before.
 """
 
 from __future__ import annotations
@@ -104,6 +110,13 @@ def noise_scale(params: RBMParams) -> Optional[torch.Tensor]:
     return None if params.z is None else torch.exp(0.5 * params.z.float())
 
 
+def _tp_sum(x: torch.Tensor, tp) -> torch.Tensor:
+    """``x`` (a partial sum over this rank's hidden units) summed over the
+    tensor-parallel group of the handle ``tp`` (``parallel.tp.TPGroup``);
+    ``x`` itself when there is no handle."""
+    return x if tp is None else tp.sum(x)
+
+
 def _dot(a: torch.Tensor, w: torch.Tensor, compute_dtype: str,
          matmul_precision: str = "auto") -> torch.Tensor:
     """``a @ w`` with fp32 accumulation and an fp32 result (see module doc)."""
@@ -127,17 +140,17 @@ def hidden_mean(params: RBMParams, v: torch.Tensor, cfg: RBMConfig) -> torch.Ten
                          + params.c)
 
 
-def visible_mean(params: RBMParams, h: torch.Tensor, cfg: RBMConfig) -> torch.Tensor:
+def visible_mean(params: RBMParams, h: torch.Tensor, cfg: RBMConfig, tp=None) -> torch.Tensor:
     # learned variance leaves the mean untouched: v|h ~ N(b + h W^T, sigma^2)
-    pre = _dot(h, params.W.T, cfg.compute_dtype, cfg.matmul_precision) + params.b
+    pre = _tp_sum(_dot(h, params.W.T, cfg.compute_dtype, cfg.matmul_precision), tp) + params.b
     return torch.sigmoid(pre) if cfg.visible == "bernoulli" else pre
 
 
-def free_energy(params: RBMParams, v: torch.Tensor, cfg: RBMConfig) -> torch.Tensor:
+def free_energy(params: RBMParams, v: torch.Tensor, cfg: RBMConfig, tp=None) -> torch.Tensor:
     s = inv_sigma2(params)
     vin = v if s is None else v * s
     pre = _dot(vin, params.W, cfg.compute_dtype, cfg.matmul_precision) + params.c
-    softplus = F.softplus(pre).sum(dim=1)
+    softplus = _tp_sum(F.softplus(pre).sum(dim=1), tp)
     if cfg.visible == "bernoulli":
         return -_dot(v, params.b[:, None], cfg.compute_dtype,
                      cfg.matmul_precision)[:, 0] - softplus
@@ -181,6 +194,7 @@ def cd_step_stats(
     row_mask: Optional[torch.Tensor] = None,
     norm: Optional[float] = None,
     split: bool = False,
+    tp=None,
 ):
     """One CD-k/PCD step's statistics. Returns (grads, new_chain_h, err).
 
@@ -196,7 +210,9 @@ def cd_step_stats(
     are zeroed out of every statistic and sums divide by ``norm`` instead of
     B (uneven data parallelism: ``parallel.dp``). ``split``: return
     (grads, enhanced sums, new_chain_h, err) with the statistics in the form
-    a data-parallel exchange sums (``split_grads``).
+    a data-parallel exchange sums (``split_grads``). ``tp``: the
+    tensor-parallel handle (module doc), under which ``params`` and the
+    chain hold this rank's hidden units.
     """
     dtype = v0.dtype
     h0p = hidden_mean(params, v0, cfg)
@@ -207,7 +223,7 @@ def cd_step_stats(
     hmean = h0p
     v1mean = None
     for t in range(cfg.k):
-        vmean = visible_mean(params, h, cfg)
+        vmean = visible_mean(params, h, cfg, tp)
         if t == 0:
             v1mean = vmean
         if cfg.visible == "bernoulli":
@@ -227,13 +243,13 @@ def cd_step_stats(
 
     # PCD: the monitor reconstructs the DATA chain (one step from h0s)
     if cfg.persistent and chain_h is not None:
-        v1mean_data = visible_mean(params, h0s, cfg)
+        v1mean_data = visible_mean(params, h0s, cfg, tp)
     else:
         v1mean_data = v1mean
     err = _monitor(v0, v1mean_data, cfg, row_mask, norm)
     if split:
-        return (*split_grads(params, v0, h0p, vs, hmean, cfg, row_mask, norm), h, err)
-    return _grads(params, v0, h0p, vs, hmean, cfg, row_mask, norm), h, err
+        return (*split_grads(params, v0, h0p, vs, hmean, cfg, row_mask, norm, tp), h, err)
+    return _grads(params, v0, h0p, vs, hmean, cfg, row_mask, norm, tp), h, err
 
 
 def _monitor(v0: torch.Tensor, v1mean: torch.Tensor, cfg: RBMConfig,
@@ -245,18 +261,18 @@ def _monitor(v0: torch.Tensor, v1mean: torch.Tensor, cfg: RBMConfig,
 
 def _grads(params: RBMParams, v0: torch.Tensor, h0p: torch.Tensor, vs: torch.Tensor,
            hmean: torch.Tensor, cfg: RBMConfig, row_mask: Optional[torch.Tensor] = None,
-           norm: Optional[float] = None) -> RBMParams:
+           norm: Optional[float] = None, tp=None) -> RBMParams:
     """The update direction from one step's positive phase (v0, h0p) and
     negative phase (vs, hmean): plain, learned-variance and enhanced
     statistics plus the sparsity term, in the JAX core's order. Masking the
     v side of each outer product zeroes a pad row's contribution to W. A
     masked mean-field learned-variance step takes its 1/2 times the share of
     real rows, as the JAX core does."""
-    grads, sums = split_grads(params, v0, h0p, vs, hmean, cfg, row_mask, norm)
+    grads, sums = split_grads(params, v0, h0p, vs, hmean, cfg, row_mask, norm, tp)
     share = 1.0
     if row_mask is not None:
         share = torch.sum(row_mask) / float(norm if norm is not None else v0.shape[0])
-    return finish_grads(params, grads, sums, cfg, share)
+    return finish_grads(params, grads, sums, cfg, share, tp)
 
 
 @dataclass
@@ -274,7 +290,8 @@ class EnhancedSums:
 
 def split_grads(params: RBMParams, v0: torch.Tensor, h0p: torch.Tensor, vs: torch.Tensor,
                 hmean: torch.Tensor, cfg: RBMConfig, row_mask: Optional[torch.Tensor] = None,
-                norm: Optional[float] = None) -> Tuple[RBMParams, Optional[EnhancedSums]]:
+                norm: Optional[float] = None, tp=None
+                ) -> Tuple[RBMParams, Optional[EnhancedSums]]:
     """The statistics of ``_grads`` in the form a data-parallel exchange can
     sum, since each is linear in the rows: the plain gW, gb (precision-scaled
     under learned variance) and gc, with the sparsity term unless the
@@ -296,8 +313,8 @@ def split_grads(params: RBMParams, v0: torch.Tensor, h0p: torch.Tensor, vs: torc
     h0 = torch.sum(h_pos, dim=0) * inv_b
     gz = None
     if s is not None:
-        wh_d = _dot(h0p, params.W.T, cfg.compute_dtype, cfg.matmul_precision)
-        wh_m = _dot(hmean, params.W.T, cfg.compute_dtype, cfg.matmul_precision)
+        wh_d = _tp_sum(_dot(h0p, params.W.T, cfg.compute_dtype, cfg.matmul_precision), tp)
+        wh_m = _tp_sum(_dot(hmean, params.W.T, cfg.compute_dtype, cfg.matmul_precision), tp)
         A_d = 0.5 * (v0 - params.b) ** 2 - v0 * wh_d
         A_m = 0.5 * (vs - params.b) ** 2 - vs * wh_m
         gz = torch.sum(masked(A_d - A_m), dim=0) * inv_b
@@ -311,7 +328,7 @@ def split_grads(params: RBMParams, v0: torch.Tensor, h0p: torch.Tensor, vs: torc
 
 
 def finish_grads(params: RBMParams, grads: RBMParams, sums: Optional[EnhancedSums],
-                 cfg: RBMConfig, share=1.0) -> RBMParams:
+                 cfg: RBMConfig, share=1.0, tp=None) -> RBMParams:
     """The update direction from ``split_grads``' statistics averaged over
     the ranks: the z statistic times the precision (minus 1/2 under a
     mean-field negative phase: E[(v-b)^2] adds sigma^2; ``share`` of it on
@@ -323,22 +340,24 @@ def finish_grads(params: RBMParams, grads: RBMParams, sums: Optional[EnhancedSum
         if not cfg.resolved_sample_visible:
             gz = gz - 0.5 * share
     if sums is not None:
-        gW, gb, gc = enhance_grads(gW, gb, gc, sums.mu, sums.lam, cfg)
+        gW, gb, gc = enhance_grads(gW, gb, gc, sums.mu, sums.lam, cfg, tp)
         if cfg.sparsity_target is not None and cfg.sparsity_cost:
             gc = gc + cfg.sparsity_cost * (cfg.sparsity_target - sums.h0)
     return RBMParams(W=gW, b=gb, c=gc, z=gz)
 
 
-def enhance_grads(gW, gb, gc, mu, lam, cfg: Optional[RBMConfig] = None):
+def enhance_grads(gW, gb, gc, mu, lam, cfg: Optional[RBMConfig] = None, tp=None):
     """The enhanced gradient of Cho, Raiko & Ilin (ICML 2011, eqs. 12-14):
     ``gW_e = gW - outer(mu, gc) - outer(gb, lam)``, ``gb_e = gb - gW_e @ lam``,
     ``gc_e = gc - gW_e^T @ mu``, with mu/lam the averaged data+model batch
-    means of v/h. The matvecs follow ``cfg``'s compute/precision policy."""
+    means of v/h. The matvecs follow ``cfg``'s compute/precision policy;
+    under ``tp`` the sum over hidden units of ``gW_e @ lam`` is all-reduced."""
     gW = gW - torch.outer(mu, gc) - torch.outer(gb, lam)
     if cfg is None:
-        return gW, gb - gW @ lam, gc - gW.T @ mu
+        return gW, gb - _tp_sum(gW @ lam, tp), gc - gW.T @ mu
     return (gW,
-            gb - _dot(gW, lam[:, None], cfg.compute_dtype, cfg.matmul_precision)[:, 0],
+            gb - _tp_sum(_dot(gW, lam[:, None], cfg.compute_dtype,
+                              cfg.matmul_precision)[:, 0], tp),
             gc - _dot(gW.T, mu[:, None], cfg.compute_dtype, cfg.matmul_precision)[:, 0])
 
 
@@ -351,14 +370,15 @@ def pt_betas(cfg: RBMConfig, device: torch.device | str = "cpu") -> torch.Tensor
 
 
 def tempered_log_p_h(params: RBMParams, h: torch.Tensor, beta,
-                     cfg: RBMConfig) -> torch.Tensor:
+                     cfg: RBMConfig, tp=None) -> torch.Tensor:
     """log p*_beta(h), the visible marginal of p_beta(v, h) ∝ exp(-beta E)
     up to an h-independent constant. Bernoulli: beta c.h + sum softplus(beta
     (b + W h)); Gaussian: beta (c.h + sum_i (b_i (Wh)_i + (Wh)_i^2 / 2) /
     sigma_i^2). ``h`` [..., H]; ``beta`` broadcasts against the leading dims."""
     beta = torch.as_tensor(beta, dtype=torch.float32, device=h.device)
-    hc = _dot(h, params.c[:, None], cfg.compute_dtype, cfg.matmul_precision)[..., 0]
-    pre = _dot(h, params.W.T, cfg.compute_dtype, cfg.matmul_precision) + params.b
+    hc = _tp_sum(_dot(h, params.c[:, None], cfg.compute_dtype, cfg.matmul_precision)[..., 0],
+                 tp)
+    pre = _tp_sum(_dot(h, params.W.T, cfg.compute_dtype, cfg.matmul_precision), tp) + params.b
     if cfg.visible == "bernoulli":
         return beta * hc + F.softplus(beta[..., None] * pre).sum(-1)
     s = inv_sigma2(params)
@@ -371,23 +391,24 @@ def tempered_log_p_h(params: RBMParams, h: torch.Tensor, beta,
 
 
 def pt_log_accept(params: RBMParams, h: torch.Tensor, betas: torch.Tensor,
-                  cfg: RBMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                  cfg: RBMConfig, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Log Metropolis ratio of swapping rungs m and m+1, per row: [M-1, B],
     and the sum of the magnitudes of its four terms (the scale of its fp32
     rounding)."""
-    lp_self = tempered_log_p_h(params, h, betas[:, None], cfg)       # [M, B]
-    lp_up = tempered_log_p_h(params, h[1:], betas[:-1, None], cfg)   # h_{m+1} at beta_m
-    lp_dn = tempered_log_p_h(params, h[:-1], betas[1:, None], cfg)   # h_m at beta_{m+1}
+    lp_self = tempered_log_p_h(params, h, betas[:, None], cfg, tp)       # [M, B]
+    lp_up = tempered_log_p_h(params, h[1:], betas[:-1, None], cfg, tp)   # h_{m+1} at beta_m
+    lp_dn = tempered_log_p_h(params, h[:-1], betas[1:, None], cfg, tp)   # h_m at beta_{m+1}
     log_a = lp_up + lp_dn - lp_self[:-1] - lp_self[1:]
     scale = lp_up.abs() + lp_dn.abs() + lp_self[:-1].abs() + lp_self[1:].abs()
     return log_a, scale
 
 
 def _pt_swap_round(params: RBMParams, h: torch.Tensor, betas: torch.Tensor,
-                   u_swap: torch.Tensor, parity: int, cfg: RBMConfig) -> torch.Tensor:
+                   u_swap: torch.Tensor, parity: int, cfg: RBMConfig,
+                   tp=None) -> torch.Tensor:
     """One Metropolis replica-swap round over the adjacent rung pairs (m,
     m+1) with m % 2 == parity, per row: accept when log u < log_a."""
-    log_a, _ = pt_log_accept(params, h, betas, cfg)
+    log_a, _ = pt_log_accept(params, h, betas, cfg, tp)
     accept = torch.log(torch.clamp(u_swap, min=1e-38)) < log_a
     rungs = list(h)
     for m in range(parity, h.shape[0] - 1, 2):
@@ -399,10 +420,11 @@ def _pt_swap_round(params: RBMParams, h: torch.Tensor, betas: torch.Tensor,
 
 
 def pt_visible_mean(params: RBMParams, h: torch.Tensor, bM: torch.Tensor,
-                    cfg: RBMConfig) -> torch.Tensor:
+                    cfg: RBMConfig, tp=None) -> torch.Tensor:
     """Tempered v|h per rung: sigmoid(beta pre) (Bernoulli) or pre
     (Gaussian, whose variance widens to sigma^2 / beta instead)."""
-    pre_v = _dot(h, params.W.T, cfg.compute_dtype, cfg.matmul_precision) + params.b
+    pre_v = (_tp_sum(_dot(h, params.W.T, cfg.compute_dtype, cfg.matmul_precision), tp)
+             + params.b)
     return torch.sigmoid(bM * pre_v) if cfg.visible == "bernoulli" else pre_v
 
 
@@ -434,6 +456,7 @@ def pt_step_stats(
     row_mask: Optional[torch.Tensor] = None,
     norm: Optional[float] = None,
     split: bool = False,
+    tp=None,
 ):
     """One PT-PCD update's statistics (Desjardins et al. 2010); mirrors
     ``mdbn_tpu.core.rbm_math.pt_step_stats``. ``chains_h`` [M, B, H] (rung 0
@@ -443,7 +466,7 @@ def pt_step_stats(
     monitor reconstructs the data chain. Returns (grads, new_chains, err).
     ``row_mask`` and ``norm`` as in ``cd_step_stats``: each batch row owns
     its whole ladder, so a pad row's ladder evolves but enters no statistic.
-    ``split`` as in ``cd_step_stats``."""
+    ``split`` and ``tp`` as in ``cd_step_stats``."""
     dtype = v0.dtype
     betas = pt_betas(cfg, v0.device)
     bM = betas[:, None, None]
@@ -451,32 +474,33 @@ def pt_step_stats(
     h0s = (uniforms["h0"] < h0p).to(dtype)
     h, vs, hmean = chains_h, None, None
     for t in range(cfg.k):
-        vs = pt_visible_sample(params, pt_visible_mean(params, h, bM, cfg), uniforms, t,
+        vs = pt_visible_sample(params, pt_visible_mean(params, h, bM, cfg, tp), uniforms, t,
                                bM, cfg)
         hmean = pt_hidden_mean(params, vs, bM, cfg)
         h = (uniforms["h"][t] < hmean).to(dtype)
-    h = _pt_swap_round(params, h, betas, uniforms["swap"][0], 0, cfg)
-    h = _pt_swap_round(params, h, betas, uniforms["swap"][1], 1, cfg)
-    err = _monitor(v0, visible_mean(params, h0s, cfg), cfg, row_mask, norm)
+    h = _pt_swap_round(params, h, betas, uniforms["swap"][0], 0, cfg, tp)
+    h = _pt_swap_round(params, h, betas, uniforms["swap"][1], 1, cfg, tp)
+    err = _monitor(v0, visible_mean(params, h0s, cfg, tp), cfg, row_mask, norm)
     if split:
-        return (*split_grads(params, v0, h0p, vs[0], hmean[0], cfg, row_mask, norm), h, err)
-    return _grads(params, v0, h0p, vs[0], hmean[0], cfg, row_mask, norm), h, err
+        return (*split_grads(params, v0, h0p, vs[0], hmean[0], cfg, row_mask, norm, tp), h,
+                err)
+    return _grads(params, v0, h0p, vs[0], hmean[0], cfg, row_mask, norm, tp), h, err
 
 
 def pseudo_likelihood(params: RBMParams, v: torch.Tensor, bit_index: int,
                       cfg: RBMConfig, row_mask: Optional[torch.Tensor] = None,
-                      norm: Optional[float] = None) -> torch.Tensor:
+                      norm: Optional[float] = None, tp=None) -> torch.Tensor:
     """Theano-tutorial stochastic pseudo-likelihood proxy (Bernoulli visible):
     flip one (rotating) bit per sample; ``n_visible * mean log sigmoid(FE(flip)
     - FE(v))``, negated so the monitor decreases as the model improves.
     ``row_mask`` and ``norm`` as in ``recon_error``: a masked sum over
     ``norm`` rows, which a mean over data-parallel ranks makes the
-    global-batch monitor."""
-    fe = free_energy(params, v, cfg)
+    global-batch monitor. ``tp`` as in ``free_energy``."""
+    fe = free_energy(params, v, cfg, tp)
     flip_col = F.one_hot(torch.tensor(bit_index, device=v.device),
                          v.shape[1]).to(v.dtype)
     v_flip = v * (1 - flip_col) + (1 - v) * flip_col
-    fe_flip = free_energy(params, v_flip, cfg)
+    fe_flip = free_energy(params, v_flip, cfg, tp)
     terms = v.shape[1] * -F.softplus(-(fe_flip - fe))
     if row_mask is None and norm is None:
         return -torch.mean(terms)

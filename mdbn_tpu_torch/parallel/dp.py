@@ -421,37 +421,44 @@ def train_rbm_shard_map(state: TrainState, data: torch.Tensor, cfg: RBMConfig, m
 #
 # The reference places a fine-tuning epoch on its mesh by GSPMD
 # (``mdbn_tpu/parallel/dp.py::dp_put_finetune``): the minibatch's row dim
-# sharded over the mesh's first axis, the parameters replicated, the same math
-# as one device. Here each rank takes its rows of every minibatch
-# (``finetune_rows``), computes its rows' sums of the gradients or statistics,
-# and one all-reduce (``all_reduce_sums``) gives every rank the whole
-# minibatch's sums before the same update. The trainers (``train/finetune.py``,
-# ``autoencoder.py``, ``labeled.py``, ``updown.py``) call these.
+# sharded over the mesh's first axis, the parameters replicated (over tp too),
+# the same math as one device. Here each rank takes its rows of every
+# minibatch by its dp coordinate (``finetune_rows``), computes its rows' sums
+# of the gradients or statistics, and one all-reduce over its dp column
+# (``all_reduce_sums``) gives every rank the whole minibatch's sums before the
+# same update; the tp replicas of a dp row hold the same rows and sums. The
+# trainers (``train/finetune.py``, ``autoencoder.py``, ``labeled.py``,
+# ``updown.py``) call these.
 
 
 def finetune_rows(mesh: Optional[Mesh], rows: int) -> slice:
-    """This rank's rows of a fine-tuning minibatch of ``rows`` rows. As in the
-    reference, when the mesh's size does not divide ``rows`` the minibatch is
-    split over the first g ranks, g the largest divisor of ``rows`` not above
-    the mesh's size; the ranks past g hold no rows (they still take part in
-    every all-reduce, with zero sums)."""
-    if mesh is None or mesh.size == 1:
+    """This rank's rows of a fine-tuning minibatch of ``rows`` rows, by its dp
+    coordinate. As in the reference, when the mesh's dp width does not divide
+    ``rows`` a 1-D mesh splits the minibatch over its first g ranks, g the
+    largest divisor of ``rows`` not above the mesh's size (the ranks past g
+    hold no rows; they still take part in every all-reduce, with zero sums),
+    and a dp x tp mesh raises."""
+    if mesh is None or mesh.dp == 1:
         return slice(0, rows)
-    g = max(d for d in range(1, min(rows, mesh.size) + 1) if rows % d == 0)
+    if rows % mesh.dp and mesh.tp > 1:
+        raise ValueError(f"fine-tuning batch rows ({rows}) not divisible by the mesh's dp "
+                         f"width ({mesh.dp}); pick a batch_size divisible by the mesh or a "
+                         "1-D mesh (which degrades to a compatible subset of its ranks)")
+    g = max(d for d in range(1, min(rows, mesh.dp) + 1) if rows % d == 0)
     per = rows // g
-    if mesh.rank >= g:
+    if mesh.dp_rank >= g:
         return slice(rows, rows)
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+    return slice(mesh.dp_rank * per, (mesh.dp_rank + 1) * per)
 
 
 def all_reduce_sums(tensors: List[torch.Tensor], mesh: Optional[Mesh]) -> List[torch.Tensor]:
-    """Each tensor summed over the mesh's ranks, through one all-reduce of a
-    flat float32 buffer; the tensors as they are without a mesh of more than
-    one rank."""
-    if mesh is None or mesh.size == 1:
+    """Each tensor summed over the ranks of this rank's dp column (over the
+    whole mesh when it is 1-D), through one all-reduce of a flat float32
+    buffer; the tensors as they are without a dp width of more than one."""
+    if mesh is None or mesh.dp == 1:
         return list(tensors)
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.dp_group)
     out, lo = [], 0
     for t in tensors:
         out.append(flat[lo:lo + t.numel()].view(t.shape).to(t.dtype))

@@ -1,20 +1,24 @@
-"""The data-parallel mesh: one process per rank, joined by torch.distributed.
+"""The device meshes: one process per rank, joined by torch.distributed.
 
-Port of ``mdbn_tpu/parallel/mesh.py::make_mesh``. On the TPU a mesh is a set
-of devices driven by one program; here it is a process group with one rank
-per process, and its collectives are torch.distributed's (NCCL between
-cards, gloo on the CPU or between ranks that share a card). ``make_mesh_2d``
-(dp x tp) and ``interpret_safe_ndev`` (a TPU-interpreter workaround) have no
-counterpart, and neither has the mesh's axis name: a process group has no
-named axis, and its collectives run over the whole default group.
+Port of ``mdbn_tpu/parallel/mesh.py``: ``make_mesh`` (a 1-D data-parallel
+mesh) and ``make_mesh_2d`` (a dp x tp grid: minibatch rows over dp, the
+hidden units of W over tp). On the TPU a mesh is a set of devices driven by
+one program; here it is a process group with one rank per process, and its
+collectives are torch.distributed's (NCCL between cards, gloo on the CPU or
+between ranks that share a card). A 2-D mesh lays its ranks out row-major,
+as the reference's ``reshape(dp, tp)``: rank r sits at (r // tp, r % tp), so
+a tp group is a run of adjacent ranks; each rank holds a process group for
+its tp row and one for its dp column. ``interpret_safe_ndev`` (a
+TPU-interpreter workaround) has no counterpart, and neither has the mesh's
+axis names: a process group has no named axis.
 """
 
 from __future__ import annotations
 
 import os
 import socket
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
@@ -24,12 +28,33 @@ TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 @dataclass(frozen=True)
 class Mesh:
-    """A 1-D data-parallel mesh (the default process group) as one rank sees it."""
+    """A mesh as one rank sees it: a 1-D data-parallel mesh (the default
+    process group; ``tp`` 1), or a dp x tp grid (``make_mesh_2d``) whose
+    ``dp_group`` holds this rank's dp column and ``tp_group`` its tp row.
+    ``dp_group`` None is the default group."""
 
     rank: int
     size: int
     device: torch.device  # this rank's device
     backend: str  # "nccl" or "gloo"
+    tp: int = 1  # the grid's tp width (1: a 1-D mesh)
+    dp_group: Any = field(default=None, compare=False, repr=False)
+    tp_group: Any = field(default=None, compare=False, repr=False)
+
+    @property
+    def dp(self) -> int:
+        """The grid's dp width: the ranks a minibatch's rows split over."""
+        return self.size // self.tp
+
+    @property
+    def dp_rank(self) -> int:
+        """This rank's coordinate along dp (its row of the grid)."""
+        return self.rank // self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        """This rank's coordinate along tp (its column of the grid)."""
+        return self.rank % self.tp
 
 
 def _free_port() -> int:
@@ -95,3 +120,24 @@ def make_mesh(n_devices: Optional[int] = None, backend: Optional[str] = None,
     if backend == "nccl":
         torch.cuda.set_device(dev)
     return Mesh(rank=rank, size=size, device=dev, backend=backend)
+
+
+def make_mesh_2d(dp: int, tp: int, backend: Optional[str] = None,
+                 device: Optional[torch.device | str] = None) -> Mesh:
+    """This rank's view of a dp x tp mesh of ``dp * tp`` ranks (the
+    reference's batch data-parallel x tensor-parallel grid, W sharded over
+    the hidden units for very wide layers). The world is joined or started
+    as by ``make_mesh(dp * tp, backend, device)``, whose rules pick the
+    backend and the device. Every rank then creates one process group for
+    each tp row (ranks ``i * tp .. i * tp + tp - 1``) and one for each dp
+    column (ranks ``j, j + tp, ...``), all in the same order, and keeps its
+    own two. ``tp == 1`` gives ``make_mesh(dp)`` itself."""
+    if dp < 1 or tp < 1:
+        raise ValueError(f"a dp x tp mesh needs dp, tp >= 1, got {dp} x {tp}")
+    world = make_mesh(dp * tp, backend=backend, device=device)
+    if tp == 1:
+        return world
+    rows = [dist.new_group([i * tp + j for j in range(tp)]) for i in range(dp)]
+    cols = [dist.new_group([i * tp + j for i in range(dp)]) for j in range(tp)]
+    return Mesh(rank=world.rank, size=world.size, device=world.device, backend=world.backend,
+                tp=tp, dp_group=cols[world.rank % tp], tp_group=rows[world.rank // tp])

@@ -19,10 +19,13 @@ JSON line and written to the ``--metrics`` file. Everything runs on the CUDA
 card unless ``--device cpu`` asks for the CPU. ``--dp N`` trains
 data-parallel over N ranks, one process each, under ``torchrun
 --nproc-per-node N`` (the "finetune" block too: each rank its rows of every
-minibatch); rank 0 writes the files and runs the analysis. ``--profile``
-writes a ``torch.profiler`` trace of each training run, ``--debug-nans``
-stops at the first non-finite parameter or error. Only ``--tp`` raises, naming
-the ROADMAP.md item that records it as not ported.
+minibatch); ``--dp N --tp M`` over a dp x tp mesh of N * M ranks under
+``torchrun --nproc-per-node N*M`` (``parallel.mesh.make_mesh_2d``: W split
+over the hidden units of M ranks, the minibatch's rows over N; the
+"finetune" block splits rows over N and replicates over M); rank 0 writes
+the files and runs the analysis. ``--profile`` writes a ``torch.profiler``
+trace of each training run, ``--debug-nans`` stops at the first non-finite
+parameter or error.
 """
 
 from __future__ import annotations
@@ -45,11 +48,6 @@ from .models.rbm import RBM
 from .utils.metrics import MetricsWriter, get_logger
 
 log = get_logger("mdbn_tpu_torch.run")
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to mdbn_tpu_torch yet "
-                               f"(ROADMAP.md Queue 1, item {item})")
 
 
 def build_data(spec: dict):
@@ -438,20 +436,23 @@ class Analysis:
                      [round(h, 3) for h in cox["hazard_ratio"]], cox["lr_p"])
 
 
-def _dp_mesh(n: int, device: str):
-    """The mesh of ``--dp n``: this process is one of n ranks started by
-    torchrun. Ranks that share a card (or the CPU) talk over gloo, ranks with
-    a card each over NCCL."""
-    from .parallel.mesh import make_mesh
+def _dp_mesh(n: int, device: str, tp: int = 1):
+    """The mesh of ``--dp n`` (``--tp tp``): this process is one of n * tp
+    ranks started by torchrun, on a dp x tp grid when tp > 1. Ranks that
+    share a card (or the CPU) talk over gloo, ranks with a card each over
+    NCCL."""
+    from .parallel.mesh import make_mesh_2d
 
-    if os.environ.get("WORLD_SIZE") != str(n):
-        raise RuntimeError(f"--dp {n} runs one process per rank: launch it as "
-                           f"`torchrun --nproc-per-node {n} -m mdbn_tpu_torch.run "
-                           f"--config <config> --dp {n}` (WORLD_SIZE is "
+    world = n * tp
+    if os.environ.get("WORLD_SIZE") != str(world):
+        flags = f"--dp {n}" + (f" --tp {tp}" if tp > 1 else "")
+        raise RuntimeError(f"{flags} runs one process per rank: launch it as "
+                           f"`torchrun --nproc-per-node {world} -m mdbn_tpu_torch.run "
+                           f"--config <config> {flags}` (WORLD_SIZE is "
                            f"{os.environ.get('WORLD_SIZE')!r})")
     cards = torch.cuda.device_count() if device == "cuda" else 0
-    return make_mesh(n, backend="nccl" if cards >= n else "gloo",
-                     device="cpu" if device == "cpu" else None)
+    return make_mesh_2d(n, tp, backend="nccl" if cards >= world else "gloo",
+                        device="cpu" if device == "cpu" else None)
 
 
 def main(argv=None):
@@ -471,7 +472,8 @@ def main(argv=None):
                     help="where the model trains (default: the CUDA card)")
     ap.add_argument("--dp", type=int, default=0,
                     help="data-parallel width: N ranks, launched by torchrun --nproc-per-node N")
-    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel width (not ported)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel width (with --dp): N*M ranks, W split over M of them")
     ap.add_argument("--save", default=None, metavar="DIR",
                     help="save the trained model to DIR after training")
     ap.add_argument("--load", default=None, metavar="DIR",
@@ -479,11 +481,12 @@ def main(argv=None):
     ap.add_argument("--transform-out", default=None, metavar="PATH",
                     help="write latent codes for the configured data to PATH (.npy or .csv)")
     args = ap.parse_args(argv)
-    if args.tp != 1:
-        raise not_ported("--tp (the dp x tp mesh, make_mesh_2d)", "11")
+    if args.tp < 1 or (args.tp > 1 and not args.dp):
+        raise ValueError(f"--tp {args.tp} acts only with --dp N (a dp x tp mesh of N * "
+                         f"{args.tp} ranks under torchrun)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device found; pass --device cpu to train on the CPU")
-    mesh = _dp_mesh(args.dp, args.device) if args.dp else None
+    mesh = _dp_mesh(args.dp, args.device, args.tp) if args.dp else None
     device = mesh.device if mesh is not None else args.device
     rank0 = mesh is None or mesh.rank == 0
 

@@ -39,6 +39,14 @@ the factors, an update that forms the gradient from them). A mesh of one rank ta
 ``EpochMetrics.kernel`` names the kernel the route took (under an eager
 engine, the kernel whose plain version ran).
 
+Under a dp x tp mesh (``parallel.mesh.make_mesh_2d`` with ``tp > 1``) the
+run goes through ``parallel.tp.train_rbm_tp``, engine ``"eager_tp"`` on
+CUDA and on the CPU alike (``engine`` "auto" or "xla"; "pallas" raises, as
+in the reference, whose dp x tp path is its XLA engine and reaches no
+kernel): the eager engine with W, c, their velocities and the chain split
+over the hidden units and the tp collectives of its sums; its
+``EpochMetrics.kernel`` is None. A dp x 1 mesh is the 1-D mesh.
+
 ``TrainRuntimeConfig.profile`` traces the run with ``torch.profiler`` (CPU
 and CUDA) into ``profile_dir``; ``debug_nans`` raises ``FloatingPointError``
 at the first epoch whose error, parameters or velocities are not finite,
@@ -61,6 +69,7 @@ from ..core.rbm_math import torch_dtype
 from ..core.state import TrainState, init_train_state
 from ..ops import cd_epoch_cuda
 from ..parallel.dp import train_rbm_shard_map
+from ..parallel.tp import train_rbm_tp
 
 
 def resolve_engine(cfg: RBMConfig, device: torch.device) -> str:
@@ -77,16 +86,24 @@ def resolve_engine(cfg: RBMConfig, device: torch.device) -> str:
     return "cuda" if device.type == "cuda" else "eager"
 
 
-def resolve_dp_engine(cfg: RBMConfig, device: torch.device) -> str:
+def resolve_dp_engine(cfg: RBMConfig, device: torch.device, tp: int = 1) -> str:
     """The engine a run of ``cfg`` on ``device`` under a mesh of more than one
-    rank uses: "cuda_dp" or "eager_dp". On CUDA, ``"pallas"`` and ``"auto"``
+    rank uses: "cuda_dp" or "eager_dp", or under a dp x tp mesh (``tp`` > 1)
+    "eager_tp". On CUDA, ``"pallas"`` and ``"auto"``
     run the DP kernels, which take every config; "eager_dp" is ``"xla"``, or
     the CPU. Either engine takes the
     route ``ops.cd_epoch_cuda.select_dp_kernel`` gives: the resident
     kernel's step variant or ``csrc/cd_grads.cu`` (the step's statistics, an
     all-reduce, the update), or for a wide run in
     the W-blocked kernel's scope ``csrc/cd_grads_wide.cu`` (the step's
-    factors, an all-gather, the update that forms the gradient from them)."""
+    factors, an all-gather, the update that forms the gradient from them).
+    A tp mesh runs ``parallel.tp`` on any device under "auto" and "xla";
+    "pallas" raises there, as the reference's does."""
+    if tp > 1:
+        if cfg.engine == "pallas":
+            raise ValueError("engine='pallas' supports dp meshes only; use engine='xla' (or "
+                             "'auto') for dp x tp")
+        return "eager_tp"
     if cfg.engine != "xla" and device.type == "cuda":
         return "cuda_dp"
     if cfg.engine == "pallas":
@@ -140,7 +157,8 @@ class EpochMetrics:
     "cd_train_wide_modes", "cd_grads_resident", "cd_grads" or
     "cd_grads_wide"; under an eager
     engine, the kernel whose plain version ran: "cd_train", whose plain
-    version is also the resident kernel's and the wide modes kernel's)."""
+    version is also the resident kernel's and the wide modes kernel's; None
+    under "eager_tp", which has no kernel)."""
 
     __slots__ = ("errors", "updates_per_sec", "wall_seconds", "engine", "kernel")
 
@@ -171,8 +189,9 @@ def train_rbm(
 
     ``uniforms``: the run's random draws in the inject layout of
     ``ops.cd_epoch_cuda.draw_uniform_blocks`` (the layout of
-    ``mdbn_tpu``'s ``make_pallas_train_fn(..., inject=True)``), or under a
-    mesh in that of ``parallel.dp.train_rbm_shard_map``, for exact
+    ``mdbn_tpu``'s ``make_pallas_train_fn(..., inject=True)``; under a dp x
+    tp mesh too), or under a 1-D mesh in that of
+    ``parallel.dp.train_rbm_shard_map``, for exact
     comparisons; by default they come from the state's generator.
     ``mesh``: a ``parallel.mesh.Mesh``; every rank calls ``train_rbm`` with
     the same arguments, and rank 0 alone writes checkpoints and metrics.
@@ -182,10 +201,12 @@ def train_rbm(
         state = init_train_state(cfg, device=device)
     dev = state.device
     dp = mesh is not None and mesh.size > 1
-    engine = resolve_dp_engine(cfg, dev) if dp else resolve_engine(cfg, dev)
+    engine = resolve_dp_engine(cfg, dev, mesh.tp) if dp else resolve_engine(cfg, dev)
     if dp and mesh.backend == "nccl" and dev != mesh.device:
         raise ValueError(f"the model lies on {dev}, this rank's card is {mesh.device}")
-    if dp:
+    if engine == "eager_tp":
+        kernel = None
+    elif dp:
         limits = None
         if engine == "cuda_dp":  # the card's limits for a rank's step
             from ..ops.cd_epoch_resident_cuda import device_limits
@@ -213,12 +234,13 @@ def train_rbm(
                     for name, u in uniforms.items()}
 
     def run_epochs(st: TrainState, lo: int, hi: int) -> Tuple[TrainState, torch.Tensor]:
+        u = None if uniforms is None else _slice_epochs(uniforms, lo, hi)
+        if engine == "eager_tp":
+            return train_rbm_tp(st, data, cfg, mesh, hi - lo, uniforms=u)
         if dp:
-            u = None if uniforms is None else _slice_epochs(uniforms, lo, hi)
             return train_rbm_shard_map(st, data, cfg, mesh, hi - lo,
                                        pallas_step=engine == "cuda_dp", uniforms=u)
         order = cd_epoch_cuda.batch_order(cfg, nb, hi - lo, st.generator)
-        u = None if uniforms is None else _slice_epochs(uniforms, lo, hi)
         params, velocity, chain, errs = run(cfg, st.params, st.velocity, st.chain_h,
                                             data, order, st.epoch, u, st.generator)
         return TrainState(params, velocity, chain, st.generator, st.epoch + hi - lo), errs

@@ -295,8 +295,26 @@ def test_cli_not_ported_sections_raise(tmp_path):
     (ft,) = [r for r in map(json.loads, open(metrics)) if r["kind"] == "finetune"]
     assert ft["mode"] == "autoencoder" and ft["epochs"] == 2 and ft["loss_last"] > 0
     save_config(base, cfg_path)
-    with pytest.raises(NotImplementedError, match="dp x tp.*item 11"):
-        main(["--config", cfg_path, "--device", "cpu", "--dp", "2", "--tp", "2"])
+    # --dp 2 --tp 2 is ported: a dp x tp mesh of 4 gloo ranks under torchrun
+    # (tests/test_torch_dp.py::test_cli_dp_under_torchrun's pattern)
+    tp_metrics = str(tmp_path / "tp.jsonl")
+    save_config({**base, "model": RBMConfig(n_visible=16, n_hidden=6, epochs=2, batch_size=5),
+                 "data": {"kind": "mnist_like", "n_samples": 40, "n_features": 16, "seed": 2}},
+                cfg_path)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+         "-m", "mdbn_tpu_torch.run", "--config", cfg_path, "--dp", "2", "--tp", "2",
+         "--device", "cpu", "--metrics", tp_metrics, "--save", str(tmp_path / "tp_model")],
+        cwd=repo, capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    recs = [json.loads(line) for line in open(tp_metrics)]
+    assert [(r["engine"], r["kernel"]) for r in recs] == [("eager_tp", None)] * 2  # one writer
+    assert recs[-1]["recon_error"] < recs[0]["recon_error"]
+    assert os.path.exists(tmp_path / "tp_model.config.json")
+    # --tp acts only with --dp
+    with pytest.raises(ValueError, match="--tp 2 acts only with --dp"):
+        main(["--config", cfg_path, "--device", "cpu", "--tp", "2"])
     # --dp runs one process per rank: outside torchrun it names the command
     with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2 -m mdbn_tpu_torch.run"):
         main(["--config", cfg_path, "--device", "cpu", "--dp", "2"])

@@ -67,12 +67,13 @@ def run_rank(rank: int, world: int, port: int, out: str, cfg, data, uniforms,
         dist.destroy_process_group()
 
 
-def finetune_runs(mesh, batch_size: int) -> dict:
+def finetune_runs(mesh, batch_size: int, names=None) -> dict:
     """Every phase-2 trainer (``mdbn_tpu_torch/train/{finetune,autoencoder,
     labeled,updown}.py``) on fixed weights and data made from a seed, each
-    with its own seeded generator, under ``mesh`` (None: one device). Each
-    rank of a mesh takes its rows of every minibatch and draws the whole
-    minibatch's values, so the results must equal the single-device run's."""
+    with its own seeded generator, under ``mesh`` (None: one device); only
+    those in ``names`` when given. Each rank of a mesh takes its rows of
+    every minibatch and draws the whole minibatch's values, so the results
+    must equal the single-device run's."""
     import numpy as np
 
     from mdbn_tpu_torch.config import DBNConfig, RBMConfig
@@ -101,21 +102,25 @@ def finetune_runs(mesh, batch_size: int) -> dict:
     mods = {"ge": rng.normal(size=(n, 12)).astype(np.float32),
             "meth": rng.normal(size=(n, 10)).astype(np.float32)}
     kw = dict(epochs=2, batch_size=batch_size, mesh=mesh)
+    p97, p108 = params(9, 7), params(10, 8)  # drawn whatever runs, so the seeds stay put
     runs = {
-        "classifier": finetune.finetune_stack(layers, x, y, 3, seed=1, **kw),
-        "autoencoder": autoencoder.finetune_autoencoder_stack(layers, x, **kw),
-        "label_top": labeled.fit_label_top(layers, x, y_semi, 3, n_hidden=9, k=2,
-                                           momentum=0.5, seed=2, **kw),
-        "updown": updown.finetune_updown_stack(layers, x, lr=0.05, seed=3, **kw),
-        "updown_labeled": updown.finetune_updown_labeled(layers, params(9, 7), x, y_semi, 3,
-                                                         lr=0.05, seed=4, **kw),
-        "classifier_mdbn": finetune.finetune_mdbn(towers, joint, mods, y, 3, seed=5, **kw),
-        "autoencoder_mdbn": autoencoder.finetune_autoencoder_mdbn(towers, joint, mods, **kw),
-        "updown_mdbn": updown.finetune_updown_mdbn(towers, joint, mods, lr=0.05, seed=6, **kw),
-        "updown_mdbn_labeled": updown.finetune_updown_mdbn_labeled(
-            towers, joint, params(10, 8), mods, y_semi, 3, lr=0.05, seed=7, **kw),
+        "classifier": lambda: finetune.finetune_stack(layers, x, y, 3, seed=1, **kw),
+        "autoencoder": lambda: autoencoder.finetune_autoencoder_stack(layers, x, **kw),
+        "label_top": lambda: labeled.fit_label_top(layers, x, y_semi, 3, n_hidden=9, k=2,
+                                                   momentum=0.5, seed=2, **kw),
+        "updown": lambda: updown.finetune_updown_stack(layers, x, lr=0.05, seed=3, **kw),
+        "updown_labeled": lambda: updown.finetune_updown_labeled(layers, p97, x, y_semi, 3,
+                                                                 lr=0.05, seed=4, **kw),
+        "classifier_mdbn": lambda: finetune.finetune_mdbn(towers, joint, mods, y, 3, seed=5,
+                                                          **kw),
+        "autoencoder_mdbn": lambda: autoencoder.finetune_autoencoder_mdbn(towers, joint, mods,
+                                                                          **kw),
+        "updown_mdbn": lambda: updown.finetune_updown_mdbn(towers, joint, mods, lr=0.05, seed=6,
+                                                           **kw),
+        "updown_mdbn_labeled": lambda: updown.finetune_updown_mdbn_labeled(
+            towers, joint, p108, mods, y_semi, 3, lr=0.05, seed=7, **kw),
     }
-    return {name: _flat(r) for name, r in runs.items()}
+    return {name: _flat(run()) for name, run in runs.items() if names is None or name in names}
 
 
 def _flat(obj) -> list:
